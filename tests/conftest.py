@@ -30,6 +30,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running e2e tests, excluded from tier-1 via "
         "-m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's hand-written kernels); "
+        "skips without one — run with -m gpu on the card")
 
 
 def import_model(name):

@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of ``veles_tpu``.
+
+A second package beside the JAX one, with the same module names so a
+reader finds each counterpart: ``nn/transformer.py`` here mirrors
+``veles_tpu/nn/transformer.py`` there. The slice ported so far is the
+serving path of the transformer LM — HTTP request →
+:class:`restful_api.GenerationAPI` → :func:`nn.sampling.generate` →
+KV-cached prefill + decode over ``Embedding → TransformerBlock×N →
+LMHead`` — with prefill attention in a hand-written Hopper kernel
+(``csrc/flash_attention_fwd.cu``).
+
+The package imports ``torch`` and numpy, never ``jax`` and nothing of
+``veles_tpu``. Entry points run on the CUDA card unless the caller
+passes ``device="cpu"`` (:func:`backends.device_for`).
+"""
+
+__version__ = "0.1.0"

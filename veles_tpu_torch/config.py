@@ -1,0 +1,94 @@
+"""Auto-vivifying configuration tree (trimmed counterpart of
+``veles_tpu/config.py``).
+
+A global attribute tree ``root`` where any ``root.a.b.c = v`` path
+springs into existence. The port keeps only the keys its ported slice
+reads; unlike the reference it reads no site or user override files.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+
+class Config:
+    """A node in the auto-vivifying config tree."""
+
+    def __init__(self, path: str = "root") -> None:
+        object.__setattr__(self, "_path_", path)
+
+    def __getattr__(self, name: str) -> "Config":
+        if name.startswith("__") and name.endswith("__"):
+            raise AttributeError(name)
+        child = Config("%s.%s" % (self._path_, name))
+        object.__setattr__(self, name, child)
+        return child
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.__dict__ and not name.endswith("_")
+
+    def _is_husk(self) -> bool:
+        """True when this node holds nothing but (recursively) empty
+        Config children — the shape mere reads auto-vivify."""
+        return all(isinstance(v, Config) and v._is_husk()
+                   for _k, v in self.items())
+
+    def get(self, name: str, default: Any = None) -> Any:
+        """Like dict.get; a node vivified by mere reads counts as
+        unset."""
+        if name in self:
+            val = self.__dict__[name]
+            if isinstance(val, Config) and val._is_husk():
+                return default
+            return val
+        return default
+
+    def items(self) -> Iterator[Tuple[str, Any]]:
+        for k, v in self.__dict__.items():
+            if k.endswith("_") or k.startswith("_"):
+                continue
+            yield k, v
+
+    def update(self, tree: Dict[str, Any] = None, **kwargs: Any) -> "Config":
+        """Deep-merge a nested dict (or kwargs) into this subtree."""
+        tree = dict(tree or {})
+        tree.update(kwargs)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                getattr(self, k).update(v)
+            else:
+                setattr(self, k, v)
+        return self
+
+    def __repr__(self) -> str:
+        return "<Config %s: %s>" % (self._path_, sorted(
+            k for k, _ in self.items()))
+
+
+def _default_root() -> Config:
+    r = Config("root")
+    r.common.update({
+        "engine": {
+            # parameter dtype of the stacks build_forwards makes; this
+            # slice runs float32 end to end
+            "precision_type": "float32",
+            # the hand-written flash kernel for prefill attention. True =
+            # use it on a CUDA device whenever the head dim qualifies
+            # (ops/flash_attention.choose_flash); False = always the
+            # plain torch attention
+            "flash_attention": True,
+        },
+        "resilience": {
+            "max_queue": 256,         # GenerationAPI queue bound
+        },
+        "serving": {
+            # the window plane (shape-keyed coalescing worker) is the
+            # only decode plane ported so far
+            "engine": "window",
+        },
+    })
+    return r
+
+
+#: The global configuration tree.
+root = _default_root()

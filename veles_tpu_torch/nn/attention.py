@@ -1,0 +1,67 @@
+"""Attention core (counterpart of ``veles_tpu/nn/attention.py`` and of
+``veles_tpu/parallel/ring_attention.py::attention_reference``).
+
+Single device only: the reference's ring and Ulysses schemes over a
+sequence mesh are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..ops import flash_attention as fa
+
+
+def expand_kv(x, n_heads: int):
+    """(B, T, KV, Dh) → (B, T, H, Dh): share each KV head across its
+    H/KV query heads (GQA) — query head h reads kv head h // (H/KV)."""
+    b, t, kv, hd = x.shape
+    g = n_heads // kv
+    if g == 1:
+        return x
+    return x[:, :, :, None, :].expand(b, t, kv, g, hd).reshape(
+        b, t, n_heads, hd)
+
+
+def attention_reference(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None):
+    """Single-device exact attention: f32 scores, masked with -1e30
+    (causal; ``window=W``: each query sees itself plus W-1
+    predecessors), full softmax."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if window is not None and int(window) < 0:
+        raise ValueError("window must be >= 1 (or None)")
+    if window and not causal:
+        raise ValueError("sliding-window attention requires causal=True")
+    if causal:
+        tq, tk = s.shape[-2], s.shape[-1]
+        rel = (torch.arange(tq, device=s.device)[:, None]
+               - torch.arange(tk, device=s.device)[None, :])
+        mask = rel >= 0
+        if window:
+            mask = mask & (rel < window)
+        s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+
+
+def attention_core(q, k, v, *, causal: bool = False,
+                   window: Optional[int] = None):
+    """The per-shape attention chooser shared by ``TransformerBlock`` and
+    the sampler's prefill. q: (B, T, H, Dh); k/v may carry fewer heads
+    (GQA) → (B, T, H, Dh). On the card, every head dim the flash kernel
+    takes goes through it (``ops/flash_attention.choose_flash``), with
+    grouped k/v read natively; otherwise the plain reference runs on
+    expanded k/v."""
+    t, hd, h = q.shape[1], q.shape[-1], q.shape[2]
+    if fa.choose_flash(t, hd, q.device):
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+    return attention_reference(q, expand_kv(k, h), expand_kv(v, h),
+                               causal=causal, window=window)

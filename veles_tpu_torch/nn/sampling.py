@@ -1,0 +1,243 @@
+"""KV-cached autoregressive sampling — the LM serving path (counterpart
+of ``veles_tpu/nn/sampling.py``).
+
+Prefill runs the whole prompt through every block once, writing each
+block's K/V into a cache of ``prompt + n_new`` rows (the attention goes
+through ``attention_core``, so on the card it is the flash kernel);
+then each new token runs only its single-position projections and one
+attention row over the cache. The reference runs the decode as one
+``lax.scan``; here it is a Python loop over steps (a CUDA graph of the
+step is later work). Caches are updated in place.
+
+Operates on the ``Embedding`` → [``PositionalEmbedding``] →
+``TransformerBlock``×N → ``LMHead`` stack and reuses transformer.py's
+norm/FFN/RoPE so the cached and the full forward cannot drift.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List
+
+import numpy
+import torch
+
+from ..error import VelesError
+from ..telemetry.counters import inc
+from .attention import attention_core
+from .transformer import (Embedding, LMHead, PositionalEmbedding,
+                          TransformerBlock, _rope, _rotate, block_ffn,
+                          block_norm, rope_angles)
+
+
+def _rope_at(x, pos: int, base=10000.0):
+    """RoPE for a SINGLE position: x (B, 1, H, Dh). The angles are
+    those of row ``pos`` of :func:`transformer._rope`, bit for bit."""
+    return _rotate(x, rope_angles([pos], x.shape[-1], base))
+
+
+def split_stack(forwards) -> Dict[str, object]:
+    """Stem / block-list / head decomposition of a generation-capable
+    stack; raises for anything else."""
+    stem = pos_emb = head = None
+    blocks: List[TransformerBlock] = []
+    for f in forwards:
+        if isinstance(f, Embedding):
+            stem = f
+        elif isinstance(f, PositionalEmbedding):
+            pos_emb = f
+        elif isinstance(f, TransformerBlock):
+            blocks.append(f)
+        elif isinstance(f, LMHead):
+            head = f
+        else:
+            raise VelesError(
+                "cached sampling supports Embedding → [PositionalEmbedding]"
+                " → TransformerBlock* → LMHead chains; found %s"
+                % type(f).__name__)
+    if stem is None or head is None or not blocks:
+        raise VelesError("not a generation stack: stem=%r head=%r "
+                         "blocks=%d" % (stem, head, len(blocks)))
+    return {"stem": stem, "pos_emb": pos_emb, "blocks": blocks,
+            "head": head}
+
+
+def _block_prefill(block, x, cache_k, cache_v):
+    """Full-window pass through one block, writing K/V into the caches'
+    first T rows (in place). The attention goes through the same
+    chooser as ``TransformerBlock.forward``, so prefill logits cannot
+    drift from the full forward."""
+    b, t, d = x.shape
+    q, k, v = block.qkv(block_norm(block, x, "ln1"))
+    if block.rope:
+        q, k = _rope(q, block.rope_base), _rope(k, block.rope_base)
+    # the cache stores the UNREPEATED kv heads (GQA)
+    cache_k[:, :t] = k
+    cache_v[:, :t] = v
+    o = attention_core(q, k, v, causal=True,
+                       window=block.window).reshape(b, t, d)
+    x = x + o @ block.wo
+    return x + block_ffn(block, block_norm(block, x, "ln2"))
+
+
+def _block_step(block, x_t, cache_k, cache_v, pos: int):
+    """One-token pass: x_t (B, 1, D), caches (B, T_max, KV, Dh) updated
+    in place at row ``pos``; attention reads the cache rows <= pos (and
+    > pos - window). Scores and softmax in f32; GQA reads the
+    unrepeated cache through a (kv, group) view of the query heads."""
+    b, _, d = x_t.shape
+    h, kv = block.n_heads, block.n_kv_heads
+    g, hd = h // kv, block.head_dim
+    q, k, v = block.qkv(block_norm(block, x_t, "ln1"))
+    if block.rope:
+        q = _rope_at(q, pos, block.rope_base)
+        k = _rope_at(k, pos, block.rope_base)
+    cache_k[:, pos] = k[:, 0]
+    cache_v[:, pos] = v[:, 0]
+    t_max = cache_k.shape[1]
+    q5 = q.reshape(b, 1, kv, g, hd).float()
+    s = torch.einsum("bqkgd,btkd->bkgqt", q5,
+                     cache_k.float()) / math.sqrt(hd)
+    rows = torch.arange(t_max, device=x_t.device)
+    valid = rows <= pos
+    if block.window:
+        valid = valid & (rows > pos - block.window)
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    w = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = w / w.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqt,btkd->bqkgd", w,
+                     cache_v.float()).to(x_t.dtype).reshape(b, 1, h * hd)
+    x_t = x_t + o @ block.wo
+    return x_t + block_ffn(block, block_norm(block, x_t, "ln2"))
+
+
+def _embed_ids(stem, ids):
+    """Embedding-table gather for int token ids of any shape; ids clamp
+    to the table (the reference's ``mode="clip"``)."""
+    return stem(ids)
+
+
+def _embed_prompt(stem, pos_emb, ids, pos0: int = 0):
+    """(B, T) token ids → (B, T, D): the embedding gather plus the
+    positional rows ``pos0..pos0+T`` — the stack entry every prompt
+    consumer shares."""
+    x = _embed_ids(stem, ids)
+    if pos_emb is not None:
+        idx = (pos0 + torch.arange(ids.shape[-1], device=ids.device)
+               ).clamp(0, pos_emb.max_len - 1)
+        x = x + pos_emb.table[idx][None]
+    return x
+
+
+def _prefill_blocks(blocks, x, cache_len: int):
+    """Every block's :func:`_block_prefill` over fresh zero K/V caches of
+    ``cache_len`` rows → (x, [(ck, cv), ...]). Each block shapes its own
+    cache (heads may differ per block; GQA caches hold n_kv_heads)."""
+    b = x.shape[0]
+    caches = []
+    for blk in blocks:
+        shape = (b, cache_len, blk.n_kv_heads, blk.head_dim)
+        ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        x = _block_prefill(blk, x, ck, cv)
+        caches.append((ck, cv))
+    return x, caches
+
+
+def _head_logits(head, x_last):
+    """Vocabulary head projection of the last positions (…, D) →
+    (…, V)."""
+    return head(x_last)
+
+
+def prompt_logits(forwards, prompt) -> numpy.ndarray:
+    """Last-position logits (V,) for ``prompt`` through the cached-decode
+    prefill path — the float reference a decode is checked against."""
+    stack = split_stack(forwards)
+    device = forwards.device
+    with torch.inference_mode():
+        ids = torch.as_tensor(numpy.asarray(prompt, numpy.int64),
+                              device=device)[None]
+        x = _embed_prompt(stack["stem"], stack["pos_emb"], ids)
+        x, _ = _prefill_blocks(stack["blocks"], x, ids.shape[-1])
+        return _head_logits(stack["head"], x[0, -1]).cpu().numpy()
+
+
+def _row_generators(seed, batch: int, device) -> List[torch.Generator]:
+    """One ``torch.Generator`` per row: an int seeds every row
+    identically (same request → same tokens whatever the batch), a
+    sequence of B ints gives each row its own stream."""
+    seeds = numpy.asarray(seed)
+    if seeds.ndim == 0:
+        seeds = numpy.broadcast_to(seeds, (batch,))
+    elif seeds.shape != (batch,):
+        raise VelesError("seed must be an int or a sequence of %d ints,"
+                         " got shape %s" % (batch, seeds.shape))
+    gens = []
+    for s in seeds:
+        g = torch.Generator(device=device)
+        g.manual_seed(int(s))
+        gens.append(g)
+    return gens
+
+
+def _pick(logits, temperature: float, gens):
+    """(B, V) logits → (B,) tokens: argmax (lowest index on ties) when
+    greedy, else each row draws from its OWN generator, so a row's
+    token depends only on its seed and its prompt, never on its
+    batch-mates."""
+    if gens is None:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.cat([torch.multinomial(probs[r], 1, generator=g)
+                      for r, g in enumerate(gens)])
+
+
+def generate(forwards, prompt, n_new: int, temperature: float = 1.0,
+             seed=0):
+    """Sample ``n_new`` tokens continuing ``prompt`` from the stack.
+    ``prompt`` is a list of ids (→ a flat token list) or a batch of B
+    equal-length prompts (→ B lists, decoded together).
+    ``temperature <= 0`` is greedy. ``seed`` is an int or a sequence of
+    B ints (see :func:`_row_generators`)."""
+    try:
+        prompt = numpy.asarray(prompt, dtype=numpy.int64)
+    except ValueError as e:
+        raise VelesError(
+            "batched generation needs EQUAL-length prompts (pad or "
+            "group by length): %s" % e) from e
+    batched = prompt.ndim == 2
+    if not batched:
+        prompt = prompt[None, :]
+    n_new = int(n_new)
+    bsz, t_p = prompt.shape
+    stack = split_stack(forwards)
+    stem, pos_emb = stack["stem"], stack["pos_emb"]
+    blocks, head = stack["blocks"], stack["head"]
+    t_max = t_p + n_new
+    if pos_emb is not None and t_max > pos_emb.max_len:
+        raise VelesError(
+            "generation to %d positions exceeds the PositionalEmbedding "
+            "table (%d rows); use RoPE blocks for open-ended generation"
+            % (t_max, pos_emb.max_len))
+    device = forwards.device
+    gens = _row_generators(seed, bsz, device) if temperature > 0 else None
+    with torch.inference_mode():
+        ids = torch.as_tensor(prompt, device=device)
+        x, caches = _prefill_blocks(blocks, _embed_prompt(
+            stem, pos_emb, ids), t_max)
+        inc("veles_decode_dispatches_total")
+        tok = _pick(_head_logits(head, x[:, -1]), temperature, gens)
+        out = [tok]
+        for i in range(n_new - 1):
+            pos = t_p + i
+            x_t = _embed_prompt(stem, pos_emb, tok[:, None], pos)
+            for blk, (ck, cv) in zip(blocks, caches):
+                x_t = _block_step(blk, x_t, ck, cv, pos)
+            tok = _pick(_head_logits(head, x_t[:, 0]), temperature, gens)
+            out.append(tok)
+            inc("veles_decode_dispatches_total")
+        toks = torch.stack(out, dim=1).cpu().numpy()        # (B, n_new)
+    inc("veles_decode_tokens_total", n_new * bsz)
+    rows = [[int(t) for t in row] for row in toks]
+    return rows if batched else rows[0]
