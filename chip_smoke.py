@@ -8,29 +8,44 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 
 1. device  — fail unless ``torch.cuda.is_available()``; the card's name
              and power limit as ``nvidia-smi`` reports them;
-2. build   — compile every kernel of the serving path from
-             ``veles_tpu_torch/csrc`` with ``nvcc`` and print the
-             compiler's register / shared-memory / spill report;
+2. build   — compile every kernel of ``veles_tpu_torch/csrc`` with
+             ``nvcc``, one process per source, all started together, and
+             print the compiler's register / shared-memory / spill report;
 3. kernels — each kernel's wrapper on card tensors against its plain
-             torch version at the serving path's shapes and at the edge
-             cases (GQA, window, ragged T, head dims, non-causal);
-             max abs error of o and lse must be <= 1e-4 (float32, only
-             the summation order differs);
-4. timing  — kernel, plain version and the PyTorch library call
-             (``scaled_dot_product_attention``, timed as a yardstick and
-             never called by the port) with CUDA events, beside the
-             bound the published peaks give;
+             torch version at the main paths' shapes and at edge cases.
+             flash_attention_fwd: max abs error of o and lse <= 1e-4
+             (float32, only the summation order differs). fused_fc_sgd:
+             after a 12-step plan, max abs error of w/b/vw/vb <= 1e-4,
+             loss_sum relative error <= 1e-5, err_count exact (float32,
+             the per-step sums run in another order); two launches on
+             the same inputs are bit-identical;
+4. timing  — kernel, plain version and the library yardstick with CUDA
+             events, beside the bound the published peaks give. The
+             fused-FC epoch has no single library call; the port's
+             general path (autograd, eager) times the same epoch, and
+             the kernel's MNIST epoch (K 600) is held against the plain
+             version's at the 12-step tolerances;
 5. serve   — the bench-width LM (6 RoPE blocks, d_model 512, 8 heads,
              FFN 2048, vocab 256, random weights from a numpy seed in the
              reference's layout) behind ``GenerationAPI`` on the card,
              8 concurrent HTTP requests; checks the answers, that the
              greedy tokens equal the plain-attention path's, that the
              prefill logits agree within 1e-3, and that every prefill
-             block launched the flash kernel.
+             block launched the flash kernel;
+6. train   — MNIST-784 (784 → 100 tanh → 10 softmax, mb 100, 60k/10k
+             synthetic rows) through ``models.mnist.build_workflow``,
+             8 epochs at 4 per dispatch, once with ``fused_fc_scan`` on
+             and once off, from the same seed: the fused run launched the
+             kernel once per epoch, its validation error falls, and its
+             per-epoch validation errors agree with the general path's
+             within 0.005 and its final weights within 1e-4; then one
+             fused 4-epoch block under
+             torch.profiler: device busy share and top kernels.
 
-Then the kernels line (``{"kernels": [...]}``) and, last, the device
-line ``{"ok": true, "device": {...}}``. Any failure raises and the run
-exits non-zero without the last line; without a card it exits 1 at once.
+Then the card's line, the kernels line (``{"kernels": [...]}``) and,
+last, the device line ``{"ok": true, "device": {...}}``. Any failure
+raises and the run exits non-zero without the last line; without a card
+it exits 1 at once.
 """
 
 import json
@@ -49,8 +64,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
+#: streaming multiprocessors of an H100 SXM
+N_SMS = 132
+
 TOL_KERNEL = 1e-4
 TOL_LOGITS = 1e-3
+#: fused-FC epoch loss, kernel vs plain (relative; float32 per-step sums
+#: in another order)
+TOL_LOSS_REL = 1e-5
+#: per-epoch validation error rate, fused kernel vs general path
+#: (absolute; 0.005 is 50 of the 10,000 validation rows)
+TOL_VALID_ERR = 0.005
+#: final weights after 8 epochs, fused kernel vs general path (absolute;
+#: float32 in two summation orders, compounding over 4,800 steps)
+TOL_TRAIN_WEIGHTS = 1e-4
+#: the MNIST runs' master seed
+SEED = 1234
 N_NEW = 32
 
 BENCH_LAYERS = (
@@ -73,11 +102,11 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters):
+def cuda_time_ms(fn, iters, warmup=3):
     """Mean device time of ``fn()`` over ``iters`` back-to-back calls,
-    after a warm-up, with CUDA events."""
+    after ``warmup`` calls, with CUDA events."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -165,6 +194,257 @@ def phase_timing(fa):
         emit("timing", kernel="flash_attention_fwd", **rec)
         records.append(rec)
     return records[0]
+
+
+def ffc_inputs(dims, mb, steps, n_rows, seed):
+    """A random chain, dataset, labels and plan on the card, from a
+    numpy seed."""
+    import numpy
+    import torch
+    rng = numpy.random.RandomState(seed)
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+    ws = [dev((rng.randn(a, b) / numpy.sqrt(a)).astype("float32"))
+          for a, b in zip(dims, dims[1:])]
+    bs = [dev((rng.randn(b) * 0.01).astype("float32")) for b in dims[1:]]
+    vws = [torch.zeros_like(w) for w in ws]
+    vbs = [torch.zeros_like(b) for b in bs]
+    ds = dev(rng.rand(n_rows, dims[0]).astype("float32"))
+    lb = dev(rng.randint(0, dims[-1], n_rows).astype("int32"))
+    plan = dev(rng.permutation(n_rows)[:steps * mb].reshape(steps, mb)
+               .astype("int32"))
+    return ws, bs, vws, vbs, ds, lb, plan
+
+
+def ffc_errors(out, ref):
+    """(max abs error over w/b/vw/vb, loss relative error, err_count
+    difference) of a kernel result against the plain version's."""
+    err = max(float((a - b).abs().max())
+              for xs, ys in zip(out[:4], ref[:4]) for a, b in zip(xs, ys))
+    loss_rel = abs(float(out[4]) - float(ref[4])) / max(abs(float(ref[4])),
+                                                        1e-30)
+    return err, loss_rel, abs(float(out[5]) - float(ref[5]))
+
+
+def phase_kernels_fused_fc(ff):
+    """fused_fc_sgd_epoch vs its plain version on the card; returns the
+    largest weight error."""
+    import torch
+    lecun = dict(act_a=1.7159, act_b=0.6666)
+    cases = [
+        # (name, dims, mb, kwargs)
+        ("mnist_784_100_10", [784, 100, 10], 100, lecun),
+        ("momentum_decay", [784, 100, 10], 100,
+         dict(lecun, momentum=0.9, wd=1e-3, wd_bias=1e-4,
+              lr_bias_ratio=0.5)),
+        ("unit_ab", [784, 100, 10], 100, dict(act_a=1.0, act_b=1.0)),
+        ("three_layer_784_256_64_10", [784, 256, 64, 10], 100,
+         dict(lecun, momentum=0.5)),
+        ("odd_20_12_3_mb10", [20, 12, 3], 10, lecun),
+        ("mb37", [784, 100, 10], 37, lecun),
+    ]
+    worst = 0.0
+    for i, (name, dims, mb, kw) in enumerate(cases):
+        ws, bs, vws, vbs, ds, lb, plan = ffc_inputs(dims, mb, 12, 2000,
+                                                    seed=200 + i)
+        shapes = [tuple(w.shape) for w in ws]
+        smem = ff.smem_bytes(shapes, mb, ff.choose_cluster(shapes, mb))
+        out = ff.fused_fc_sgd_epoch(ws, bs, vws, vbs, ds, lb, plan, 0.05,
+                                    **kw)
+        again = ff.fused_fc_sgd_epoch(ws, bs, vws, vbs, ds, lb, plan, 0.05,
+                                      **kw)
+        ref = ff.fused_fc_sgd_epoch_reference(ws, bs, vws, vbs, ds, lb,
+                                              plan, 0.05, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for xs, ys in zip(out[:4], again[:4])
+                   for a, b in zip(xs, ys))
+        rec = dict(kernel="fused_fc_sgd_epoch", case=name, dims=dims, mb=mb,
+                   steps=12, smem_bytes=smem, **kw)
+        if name == "mnist_784_100_10":
+            # a second launch continues from the first's returned state
+            out = ff.fused_fc_sgd_epoch(*out[:4], ds, lb, plan, 0.05, **kw)
+            ref = ff.fused_fc_sgd_epoch_reference(*ref[:4], ds, lb, plan,
+                                                  0.05, **kw)
+            torch.cuda.synchronize()
+            rec["case"] = "mnist_784_100_10+continuation"
+        err, loss_rel, err_diff = ffc_errors(out, ref)
+        finite = all(bool(torch.isfinite(a).all()) for xs in out[:4]
+                     for a in xs)
+        emit("kernels", max_abs_err=err, loss_rel_err=loss_rel,
+             err_count_diff=err_diff, bit_identical_relaunch=same,
+             finite=finite, **rec)
+        if not finite or err > TOL_KERNEL or loss_rel > TOL_LOSS_REL \
+                or err_diff != 0 or not same:
+            raise AssertionError("fused_fc_sgd_epoch disagrees with its "
+                                 "plain version on %s: %g / %g / %g / %s"
+                                 % (rec["case"], err, loss_rel, err_diff,
+                                    same))
+        worst = max(worst, err)
+    return worst
+
+
+def mnist_workflow(fused, epochs=8, per_dispatch=4, seed=SEED):
+    """The MNIST-784 workflow on the card from ``seed``, initialised."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models import mnist
+    root.common.engine.fused_fc_scan = bool(fused)
+    prng.seed_all(seed)
+    wf = mnist.build_workflow(epochs=epochs, minibatch_size=100,
+                              epochs_per_dispatch=per_dispatch)
+    wf.initialize()                     # default device: the card
+    return wf
+
+
+def phase_timing_fused_fc(ff, card):
+    """One MNIST epoch (K 600, mb 100) on the port's MNIST data: the
+    kernel over 5 launches at each cluster size, the plain version once,
+    the general path's train segment for the same plan. The last launch
+    at each cluster size is held against the plain version's result
+    (same tolerances as the 12-step cases) and the two cluster sizes
+    against each other (identical bits); returns the kernel's record."""
+    import numpy
+    import torch
+    wf = mnist_workflow(False, epochs=1, per_dispatch=4)
+    step, loader = wf.train_step, wf.loader
+    dataset, labels = step._dataset()
+    n_valid = loader.class_lengths[1]
+    rng = numpy.random.RandomState(SEED)
+    plan = torch.from_numpy((n_valid + rng.permutation(
+        loader.class_lengths[2])).reshape(-1, 100).astype("int32")).cuda()
+    mask = torch.ones(plan.shape, device="cuda")
+    names = [f.name for f in wf.forwards]
+    ws = [step.params[n]["weights"] for n in names]
+    bs = [step.params[n]["bias"] for n in names]
+    vws = [torch.zeros_like(w) for w in ws]
+    vbs = [torch.zeros_like(b) for b in bs]
+    kw = dict(act_a=1.7159, act_b=0.6666)
+    lr = 0.03
+    shapes = [tuple(w.shape) for w in ws]
+    rec = dict(kernel="fused_fc_sgd_epoch", card=card, dims=[784, 100, 10],
+               mb=100, steps=int(plan.shape[0]))
+    outs = {}
+
+    def keep(key, fn):
+        def run():
+            outs[key] = fn()
+        return run
+
+    for c in ff.CLUSTERS:
+        rec["ms_cluster%d" % c] = cuda_time_ms(keep(c, lambda: (
+            ff.fused_fc_sgd_epoch(ws, bs, vws, vbs, dataset, labels, plan,
+                                  lr, cluster=c, **kw))), 5)
+    cluster = ff.choose_cluster(shapes, 100)
+    rec["cluster"] = cluster
+    rec["ms"] = rec["ms_cluster%d" % cluster]
+    rec["plain_ms"] = cuda_time_ms(keep("plain", lambda: (
+        ff.fused_fc_sgd_epoch_reference(ws, bs, vws, vbs, dataset, labels,
+                                        plan, lr, **kw))), 1, warmup=0)
+    rec["general_path_ms"] = cuda_time_ms(
+        lambda: step._train_plan(step.params, step.opt_state,
+                                 step._zero_accum(), dataset, labels, plan,
+                                 mask, 1.0), 2, warmup=1)
+    err, loss_rel, err_diff = ffc_errors(outs[cluster], outs["plain"])
+    same = all(torch.equal(a, b) for c in ff.CLUSTERS
+               for xs, ys in zip(outs[c][:4], outs[cluster][:4])
+               for a, b in zip(xs, ys))
+    finite = all(bool(torch.isfinite(a).all()) for xs in outs[cluster][:4]
+                 for a in xs)
+    # the bound is the work the epoch needs; analytic_cost is the
+    # reference's model (it charges a layer-0 d_h product), printed beside
+    flops, nbytes = ff.epoch_work(shapes, 100, int(plan.shape[0]))
+    model_flops, model_bytes = ff.analytic_cost(shapes, 100,
+                                                int(plan.shape[0]))
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    rec.update(max_abs_err=err, loss_rel_err=loss_rel,
+               err_count_diff=err_diff, clusters_bit_identical=same,
+               finite=finite, loss_sum=float(outs[cluster][4]),
+               err_count=float(outs[cluster][5]),
+               flops=flops, bytes=nbytes, analytic_cost_flops=model_flops,
+               analytic_cost_bytes=model_bytes,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               cluster_ceiling_ms=t_ops * N_SMS / cluster,
+               library_ms=None,
+               achieved_tflops=flops / (rec["ms"] * 1e-3) / 1e12)
+    emit("timing", **rec)
+    if not finite or err > TOL_KERNEL or loss_rel > TOL_LOSS_REL \
+            or err_diff != 0 or not same:
+        raise AssertionError("fused_fc_sgd_epoch disagrees with its plain "
+                             "version on the MNIST epoch: %g / %g / %g / %s"
+                             % (err, loss_rel, err_diff, same))
+    return rec
+
+
+def phase_train(card):
+    """MNIST through the port's workflow, fused kernel vs general path
+    from the same seed; returns the fused run's kernel launches."""
+    import numpy
+    import torch
+    from veles_tpu_torch.telemetry import counters
+    runs = {}
+    for fused in (True, False):
+        wf = mnist_workflow(fused)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters.counters.reset()
+        t0 = time.perf_counter()
+        wf.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.get("veles_fused_fc_launches_total")
+        d = wf.decision
+        valid = list(d.epoch_metrics[1])
+        runs[fused] = dict(
+            wf=wf, wall=wall, launches=launches, valid=valid,
+            train=list(d.epoch_metrics[2]),
+            active=bool(wf.train_step._fused_fc_active),
+            engaged=wf.train_step._fused_fc is not None,
+            peak=int(torch.cuda.max_memory_allocated()),
+            samples=wf.loader.samples_served)
+    f, g = runs[True], runs[False]
+    epochs = len(f["valid"])
+    weight_diff = max(
+        float(numpy.abs(a.weights.map_read() - b.weights.map_read()).max())
+        for a, b in zip(f["wf"].forwards, g["wf"].forwards))
+    valid_diff = max(abs(a - b) for a, b in zip(f["valid"], g["valid"]))
+    emit("train", card=card, model="mnist-784 784-100-10", mb=100,
+         epochs=epochs, epochs_per_dispatch=4,
+         rows={"train": f["wf"].loader.class_lengths[2],
+               "validation": f["wf"].loader.class_lengths[1]},
+         fused_fc_active=f["active"], fused_fc_launches=f["launches"],
+         general_path_launches=g["launches"],
+         valid_err_fused=f["valid"], valid_err_general=g["valid"],
+         train_err_fused=f["train"], train_err_general=g["train"],
+         valid_err_max_diff=valid_diff, final_weight_max_abs_diff=weight_diff,
+         wall_s_fused=f["wall"], wall_s_general=g["wall"],
+         epoch_ms_fused=f["wall"] / epochs * 1e3,
+         epoch_ms_general=g["wall"] / epochs * 1e3,
+         samples_per_s_fused=f["samples"] / f["wall"],
+         samples_per_s_general=g["samples"] / g["wall"],
+         peak_memory_bytes_fused=f["peak"],
+         peak_memory_bytes_general=g["peak"])
+    if not (f["engaged"] and f["active"]) or g["engaged"]:
+        raise AssertionError("the MNIST config did not engage the fused "
+                             "kernel (or the general run did)")
+    if f["launches"] != epochs or epochs != 8 or g["launches"] != 0:
+        raise AssertionError("fused-FC launches %d (general %d) for %d "
+                             "epochs" % (f["launches"], g["launches"],
+                                         epochs))
+    if not all(numpy.isfinite(f["valid"] + f["train"])):
+        raise AssertionError("non-finite error rates")
+    if not min(f["valid"]) < f["valid"][0]:
+        raise AssertionError("validation error did not fall: %s"
+                             % f["valid"])
+    if valid_diff > TOL_VALID_ERR:
+        raise AssertionError("per-epoch validation error fused vs general "
+                             "differs by %g" % valid_diff)
+    if not weight_diff <= TOL_TRAIN_WEIGHTS:
+        raise AssertionError("final weights fused vs general differ by %g"
+                             % weight_diff)
+    return f["launches"]
 
 
 def post(url, payload, timeout=600.0):
@@ -300,13 +580,33 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def profiled(fn):
+    """Host wall ms of ``fn()`` under torch.profiler, and the device's
+    busy ms, idle share, kernel launches and top kernels by device time
+    (null when the profiler sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms = host_ms(fn)
+    kernels = [(getattr(e, "self_device_time_total", 0) / 1e3, e.key,
+                e.count) for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and "CUDA" in str(e.device_type)]
+    busy_ms = sum(k[0] for k in kernels)
+    kernels.sort(reverse=True)
+    return dict(
+        profiled_wall_ms=wall_ms,
+        device_busy_ms=busy_ms if kernels else None,
+        device_idle_share=(1 - busy_ms / wall_ms) if kernels else None,
+        kernel_launches=sum(k[2] for k in kernels) if kernels else None,
+        top_kernels=[{"name": k[1][:80], "ms": k[0], "calls": k[2]}
+                     for k in kernels[:8]])
+
+
 def phase_breakdown(card, model, prompts):
     """Where one batched greedy decode spends its time: prefill (the
     n_new=1 call) vs the per-step decode, and the device's busy share
-    and top kernels from torch.profiler (null when the profiler sees
-    no device time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    and top kernels from torch.profiler."""
     from veles_tpu_torch.nn import sampling
 
     def run(n):
@@ -314,25 +614,25 @@ def phase_breakdown(card, model, prompts):
 
     prefill_ms = min(host_ms(run(1)) for _ in range(3))
     total_ms = min(host_ms(run(N_NEW)) for _ in range(3))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_ms = host_ms(run(N_NEW))
-    kernels = [(getattr(e, "self_device_time_total", 0) / 1e3, e.key,
-                e.count) for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and "CUDA" in str(e.device_type)]
-    busy_ms = sum(k[0] for k in kernels)
-    kernels.sort(reverse=True)
     emit("breakdown", card=card, batch=len(prompts),
          prompt_len=len(prompts[0]), n_new=N_NEW,
          prefill_ms=prefill_ms, decode_total_ms=total_ms,
          decode_step_ms=(total_ms - prefill_ms) / (N_NEW - 1),
-         profiled_wall_ms=wall_ms,
-         device_busy_ms=busy_ms if kernels else None,
-         device_idle_share=(1 - busy_ms / wall_ms) if kernels else None,
-         kernel_launches=sum(k[2] for k in kernels) if kernels else None,
-         top_kernels=[{"name": k[1][:80], "ms": k[0], "calls": k[2]}
-                      for k in kernels[:8]])
+         **profiled(run(N_NEW)))
+
+
+def phase_train_breakdown(card):
+    """Where one fused MNIST epoch block (4 epochs, one dispatch) spends
+    its time: the device's busy share and top kernels, the fused
+    kernel's share among them."""
+    wf = mnist_workflow(True, epochs=4, per_dispatch=4)
+    rec = profiled(wf.run)
+    ffc_ms = sum(k["ms"] for k in rec["top_kernels"]
+                 if "fused_fc_sgd" in k["name"])
+    emit("train_breakdown", card=card, epochs=wf.decision.epoch_number,
+         epoch_ms=rec["profiled_wall_ms"] / wf.decision.epoch_number,
+         fused_kernel_ms=ffc_ms,
+         fused_kernel_share=ffc_ms / rec["profiled_wall_ms"], **rec)
 
 
 def main():
@@ -345,6 +645,7 @@ def main():
     from veles_tpu_torch.backends import device_for
     from veles_tpu_torch.ops import _build
     from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.ops import fused_fc as ff
 
     device_for("cuda")          # applies the f32 (no TF32) policy
     card = nvidia_smi()
@@ -353,14 +654,19 @@ def main():
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.load("flash_attention_fwd")
-    emit("build", source="veles_tpu_torch/csrc/flash_attention_fwd.cu",
-         seconds=time.perf_counter() - t0,
-         ptxas=_build.build_log("flash_attention_fwd").splitlines())
+    seconds = _build.build_all()
+    for name in sorted(seconds):
+        emit("build", source="veles_tpu_torch/csrc/%s.cu" % name,
+             seconds=seconds[name], wall_s=time.perf_counter() - t0,
+             ptxas=_build.build_log(name).splitlines())
 
     worst = phase_kernels(fa)
+    worst_ffc = phase_kernels_fused_fc(ff)
     timing = phase_timing(fa)
+    timing_ffc = phase_timing_fused_fc(ff, card)
     launches = phase_serve(card)
+    launches_ffc = phase_train(card)
+    phase_train_breakdown(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -370,7 +676,17 @@ def main():
         "launches": launches, "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"], "ok": True}]}), flush=True)
+        "library_ms": timing["library_ms"], "ok": True}, {
+        "name": "fused_fc_sgd_epoch", "route": "cuda",
+        "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",
+        "replaces": "veles_tpu/ops/fused_fc.py:55",
+        "launches": launches_ffc,
+        "max_abs_err": max(worst_ffc, timing_ffc["max_abs_err"]),
+        "ms": timing_ffc["ms"], "plain_ms": timing_ffc["plain_ms"],
+        "bound_ms": timing_ffc["bound_ms"],
+        "bound_by": timing_ffc["bound_by"], "library_ms": None,
+        "general_path_ms": timing_ffc["general_path_ms"], "ok": True}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need the CUDA card: the hand-written
-flash-attention kernel against its plain torch version, its build for
-``sm_90a``, and the serving path through it. Each skips without a card
-(decided inside the fixture, never at import).
+flash-attention and fused-FC SGD kernels against their plain torch
+versions, their builds for ``sm_90a``, the serving path through the
+first and the training workflow through the second. Each skips without
+a card (decided inside the fixture, never at import).
 
 This file imports torch and the port only — the card's machine has no
 JAX, and ``tests/conftest.py`` imports it — so run it there with
@@ -9,7 +10,8 @@ JAX, and ``tests/conftest.py`` imports it — so run it there with
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 Tolerance: max abs error <= 1e-4 for kernel vs plain in float32 (only
-the summation order differs)."""
+the summation order differs); for the fused-FC epoch also the loss sum
+within 1e-5 relative and the error count exact."""
 import json
 import urllib.request
 
@@ -19,9 +21,11 @@ import torch
 
 from veles_tpu_torch.config import root
 from veles_tpu_torch.convert import params_from_jax, random_params
+from veles_tpu_torch.error import VelesError
 from veles_tpu_torch.nn import sampling
 from veles_tpu_torch.nn.standard_workflow import build_forwards
 from veles_tpu_torch.ops import flash_attention as fa
+from veles_tpu_torch.ops import fused_fc as ff
 from veles_tpu_torch.telemetry import counters
 
 pytestmark = pytest.mark.gpu
@@ -131,3 +135,147 @@ def test_generation_api_serves_on_the_card(model):
         api.stop()
     assert body["tokens"] == sampling.generate(model, [1, 2, 3, 4], 6,
                                                temperature=0)
+
+
+def test_flash_forward_refuses_to_drop_gradients(cuda):
+    """The kernel writes o outside autograd: where q/k/v need gradients
+    it raises instead of handing back a tensor with no history."""
+    q, k, v = qkv(cuda, 1, 16, 2, 2, 32, seed=3)
+    q.requires_grad_(True)
+    with pytest.raises(VelesError, match="flash backward not ported yet"):
+        fa.flash_attention_fwd(q, k, v, causal=True)
+    with torch.no_grad():
+        o, _ = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, _ = fa.flash_attention_fwd_reference(q.detach(), k, v, causal=True)
+    assert float((o - ro).abs().max()) <= 1e-4
+
+
+FFC_LAUNCHES = "veles_fused_fc_launches_total"
+
+
+def ffc_inputs(device, dims, mb, steps, n_rows, seed):
+    rng = numpy.random.RandomState(seed)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+    ws = [dev((rng.randn(a, b) / numpy.sqrt(a)).astype("float32"))
+          for a, b in zip(dims, dims[1:])]
+    bs = [dev((rng.randn(b) * 0.01).astype("float32")) for b in dims[1:]]
+    vws = [torch.zeros_like(w) for w in ws]
+    vbs = [torch.zeros_like(b) for b in bs]
+    ds = dev(rng.rand(n_rows, dims[0]).astype("float32"))
+    lb = dev(rng.randint(0, dims[-1], n_rows).astype("int32"))
+    plan = dev(rng.permutation(n_rows)[:steps * mb].reshape(steps, mb)
+               .astype("int32"))
+    return [ws, bs, vws, vbs], ds, lb, plan
+
+
+def assert_ffc_close(out, ref):
+    for xs, ys in zip(out[:4], ref[:4]):
+        for a, b in zip(xs, ys):
+            assert float((a - b).abs().max()) <= 1e-4
+    assert abs(float(out[4]) - float(ref[4])) <= 1e-5 * abs(float(ref[4]))
+    assert float(out[5]) == float(ref[5])
+
+
+@pytest.mark.parametrize("dims,mb,kw", [
+    ([20, 12, 3], 10, dict(act_a=1.0, act_b=1.0)),
+    ([20, 12, 3], 10, dict(momentum=0.9, wd=1e-3, wd_bias=1e-4,
+                           lr_bias_ratio=0.5)),
+    ([20, 16, 8, 3], 10, dict(act_a=1.7159, act_b=0.6666, momentum=0.5)),
+    ([784, 100, 10], 100, dict(act_a=1.7159, act_b=0.6666)),
+    ([784, 100, 10], 37, dict(act_a=1.7159, act_b=0.6666, momentum=0.9)),
+])
+def test_fused_fc_kernel_matches_plain(cuda, dims, mb, kw):
+    state, ds, lb, plan = ffc_inputs(cuda, dims, mb, 12, 1500, seed=mb)
+    before = counters.get(FFC_LAUNCHES)
+    out = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.05, **kw)
+    again = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.05, **kw)
+    ref = ff.fused_fc_sgd_epoch_reference(*state, ds, lb, plan, 0.05, **kw)
+    torch.cuda.synchronize()
+    assert counters.get(FFC_LAUNCHES) == before + 2
+    assert_ffc_close(out, ref)
+    # fixed reduction order: two launches are bit-identical
+    for xs, ys in zip(out[:4], again[:4]):
+        assert all(torch.equal(a, b) for a, b in zip(xs, ys))
+    # a second epoch continues from the returned state
+    out2 = ff.fused_fc_sgd_epoch(*out[:4], ds, lb, plan, 0.05, **kw)
+    ref2 = ff.fused_fc_sgd_epoch_reference(*ref[:4], ds, lb, plan, 0.05,
+                                           **kw)
+    assert_ffc_close(out2, ref2)
+
+
+@pytest.mark.parametrize("cluster", ff.CLUSTERS)
+def test_fused_fc_cluster_sizes_agree(cuda, cluster):
+    """Every sum runs in one order, so both cluster sizes give the same
+    bits."""
+    state, ds, lb, plan = ffc_inputs(cuda, [784, 100, 10], 100, 6, 1000, 1)
+    base = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.03, cluster=8)
+    out = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.03,
+                                cluster=cluster)
+    for xs, ys in zip(out[:4], base[:4]):
+        assert all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+def test_fused_fc_kernel_builds_for_sm90a(cuda):
+    from veles_tpu_torch.ops import _build
+    _build.load("fused_fc_sgd")
+    assert "sm_90a" in _build.build_log("fused_fc_sgd")
+
+
+def test_training_workflow_runs_the_kernel(cuda):
+    """A small StandardWorkflow on the card (the default device): the
+    fused run launches the kernel once per epoch and follows the general
+    path's per-epoch error rates and weights."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader import FullBatchLoader
+
+    class Blobs(FullBatchLoader):
+        hide_from_registry = True
+
+        def load_data(self):
+            rng = numpy.random.RandomState(9)
+            centers = rng.randn(3, 16) * 2.5
+            x = numpy.concatenate([centers[c] + rng.randn(50, 16)
+                                   for c in range(3)])
+            y = numpy.repeat(numpy.arange(3), 50)
+            perm = rng.permutation(len(x))
+            self.create_originals(x[perm].astype("float32"),
+                                  y[perm].astype("int32"))
+            self.class_lengths = [0, 30, 120]
+
+    from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+
+    def run(fused):
+        root.common.engine.fused_fc_scan = fused
+        prng.seed_all(777)
+        wf = StandardWorkflow(
+            name="gpu-train",
+            layers=[{"type": "all2all_tanh", "output_sample_shape": 8,
+                     "learning_rate": 0.05, "momentum": 0.9},
+                    {"type": "softmax", "output_sample_shape": 3,
+                     "learning_rate": 0.05, "momentum": 0.9}],
+            loader_unit=Blobs(None, minibatch_size=20, name="bl"),
+            decision_config=dict(max_epochs=4, fail_iterations=100),
+            epochs_per_dispatch=2)
+        wf.initialize()
+        before = counters.get(FFC_LAUNCHES)
+        wf.run()
+        return wf, counters.get(FFC_LAUNCHES) - before
+
+    try:
+        fused, launches = run(True)
+        general, none = run(False)
+    finally:
+        root.common.engine.fused_fc_scan = False
+    assert fused.train_step.device.type == "cuda"
+    assert fused.train_step._fused_fc_active and launches == 4
+    assert none == 0
+    for cls in (0, 1, 2):
+        numpy.testing.assert_allclose(fused.decision.epoch_metrics[cls],
+                                      general.decision.epoch_metrics[cls],
+                                      atol=1e-5)
+    for f, g in zip(fused.forwards, general.forwards):
+        numpy.testing.assert_allclose(f.weights.map_read(),
+                                      g.weights.map_read(), rtol=2e-4,
+                                      atol=2e-5)

@@ -8,6 +8,7 @@ reads; unlike the reference it reads no site or user override files.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterator, Tuple
 
 
@@ -68,7 +69,18 @@ class Config:
 def _default_root() -> Config:
     r = Config("root")
     r.common.update({
+        # master seed of every keyed stream (prng._default_seed)
+        "random_seed": 1234,
+        "dirs": {
+            # first place datasets.load_mnist looks for the real files
+            "datasets": os.path.expanduser("~/.veles_tpu/datasets"),
+        },
         "engine": {
+            # the whole-epoch fused-FC SGD kernel for eligible
+            # [all2all_tanh..., softmax] chains
+            # (TrainStep._setup_fused_fc); off by default, as in the
+            # reference
+            "fused_fc_scan": False,
             # parameter dtype of the stacks build_forwards makes; this
             # slice runs float32 end to end
             "precision_type": "float32",
@@ -87,6 +99,9 @@ def _default_root() -> Config:
             "engine": "window",
         },
     })
+    # models/mnist.py defaults (the reference's optimisable ranges
+    # collapsed to their defaults)
+    r.mnist.update({"lr": 0.03, "hidden": 100})
     return r
 
 

@@ -1,16 +1,20 @@
 """Parameter trees in the reference's layout → the port's modules.
 
 The reference's parameter tree is ``{unit_name: {param: array}}`` —
-exactly what ``veles_tpu.nn.sampling.params_of(wf)`` yields, converted
-with ``numpy.asarray``. :func:`params_from_jax` loads such a tree into a
-:class:`~veles_tpu_torch.nn.standard_workflow.Forwards` stack, checking
-every name and shape. :func:`random_params` makes a tree of that layout
-from a numpy seed, for runs that need weights but no trained model.
+what ``veles_tpu.nn.sampling.params_of(wf)`` or, for a training
+workflow, ``jax.device_get(wf.train_step.params)`` yields.
+:func:`params_from_jax` loads such a tree into a
+:class:`~veles_tpu_torch.nn.standard_workflow.Forwards` stack or into
+an initialised :class:`~veles_tpu_torch.nn.standard_workflow.
+StandardWorkflow` (with its SGD ``opt_state``, so a run resumes on the
+identical trajectory), checking every name and shape first.
+:func:`random_params` makes a tree of that layout from a numpy seed, for
+runs that need weights but no trained model.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy
 import torch
@@ -18,6 +22,7 @@ import torch
 from .error import VelesError
 
 ParamTree = Dict[str, Dict[str, numpy.ndarray]]
+Shapes = Dict[str, Dict[str, Tuple[int, ...]]]
 
 
 def _parameterised(forwards):
@@ -25,37 +30,64 @@ def _parameterised(forwards):
             if layer.param_shapes()}
 
 
-def params_from_jax(forwards, params: ParamTree):
-    """Copy ``params`` into ``forwards`` (in place) and return it. The
-    unit names, each unit's parameter names and every shape must match
-    the stack exactly; anything else raises :class:`VelesError` before
-    a single tensor is written."""
-    layers = _parameterised(forwards)
-    missing = sorted(set(layers) - set(params))
-    extra = sorted(set(params) - set(layers))
+def _stage(shapes: Shapes, tree: ParamTree, what: str
+           ) -> List[Tuple[str, str, numpy.ndarray]]:
+    """(unit, param, float32 host copy) for every entry of ``shapes``;
+    raises :class:`VelesError` on any unit, parameter or shape that does
+    not match, before anything is written."""
+    missing = sorted(set(shapes) - set(tree))
+    extra = sorted(set(tree) - set(shapes))
     if missing or extra:
-        raise VelesError("parameter tree units do not match the stack: "
-                         "missing %s, unexpected %s" % (missing, extra))
+        raise VelesError("%s units do not match: missing %s, unexpected %s"
+                         % (what, missing, extra))
     staged = []
-    for name, layer in layers.items():
-        shapes = layer.param_shapes()
-        got = params[name]
-        if set(got) != set(shapes):
-            raise VelesError(
-                "unit %r: parameters %s, expected %s"
-                % (name, sorted(got), sorted(shapes)))
-        for pname, shape in shapes.items():
+    for name, params in shapes.items():
+        got = tree[name]
+        if set(got) != set(params):
+            raise VelesError("%s unit %r: parameters %s, expected %s"
+                             % (what, name, sorted(got), sorted(params)))
+        for pname, shape in params.items():
             arr = numpy.asarray(got[pname])
             if tuple(arr.shape) != tuple(shape):
-                raise VelesError("unit %r param %r: shape %s, expected %s"
-                                 % (name, pname, arr.shape, shape))
-            staged.append((getattr(layer, pname), arr))
-    with torch.no_grad():
-        for tensor, arr in staged:
+                raise VelesError("%s unit %r param %r: shape %s, expected "
+                                 "%s" % (what, name, pname, arr.shape,
+                                         shape))
             # a writable host copy: the tree may hold read-only views
-            tensor.copy_(torch.from_numpy(numpy.array(
-                arr, dtype=numpy.float32)))
-    return forwards
+            staged.append((name, pname,
+                           numpy.array(arr, dtype=numpy.float32)))
+    return staged
+
+
+def params_from_jax(target, params: ParamTree,
+                    opt_state: Optional[ParamTree] = None):
+    """Copy ``params`` (and, for a workflow, the SGD ``opt_state`` of the
+    same layout) into ``target`` in place and return it. ``target`` is a
+    ``Forwards`` stack or an initialised ``StandardWorkflow``."""
+    step = getattr(target, "train_step", None)
+    if step is None:
+        if opt_state is not None:
+            raise VelesError("opt_state loads into a StandardWorkflow, "
+                             "not a forward stack")
+        layers = _parameterised(target)
+        staged = _stage({n: l.param_shapes() for n, l in layers.items()},
+                        params, "parameter tree")
+        with torch.no_grad():
+            for name, pname, arr in staged:
+                getattr(layers[name], pname).copy_(torch.from_numpy(arr))
+        return target
+    if not step.params:
+        raise VelesError("initialize() the workflow before loading "
+                         "parameters into it")
+    shapes = {n: {k: tuple(t.shape) for k, t in p.items()}
+              for n, p in step.params.items()}
+    staged = _stage(shapes, params, "parameter tree")
+    staged_opt = ([] if opt_state is None
+                  else _stage(shapes, opt_state, "opt_state"))
+    for tree, rows in ((step.params, staged), (step.opt_state, staged_opt)):
+        for name, pname, arr in rows:
+            tree[name][pname] = torch.from_numpy(arr).to(step.device)
+    step.sync_params_to_arrays()
+    return target
 
 
 def random_params(forwards, seed: int = 0) -> ParamTree:

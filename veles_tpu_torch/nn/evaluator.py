@@ -1,0 +1,68 @@
+"""Evaluator units: loss and quality metrics (counterpart of
+``veles_tpu/nn/evaluator.py``; the softmax evaluator only).
+
+``loss(logits, labels, mask)`` is the mean cross-entropy over the mask's
+real rows (fused log-softmax); ``metrics_fn`` counts errors with argmax
+ties going to the lowest class index, as ``jnp.argmax`` and
+``torch.argmax`` both do. Padded rows (mask 0) contribute nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ..error import VelesError
+from ..memory import Array
+from ..units import Unit
+
+
+class EvaluatorBase(Unit):
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.view_group = "EVALUATOR"
+        self.output: Optional[Array] = None
+        self.target: Optional[Array] = None
+
+    def loss(self, y, target, mask):
+        """Pure scalar loss, mean over valid samples."""
+        raise NotImplementedError
+
+    def sum_loss_weight(self, out, mask):
+        """Weight turning the mean ``loss`` back into an accumulable sum
+        in ``metrics_fn``'s n_samples unit."""
+        return mask.sum()
+
+    def metrics_fn(self, y, target, mask) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+
+class EvaluatorSoftmax(EvaluatorBase):
+    """Cross-entropy over logits; metrics n_err and n_samples (float32
+    device scalars, accumulated on the device)."""
+
+    MAPPING = "evaluator_softmax"
+    hide_from_registry = False
+
+    def __init__(self, workflow, n_classes=None, compute_confusion=False,
+                 label_smoothing=0.0, **kwargs):
+        super().__init__(workflow, **kwargs)
+        if compute_confusion or label_smoothing:
+            raise VelesError("confusion matrices and label smoothing are "
+                             "not ported yet")
+        self.n_classes = n_classes
+        self.compute_confusion = False
+        self.label_smoothing = 0.0
+
+    def loss(self, logits, labels, mask):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+    def metrics_fn(self, logits, labels, mask):
+        pred = torch.argmax(logits, dim=-1)
+        wrong = (pred != labels.long()) & (mask > 0)
+        return {"n_err": wrong.sum().float(), "n_samples": mask.sum()}

@@ -1,26 +1,46 @@
-"""Layer-config → module stack (the forward half of
-``veles_tpu/nn/standard_workflow.py``).
+"""Layer configs → a module stack or a whole training graph
+(counterpart of ``veles_tpu/nn/standard_workflow.py``).
+
+:class:`StandardWorkflow` builds the training loop from a ``layers``
+list and a loader, as the reference does::
+
+    StartPoint → Repeater → Loader → TrainStep → [LRAdjust] → Decision ┐
+                    ↑                                                  │
+                    └────────────── (not complete) ────────────────────┘
+                                    (complete) → EndPoint
+
+Its forward units are All2All units (``nn/all2all.py``) named as the
+reference names them; the per-minibatch compute is the TrainStep.
 
 :func:`build_forwards` takes the same ``layers`` list of dicts that the
 reference's ``StandardWorkflow`` takes (``models/char_lm.py``
 ``build_workflow``/``build_bench_workflow`` pass it) and returns the
 port's module stack, each layer named as the reference names its unit:
-the dict's ``"name"``, else ``"<type><index>"``. The graph engine
-(units, links, the training step) is not ported yet, so the keys that
-configure training (solver, learning rates, decay, initialisers) are
-accepted and ignored.
+the dict's ``"name"``, else ``"<type><index>"``. The transformer stack
+is not trainable in the port yet, so there the keys that configure
+training (solver, learning rates, decay, initialisers) are accepted and
+ignored.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..accelerated import AcceleratedWorkflow
 from ..backends import device_for
 from ..config import root
 from ..error import VelesError
+from ..plumbing import Repeater
+from ..units import UnitRegistry
+from . import all2all  # noqa: F401 — registers the layer types
+from .decision import DecisionGD
+from .evaluator import EvaluatorSoftmax
+from .lr_adjust import LearningRateAdjust
+from .nn_units import ForwardBase
+from .train_step import TrainStep
 from .transformer import (Embedding, LMHead, PositionalEmbedding,
                           TransformerBlock)
 
@@ -92,3 +112,108 @@ def build_forwards(layers: List[dict], seq_len: Optional[int] = None,
             raise VelesError("duplicate layer name %r" % name)
         out[name] = layer
     return Forwards(out)
+
+
+def _unit_class(type_name: str) -> type:
+    cls = UnitRegistry.mapping.get(type_name)
+    if cls is None or not issubclass(cls, ForwardBase):
+        raise VelesError("layer type %r is not ported yet (have: %s)"
+                         % (type_name, sorted(
+                             k for k, c in UnitRegistry.mapping.items()
+                             if issubclass(c, ForwardBase))))
+    return cls
+
+
+class StandardWorkflow(AcceleratedWorkflow):
+    """Declarative training-graph builder: the reference's constructor,
+    for ``loss_function="softmax"``. ``initialize(device=None)`` runs on
+    the card; pass ``device="cpu"`` to run on the host."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow=None, layers: Sequence[Dict[str, Any]] = (),
+                 loader_unit=None, loss_function: str = "softmax",
+                 decision_config: Optional[Dict[str, Any]] = None,
+                 lr_schedule=None, snapshotter_unit=None,
+                 steps_per_dispatch: int = 16,
+                 epochs_per_dispatch: int = 1, **kwargs):
+        for key in ("target_mode", "pipeline_microbatches", "remat",
+                    "grad_accumulation", "evaluator_config",
+                    "mcdnnic_topology", "mcdnnic_parameters"):
+            if kwargs.pop(key, None) not in (None, False, 1, {}):
+                raise VelesError("StandardWorkflow(%s=...) is not ported "
+                                 "yet" % key)
+        if snapshotter_unit is not None:
+            raise VelesError("snapshots are not ported yet")
+        if loss_function != "softmax":
+            raise VelesError("loss_function %r is not ported yet (softmax "
+                             "only)" % (loss_function,))
+        self._steps_per_dispatch = steps_per_dispatch
+        self._epochs_per_dispatch = epochs_per_dispatch
+        super().__init__(workflow, **kwargs)
+        self.layers_config = list(layers)
+        self.loss_function = loss_function
+        self.loader = loader_unit
+        if self.loader is not None:
+            self.loader.workflow = self
+            self.add_ref(self.loader)
+        self.forwards: List[ForwardBase] = []
+        self.repeater = Repeater(self)
+        self._build_forwards()
+        self._build_trainer(decision_config or {}, lr_schedule)
+        self._wire_loop()
+
+    def _build_forwards(self) -> None:
+        prev = None
+        for i, cfg in enumerate(self.layers_config):
+            cfg = dict(cfg)
+            type_name = cfg.pop("type")
+            cls = _unit_class(type_name)
+            name = cfg.pop("name", "%s%d" % (type_name, i))
+            unit = cls(self, name=name, **cfg)
+            if prev is None:
+                unit.link_attrs(self.loader, ("input", "minibatch_data"))
+            else:
+                unit.link_attrs(prev, ("input", "output"))
+            self.forwards.append(unit)
+            prev = unit
+
+    def _build_trainer(self, decision_config, lr_schedule) -> None:
+        n_classes = None
+        if self.forwards and hasattr(self.forwards[-1], "neurons_number"):
+            n_classes = self.forwards[-1].neurons_number
+        self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes)
+        self.decision = DecisionGD(self, **decision_config)
+        self.train_step = TrainStep(
+            self, forwards=self.forwards, evaluator=self.evaluator,
+            loader=self.loader, target_mode="labels",
+            steps_per_dispatch=self._steps_per_dispatch,
+            epochs_per_dispatch=self._epochs_per_dispatch)
+        self.decision.loader = self.loader
+        self.decision.step_unit = self.train_step
+        if self._epochs_per_dispatch > 1 and self.loader is not None:
+            # the final block clamps to the epochs left under max_epochs
+            self.loader.block_epochs_cap = self.decision.max_epochs
+        if lr_schedule is not None:
+            self.lr_adjust = LearningRateAdjust(self, schedule=lr_schedule)
+            self.lr_adjust.decision = self.decision
+            self.train_step.link_attrs(self.lr_adjust, "lr_scale")
+        else:
+            self.lr_adjust = None
+
+    def _wire_loop(self) -> None:
+        self.repeater.link_from(self.start_point)
+        self.loader.link_from(self.repeater)
+        self.train_step.link_from(self.loader)
+        tail = self.train_step
+        if self.lr_adjust is not None:
+            self.lr_adjust.link_from(self.train_step)
+            tail = self.lr_adjust
+        self.decision.link_from(tail)
+        self.repeater.link_from(self.decision)
+        self.repeater.gate_block = self.decision.complete
+        self.end_point.link_from(self.decision)
+        self.end_point.gate_block = ~self.decision.complete
+
+    def get_metric_values(self) -> Dict[str, Any]:
+        return self.decision.get_metric_values()

@@ -18,7 +18,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+import time
+from typing import Dict, List, Optional
 
 from ..error import VelesError
 
@@ -90,6 +91,37 @@ def build_log(name: str) -> str:
         return ""
     with open(log) as f:
         return f.read()
+
+
+def sources() -> List[str]:
+    """Names of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
+    """Build every source (default: all of ``csrc``) at once, one
+    ``nvcc`` each, all started together; returns each build's seconds.
+    Raises the first failure after every build has ended."""
+    names = list(names or sources())
+    seconds: Dict[str, float] = {}
+    errors: List[BaseException] = []
+
+    def one(name):
+        t0 = time.perf_counter()
+        try:
+            build(name)
+        except BaseException as exc:      # re-raised below
+            errors.append(exc)
+        seconds[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:

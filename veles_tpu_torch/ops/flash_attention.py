@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import root
+from ..error import VelesError
 from ..telemetry.counters import inc
 
 NEG_INF = -1e30
@@ -191,6 +192,13 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     if q.device.type != "cuda":
         raise ValueError("flash_attention_fwd runs on cuda or cpu "
                          "tensors, got %s" % q.device)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        # the kernel writes o outside autograd: a backward through it
+        # would give q/k/v a zero gradient without a word
+        raise VelesError("flash backward not ported yet: the CUDA flash "
+                         "forward cannot run where q/k/v need gradients "
+                         "(use torch.no_grad(), or set "
+                         "root.common.engine.flash_attention = False)")
     return _launch(q, k, v, causal, window, scale)
 
 

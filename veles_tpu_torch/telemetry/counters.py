@@ -19,6 +19,9 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_decode_tokens_total": "tokens decoded (rows x n_new)",
     "veles_flash_attention_launches_total":
         "launches of the hand-written flash-attention forward kernel",
+    "veles_fused_fc_launches_total":
+        "launches of the hand-written whole-epoch fused-FC SGD kernel "
+        "(one per trained epoch on the fused path)",
 }
 
 
