@@ -40,7 +40,32 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              per-epoch validation errors agree with the general path's
              within 0.005 and its final weights within 1e-4; then one
              fused 4-epoch block under
-             torch.profiler: device busy share and top kernels.
+             torch.profiler: device busy share and top kernels;
+7. kernels_bwd — the flash backward pair (dK/dV, dQ) against the plain
+             backward on 8 cases (the bench shape, GQA, windows, ragged
+             T, D 32..256, T 1, strided q/k/v): max abs error of each
+             gradient <= 1e-4 * max(1, max|plain|), relaunches
+             bit-identical, and autograd through ``flash_attention``
+             against autograd through the plain attention;
+8. timing_bwd — each backward kernel at the bench shape with CUDA
+             events, its bound (``ops/flash_attention.backward_work``),
+             the plain backward's time and SDPA's backward (the
+             yardstick; it computes the pair's function);
+9. train_lm — the bench LM (``models/char_lm.build_bench_workflow``:
+             6 RoPE blocks, d_model 512, 8 heads, FFN 2048, vocab 256,
+             T 512, mb 16, 1,024 / 128 rows, adam lr 1e-4), one epoch
+             from one seed with the kernels and with the plain
+             attention: forward launches 6 x (64 + 8), dK/dV = dQ
+             launches 6 x 64 (0 on the plain run); per-epoch train and
+             validation NLL/token within 1e-4 relative; final weights
+             within 1e-3 max abs and 1e-5 at the 99.9th percentile
+             (adam's normalised step flips an element whose gradient is
+             rounding noise by up to 2 lr a step); epoch ms, tokens/s,
+             peak memory; then 16 greedy tokens from the trained
+             weights through the sampler, equal to the plain path's;
+10. train_lm_breakdown — torch.profiler over 4 train steps: device busy
+             share, launches per step, top kernels, the flash kernels'
+             share.
 
 Then the card's line, the kernels line (``{"kernels": [...]}``) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
@@ -49,6 +74,7 @@ it exits 1 at once.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -81,6 +107,16 @@ TOL_TRAIN_WEIGHTS = 1e-4
 #: the MNIST runs' master seed
 SEED = 1234
 N_NEW = 32
+#: LM training, kernel route vs plain attention, same seed: per-epoch
+#: NLL/token (relative), final weights (max abs, and at the 99.9th
+#: percentile: adam's step is about +-lr wherever a gradient is rounding
+#: noise, so a summation-order difference can flip one element by up to
+#: 2 lr = 2e-4 a step, while the bulk must agree to rounding)
+TOL_LM_LOSS_REL = 1e-4
+TOL_LM_WEIGHTS_MAX = 1e-3
+TOL_LM_WEIGHTS_P999 = 1e-5
+LM_SEED = 77
+LM_N_NEW = 16
 
 BENCH_LAYERS = (
     [{"type": "embedding", "vocab_size": 256, "dim": 512}]
@@ -447,6 +483,267 @@ def phase_train(card):
     return f["launches"]
 
 
+def bwd_inputs(b, t, h, kv, d, seed, strided=False):
+    """q, k, v, do on the card from a seed; ``strided``: q/k/v are views
+    of one (B, T, 3, H, D) buffer (requires kv == h)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if strided:
+        q, k, v = torch.randn((b, t, 3, h, d), generator=g,
+                              device="cuda").unbind(2)
+    else:
+        q, k, v = qkv(b, t, h, kv, d, seed)
+    do = torch.randn((b, t, h, d), generator=g, device="cuda")
+    return q, k, v, do
+
+
+def phase_kernels_bwd(fa):
+    """The backward pair vs the plain backward on the card; returns the
+    largest error of each kernel (dQ; dK and dV)."""
+    import torch
+    from veles_tpu_torch.nn.attention import attention_reference, expand_kv
+    cases = [
+        # (name, B, T, H, KV, D, causal, window, strided)
+        ("bench_b16_t512", 16, 512, 8, 8, 64, True, 0, False),
+        ("t300_gqa_8_2", 2, 300, 8, 2, 64, True, 0, False),
+        ("window128", 2, 512, 8, 8, 64, True, 128, False),
+        ("t333_d256_gqa_4_2_window100", 1, 333, 4, 2, 256, True, 100,
+         False),
+        ("noncausal_t257_d128", 2, 257, 8, 8, 128, False, 0, False),
+        ("t1", 1, 1, 2, 2, 48, True, 0, False),
+        ("d32_noncausal_t200", 2, 200, 8, 8, 32, False, 0, False),
+        ("strided_qkv", 2, 100, 4, 4, 32, True, 0, True),
+    ]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for i, (name, b, t, h, kv, d, causal, window, strided) in \
+            enumerate(cases):
+        q, k, v, do = bwd_inputs(b, t, h, kv, d, 300 + i, strided)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                               causal=causal, window=window)
+        # autograd through the differentiable entry vs through the plain
+        # attention (the gradcheck of the wiring)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        plain = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        auto = torch.autograd.grad(fa.flash_attention(
+            *leaves, causal=causal, window=window or None), leaves, do)
+        auto_ref = torch.autograd.grad(attention_reference(
+            plain[0], expand_kv(plain[1], h), expand_kv(plain[2], h),
+            causal=causal, window=window or None), plain, do)
+        torch.cuda.synchronize()
+        errs = [float((a - r).abs().max()) for a, r in zip(got, ref)]
+        limits = [TOL_KERNEL * max(1.0, float(r.abs().max())) for r in ref]
+        auto_errs = [float((a - r).abs().max())
+                     for a, r in zip(auto, auto_ref)]
+        auto_limits = [TOL_KERNEL * max(1.0, float(r.abs().max()))
+                       for r in auto_ref]
+        same = all(torch.equal(a, r) for a, r in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        emit("kernels_bwd", case=name, shape=[b, t, h, kv, d],
+             causal=causal, window=window, strided=strided,
+             max_abs_err_dq=errs[0], max_abs_err_dk=errs[1],
+             max_abs_err_dv=errs[2], limits=limits,
+             autograd_max_abs_err=auto_errs,
+             bit_identical_relaunch=same, finite=finite)
+        if not finite or not same or any(e > lim for e, lim in zip(
+                errs + auto_errs, limits + auto_limits)):
+            raise AssertionError("flash backward disagrees with its plain "
+                                 "version on %s: %s / %s / %s"
+                                 % (name, errs, auto_errs, same))
+        worst["dq"] = max(worst["dq"], errs[0])
+        worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
+    return worst
+
+
+def phase_timing_bwd(fa, card):
+    """Each backward kernel at the bench shape (B16 T512 H8 D64 causal):
+    CUDA events, its bound, the plain backward and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    b, t, h, kv, d = 16, 512, 8, 8, 64
+    q, k, v, do = bwd_inputs(b, t, h, kv, d, 9)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do * o).sum(-1).permute(0, 2, 1)
+    scale = 1.0 / math.sqrt(d)
+    args = (q, k, v, do, lse, delta, True, 0, scale)
+    ms = {"dkv": cuda_time_ms(lambda: fa.launch_bwd_dkv(*args), 30),
+          "dq": cuda_time_ms(lambda: fa.launch_bwd_dq(*args), 30)}
+    pair_ms = cuda_time_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+        30)
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=True), 5)
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 30)
+    work = fa.backward_work(b, t, h, d, causal=True, kv=kv)
+    records = {}
+    for name in ("dkv", "dq"):
+        flops, nbytes = work[name]
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        rec = dict(shape=[b, t, h, kv, d], causal=True, card=card,
+                   ms=ms[name], pair_ms=pair_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, flops=flops, bytes=nbytes,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   achieved_tflops=flops / (ms[name] * 1e-3) / 1e12)
+        emit("timing_bwd", kernel="flash_attention_bwd_" + name, **rec)
+        records[name] = rec
+    return records
+
+
+def lm_workflow(flash):
+    """The bench LM on the card from LM_SEED, one epoch, initialised;
+    ``flash`` routes attention through the kernels or the plain
+    version."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models import char_lm
+    root.common.engine.flash_attention = bool(flash)
+    prng.seed_all(LM_SEED)
+    wf = char_lm.build_bench_workflow()
+    wf.decision.max_epochs = 1          # the bench config never stops
+    wf.initialize()                     # default device: the card
+    return wf
+
+
+def phase_train_lm(card):
+    """The bench LM, one epoch with the kernels and one with the plain
+    attention, from one seed; returns the kernel run's workflow and its
+    launches per kernel."""
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.telemetry import counters
+    names = (fa.FWD_LAUNCHES, fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)
+    runs = {}
+    try:
+        for flash in (True, False):
+            wf = lm_workflow(flash)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters.counters.reset()
+            t0 = time.perf_counter()
+            wf.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[flash] = dict(
+                wf=wf, wall=wall,
+                launches=[int(counters.get(n)) for n in names],
+                peak=int(torch.cuda.max_memory_allocated()),
+                loss={cls: list(wf.decision.epoch_losses[cls])
+                      for cls in (1, 2)},
+                err={cls: list(wf.decision.epoch_metrics[cls])
+                     for cls in (1, 2)})
+        kern, plain = runs[True], runs[False]
+        wf = kern["wf"]
+        diff = torch.cat([
+            (t - plain["wf"].train_step.params[n][k]).abs().flatten()
+            for n, p in wf.train_step.params.items() for k, t in p.items()])
+        diff = diff.sort().values
+        w_max = float(diff[-1])
+        w_p999 = float(diff[int(0.999 * (diff.numel() - 1))])
+        loss_rel = max(abs(a - b) / abs(b) for cls in (1, 2)
+                       for a, b in zip(kern["loss"][cls],
+                                       plain["loss"][cls]))
+        prompt = [int(x) for x in wf.loader.original_data.mem[0][:32]]
+        root.common.engine.flash_attention = True
+        tokens = char_lm.generate(wf, prompt, LM_N_NEW, temperature=0)
+        root.common.engine.flash_attention = False
+        plain_tokens = char_lm.generate(wf, prompt, LM_N_NEW, temperature=0)
+    finally:
+        root.common.engine.flash_attention = True
+    steps = wf.loader.class_lengths[2] // wf.loader.max_minibatch_size
+    valid_steps = -(-wf.loader.class_lengths[1]
+                    // wf.loader.max_minibatch_size)
+    n_blocks = sum(1 for c in wf.layers_config
+                   if c["type"] == "transformer_block")
+    train_tokens = (wf.loader.class_lengths[2]
+                    * wf.loader.original_data.shape[1])
+    emit("train_lm", card=card, model="char-lm-bench 6x512 h8 ffn2048 "
+         "v256 T512", mb=wf.loader.max_minibatch_size, epochs=1,
+         train_steps=steps, valid_steps=valid_steps,
+         launches_kernel_run=dict(zip(("fwd", "dkv", "dq"),
+                                      kern["launches"])),
+         launches_plain_run=dict(zip(("fwd", "dkv", "dq"),
+                                     plain["launches"])),
+         nll_per_token_kernel={"train": kern["loss"][2],
+                               "validation": kern["loss"][1]},
+         nll_per_token_plain={"train": plain["loss"][2],
+                              "validation": plain["loss"][1]},
+         err_kernel={"train": kern["err"][2], "validation": kern["err"][1]},
+         err_plain={"train": plain["err"][2], "validation": plain["err"][1]},
+         nll_max_rel_diff=loss_rel, final_weight_max_abs_diff=w_max,
+         final_weight_p999_abs_diff=w_p999,
+         epoch_ms_kernel=kern["wall"] * 1e3,
+         epoch_ms_plain=plain["wall"] * 1e3,
+         train_tokens_per_s_kernel=train_tokens / kern["wall"],
+         train_tokens_per_s_plain=train_tokens / plain["wall"],
+         peak_memory_bytes_kernel=kern["peak"],
+         peak_memory_bytes_plain=plain["peak"],
+         greedy_tokens=tokens, greedy_tokens_plain=plain_tokens)
+    want = [n_blocks * (steps + valid_steps), n_blocks * steps,
+            n_blocks * steps]
+    if kern["launches"] != want or plain["launches"] != [0, 0, 0] \
+            or want != [6 * 72, 6 * 64, 6 * 64]:
+        raise AssertionError("LM launches %s (plain %s), want %s"
+                             % (kern["launches"], plain["launches"], want))
+    if not all(math.isfinite(x) for cls in (1, 2)
+               for x in kern["loss"][cls]):
+        raise AssertionError("non-finite LM loss")
+    if loss_rel > TOL_LM_LOSS_REL:
+        raise AssertionError("NLL/token kernel vs plain differs by %g "
+                             "relative" % loss_rel)
+    if not (w_max <= TOL_LM_WEIGHTS_MAX and w_p999 <= TOL_LM_WEIGHTS_P999):
+        raise AssertionError("final LM weights kernel vs plain differ: max "
+                             "%g, 99.9th percentile %g" % (w_max, w_p999))
+    if len(tokens) != LM_N_NEW or tokens != plain_tokens:
+        raise AssertionError("greedy tokens from the trained LM differ from "
+                             "the plain path: %s vs %s"
+                             % (tokens, plain_tokens))
+    return wf, dict(zip(("fwd", "dkv", "dq"), kern["launches"]))
+
+
+def phase_train_lm_breakdown(card, wf):
+    """Where 4 train steps of the bench LM spend their time (kernel
+    route): torch.profiler's device busy share, launches per step, top
+    kernels and the flash kernels' share."""
+    import torch
+    step, loader = wf.train_step, wf.loader
+    dataset, targets = step._dataset()
+    mb = loader.max_minibatch_size
+    n_valid = loader.class_lengths[1]
+    plan = (n_valid + torch.arange(4 * mb, device=step.device,
+                                   dtype=torch.int32)).reshape(4, mb)
+    mask = torch.ones(plan.shape, device=step.device)
+
+    def run():
+        step._train_plan(step.params, step.opt_state, step._zero_accum(),
+                         dataset, targets, plan, mask, 1.0)
+
+    run()                               # warm
+    rec = profiled(run)
+    flash = {key: sum(k["ms"] for k in rec["top_kernels"] if key in k["name"])
+             for key in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    busy = rec["device_busy_ms"] or float("nan")
+    emit("train_lm_breakdown", card=card, steps=4,
+         step_ms=rec["profiled_wall_ms"] / 4,
+         launches_per_step=(rec["kernel_launches"] or 0) / 4,
+         flash_ms=flash,
+         flash_share_of_device={k: v / busy for k, v in flash.items()},
+         **rec)
+
+
 def post(url, payload, timeout=600.0):
     req = urllib.request.Request(
         url, data=json.dumps(payload).encode(),
@@ -600,7 +897,7 @@ def profiled(fn):
         device_idle_share=(1 - busy_ms / wall_ms) if kernels else None,
         kernel_launches=sum(k[2] for k in kernels) if kernels else None,
         top_kernels=[{"name": k[1][:80], "ms": k[0], "calls": k[2]}
-                     for k in kernels[:8]])
+                     for k in kernels[:12]])
 
 
 def phase_breakdown(card, model, prompts):
@@ -667,6 +964,22 @@ def main():
     launches = phase_serve(card)
     launches_ffc = phase_train(card)
     phase_train_breakdown(card)
+    worst_bwd = phase_kernels_bwd(fa)
+    timing_bwd = phase_timing_bwd(fa, card)
+    lm_wf, launches_lm = phase_train_lm(card)
+    phase_train_lm_breakdown(card, lm_wf)
+
+    def bwd_entry(name, what):
+        rec = timing_bwd[name]
+        return {"name": "flash_attention_bwd_" + name, "route": "cuda",
+                "source": "veles_tpu_torch/csrc/flash_attention_bwd.cu",
+                "replaces": "veles_tpu/ops/flash_attention.py:%d" % what,
+                "launches": launches_lm[name],
+                "max_abs_err": worst_bwd[name], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"], "pair_ms": rec["pair_ms"],
+                "ok": True}
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -676,7 +989,10 @@ def main():
         "launches": launches, "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"], "ok": True}, {
+        "library_ms": timing["library_ms"],
+        "launches_by_path": {"serve": launches,
+                             "train_lm": launches_lm["fwd"]},
+        "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",
         "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",
         "replaces": "veles_tpu/ops/fused_fc.py:55",
@@ -685,8 +1001,8 @@ def main():
         "ms": timing_ffc["ms"], "plain_ms": timing_ffc["plain_ms"],
         "bound_ms": timing_ffc["bound_ms"],
         "bound_by": timing_ffc["bound_by"], "library_ms": None,
-        "general_path_ms": timing_ffc["general_path_ms"], "ok": True}]}),
-        flush=True)
+        "general_path_ms": timing_ffc["general_path_ms"], "ok": True},
+        bwd_entry("dkv", 248), bwd_entry("dq", 309)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

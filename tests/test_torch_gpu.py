@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need the CUDA card: the hand-written
-flash-attention and fused-FC SGD kernels against their plain torch
-versions, their builds for ``sm_90a``, the serving path through the
-first and the training workflow through the second. Each skips without
-a card (decided inside the fixture, never at import).
+flash-attention forward and backward kernels and the fused-FC SGD kernel
+against their plain torch versions, their builds for ``sm_90a``, the
+serving path and LM training through the flash kernels, and the MNIST
+training workflow through the fused-FC kernel. Each skips without a
+card (decided inside the fixture, never at import).
 
 This file imports torch and the port only — the card's machine has no
 JAX, and ``tests/conftest.py`` imports it — so run it there with
@@ -10,8 +11,11 @@ JAX, and ``tests/conftest.py`` imports it — so run it there with
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 Tolerance: max abs error <= 1e-4 for kernel vs plain in float32 (only
-the summation order differs); for the fused-FC epoch also the loss sum
-within 1e-5 relative and the error count exact."""
+the summation order differs; for the backward, 1e-4 · max(1, max|plain|));
+for the fused-FC epoch also the loss sum within 1e-5 relative and the
+error count exact; a small LM's epoch, kernel vs plain attention: NLL
+per token within 1e-5 relative, weights within 1e-3 (99.9 % within
+1e-5)."""
 import json
 import urllib.request
 
@@ -138,16 +142,135 @@ def test_generation_api_serves_on_the_card(model):
 
 
 def test_flash_forward_refuses_to_drop_gradients(cuda):
-    """The kernel writes o outside autograd: where q/k/v need gradients
-    it raises instead of handing back a tensor with no history."""
+    """``flash_attention_fwd`` writes o outside autograd: where q/k/v
+    need gradients it raises and names the differentiable entry, whose
+    gradients (the backward kernel pair) match autograd through the plain
+    attention."""
     q, k, v = qkv(cuda, 1, 16, 2, 2, 32, seed=3)
     q.requires_grad_(True)
-    with pytest.raises(VelesError, match="flash backward not ported yet"):
+    with pytest.raises(VelesError, match="call flash_attention"):
         fa.flash_attention_fwd(q, k, v, causal=True)
     with torch.no_grad():
         o, _ = fa.flash_attention_fwd(q, k, v, causal=True)
     ro, _ = fa.flash_attention_fwd_reference(q.detach(), k, v, causal=True)
     assert float((o - ro).abs().max()) <= 1e-4
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    plain = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    do = torch.randn_like(q)
+    got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True),
+                              leaves, do)
+    from veles_tpu_torch.nn.attention import attention_reference
+    want = torch.autograd.grad(attention_reference(*plain, causal=True),
+                               plain, do)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+BWD_CASES = [
+    # (B, T, H, KV, D, causal, window)
+    (16, 512, 8, 8, 64, True, 0), (2, 300, 8, 2, 64, True, 0),
+    (2, 512, 8, 8, 64, True, 128), (1, 333, 4, 2, 256, True, 100),
+    (2, 257, 8, 8, 128, False, 0), (1, 1, 2, 2, 48, True, 0),
+    (2, 200, 8, 8, 32, False, 0)]
+
+
+@pytest.mark.parametrize("b,t,h,kv,d,causal,window", BWD_CASES)
+def test_backward_kernels_match_plain(cuda, b, t, h, kv, d, causal,
+                                      window):
+    q, k, v = qkv(cuda, b, t, h, kv, d, seed=t + 1)
+    do = qkv(cuda, b, t, h, h, d, seed=t + 2)[0]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    before = [counters.get(n) for n in (fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                            causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert [counters.get(n) for n in (fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)] \
+        == [x + 2 for x in before]
+    for a, r in zip(got, want):
+        tol = 1e-4 * max(1.0, float(r.abs().max()))
+        assert float((a - r).abs().max()) <= tol
+    # a fixed loop order and no atomics: relaunches give the same bits
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_backward_kernels_read_strided_inputs(cuda):
+    """q/k/v as views into a fused (B, T, 3, H, D) buffer."""
+    buf = torch.randn(2, 100, 3, 4, 32, device=cuda)
+    q, k, v = buf.unbind(2)
+    do = torch.randn(2, 100, 4, 32, device=cuda)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                            causal=True)
+    for a, r in zip(got, want):
+        assert float((a - r).abs().max()) <= 1e-4 * max(
+            1.0, float(r.abs().max()))
+
+
+def test_backward_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v = qkv(cuda, 1, 16, 2, 2, 32, seed=0)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(q, k, v, o, lse, o.bfloat16())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 4, 1, 320, device=cuda)
+        fa.flash_attention_bwd(big, big, big, big, torch.zeros(
+            1, 1, 4, device=cuda), big)
+    with pytest.raises(ValueError, match="stride"):
+        fa.flash_attention_bwd(q[..., ::2], k[..., ::2], v[..., ::2],
+                               o[..., ::2], lse, o[..., ::2])
+
+
+def test_backward_kernels_build_for_sm90a(cuda):
+    from veles_tpu_torch.ops import _build
+    _build.load("flash_attention_bwd")
+    assert "sm_90a" in _build.build_log("flash_attention_bwd")
+
+
+def test_lm_train_steps_kernel_route_match_plain(cuda):
+    """A small char LM on the card, 1 epoch from one seed: the kernel
+    route (forward and backward kernels in every block) against the
+    plain attention under autograd."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import char_lm
+
+    def run(flash):
+        root.common.engine.flash_attention = flash
+        prng.seed_all(11)
+        wf = char_lm.build_workflow(epochs=1, minibatch_size=16,
+                                    n_train=64, n_valid=32, n_blocks=2,
+                                    dim=64, lr=1e-4)
+        wf.initialize()
+        before = [counters.get(n) for n in (
+            LAUNCHES, fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)]
+        wf.run()
+        after = [counters.get(n) for n in (
+            LAUNCHES, fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)]
+        return wf, [a - b for a, b in zip(after, before)]
+
+    try:
+        kern, launches = run(True)
+        plain, none = run(False)
+    finally:
+        root.common.engine.flash_attention = True
+    # 2 blocks x (4 train + 2 validation steps); backward on train only
+    assert launches == [2 * 6, 2 * 4, 2 * 4] and none == [0, 0, 0]
+    for cls in (1, 2):
+        numpy.testing.assert_allclose(kern.decision.epoch_losses[cls],
+                                      plain.decision.epoch_losses[cls],
+                                      rtol=1e-5)
+    # adam's normalised step is about +-lr wherever a gradient is
+    # rounding noise, so one element may flip by 2 lr a step; the bulk
+    # agrees to rounding
+    diff = torch.cat([(t - plain.train_step.params[name][k]).abs().flatten()
+                      for name, p in kern.train_step.params.items()
+                      for k, t in p.items()])
+    assert float(diff.max()) <= 1e-3
+    assert float(torch.quantile(diff, 0.999)) <= 1e-5
 
 
 FFC_LAUNCHES = "veles_fused_fc_launches_total"

@@ -73,9 +73,9 @@ def test_block_norm(norm):
     p = {"ln1_g": rand(rng, 16), "ln1_b": rand(rng, 16)}
     ref = jtr.block_norm(jnp, types.SimpleNamespace(norm=norm), p,
                          jnp.asarray(x), "ln1")
-    blk = types.SimpleNamespace(norm=norm, **{
-        k: torch.from_numpy(v) for k, v in p.items()})
-    close(ttr.block_norm(blk, torch.from_numpy(x), "ln1"), ref)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    close(ttr.block_norm(types.SimpleNamespace(norm=norm), tp,
+                         torch.from_numpy(x), "ln1"), ref)
 
 
 @pytest.mark.parametrize("ffn", ["gelu", "swiglu"])
@@ -88,9 +88,9 @@ def test_block_ffn(ffn):
          "b1": rand(rng, 24, scale=0.1), "b2": rand(rng, 16, scale=0.1)}
     ref = jtr.block_ffn(jnp, types.SimpleNamespace(ffn=ffn), p,
                         jnp.asarray(x))
-    blk = types.SimpleNamespace(ffn=ffn, **{
-        k: torch.from_numpy(v) for k, v in p.items()})
-    close(ttr.block_ffn(blk, torch.from_numpy(x)), ref)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    close(ttr.block_ffn(types.SimpleNamespace(ffn=ffn), tp,
+                        torch.from_numpy(x)), ref)
 
 
 @pytest.mark.parametrize("hd,base", [(8, 10000.0), (8, 500000.0),

@@ -2,12 +2,18 @@
 
 A second package beside the JAX one, with the same module names so a
 reader finds each counterpart: ``nn/transformer.py`` here mirrors
-``veles_tpu/nn/transformer.py`` there. The slice ported so far is the
-serving path of the transformer LM — HTTP request →
-:class:`restful_api.GenerationAPI` → :func:`nn.sampling.generate` →
-KV-cached prefill + decode over ``Embedding → TransformerBlock×N →
-LMHead`` — with prefill attention in a hand-written Hopper kernel
-(``csrc/flash_attention_fwd.cu``).
+``veles_tpu/nn/transformer.py`` there. Ported so far:
+
+- the serving path of the transformer LM — HTTP request →
+  :class:`restful_api.GenerationAPI` → :func:`nn.sampling.generate` →
+  KV-cached prefill + decode over ``Embedding → TransformerBlock×N →
+  LMHead`` — with prefill attention in a hand-written Hopper kernel
+  (``csrc/flash_attention_fwd.cu``);
+- training through the Workflow/Unit graph (``StandardWorkflow`` →
+  ``Repeater`` → loader → ``TrainStep`` → ``DecisionGD``): MNIST, whose
+  epochs run in the fused-FC SGD kernel (``csrc/fused_fc_sgd.cu``), and
+  the transformer LM with adam, whose attention runs forward and
+  backward in the flash kernels (``csrc/flash_attention_bwd.cu``).
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``veles_tpu``. Entry points run on the CUDA card unless the caller

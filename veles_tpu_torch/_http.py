@@ -33,13 +33,20 @@ def read_json_object(handler) -> Dict[str, Any]:
     return body
 
 
+class _Server(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5: a burst of concurrent
+    # clients overflows it while the accept thread waits for the
+    # interpreter lock, and the overflowing connections are reset
+    request_queue_size = 128
+
+
 class HTTPService:
     """Owns a ThreadingHTTPServer + daemon thread."""
 
     def __init__(self, handler_cls, port: int = 0,
                  thread_name: str = "http",
                  host: str = "127.0.0.1") -> None:
-        self._httpd = ThreadingHTTPServer((host, port), handler_cls)
+        self._httpd = _Server((host, port), handler_cls)
         self.port = self._httpd.server_port
         self._thread: Optional[threading.Thread] = None
         self._thread_name = thread_name

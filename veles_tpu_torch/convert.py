@@ -6,8 +6,9 @@ workflow, ``jax.device_get(wf.train_step.params)`` yields.
 :func:`params_from_jax` loads such a tree into a
 :class:`~veles_tpu_torch.nn.standard_workflow.Forwards` stack or into
 an initialised :class:`~veles_tpu_torch.nn.standard_workflow.
-StandardWorkflow` (with its SGD ``opt_state``, so a run resumes on the
-identical trajectory), checking every name and shape first.
+StandardWorkflow` (with its optimiser state — SGD's delta recurrence or
+Adam's ``{"m", "v", "t"}`` — so a run resumes on the identical
+trajectory), checking every name and shape first.
 :func:`random_params` makes a tree of that layout from a numpy seed, for
 runs that need weights but no trained model.
 """
@@ -58,11 +59,33 @@ def _stage(shapes: Shapes, tree: ParamTree, what: str
     return staged
 
 
+def _stage_state(want, got, what: str, path: Tuple[str, ...] = ()):
+    """(path, host copy) for every leaf of ``want`` — one unit's
+    optimiser state in the port, a dict of tensors, nested for Adam —
+    checked entry by entry and shape by shape against ``got``; the copy
+    takes the port's dtype (float32 moments, an int32 step count)."""
+    where = "%s %s" % (what, "/".join(path) or "")
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise VelesError("%s: entries %s, expected %s"
+                             % (where, sorted(got) if isinstance(got, dict)
+                                else type(got).__name__, sorted(want)))
+        return [leaf for k in want
+                for leaf in _stage_state(want[k], got[k], what, path + (k,))]
+    arr = numpy.asarray(got)
+    if tuple(arr.shape) != tuple(want.shape):
+        raise VelesError("%s: shape %s, expected %s"
+                         % (where, arr.shape, tuple(want.shape)))
+    return [(path, numpy.array(arr, dtype=str(want.dtype).split(".")[-1]))]
+
+
 def params_from_jax(target, params: ParamTree,
-                    opt_state: Optional[ParamTree] = None):
-    """Copy ``params`` (and, for a workflow, the SGD ``opt_state`` of the
-    same layout) into ``target`` in place and return it. ``target`` is a
-    ``Forwards`` stack or an initialised ``StandardWorkflow``."""
+                    opt_state: Optional[Dict[str, object]] = None):
+    """Copy ``params`` (and, for a workflow, its ``opt_state`` in the
+    reference's layout: per unit SGD's tree of the params' layout, or
+    Adam's ``{"m": tree, "v": tree, "t": step}``) into ``target`` in
+    place and return it. ``target`` is a ``Forwards`` stack or an
+    initialised ``StandardWorkflow``."""
     step = getattr(target, "train_step", None)
     if step is None:
         if opt_state is not None:
@@ -81,11 +104,22 @@ def params_from_jax(target, params: ParamTree,
     shapes = {n: {k: tuple(t.shape) for k, t in p.items()}
               for n, p in step.params.items()}
     staged = _stage(shapes, params, "parameter tree")
-    staged_opt = ([] if opt_state is None
-                  else _stage(shapes, opt_state, "opt_state"))
-    for tree, rows in ((step.params, staged), (step.opt_state, staged_opt)):
-        for name, pname, arr in rows:
-            tree[name][pname] = torch.from_numpy(arr).to(step.device)
+    staged_opt = []
+    if opt_state is not None:
+        if set(opt_state) != set(step.opt_state):
+            raise VelesError("opt_state units do not match: %s, expected %s"
+                             % (sorted(opt_state), sorted(step.opt_state)))
+        staged_opt = [((name,) + path, arr)
+                      for name, state in step.opt_state.items()
+                      for path, arr in _stage_state(
+                          state, opt_state[name], "opt_state %s" % name)]
+    for name, pname, arr in staged:
+        step.params[name][pname] = torch.from_numpy(arr).to(step.device)
+    for path, arr in staged_opt:
+        node = step.opt_state
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = torch.from_numpy(arr).to(step.device)
     step.sync_params_to_arrays()
     return target
 

@@ -290,3 +290,15 @@ class Loader(Unit):
     def get_metric_values(self) -> Dict[str, object]:
         return {"epochs_served": self.epoch_number,
                 "samples_served": self.samples_served}
+
+
+class LoaderMSE(Loader):
+    """Loader with targets instead of (or beside) integer labels: the
+    (B, T) next-token targets of a language model, or regression
+    targets."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.minibatch_targets = Array(name=self.name + ".minibatch_targets")

@@ -1,9 +1,10 @@
-"""Full-batch loader: the whole dataset in memory, and on the device
+"""Full-batch loaders: the whole dataset in memory, and on the device
 for fused steps (counterpart of ``veles_tpu/loader/fullbatch.py``).
 
-The dataset is placed on the workflow's device once; a fused
-``TrainStep`` gathers each minibatch's rows there by plan index, so no
-sample crosses from the host per step.
+The dataset (and, for :class:`FullBatchLoaderMSE`, the row-aligned
+targets) is placed on the workflow's device once; a fused ``TrainStep``
+gathers each minibatch's rows there by plan index, so no sample crosses
+from the host per step. Integer arrays (token ids) keep their dtype.
 """
 
 from __future__ import annotations
@@ -14,7 +15,15 @@ import numpy
 
 from ..config import root
 from ..memory import Array
-from .base import Loader
+from .base import TRAIN, VALID, Loader, LoaderMSE
+
+
+def _storage_dtype(arr: numpy.ndarray):
+    """Integer arrays (token ids) keep their dtype; float arrays take the
+    engine's precision."""
+    if numpy.issubdtype(arr.dtype, numpy.integer):
+        return arr.dtype
+    return root.common.engine.precision_type
 
 
 class FullBatchLoader(Loader):
@@ -31,12 +40,26 @@ class FullBatchLoader(Loader):
     def create_originals(self, data: numpy.ndarray,
                          labels: Optional[numpy.ndarray] = None) -> None:
         data = numpy.asarray(data)
-        dtype = (data.dtype if numpy.issubdtype(data.dtype, numpy.integer)
-                 else root.common.engine.precision_type)
-        self.original_data.reset(numpy.ascontiguousarray(data, dtype=dtype))
+        self.original_data.reset(numpy.ascontiguousarray(
+            data, dtype=_storage_dtype(data)))
         if labels is not None:
             self.original_labels.reset(
                 numpy.ascontiguousarray(labels, dtype=numpy.int32))
+
+    def resize_validation(self, ratio: float) -> None:
+        """Carve a random validation subset out of the train region: the
+        train rows are permuted first (from the loader's stream, as the
+        reference does), and every row-aligned array follows them."""
+        n_train = self.class_lengths[TRAIN]
+        n_valid = int(n_train * ratio)
+        start = self.class_lengths[0] + self.class_lengths[VALID]
+        perm = start + self.prng.permutation(n_train)
+        for arr in (self.original_data, self.original_labels,
+                    getattr(self, "original_targets", None)):
+            if arr is not None and arr:
+                arr.mem[start:] = arr.mem[perm]
+        self.class_lengths[VALID] += n_valid
+        self.class_lengths[TRAIN] -= n_valid
 
     def create_minibatch_data(self) -> None:
         n = self.max_minibatch_size
@@ -53,3 +76,36 @@ class FullBatchLoader(Loader):
         if self.original_labels:
             self.minibatch_labels.map_invalidate()[...] = \
                 self.original_labels.mem[idx]
+
+
+class FullBatchLoaderMSE(FullBatchLoader, LoaderMSE):
+    """Full-batch loader with row-aligned targets (``original_targets``,
+    served as ``minibatch_targets``): a language model's (N, T) int32
+    next-token targets beside its (N, T) int32 token rows."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.original_targets = Array(name=self.name + ".original_targets")
+
+    def create_originals(self, data, labels=None, targets=None):
+        super().create_originals(data, labels)
+        if targets is not None:
+            targets = numpy.asarray(targets)
+            self.original_targets.reset(numpy.ascontiguousarray(
+                targets, dtype=_storage_dtype(targets)))
+
+    def create_minibatch_data(self) -> None:
+        super().create_minibatch_data()
+        if self.original_targets:
+            n = self.max_minibatch_size
+            self.minibatch_targets.reset(numpy.zeros(
+                (n,) + self.original_targets.shape[1:],
+                dtype=self.original_targets.dtype))
+
+    def fill_minibatch(self) -> None:
+        super().fill_minibatch()
+        if self.original_targets:
+            self.minibatch_targets.map_invalidate()[...] = \
+                self.original_targets.mem[self.minibatch_indices.mem]

@@ -56,10 +56,12 @@ def attention_core(q, k, v, *, causal: bool = False,
                    window: Optional[int] = None):
     """The per-shape attention chooser shared by ``TransformerBlock`` and
     the sampler's prefill. q: (B, T, H, Dh); k/v may carry fewer heads
-    (GQA) → (B, T, H, Dh). On the card, every head dim the flash kernel
-    takes goes through it (``ops/flash_attention.choose_flash``), with
-    grouped k/v read natively; otherwise the plain reference runs on
-    expanded k/v."""
+    (GQA) → (B, T, H, Dh). On the card, every head dim the flash kernels
+    take goes through the differentiable ``flash_attention``
+    (``ops/flash_attention.choose_flash``; its backward is the dK/dV and
+    dQ kernels), with grouped k/v read natively; otherwise, and with
+    ``root.common.engine.flash_attention = False``, the plain reference
+    runs on expanded k/v under autograd."""
     t, hd, h = q.shape[1], q.shape[-1], q.shape[2]
     if fa.choose_flash(t, hd, q.device):
         return fa.flash_attention(q, k, v, causal=causal, window=window)

@@ -33,6 +33,10 @@ class DecisionBase(Unit):
         self._epochs_since_best = 0
         self.epoch_metrics: Dict[int, List[float]] = {TRAIN: [], VALID: [],
                                                       TEST: []}
+        #: per set, each epoch's sum_loss / n_samples: the mean loss per
+        #: counted sample, NLL per token under a sequence evaluator
+        self.epoch_losses: Dict[int, List[float]] = {TRAIN: [], VALID: [],
+                                                     TEST: []}
         self._accum: Dict[int, Dict[str, float]] = {
             TRAIN: {}, VALID: {}, TEST: {}}
         self.demand("loader")
@@ -72,6 +76,10 @@ class DecisionBase(Unit):
         self.epoch_number += 1
         line = ["epoch %d" % self.epoch_number]
         for set_idx in (TEST, VALID, TRAIN):
+            acc = self._accum[set_idx]
+            if acc.get("n_samples"):
+                self.epoch_losses[set_idx].append(
+                    acc.get("sum_loss", 0.0) / acc["n_samples"])
             m = self.epoch_metric(set_idx)
             if m is not None:
                 self.epoch_metrics[set_idx].append(m)

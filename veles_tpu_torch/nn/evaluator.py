@@ -1,5 +1,6 @@
 """Evaluator units: loss and quality metrics (counterpart of
-``veles_tpu/nn/evaluator.py``; the softmax evaluator only).
+``veles_tpu/nn/evaluator.py``; the softmax and the per-token softmax
+evaluators).
 
 ``loss(logits, labels, mask)`` is the mean cross-entropy over the mask's
 real rows (fused log-softmax); ``metrics_fn`` counts errors with argmax
@@ -66,3 +67,30 @@ class EvaluatorSoftmax(EvaluatorBase):
         pred = torch.argmax(logits, dim=-1)
         wrong = (pred != labels.long()) & (mask > 0)
         return {"n_err": wrong.sum().float(), "n_samples": mask.sum()}
+
+
+class EvaluatorSoftmaxSeq(EvaluatorBase):
+    """Per-position cross-entropy for language modelling: logits
+    (B, T, V) against int targets (B, T). A valid row's mask covers all
+    its positions; the metrics count tokens, so err is the per-token
+    error rate and sum_loss / n_samples the mean NLL per token."""
+
+    MAPPING = "evaluator_softmax_seq"
+    hide_from_registry = False
+
+    def loss(self, logits, targets, mask):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+        w = mask[:, None] * torch.ones(nll.shape[1], device=nll.device)
+        return (nll * w).sum() / torch.clamp(w.sum(), min=1)
+
+    def metrics_fn(self, logits, targets, mask):
+        pred = torch.argmax(logits, dim=-1)
+        w = mask[:, None] * torch.ones(pred.shape[1], device=pred.device)
+        wrong = (pred != targets.long()).float() * w
+        return {"n_err": wrong.sum(), "n_samples": w.sum()}
+
+    def sum_loss_weight(self, out, mask):
+        # n_samples counts tokens: the per-token mean loss times the
+        # token count accumulates to sum_loss / n_samples = NLL / token
+        return mask.sum() * out.shape[1]

@@ -25,8 +25,14 @@ from .. import prng
 #: forward class → gd class
 MATCHING: Dict[type, type] = {}
 
-#: every solver name the reference accepts; only "sgd" is ported
+#: every solver name the reference accepts, and those ported
 SOLVERS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "adadelta")
+PORTED_SOLVERS = ("sgd", "adam", "adamw")
+
+
+def _f32(a, b) -> float:
+    """The f32 product of two scalars."""
+    return float(numpy.float32(a) * numpy.float32(b))
 
 
 def matches(forward_cls: type) -> Callable[[type], type]:
@@ -114,8 +120,10 @@ class ForwardBase(AcceleratedUnit):
 
 class GradientDescentBase(AcceleratedUnit):
     """Base of gradient-descent units: the Znicz SGD rule
-    ``delta = lr·(g + wd·p) + mu·delta_prev; p -= delta``, with the bias
-    on its own learning rate and decay. The other solvers, gradient
+    ``delta = lr·(g + wd·p) + mu·delta_prev; p -= delta``, and Adam
+    (``solver="adam"``: coupled decay, ``g + wd·p`` through the moments;
+    ``"adamw"``: decoupled, ``p -= lr·wd·p`` beside the step), with the
+    bias on its own learning rate and decay. The other solvers, gradient
     clipping and the standalone backward are not ported yet."""
 
     hide_from_registry = True
@@ -135,42 +143,82 @@ class GradientDescentBase(AcceleratedUnit):
         self.gradient_clip = kwargs.get("gradient_clip", 0.0)
         self.gradient_clip_norm = kwargs.get("gradient_clip_norm", 0.0)
         self.solver = kwargs.get("solver", "sgd")
+        self.beta1 = kwargs.get("beta1", 0.9)
+        self.beta2 = kwargs.get("beta2", 0.999)
+        self.epsilon = kwargs.get("epsilon", 1e-8)
         if self.solver not in SOLVERS:
             raise Bug("unknown solver %r (%s)"
                       % (self.solver, " | ".join(SOLVERS)))
 
     def _check_ported(self) -> None:
-        if self.solver != "sgd":
-            raise VelesError("solver %r is not ported yet (sgd only)"
-                             % self.solver)
+        if self.solver not in PORTED_SOLVERS:
+            raise VelesError("solver %r is not ported yet (%s only)"
+                             % (self.solver, ", ".join(PORTED_SOLVERS)))
         if self.gradient_clip or self.gradient_clip_norm:
             raise VelesError("gradient clipping is not ported yet")
 
-    def init_state(self, params: Dict[str, torch.Tensor]
-                   ) -> Dict[str, torch.Tensor]:
-        """The SGD delta recurrence: zeros like the parameters."""
+    def init_state(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """Zeros like the parameters: the SGD delta recurrence, or the
+        Adam moments ``{"m", "v"}`` and the int32 step count ``"t"``."""
         self._check_ported()
+        if self.solver in ("adam", "adamw"):
+            device = next(iter(params.values())).device
+            return {"m": {k: torch.zeros_like(p) for k, p in params.items()},
+                    "v": {k: torch.zeros_like(p) for k, p in params.items()},
+                    "t": torch.zeros((), dtype=torch.int32, device=device)}
         return {k: torch.zeros_like(p) for k, p in params.items()}
 
+    def knobs(self, k: str, lr_scale: Any) -> Tuple[float, float]:
+        """(lr, wd) of parameter ``k``: the bias on its own learning rate
+        and decay. The learning rate is rounded to f32 with the
+        schedule's factor, as the reference's traced product is."""
+        base = (self.learning_rate_bias if k == "bias"
+                else self.learning_rate)
+        wd = float(self.weight_decay_bias if k == "bias"
+                   else self.weight_decay)
+        return _f32(base, lr_scale), wd
+
     def update(self, params: Dict[str, torch.Tensor],
-               grads: Dict[str, torch.Tensor],
-               state: Dict[str, torch.Tensor], lr_scale: Any = 1.0
-               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """One Znicz SGD step; ``lr_scale`` is the schedule's factor (an
-        f32 scalar), the learning rates are rounded to f32 with it as
-        the reference's traced product is."""
+               grads: Dict[str, torch.Tensor], state: Any,
+               lr_scale: Any = 1.0) -> Tuple[Dict[str, torch.Tensor], Any]:
+        """One step of the unit's solver; ``lr_scale`` is the schedule's
+        factor (an f32 scalar). Returns (new params, new state)."""
         self._check_ported()
+        if self.solver in ("adam", "adamw"):
+            return self._adam(params, grads, state, lr_scale)
         new_params, new_state = {}, {}
         for k, p in params.items():
-            base = (self.learning_rate_bias if k == "bias"
-                    else self.learning_rate)
-            lr = float(numpy.float32(base) * numpy.float32(lr_scale))
-            wd = float(self.weight_decay_bias if k == "bias"
-                       else self.weight_decay)
+            lr, wd = self.knobs(k, lr_scale)
             delta = lr * (grads[k] + wd * p) + float(self.momentum) * state[k]
             new_params[k] = p - delta
             new_state[k] = delta
         return new_params, new_state
+
+    def _adam(self, params, grads, state, lr_scale):
+        """The reference's Adam, op for op in f32: the bias corrections
+        ``1 - beta ** t`` are f32 powers of the f32 step count on the
+        device, as the reference computes them, not float64 on the
+        host."""
+        decoupled = self.solver == "adamw"
+        t = state["t"] + 1
+        tf = t.to(torch.float32)
+        c1 = 1 - self.beta1 ** tf
+        c2 = 1 - self.beta2 ** tf
+        new_m, new_v, new_params = {}, {}, {}
+        for k, p in params.items():
+            lr, wd = self.knobs(k, lr_scale)
+            g = grads[k]
+            if not decoupled:
+                g = g + wd * p
+            m = self.beta1 * state["m"][k] + (1 - self.beta1) * g
+            v = self.beta2 * state["v"][k] + (1 - self.beta2) * g * g
+            step = lr * (m / c1) / (torch.sqrt(v / c2) + self.epsilon)
+            if decoupled:
+                # the reference's f32 product lr·wd
+                step = step + _f32(lr, wd) * p
+            new_params[k] = p - step
+            new_m[k], new_v[k] = m, v
+        return new_params, {"m": new_m, "v": new_v, "t": t}
 
     def initialize(self, device=None, **kwargs):
         if self.forward is None:

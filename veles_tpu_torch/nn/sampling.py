@@ -24,10 +24,9 @@ import torch
 
 from ..error import VelesError
 from ..telemetry.counters import inc
-from .attention import attention_core
 from .transformer import (Embedding, LMHead, PositionalEmbedding,
-                          TransformerBlock, _rope, _rotate, block_ffn,
-                          block_norm, rope_angles)
+                          TransformerBlock, _rotate, block_apply, block_ffn,
+                          block_norm, block_qkv, rope_angles)
 
 
 def _rope_at(x, pos: int, base=10000.0):
@@ -62,24 +61,6 @@ def split_stack(forwards) -> Dict[str, object]:
             "head": head}
 
 
-def _block_prefill(block, x, cache_k, cache_v):
-    """Full-window pass through one block, writing K/V into the caches'
-    first T rows (in place). The attention goes through the same
-    chooser as ``TransformerBlock.forward``, so prefill logits cannot
-    drift from the full forward."""
-    b, t, d = x.shape
-    q, k, v = block.qkv(block_norm(block, x, "ln1"))
-    if block.rope:
-        q, k = _rope(q, block.rope_base), _rope(k, block.rope_base)
-    # the cache stores the UNREPEATED kv heads (GQA)
-    cache_k[:, :t] = k
-    cache_v[:, :t] = v
-    o = attention_core(q, k, v, causal=True,
-                       window=block.window).reshape(b, t, d)
-    x = x + o @ block.wo
-    return x + block_ffn(block, block_norm(block, x, "ln2"))
-
-
 def _block_step(block, x_t, cache_k, cache_v, pos: int):
     """One-token pass: x_t (B, 1, D), caches (B, T_max, KV, Dh) updated
     in place at row ``pos``; attention reads the cache rows <= pos (and
@@ -88,7 +69,8 @@ def _block_step(block, x_t, cache_k, cache_v, pos: int):
     b, _, d = x_t.shape
     h, kv = block.n_heads, block.n_kv_heads
     g, hd = h // kv, block.head_dim
-    q, k, v = block.qkv(block_norm(block, x_t, "ln1"))
+    p = block.params()
+    q, k, v = block_qkv(block, p, block_norm(block, p, x_t, "ln1"))
     if block.rope:
         q = _rope_at(q, pos, block.rope_base)
         k = _rope_at(k, pos, block.rope_base)
@@ -107,8 +89,8 @@ def _block_step(block, x_t, cache_k, cache_v, pos: int):
     w = w / w.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgqt,btkd->bqkgd", w,
                      cache_v.float()).to(x_t.dtype).reshape(b, 1, h * hd)
-    x_t = x_t + o @ block.wo
-    return x_t + block_ffn(block, block_norm(block, x_t, "ln2"))
+    x_t = x_t + o @ p["wo"]
+    return x_t + block_ffn(block, p, block_norm(block, p, x_t, "ln2"))
 
 
 def _embed_ids(stem, ids):
@@ -130,16 +112,19 @@ def _embed_prompt(stem, pos_emb, ids, pos0: int = 0):
 
 
 def _prefill_blocks(blocks, x, cache_len: int):
-    """Every block's :func:`_block_prefill` over fresh zero K/V caches of
-    ``cache_len`` rows → (x, [(ck, cv), ...]). Each block shapes its own
-    cache (heads may differ per block; GQA caches hold n_kv_heads)."""
+    """Every block's full-window pass over fresh zero K/V caches of
+    ``cache_len`` rows, writing each block's K/V into its cache's first
+    T rows → (x, [(ck, cv), ...]). The pass is the block's own
+    composition (``transformer.block_apply``), causal, so prefill logits
+    cannot drift from the full forward. Each block shapes its own cache
+    (heads may differ per block; GQA caches hold n_kv_heads)."""
     b = x.shape[0]
     caches = []
     for blk in blocks:
         shape = (b, cache_len, blk.n_kv_heads, blk.head_dim)
         ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
         cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        x = _block_prefill(blk, x, ck, cv)
+        x = block_apply(blk, blk.params(), x, cache=(ck, cv), causal=True)
         caches.append((ck, cv))
     return x, caches
 

@@ -9,17 +9,21 @@ list and a loader, as the reference does::
                     └────────────── (not complete) ────────────────────┘
                                     (complete) → EndPoint
 
-Its forward units are All2All units (``nn/all2all.py``) named as the
-reference names them; the per-minibatch compute is the TrainStep.
+Its forward units are the All2All units (``nn/all2all.py``) and the
+transformer LM units (``nn/transformer.py``), named as the reference
+names them; the per-minibatch compute is the TrainStep. Losses:
+``"softmax"`` (labels, ``EvaluatorSoftmax``) and ``"softmax_seq"``
+(per-token targets, ``EvaluatorSoftmaxSeq``, the language models).
 
 :func:`build_forwards` takes the same ``layers`` list of dicts that the
 reference's ``StandardWorkflow`` takes (``models/char_lm.py``
 ``build_workflow``/``build_bench_workflow`` pass it) and returns the
 port's module stack, each layer named as the reference names its unit:
-the dict's ``"name"``, else ``"<type><index>"``. The transformer stack
-is not trainable in the port yet, so there the keys that configure
-training (solver, learning rates, decay, initialisers) are accepted and
-ignored.
+the dict's ``"name"``, else ``"<type><index>"``. The serving modules
+take no training, so there the keys that configure it (solver, learning
+rates, decay, initialisers) are accepted and ignored.
+:func:`forwards_of` builds that stack from a training workflow and its
+trained parameters.
 """
 
 from __future__ import annotations
@@ -37,12 +41,15 @@ from ..plumbing import Repeater
 from ..units import UnitRegistry
 from . import all2all  # noqa: F401 — registers the layer types
 from .decision import DecisionGD
-from .evaluator import EvaluatorSoftmax
+from .evaluator import EvaluatorSoftmax, EvaluatorSoftmaxSeq
 from .lr_adjust import LearningRateAdjust
 from .nn_units import ForwardBase
 from .train_step import TrainStep
 from .transformer import (Embedding, LMHead, PositionalEmbedding,
                           TransformerBlock)
+
+#: ported loss functions: "softmax" on labels, "softmax_seq" per token
+LOSSES = ("softmax", "softmax_seq")
 
 #: layer-dict keys that configure training only
 TRAINING_KEYS = frozenset((
@@ -126,8 +133,9 @@ def _unit_class(type_name: str) -> type:
 
 class StandardWorkflow(AcceleratedWorkflow):
     """Declarative training-graph builder: the reference's constructor,
-    for ``loss_function="softmax"``. ``initialize(device=None)`` runs on
-    the card; pass ``device="cpu"`` to run on the host."""
+    for ``loss_function="softmax"`` and ``"softmax_seq"``.
+    ``initialize(device=None)`` runs on the card; pass ``device="cpu"``
+    to run on the host."""
 
     hide_from_registry = True
 
@@ -145,9 +153,9 @@ class StandardWorkflow(AcceleratedWorkflow):
                                  "yet" % key)
         if snapshotter_unit is not None:
             raise VelesError("snapshots are not ported yet")
-        if loss_function != "softmax":
-            raise VelesError("loss_function %r is not ported yet (softmax "
-                             "only)" % (loss_function,))
+        if loss_function not in LOSSES:
+            raise VelesError("loss_function %r is not ported yet (%s)"
+                             % (loss_function, ", ".join(LOSSES)))
         self._steps_per_dispatch = steps_per_dispatch
         self._epochs_per_dispatch = epochs_per_dispatch
         super().__init__(workflow, **kwargs)
@@ -182,11 +190,17 @@ class StandardWorkflow(AcceleratedWorkflow):
         n_classes = None
         if self.forwards and hasattr(self.forwards[-1], "neurons_number"):
             n_classes = self.forwards[-1].neurons_number
-        self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes)
+        if self.loss_function == "softmax":
+            self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes)
+            target_mode = "labels"
+        else:
+            # language modelling: per-token CE on (B, T) int targets
+            self.evaluator = EvaluatorSoftmaxSeq(self)
+            target_mode = "targets"
         self.decision = DecisionGD(self, **decision_config)
         self.train_step = TrainStep(
             self, forwards=self.forwards, evaluator=self.evaluator,
-            loader=self.loader, target_mode="labels",
+            loader=self.loader, target_mode=target_mode,
             steps_per_dispatch=self._steps_per_dispatch,
             epochs_per_dispatch=self._epochs_per_dispatch)
         self.decision.loader = self.loader
@@ -217,3 +231,21 @@ class StandardWorkflow(AcceleratedWorkflow):
 
     def get_metric_values(self) -> Dict[str, Any]:
         return self.decision.get_metric_values()
+
+
+def forwards_of(wf: StandardWorkflow) -> Forwards:
+    """The serving stack of a trained LM workflow: :func:`build_forwards`
+    from its ``layers`` config on its device, holding a copy of its
+    train step's current parameters (what the sampler runs)."""
+    step = wf.train_step
+    if not step.params:
+        raise VelesError("initialize() the workflow before serving it")
+    seq_len = wf.loader.original_data.shape[1] \
+        if wf.loader.original_data else None
+    stack = build_forwards(wf.layers_config, seq_len=seq_len,
+                           device=step.device)
+    with torch.no_grad():
+        for layer in stack:
+            for pname, t in layer.params().items():
+                t.copy_(step.params[layer.name][pname])
+    return stack

@@ -1,14 +1,19 @@
 """TrainStep: the training step of the workflow (counterpart of
 ``veles_tpu/nn/train_step.py``, single device).
 
-It owns the canonical device-side parameter tree ``params`` and the SGD
-state ``opt_state`` (``{unit: {"weights", "bias"}}`` each) and runs what
-the loader serves:
+It owns the canonical device-side parameter tree ``params``
+(``{unit: {param: tensor}}``) and the optimiser state ``opt_state`` (per
+unit, its GD rule's state: the SGD delta recurrence of the parameters'
+layout, or Adam's ``{"m", "v", "t"}``) and runs what the loader serves.
+The targets are the rows' labels (``target_mode="labels"``) or the
+loader's row-aligned targets (``"targets"``: a language model's next
+tokens):
 
 - the general path: per minibatch, an autograd forward and the loss,
   then ``_apply_updates`` — each unit's GD rule, gated so that an
   all-padded plan row changes nothing. A plan of K minibatches is a
-  Python loop of eager torch ops (a CUDA graph of it is later work);
+  Python loop of eager torch ops (a CUDA graph of it is later work)
+  over the plan's served rows only;
 - the classic mode (one plan of one sample class per run) and the epoch
   block (``epochs_per_dispatch`` = H > 1: H whole epochs per run, each
   the test and validation evaluation plans, then the train plan);
@@ -38,11 +43,22 @@ from .all2all import All2AllSoftmax, All2AllTanh
 from .evaluator import EvaluatorSoftmax
 from .nn_units import MATCHING, ForwardBase, GradientDescentBase
 
-Tree = Dict[str, Dict[str, torch.Tensor]]
+Tree = Dict[str, Dict[str, Any]]
+
+#: ported target modes: gather the labels, or the loader's targets
+TARGET_MODES = ("labels", "targets")
 
 
 def _f32(x) -> float:
     return float(numpy.float32(x))
+
+
+def _tree_where(valid, new, old):
+    """``new`` where ``valid``, else ``old``, leaf by leaf over nested
+    dicts (an optimiser state may nest: Adam's m, v and t)."""
+    if isinstance(new, dict):
+        return {k: _tree_where(valid, new[k], old[k]) for k in new}
+    return torch.where(valid, new, old)
 
 
 class TrainStep(AcceleratedUnit):
@@ -61,9 +77,9 @@ class TrainStep(AcceleratedUnit):
         if pipeline_microbatches or remat or int(grad_accumulation) > 1:
             raise VelesError("pipeline microbatches, remat and gradient "
                              "accumulation are not ported yet")
-        if target_mode != "labels":
-            raise VelesError("target_mode %r is not ported yet (labels "
-                             "only)" % (target_mode,))
+        if target_mode not in TARGET_MODES:
+            raise VelesError("target_mode %r is not ported yet (%s)"
+                             % (target_mode, ", ".join(TARGET_MODES)))
         super().__init__(workflow, **kwargs)
         self.view_group = "TRAINER"
         self.forwards = list(forwards)
@@ -240,13 +256,14 @@ class TrainStep(AcceleratedUnit):
                                                                     mask)
         return {k: accum[k] + metrics[k] for k in accum}
 
-    def _train_step(self, params, opt_state, accum, dataset, labels,
+    def _train_step(self, params, opt_state, accum, dataset, targets,
                     indices, mask, lr_scale):
         """One minibatch: autograd forward + loss, the GD updates, the
-        metrics. Returns (params, opt_state, accum, loss)."""
+        metrics. ``targets`` is the array the rows' targets are gathered
+        from (``_dataset``). Returns (params, opt_state, accum, loss)."""
         idx = indices.long()
         batch = dataset[idx]
-        tgt = labels[idx]
+        tgt = targets[idx]
         leaves = {n: {k: v.detach().requires_grad_(True)
                       for k, v in p.items()} for n, p in params.items()}
         with torch.enable_grad():
@@ -267,51 +284,57 @@ class TrainStep(AcceleratedUnit):
         return params, opt_state, accum, loss
 
     def _apply_updates(self, params, grads, opt_state, lr_scale, valid):
-        """Each unit's GD rule, kept only where ``valid``."""
+        """Each unit's GD rule, kept only where ``valid``: an all-padded
+        row leaves the params and every leaf of the state (Adam's step
+        count included) unchanged."""
         new_params, new_opt = {}, {}
         for name, p in params.items():
             up_p, up_s = self._gd_for[name].update(p, grads[name],
                                                    opt_state[name], lr_scale)
-            new_params[name] = {k: torch.where(valid, up_p[k], p[k])
-                                for k in p}
-            new_opt[name] = {k: torch.where(valid, up_s[k],
-                                            opt_state[name][k])
-                             for k in up_s}
+            new_params[name] = _tree_where(valid, up_p, p)
+            new_opt[name] = _tree_where(valid, up_s, opt_state[name])
         return new_params, new_opt
 
-    def _train_plan(self, params, opt_state, accum, dataset, labels,
+    def _train_plan(self, params, opt_state, accum, dataset, targets,
                     idx_plan, mask_plan, lr_scale):
         """K optimizer steps over a (K, mb) plan, in order."""
         loss = None
         for k in range(idx_plan.shape[0]):
             params, opt_state, accum, loss = self._train_step(
-                params, opt_state, accum, dataset, labels, idx_plan[k],
+                params, opt_state, accum, dataset, targets, idx_plan[k],
                 mask_plan[k], lr_scale)
         return params, opt_state, accum, loss
 
     @torch.no_grad()
-    def _eval_step(self, params, accum, dataset, labels, indices, mask):
+    def _eval_step(self, params, accum, dataset, targets, indices, mask):
         idx = indices.long()
-        tgt = labels[idx]
+        tgt = targets[idx]
         out = self._forward(params, dataset[idx])
         return self._metrics(out, tgt, mask,
                              self.evaluator.loss(out, tgt, mask), accum)
 
-    def _eval_plan(self, params, accum, dataset, labels, idx_plan,
+    def _eval_plan(self, params, accum, dataset, targets, idx_plan,
                    mask_plan):
         for k in range(idx_plan.shape[0]):
-            accum = self._eval_step(params, accum, dataset, labels,
+            accum = self._eval_step(params, accum, dataset, targets,
                                     idx_plan[k], mask_plan[k])
         return accum
 
     # -- execution -----------------------------------------------------------
     def _dataset(self):
+        """The device dataset and the device array the targets are
+        gathered from: the labels, or under ``target_mode="targets"`` the
+        loader's row-aligned targets (a dataset may have no labels)."""
         loader = self.loader
         dataset = loader.original_data.device_view(self.device)
-        if not loader.original_labels:
-            raise VelesError("the train step needs labels (targets are "
-                             "not ported yet)")
-        return dataset, loader.original_labels.device_view(self.device)
+        if self.target_mode == "targets":
+            src = getattr(loader, "original_targets", None)
+        else:
+            src = loader.original_labels
+        if src is None or not src:
+            raise VelesError("target_mode %r: the loader has no %s"
+                             % (self.target_mode, self.target_mode))
+        return dataset, src.device_view(self.device)
 
     def _block_inputs(self, h: int):
         """Per-class (idx, mask) device plans of the served block; eval
@@ -341,7 +364,7 @@ class TrainStep(AcceleratedUnit):
     def _run_epoch_block(self) -> None:
         from ..ops.fused_fc import fused_fc_sgd_epoch
         loader = self.loader
-        dataset, labels = self._dataset()
+        dataset, targets = self._dataset()
         h = loader.block_length or loader.block_epochs
         plans = self._block_inputs(h)
         scales = self._epoch_scales(h)
@@ -360,7 +383,7 @@ class TrainStep(AcceleratedUnit):
                 if cls in plans:
                     idx, mask = plans[cls]
                     outs[cls] = self._eval_plan(p, self._zero_accum(),
-                                                dataset, labels, idx[e],
+                                                dataset, targets, idx[e],
                                                 mask[e])
             if TRAIN in plans:
                 idx, mask = plans[TRAIN]
@@ -372,7 +395,7 @@ class TrainStep(AcceleratedUnit):
                         [p[n]["bias"] for n in names],
                         [o[n]["weights"] for n in names],
                         [o[n]["bias"] for n in names],
-                        dataset, labels, idx[e],
+                        dataset, targets, idx[e],
                         _f32(numpy.float32(scales[e])
                              * numpy.float32(ff["lr"])),
                         act_a=ff["act_a"], act_b=ff["act_b"],
@@ -390,7 +413,7 @@ class TrainStep(AcceleratedUnit):
                     self.last_loss = loss_sum / n_rows
                 else:
                     p, o, outs[TRAIN], self.last_loss = self._train_plan(
-                        p, o, self._zero_accum(), dataset, labels, idx[e],
+                        p, o, self._zero_accum(), dataset, targets, idx[e],
                         mask[e], scales[e])
             stacked.append(outs)
         self.params, self.opt_state = p, o
@@ -404,19 +427,25 @@ class TrainStep(AcceleratedUnit):
         accum = self._accum.get(cls)
         if accum is None:
             accum = self._zero_accum()
-        dataset, labels = self._dataset()
+        dataset, targets = self._dataset()
         indices = loader.minibatch_indices.device_view(self.device)
         mask = loader.minibatch_mask.device_view(self.device)
         if loader.plan_steps <= 1:
             indices, mask = indices[None], mask[None]
+        else:
+            # the rows past plan_length are all-padded (a class shorter
+            # than the plan): they change nothing, so they do not run —
+            # the reference's scan computes them and discards the result
+            indices = indices[:loader.plan_length]
+            mask = mask[:loader.plan_length]
         if cls == TRAIN:
             self.params, self.opt_state, self._accum[cls], self.last_loss \
                 = self._train_plan(self.params, self.opt_state, accum,
-                                   dataset, labels, indices, mask,
+                                   dataset, targets, indices, mask,
                                    _f32(self.lr_scale))
         else:
             self._accum[cls] = self._eval_plan(self.params, accum, dataset,
-                                               labels, indices, mask)
+                                               targets, indices, mask)
 
     # -- epoch drain (the Decision pulls these) ------------------------------
     @staticmethod

@@ -1,12 +1,24 @@
 """Transformer LM layers (counterpart of ``veles_tpu/nn/transformer.py``).
 
-``Embedding``, ``PositionalEmbedding``, ``TransformerBlock`` and
-``LMHead`` are ``nn.Module``s holding their parameters under the
-reference's names and in its layout (``(d_in, d_out)`` weight matrices),
-so a reference parameter tree loads into them name for name
-(``convert.params_from_jax``). The sub-layer functions (norms, FFN,
-RoPE) are the one copy shared by the full forward and the KV-cached
-sampler, as in the reference.
+Each layer comes in two forms that share one copy of its math, the pure
+functions of ``(layer, params, x)`` below (:func:`embed`,
+:func:`add_positions`, :func:`block_apply` with :func:`block_norm`,
+:func:`block_ffn`, :func:`block_qkv`, :func:`_rope`, and
+:func:`lm_logits`):
+
+- ``nn.Module``s for serving — ``Embedding``, ``PositionalEmbedding``,
+  ``TransformerBlock``, ``LMHead`` — holding their parameters under the
+  reference's names and in its layout (``(d_in, d_out)`` weight
+  matrices), so a reference parameter tree loads into them name for
+  name (``convert.params_from_jax``); the KV-cached sampler reuses the
+  same functions;
+- workflow units for training — ``EmbeddingUnit``,
+  ``PositionalEmbeddingUnit``, ``TransformerBlockUnit``, ``LMHeadUnit``
+  under the reference's mapping names (``embedding``, ``pos_embedding``,
+  ``transformer_block``, ``lm_head``), each paired with its GD unit and
+  creating its parameters from the reference's keyed streams
+  (``prng.get("<unit>.<param>")``), so training starts from the
+  reference's initial weights bit for bit.
 
 Block (pre-LN, GPT-style):
     h = x + W_o · attn(LN1(x))
@@ -21,9 +33,14 @@ import numpy
 import torch
 from torch import nn
 
+from ..config import root
+from ..memory import Array
+from .. import prng
 from .attention import attention_core
+from .nn_units import ForwardBase, GradientDescentBase, matches
 
 Shapes = Dict[str, Tuple[int, ...]]
+Params = Dict[str, torch.Tensor]
 
 
 def _layernorm(x, g, b, eps=1e-5):
@@ -46,22 +63,32 @@ def _silu(x):
     return x / (1.0 + torch.exp(-x))
 
 
-def block_norm(block, x, which: str):
+def block_norm(block, p: Params, x, which: str):
     """The block's normalisation sub-layer (``which``: "ln1"/"ln2"),
     shared by the full forward and the sampler. norm="rms" drops the
     mean-centering and the bias (llama convention)."""
-    g = getattr(block, which + "_g")
     if block.norm == "rms":
-        return _rmsnorm(x, g)
-    return _layernorm(x, g, getattr(block, which + "_b"))
+        return _rmsnorm(x, p[which + "_g"])
+    return _layernorm(x, p[which + "_g"], p[which + "_b"])
 
 
-def block_ffn(block, x):
+def block_ffn(block, p: Params, x):
     """The block's FFN sub-layer. ffn="swiglu": W2·(silu(W1 x) ⊙ W3 x),
     no biases; default GELU: W2·gelu(W1 x + b1) + b2."""
     if block.ffn == "swiglu":
-        return (_silu(x @ block.w1) * (x @ block.w3)) @ block.w2
-    return _gelu(x @ block.w1 + block.b1) @ block.w2 + block.b2
+        return (_silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    return _gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def block_qkv(block, p: Params, a_in):
+    """Projections of the normed input: q (B, T, H, Dh) and the
+    UNREPEATED k, v (B, T, KV, Dh)."""
+    b, t, d = a_in.shape
+    hd = d // block.n_heads
+    q = (a_in @ p["wq"]).reshape(b, t, block.n_heads, hd)
+    k = (a_in @ p["wk"]).reshape(b, t, block.n_kv_heads, hd)
+    v = (a_in @ p["wv"]).reshape(b, t, block.n_kv_heads, hd)
+    return q, k, v
 
 
 def rope_angles(positions, hd: int, base: float = 10000.0):
@@ -96,6 +123,86 @@ def _rope(x, base=10000.0):
     return _rotate(x, rope_angles(range(x.shape[1]), x.shape[-1], base))
 
 
+def block_apply(block, p: Params, x, cache=None, causal=None):
+    """The block's composition, (B, T, D) → (B, T, D): the one copy
+    behind the training unit, the serving module and the sampler's
+    prefill. ``cache`` = (k, v) caches gets the block's UNREPEATED K/V
+    in its first T rows (in place); ``causal`` overrides the block's
+    mask (the prefill is always causal)."""
+    b, t, d = x.shape
+    q, k, v = block_qkv(block, p, block_norm(block, p, x, "ln1"))
+    if block.rope:
+        q, k = _rope(q, block.rope_base), _rope(k, block.rope_base)
+    if cache is not None:
+        cache[0][:, :t] = k
+        cache[1][:, :t] = v
+    o = attention_core(q, k, v,
+                       causal=block.causal if causal is None else causal,
+                       window=block.window).reshape(b, t, d)
+    x = x + o @ p["wo"]
+    return x + block_ffn(block, p, block_norm(block, p, x, "ln2"))
+
+
+def embed(table, ids):
+    """(…) int tokens → (…, D) rows of ``table``; out-of-range ids clamp
+    to the edge rows (the reference's ``mode="clip"``)."""
+    return table[ids.long().clamp(0, table.shape[0] - 1)]
+
+
+def add_positions(table, x):
+    """(B, T, D) + the learned per-position rows 0..T-1."""
+    return x + table[None, :x.shape[1]]
+
+
+def lm_logits(p: Params, x):
+    """(…, D) → (…, V) per-position logits."""
+    return x @ p["weights"] + p["bias"]
+
+
+def _block_config(obj, n_heads, causal, rope, n_kv_heads, window, norm,
+                  ffn, rope_base) -> None:
+    """Validate a block's layer config and set it on ``obj`` (a module or
+    a unit), as the reference's constructor does."""
+    if norm not in ("layer", "rms"):
+        raise ValueError("norm must be 'layer' or 'rms'")
+    if ffn not in ("gelu", "swiglu"):
+        raise ValueError("ffn must be 'gelu' or 'swiglu'")
+    obj.n_heads = int(n_heads)
+    obj.n_kv_heads = int(n_kv_heads) if n_kv_heads else obj.n_heads
+    if obj.n_heads % obj.n_kv_heads:
+        raise ValueError("n_heads %d not divisible by n_kv_heads %d"
+                         % (obj.n_heads, obj.n_kv_heads))
+    if window is not None:
+        if int(window) < 1:
+            raise ValueError("window must be a positive span, got %r"
+                             % (window,))
+        if not causal:
+            raise ValueError("window requires causal=True")
+        window = int(window)
+    obj.window = window
+    obj.norm, obj.ffn = norm, ffn
+    obj.causal = bool(causal)
+    obj.rope = bool(rope)
+    obj.rope_base = float(rope_base)
+
+
+def _block_shapes(block, d: int, f: int) -> Shapes:
+    kv_d = (d // block.n_heads) * block.n_kv_heads
+    shapes = {"wq": (d, d), "wk": (d, kv_d), "wv": (d, kv_d),
+              "wo": (d, d), "w1": (d, f), "w2": (f, d),
+              "ln1_g": (d,), "ln2_g": (d,)}
+    if block.ffn == "swiglu":
+        shapes["w3"] = (d, f)
+    else:
+        shapes["b1"] = (f,)
+        shapes["b2"] = (d,)
+    if block.norm == "layer":
+        shapes["ln1_b"] = (d,)
+        shapes["ln2_b"] = (d,)
+    return shapes
+
+
+# -- serving modules ----------------------------------------------------------
 class _Layer(nn.Module):
     """A parameterised layer: ``param_shapes()`` names every parameter
     in the reference's layout."""
@@ -107,9 +214,13 @@ class _Layer(nn.Module):
     def param_shapes(self) -> Shapes:
         raise NotImplementedError
 
+    def params(self) -> Params:
+        """The parameters by their reference names."""
+        return dict(self.named_parameters(recurse=False))
+
     def _make_params(self, device, dtype) -> None:
-        # inference only in this slice: no autograd graph is recorded
-        # through the parameters (training is not ported yet)
+        # serving modules: no autograd graph is recorded through the
+        # parameters (training runs through the units below)
         for pname, shape in self.param_shapes().items():
             self.register_parameter(pname, nn.Parameter(
                 torch.zeros(shape, device=device, dtype=dtype),
@@ -117,8 +228,7 @@ class _Layer(nn.Module):
 
 
 class Embedding(_Layer):
-    """(B, T) int tokens → (B, T, D) vectors. Out-of-range ids clamp to
-    the edge rows (the reference's ``mode="clip"``)."""
+    """(B, T) int tokens → (B, T, D) vectors (:func:`embed`)."""
 
     def __init__(self, vocab_size: int, dim: int, name: str = "embedding",
                  device=None, dtype=torch.float32) -> None:
@@ -130,7 +240,7 @@ class Embedding(_Layer):
         return {"table": (self.vocab_size, self.dim)}
 
     def forward(self, ids):
-        return self.table[ids.long().clamp(0, self.vocab_size - 1)]
+        return embed(self.table, ids)
 
 
 class PositionalEmbedding(_Layer):
@@ -147,7 +257,7 @@ class PositionalEmbedding(_Layer):
         return {"table": (self.max_len, self.dim)}
 
     def forward(self, x):
-        return x + self.table[None, :x.shape[1]]
+        return add_positions(self.table, x)
 
 
 class TransformerBlock(_Layer):
@@ -164,32 +274,13 @@ class TransformerBlock(_Layer):
                  name: str = "transformer_block", device=None,
                  dtype=torch.float32) -> None:
         super().__init__(name)
-        if norm not in ("layer", "rms"):
-            raise ValueError("norm must be 'layer' or 'rms'")
-        if ffn not in ("gelu", "swiglu"):
-            raise ValueError("ffn must be 'gelu' or 'swiglu'")
+        _block_config(self, n_heads, causal, rope, n_kv_heads, window,
+                      norm, ffn, rope_base)
         self.dim = int(dim)
-        self.n_heads = int(n_heads)
-        self.n_kv_heads = int(n_kv_heads) if n_kv_heads else self.n_heads
-        if self.n_heads % self.n_kv_heads:
-            raise ValueError("n_heads %d not divisible by n_kv_heads %d"
-                             % (self.n_heads, self.n_kv_heads))
         if self.dim % self.n_heads:
             raise ValueError("model dim %d not divisible by %d heads"
                              % (self.dim, self.n_heads))
-        if window is not None:
-            if int(window) < 1:
-                raise ValueError("window must be a positive span, got %r"
-                                 % (window,))
-            if not causal:
-                raise ValueError("window requires causal=True")
-            window = int(window)
-        self.window = window
-        self.norm, self.ffn = norm, ffn
         self.ffn_hidden = int(ffn_hidden) or 4 * self.dim
-        self.causal = bool(causal)
-        self.rope = bool(rope)
-        self.rope_base = float(rope_base)
         self._make_params(device, dtype)
 
     @property
@@ -197,40 +288,10 @@ class TransformerBlock(_Layer):
         return self.dim // self.n_heads
 
     def param_shapes(self) -> Shapes:
-        d, f = self.dim, self.ffn_hidden
-        kv_d = self.head_dim * self.n_kv_heads
-        shapes = {"wq": (d, d), "wk": (d, kv_d), "wv": (d, kv_d),
-                  "wo": (d, d), "w1": (d, f), "w2": (f, d),
-                  "ln1_g": (d,), "ln2_g": (d,)}
-        if self.ffn == "swiglu":
-            shapes["w3"] = (d, f)
-        else:
-            shapes["b1"] = (f,)
-            shapes["b2"] = (d,)
-        if self.norm == "layer":
-            shapes["ln1_b"] = (d,)
-            shapes["ln2_b"] = (d,)
-        return shapes
-
-    def qkv(self, a_in):
-        """Projections of the normed input: q (B, T, H, Dh) and the
-        UNREPEATED k, v (B, T, KV, Dh)."""
-        b, t, _ = a_in.shape
-        hd = self.head_dim
-        q = (a_in @ self.wq).reshape(b, t, self.n_heads, hd)
-        k = (a_in @ self.wk).reshape(b, t, self.n_kv_heads, hd)
-        v = (a_in @ self.wv).reshape(b, t, self.n_kv_heads, hd)
-        return q, k, v
+        return _block_shapes(self, self.dim, self.ffn_hidden)
 
     def forward(self, x):
-        b, t, d = x.shape
-        q, k, v = self.qkv(block_norm(self, x, "ln1"))
-        if self.rope:
-            q, k = _rope(q, self.rope_base), _rope(k, self.rope_base)
-        o = attention_core(q, k, v, causal=self.causal,
-                           window=self.window).reshape(b, t, d)
-        x = x + o @ self.wo
-        return x + block_ffn(self, block_norm(self, x, "ln2"))
+        return block_apply(self, self.params(), x)
 
 
 class LMHead(_Layer):
@@ -247,4 +308,165 @@ class LMHead(_Layer):
                 "bias": (self.vocab_size,)}
 
     def forward(self, x):
-        return x @ self.weights + self.bias
+        return lm_logits(self.params(), x)
+
+
+# -- training units -----------------------------------------------------------
+def _normal(unit, pname: str, shape, stddev) -> Array:
+    """A parameter drawn from the reference's keyed stream
+    ``<unit>.<param>``."""
+    w = numpy.zeros(shape, dtype=root.common.engine.precision_type)
+    prng.get("%s.%s" % (unit.name, pname)).fill_normal(w, stddev)
+    return Array(w, name="%s.%s" % (unit.name, pname))
+
+
+class TransformerBlockUnit(ForwardBase):
+    """(B, T, D) → (B, T, D) training unit of :func:`block_apply`."""
+
+    MAPPING = "transformer_block"
+    PARAMETERIZED = True
+    hide_from_registry = False
+    PARAM_NAMES = ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2",
+                   "w3", "ln1_g", "ln1_b", "ln2_g", "ln2_b")
+
+    def __init__(self, workflow, n_heads=4, ffn_hidden=0, causal=True,
+                 rope=False, n_kv_heads=None, window=None, norm="layer",
+                 ffn="gelu", rope_base=10000.0, **kwargs):
+        self.weights_stddev = kwargs.pop("weights_stddev", None)
+        super().__init__(workflow, **kwargs)
+        _block_config(self, n_heads, causal, rope, n_kv_heads, window,
+                      norm, ffn, rope_base)
+        self.ffn_hidden = int(ffn_hidden)
+
+    def output_shape_for(self, input_shape):
+        return tuple(input_shape)
+
+    def create_params(self, rng):
+        d = self.input.shape[-1]
+        if d % self.n_heads:
+            raise ValueError("model dim %d not divisible by %d heads"
+                             % (d, self.n_heads))
+        f = self.ffn_hidden or 4 * d
+        stddev = self.weights_stddev or (1.0 / numpy.sqrt(d))
+        dtype = root.common.engine.precision_type
+        params = {}
+        for pname, shape in _block_shapes(self, d, f).items():
+            if pname.endswith("_g"):
+                params[pname] = Array(numpy.ones(shape, dtype=dtype),
+                                      name="%s.%s" % (self.name, pname))
+            elif len(shape) == 1:
+                params[pname] = Array(numpy.zeros(shape, dtype=dtype),
+                                      name="%s.%s" % (self.name, pname))
+            else:
+                params[pname] = _normal(
+                    self, pname, shape,
+                    1.0 / numpy.sqrt(f) if pname == "w2" else stddev)
+        return params
+
+    def apply(self, params, x):
+        return block_apply(self, params, x)
+
+
+class EmbeddingUnit(ForwardBase):
+    """(B, T) int tokens → (B, T, D) training unit of :func:`embed`; its
+    gradient is autograd's scatter-add into the table."""
+
+    MAPPING = "embedding"
+    PARAMETERIZED = True
+    hide_from_registry = False
+    PARAM_NAMES = ("table",)
+
+    def __init__(self, workflow, vocab_size: int, dim: int,
+                 stddev: float = 0.02, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.vocab_size = int(vocab_size)
+        self.dim = int(dim)
+        self.stddev = float(stddev)
+
+    def output_shape_for(self, input_shape):
+        return tuple(input_shape) + (self.dim,)
+
+    def create_params(self, rng):
+        return {"table": _normal(self, "table", (self.vocab_size, self.dim),
+                                 self.stddev)}
+
+    def apply(self, params, x):
+        return embed(params["table"], x)
+
+
+class PositionalEmbeddingUnit(ForwardBase):
+    """(B, T, D) → (B, T, D) training unit of :func:`add_positions`; the
+    table has as many rows as the input sequence."""
+
+    MAPPING = "pos_embedding"
+    PARAMETERIZED = True
+    hide_from_registry = False
+    PARAM_NAMES = ("table",)
+
+    def __init__(self, workflow, stddev=0.02, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.stddev = float(stddev)
+
+    def output_shape_for(self, input_shape):
+        return tuple(input_shape)
+
+    def create_params(self, rng):
+        t, d = self.input.shape[1], self.input.shape[2]
+        return {"table": _normal(self, "table", (t, d), self.stddev)}
+
+    def apply(self, params, x):
+        return add_positions(params["table"], x)
+
+
+class LMHeadUnit(ForwardBase):
+    """(B, T, D) → (B, T, V) training unit of :func:`lm_logits`, paired
+    with ``loss_function="softmax_seq"``."""
+
+    MAPPING = "lm_head"
+    PARAMETERIZED = True
+    hide_from_registry = False
+
+    def __init__(self, workflow, vocab_size: int, **kwargs):
+        self.weights_stddev = kwargs.pop("weights_stddev", None)
+        super().__init__(workflow, **kwargs)
+        self.vocab_size = int(vocab_size)
+
+    def output_shape_for(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.vocab_size,)
+
+    def create_params(self, rng):
+        d = self.input.shape[-1]
+        stddev = self.weights_stddev or (1.0 / numpy.sqrt(d))
+        return {"weights": _normal(self, "weights", (d, self.vocab_size),
+                                   stddev),
+                "bias": Array(numpy.zeros(
+                    (self.vocab_size,),
+                    dtype=root.common.engine.precision_type),
+                    name=self.name + ".bias")}
+
+    def apply(self, params, x):
+        return lm_logits(params, x)
+
+
+@matches(TransformerBlockUnit)
+class GDTransformerBlock(GradientDescentBase):
+    MAPPING = "gd_transformer_block"
+    hide_from_registry = False
+
+
+@matches(EmbeddingUnit)
+class GDEmbedding(GradientDescentBase):
+    MAPPING = "gd_embedding"
+    hide_from_registry = False
+
+
+@matches(PositionalEmbeddingUnit)
+class GDPositionalEmbedding(GradientDescentBase):
+    MAPPING = "gd_pos_embedding"
+    hide_from_registry = False
+
+
+@matches(LMHeadUnit)
+class GDLMHead(GradientDescentBase):
+    MAPPING = "gd_lm_head"
+    hide_from_registry = False

@@ -1,21 +1,31 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain
-torch version (counterpart of ``veles_tpu/ops/flash_attention.py``).
+"""Flash attention: hand-written Hopper kernels for the forward and the
+backward, and their plain torch versions (counterpart of
+``veles_tpu/ops/flash_attention.py``).
 
-The kernel (``csrc/flash_attention_fwd.cu``) replaces the TPU kernel
-``veles_tpu/ops/flash_attention.py::_kernel``: online-softmax attention
-that streams K/V tiles instead of materialising the (T, T) scores,
-skips tiles the causal/window masks kill, reads grouped K/V (GQA)
+The forward kernel (``csrc/flash_attention_fwd.cu``) replaces the TPU
+kernel ``veles_tpu/ops/flash_attention.py::_kernel``: online-softmax
+attention that streams K/V tiles instead of materialising the (T, T)
+scores, skips tiles the causal/window masks kill, reads grouped K/V (GQA)
 without expanding them, and takes any T and any head dim up to
-:data:`MAX_D` with no padding.
+:data:`MAX_D` with no padding. The backward pair
+(``csrc/flash_attention_bwd.cu``) replaces ``_bwd_dkv_kernel`` and
+``_bwd_dq_kernel``: dK/dV per K/V tile summed over the query heads of its
+group in a fixed order (no atomics), then dQ per Q tile, both
+recomputing the probabilities from the forward's log-sum-exp.
 
 Layout contract, as in the reference: q ``(B, T, H, Dh)``, k/v
 ``(B, T, KV, Dh)`` with ``H % KV == 0``, o ``(B, T, H, Dh)``; lse is
 returned ``(B, H, T)`` (a view of the kernel's flat ``(B*H, T)``).
 
-:func:`flash_attention_fwd` is the wrapper: on a CUDA tensor it
-launches the kernel or raises; on a CPU tensor it runs
-:func:`flash_attention_fwd_reference`, the plain version the CPU tests
-and ``chip_smoke.py`` hold the kernel against.
+:func:`flash_attention` is the differentiable entry (a
+``torch.autograd.Function``: forward kernel, then the dK/dV and dQ
+kernels in the backward); :func:`flash_attention_fwd` returns
+``(o, lse)`` and is forward-only; :func:`flash_attention_bwd_lse` runs
+the backward pair against a caller's lse/delta. On a CUDA tensor each
+launches its kernels or raises; on a CPU tensor each runs the plain
+version (:func:`flash_attention_fwd_reference`,
+:func:`flash_attention_bwd_reference`) that the CPU tests and
+``chip_smoke.py`` hold the kernels against.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,15 +43,19 @@ from ..telemetry.counters import inc
 
 NEG_INF = -1e30
 
-#: largest head dim the kernel takes (its output accumulator lives in
-#: registers: DMAX/16 columns of 4 rows per thread)
+#: largest head dim the kernels take (their accumulators live in
+#: registers: DMAX/16 columns of a few rows per thread)
 MAX_D = 256
 
 _SOURCE = "flash_attention_fwd"
+_BWD_SOURCE = "flash_attention_bwd"
+FWD_LAUNCHES = "veles_flash_attention_launches_total"
+DKV_LAUNCHES = "veles_flash_attention_bwd_dkv_launches_total"
+DQ_LAUNCHES = "veles_flash_attention_bwd_dq_launches_total"
 
 
 def supported(d: int) -> bool:
-    """Whether the kernel takes head dim ``d`` (any T is accepted)."""
+    """Whether the kernels take head dim ``d`` (any T is accepted)."""
     return 1 <= int(d) <= MAX_D
 
 
@@ -60,7 +74,7 @@ def choose_flash(t: int, d: int, device: torch.device) -> bool:
 
 def live_pairs(t: int, causal: bool, window: int = 0) -> int:
     """Number of unmasked (query, key) pairs of one head: the work the
-    kernel does after its dead-tile skip and per-element masks."""
+    kernels do after their dead-tile skip and per-element masks."""
     if window:
         w = min(int(window), t)
         return w * (w + 1) // 2 + (t - w) * w
@@ -71,15 +85,37 @@ def live_pairs(t: int, causal: bool, window: int = 0) -> int:
 
 def analytic_cost(b: int, t: int, h: int, d: int, causal: bool = False,
                   window: int = 0, kv: Optional[int] = None,
-                  dtype_bytes: int = 4) -> Tuple[float, float]:
+                  dtype_bytes: int = 4, train: bool = False
+                  ) -> Tuple[float, float]:
     """(FLOPs, bytes) of one forward call: 2·D FLOPs per live pair for
     q·k and as many for p·v; bytes are q, k, v read once and o, lse
-    written once (k/v at the ``kv`` grouped head count)."""
+    written once (k/v at the ``kv`` grouped head count). ``train`` adds
+    the backward at the reference's standard model (3.5× the forward's
+    FLOPs, three round trips of the bytes), kept for telemetry parity;
+    :func:`backward_work` counts what the port's backward kernels need."""
     kv = h if kv is None else kv
     flops = 4.0 * b * h * live_pairs(t, causal, window) * d
     io = b * t * d * dtype_bytes
-    bytes_moved = 2 * io * h + 2 * io * kv + b * h * t * 4
-    return flops, float(bytes_moved)
+    bytes_moved = float(2 * io * h + 2 * io * kv + b * h * t * 4)
+    if train:
+        return flops * 3.5, bytes_moved * 3
+    return flops, bytes_moved
+
+
+def backward_work(b: int, t: int, h: int, d: int, causal: bool = False,
+                  window: int = 0, kv: Optional[int] = None,
+                  dtype_bytes: int = 4) -> Dict[str, Tuple[float, float]]:
+    """(FLOPs, bytes) each backward kernel needs over this call's live
+    pairs: dK/dV 8·D FLOPs a pair (s, dv, dp, dk) and dQ 6·D (s, dp, dq);
+    bytes are each input read once (q, do, k, v, lse, delta) and each
+    output written once. The function alone needs 10·D a pair: the
+    two-kernel split recomputes s and dp."""
+    kv = h if kv is None else kv
+    pairs = float(b * h * live_pairs(t, causal, window))
+    io = b * t * d * dtype_bytes
+    rows = 2 * b * h * t * 4                      # lse and delta, f32
+    return {"dkv": (8.0 * d * pairs, float(2 * io * h + 4 * io * kv + rows)),
+            "dq": (6.0 * d * pairs, float(3 * io * h + 2 * io * kv + rows))}
 
 
 def _check_window(window, causal: bool, t: int) -> int:
@@ -91,32 +127,84 @@ def _check_window(window, causal: bool, t: int) -> int:
     return 0 if window >= t else window
 
 
+def _keep(t: int, causal: bool, window: int, device):
+    """(T, T) bool mask of the live (query, key) pairs, or None."""
+    if not causal:
+        return None
+    pos = torch.arange(t, device=device)
+    rel = pos[:, None] - pos[None, :]
+    keep = rel >= 0
+    if window:
+        keep = keep & (rel < window)
+    return keep
+
+
+def _expand(x, h: int):
+    b, t, kv, d = x.shape
+    return x[:, :, :, None, :].expand(b, t, kv, h // kv, d).reshape(
+        b, t, h, d)
+
+
+def _scores(q, k, causal: bool, window: int, scale: float):
+    """f32 scaled scores (B, H, T, T) with the masked pairs at NEG_INF."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     _expand(k, q.shape[2]).float()) * scale
+    keep = _keep(q.shape[1], causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return s
+
+
 def flash_attention_fwd_reference(q, k, v, causal: bool = False,
                                   window: Optional[int] = None,
                                   scale: Optional[float] = None):
     """Plain torch full-softmax attention returning ``(o, lse)`` — the
     function the kernel computes, with the same masks (causal; window:
     ``q - k < window``) and the same f32 scores."""
-    b, t, h, d = q.shape
-    kv = k.shape[2]
-    window = _check_window(window, causal, t)
+    window = _check_window(window, causal, q.shape[1])
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    g = h // kv
-    kx = k[:, :, :, None, :].expand(b, t, kv, g, d).reshape(b, t, h, d)
-    vx = v[:, :, :, None, :].expand(b, t, kv, g, d).reshape(b, t, h, d)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx.float()) * scale
-    if causal:
-        pos = torch.arange(t, device=q.device)
-        rel = pos[:, None] - pos[None, :]
-        keep = rel >= 0
-        if window:
-            keep = keep & (rel < window)
-        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, causal, window, scale)
     lse = torch.logsumexp(s, dim=-1)                       # (B, H, T)
     p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bhqk,bkhd->bqhd", p, vx.float()).to(q.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", p,
+                     _expand(v, q.shape[2]).float()).to(q.dtype)
     return o, lse
+
+
+def _bwd_plain(q, k, v, lse, delta, do, causal: bool, window: int,
+               scale: float):
+    """The backward's function with a full (T, T) f32 recompute: lse and
+    delta are (B, H, T); the gradients of grouped k/v sum their query
+    heads. Returns f32 (dq, dk, dv)."""
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    p = torch.exp(_scores(q, k, causal, window, scale) - lse[..., None])
+    dof = do.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, _expand(v, h).float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand(k, h).float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    g = h // kv
+    return (dq, dk.reshape(b, t, kv, g, d).sum(3),
+            dv.reshape(b, t, kv, g, d).sum(3))
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
+                                  window: Optional[int] = None,
+                                  scale: Optional[float] = None):
+    """Plain torch backward of :func:`flash_attention_fwd_reference`:
+    ``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` (B, H, T) and
+    the upstream gradient ``do``, with ``delta = rowsum(do·o)`` — the
+    function the backward kernel pair computes."""
+    window = _check_window(window, causal, q.shape[1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+    dq, dk, dv = _bwd_plain(q, k, v, lse.float(), delta, do, causal, window,
+                            scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v):
@@ -132,36 +220,67 @@ def _check(q, k, v):
                          % (k.shape[2], h))
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError("flash attention runs on cuda or cpu tensors, "
+                         "got %s" % q.device)
 
 
-@functools.cache
-def _kernel_fn():
-    """The kernel's C entry point, built and typed at first use."""
+def _check_kernel_inputs(what: str, *xs) -> None:
+    """What every kernel takes: float32, a head dim in 1..MAX_D and a
+    contiguous head dim; anything else raises."""
+    if any(x.dtype != torch.float32 for x in xs):
+        raise TypeError("the %s kernel takes float32 tensors, got %s"
+                        % (what, tuple(x.dtype for x in xs)))
+    d = xs[0].shape[-1]
+    if not supported(d):
+        raise ValueError("head dim %d outside the kernel's 1..%d"
+                         % (d, MAX_D))
+    if any(x.stride(3) != 1 for x in xs):
+        raise ValueError("the %s kernel needs a contiguous head dim "
+                         "(stride 1)" % what)
+
+
+def _c_fn(source: str, symbol: str, n_ptrs: int):
+    """A kernel's C entry point, built and typed at first use: n_ptrs
+    pointers, B, T, H, KV, D, the strides, scale, causal, window and the
+    stream; it returns cudaGetLastError()."""
     from . import _build
-    fn = _build.load(_SOURCE).veles_flash_attention_fwd_f32
+    fn = getattr(_build.load(source), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
+@functools.cache
+def _kernel_fn():
+    return _c_fn(_SOURCE, "veles_flash_attention_fwd_f32", 5)
+
+
+@functools.cache
+def _dkv_fn():
+    return _c_fn(_BWD_SOURCE, "veles_flash_attention_bwd_dkv_f32", 8)
+
+
+@functools.cache
+def _dq_fn():
+    return _c_fn(_BWD_SOURCE, "veles_flash_attention_bwd_dq_f32", 7)
+
+
+def _strides(*xs):
+    return (ctypes.c_longlong * (3 * len(xs)))(
+        *(s for x in xs for s in x.stride()[:3]))
+
+
 def _launch(q, k, v, causal: bool, window: int, scale: float):
-    """Launch the CUDA kernel on the current stream."""
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError("the flash kernel takes float32 q/k/v, got %s"
-                        % ((q.dtype, k.dtype, v.dtype),))
+    """Launch the forward kernel on the current stream."""
+    _check_kernel_inputs("flash_attention_fwd", q, k, v)
     b, t, h, d = q.shape
-    if not supported(d):
-        raise ValueError("head dim %d outside the kernel's 1..%d"
-                         % (d, MAX_D))
-    if any(x.stride(3) != 1 for x in (q, k, v)):
-        raise ValueError("q/k/v need a contiguous head dim (stride 1)")
     fn = _kernel_fn()
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    strides = _strides(q, k, v, o)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -171,42 +290,170 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
     if err != 0:
         raise RuntimeError("flash_attention_fwd kernel launch failed: "
                            "CUDA error %d" % err)
-    inc("veles_flash_attention_launches_total")
+    inc(FWD_LAUNCHES)
     return o, lse.view(b, h, t)
+
+
+def _bwd_operands(q, k, v, do, lse, delta):
+    """Checks what the backward kernels take and returns lse and delta
+    as the contiguous f32 (B*H, T) rows they read."""
+    _check_kernel_inputs("flash_attention_bwd", q, k, v, do)
+    b, t, h, _ = q.shape
+    if do.shape != q.shape:
+        raise ValueError("do shape %s does not match q %s"
+                         % (tuple(do.shape), tuple(q.shape)))
+    return (lse.reshape(b * h, t).to(torch.float32).contiguous(),
+            delta.reshape(b * h, t).to(torch.float32).contiguous())
+
+
+def _bwd_call(fn, name, counter, tensors, q, k, common):
+    """One backward kernel's launch on the current stream: pointers of
+    ``tensors``, then B, T, H, KV, D, the strides of q, k, v, do and the
+    three gradients, scale, causal, window; raises on a refused launch
+    and counts a launched one."""
+    b, t, h, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(x.data_ptr() for x in tensors), b, t, h, k.shape[2], d,
+                 *common, stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_bwd %s kernel launch failed: "
+                           "CUDA error %d" % (name, err))
+    inc(counter)
+
+
+def launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool, window: int,
+                   scale: float):
+    """The dK/dV kernel: f32 (dk, dv) of grouped k/v (B, T, KV, Dh),
+    each kv head summing its query heads in a fixed order. lse and delta
+    are (B, H, T) float32."""
+    lse, delta = _bwd_operands(q, k, v, do, lse, delta)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    strides = _strides(q, k, v, do, q, dk, dv)     # no dq: q's as filler
+    _bwd_call(_dkv_fn(), "dK/dV", DKV_LAUNCHES,
+              (q, k, v, do, lse, delta, dk, dv), q, k,
+              (ctypes.cast(strides, ctypes.c_void_p), float(scale),
+               int(bool(causal)), int(window)))
+    return dk, dv
+
+
+def launch_bwd_dq(q, k, v, do, lse, delta, causal: bool, window: int,
+                  scale: float):
+    """The dQ kernel: f32 dq (B, T, H, Dh), grouped k/v read by index.
+    lse and delta are (B, H, T) float32."""
+    lse, delta = _bwd_operands(q, k, v, do, lse, delta)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, do, dq, k, v)      # no dk/dv: k/v's
+    _bwd_call(_dq_fn(), "dQ", DQ_LAUNCHES, (q, k, v, do, lse, delta, dq),
+              q, k, (ctypes.cast(strides, ctypes.c_void_p), float(scale),
+                     int(bool(causal)), int(window)))
+    return dq
+
+
+def _launch_bwd(q, k, v, do, lse, delta, causal: bool, window: int,
+                scale: float):
+    """The dK/dV kernel, then the dQ kernel, on the current stream;
+    returns f32 (dq, dk, dv)."""
+    dk, dv = launch_bwd_dkv(q, k, v, do, lse, delta, causal, window, scale)
+    dq = launch_bwd_dq(q, k, v, do, lse, delta, causal, window, scale)
+    return dq, dk, dv
+
+
+def _prologue(q, k, v, causal, window, scale):
+    _check(q, k, v)
+    window = _check_window(window, causal, q.shape[1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return window, float(scale)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         window: Optional[int] = None,
                         scale: Optional[float] = None):
     """``(o (B, T, H, Dh), lse (B, H, T))`` of attention over q and the
-    (possibly grouped) k/v. A CUDA tensor goes through the hand-written
-    kernel — or raises; a CPU tensor through the plain version. Each
-    kernel launch adds one to ``veles_flash_attention_launches_total``."""
-    _check(q, k, v)
-    window = _check_window(window, causal, q.shape[1])
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+    (possibly grouped) k/v, forward only. A CUDA tensor goes through the
+    hand-written kernel — or raises; a CPU tensor through the plain
+    version. Each kernel launch adds one to
+    ``veles_flash_attention_launches_total``."""
+    window, scale = _prologue(q, k, v, causal, window, scale)
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal=causal,
                                              window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention_fwd runs on cuda or cpu "
-                         "tensors, got %s" % q.device)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         # the kernel writes o outside autograd: a backward through it
         # would give q/k/v a zero gradient without a word
-        raise VelesError("flash backward not ported yet: the CUDA flash "
-                         "forward cannot run where q/k/v need gradients "
-                         "(use torch.no_grad(), or set "
-                         "root.common.engine.flash_attention = False)")
+        raise VelesError("flash_attention_fwd is forward-only: where q/k/v "
+                         "need gradients call flash_attention, whose "
+                         "backward runs the dK/dV and dQ kernels")
     return _launch(q, k, v, causal, window, scale)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of attention from the forward's ``o`` and ``lse``
+    (B, H, T): on a CUDA tensor ``delta = rowsum(do·o)`` (a torch op, as
+    the reference computes it outside its kernels), then the dK/dV and
+    dQ kernels — or a raise; on a CPU tensor the plain version. Each
+    launch adds one to its counter."""
+    window, scale = _prologue(q, k, v, causal, window, scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=causal, window=window,
+                                             scale=scale)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+    dq, dk, dv = _launch_bwd(q, k, v, do, lse, delta, causal, window, scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_lse(q, k, v, lse, delta, do, causal: bool = False,
+                            scale: Optional[float] = None):
+    """The backward pair against an external (global) softmax normalizer:
+    f32 ``(dq, dk, dv)`` with ``p = exp(s − lse)``, ``lse`` and
+    ``delta = rowsum(do·o)`` given (B, T, H) as the reference's
+    ``flash_attention_bwd_lse`` takes them, computed by the caller over
+    the full attention (the engine of a ring attention's per-step
+    backward). A CUDA tensor launches the kernels or raises; a CPU tensor
+    runs the plain version."""
+    _, scale = _prologue(q, k, v, causal, None, scale)
+    lse = lse.permute(0, 2, 1).float()
+    delta = delta.permute(0, 2, 1).float()
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, lse, delta, do, causal, 0, scale)
+    return _launch_bwd(q, k, v, do, lse, delta, causal, 0, scale)
+
+
+class _Flash(torch.autograd.Function):
+    """Attention whose forward is the forward kernel (plain version on the
+    CPU) and whose backward is the dK/dV then dQ kernels (plain backward
+    on the CPU). The saved tensors keep k/v grouped."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_fwd_reference(q, k, v, causal, window,
+                                                   scale)
+        else:
+            o, lse = _launch(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None,
                     window: Optional[int] = None):
-    """(B, T, H, Dh) × (B, T, KV, Dh) × 2 → (B, T, H, Dh): the output of
-    :func:`flash_attention_fwd` (forward only; the backward kernels are
-    not ported yet)."""
-    return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                               scale=scale)[0]
+    """(B, T, H, Dh) × (B, T, KV, Dh) × 2 → (B, T, H, Dh), differentiable:
+    the output of :func:`flash_attention_fwd`, with the backward kernel
+    pair behind autograd."""
+    window, scale = _prologue(q, k, v, causal, window, scale)
+    return _Flash.apply(q, k, v, bool(causal), window, scale)

@@ -19,6 +19,11 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_decode_tokens_total": "tokens decoded (rows x n_new)",
     "veles_flash_attention_launches_total":
         "launches of the hand-written flash-attention forward kernel",
+    "veles_flash_attention_bwd_dkv_launches_total":
+        "launches of the hand-written flash-attention dK/dV backward "
+        "kernel",
+    "veles_flash_attention_bwd_dq_launches_total":
+        "launches of the hand-written flash-attention dQ backward kernel",
     "veles_fused_fc_launches_total":
         "launches of the hand-written whole-epoch fused-FC SGD kernel "
         "(one per trained epoch on the fused path)",
