@@ -41,16 +41,24 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              within 0.005 and its final weights within 1e-4; then one
              fused 4-epoch block under
              torch.profiler: device busy share and top kernels;
-7. kernels_bwd — the flash backward pair (dK/dV, dQ) against the plain
-             backward on 8 cases (the bench shape, GQA, windows, ragged
-             T, D 32..256, T 1, strided q/k/v): max abs error of each
-             gradient <= 1e-4 * max(1, max|plain|), relaunches
-             bit-identical, and autograd through ``flash_attention``
-             against autograd through the plain attention;
+7. kernels_bwd — the flash backward pair (dK/dV, dQ; 3xTF32 on the
+             tensor cores) against the plain backward on 18 cases (the
+             bench shape, GQA 8/2 and 8/1, windows, ragged T 1, 65, 127,
+             129, D 8..256 including 33, 40, 72 and 160, strided q/k/v
+             and views offset by one element, so that no row is 16-byte
+             aligned): max abs error of each gradient <= 1e-4 *
+             max(1, max|plain|), relaunches bit-identical, each call
+             counted once by each kernel's launch counter, and autograd
+             through ``flash_attention`` against autograd through the
+             plain attention;
 8. timing_bwd — each backward kernel at the bench shape with CUDA
-             events, its bound (``ops/flash_attention.backward_work``),
-             the plain backward's time and SDPA's backward (the
-             yardstick; it computes the pair's function);
+             events, its bounds (``ops/flash_attention.backward_bounds``:
+             3xTF32 on the tensor cores, ``bound_tc_ms``, the one the
+             kernels run against and the kernels line's ``bound_ms``; and
+             float32 FMA on the CUDA cores, ``bound_ms`` here, kept
+             comparable with earlier runs), the plain backward's
+             time and SDPA's backward (the yardstick; it computes the
+             pair's function);
 9. train_lm — the bench LM (``models/char_lm.build_bench_workflow``:
              6 RoPE blocks, d_model 512, 8 heads, FFN 2048, vocab 256,
              T 512, mb 16, 1,024 / 128 rows, adam lr 1e-4), one epoch
@@ -84,11 +92,6 @@ import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-
-#: published peaks of one H100 SXM (NVIDIA data sheet, dense): float32
-#: on the CUDA cores and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 
 #: streaming multiprocessors of an H100 SXM
 N_SMS = 132
@@ -219,8 +222,8 @@ def phase_timing(fa):
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True), 50)
         flops, nbytes = fa.analytic_cost(b, t, h, d, causal=True, kv=kv)
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = flops / fa.PEAK_F32_FLOPS * 1e3
+        t_bytes = nbytes / fa.PEAK_HBM_BYTES * 1e3
         rec = dict(shape=[b, t, h, kv, d], causal=True, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    flops=flops, bytes=nbytes,
@@ -342,6 +345,8 @@ def phase_timing_fused_fc(ff, card):
     against each other (identical bits); returns the kernel's record."""
     import numpy
     import torch
+    from veles_tpu_torch.ops.flash_attention import (PEAK_F32_FLOPS,
+                                                     PEAK_HBM_BYTES)
     wf = mnist_workflow(False, epochs=1, per_dispatch=4)
     step, loader = wf.train_step, wf.loader
     dataset, labels = step._dataset()
@@ -483,14 +488,22 @@ def phase_train(card):
     return f["launches"]
 
 
-def bwd_inputs(b, t, h, kv, d, seed, strided=False):
-    """q, k, v, do on the card from a seed; ``strided``: q/k/v are views
-    of one (B, T, 3, H, D) buffer (requires kv == h)."""
+def bwd_inputs(b, t, h, kv, d, seed, layout=None):
+    """q, k, v, do on the card from a seed. ``layout`` "strided": q/k/v
+    are views of one (B, T, 3, H, D) buffer (requires kv == h);
+    "offset": each of q, k, v, do is a view one element into its buffer,
+    so that no row starts on 16 bytes."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if strided:
+    if layout == "strided":
         q, k, v = torch.randn((b, t, 3, h, d), generator=g,
                               device="cuda").unbind(2)
+    elif layout == "offset":
+        def view(heads):
+            n = b * t * heads * d
+            return torch.randn(n + 1, generator=g, device="cuda")[1:].view(
+                b, t, heads, d)
+        return view(h), view(kv), view(kv), view(h)
     else:
         q, k, v = qkv(b, t, h, kv, d, seed)
     do = torch.randn((b, t, h, d), generator=g, device="cuda")
@@ -502,28 +515,47 @@ def phase_kernels_bwd(fa):
     largest error of each kernel (dQ; dK and dV)."""
     import torch
     from veles_tpu_torch.nn.attention import attention_reference, expand_kv
+    from veles_tpu_torch.telemetry import counters
     cases = [
-        # (name, B, T, H, KV, D, causal, window, strided)
-        ("bench_b16_t512", 16, 512, 8, 8, 64, True, 0, False),
-        ("t300_gqa_8_2", 2, 300, 8, 2, 64, True, 0, False),
-        ("window128", 2, 512, 8, 8, 64, True, 128, False),
+        # (name, B, T, H, KV, D, causal, window, layout)
+        ("bench_b16_t512", 16, 512, 8, 8, 64, True, 0, None),
+        ("t300_gqa_8_2", 2, 300, 8, 2, 64, True, 0, None),
+        ("window128", 2, 512, 8, 8, 64, True, 128, None),
         ("t333_d256_gqa_4_2_window100", 1, 333, 4, 2, 256, True, 100,
-         False),
-        ("noncausal_t257_d128", 2, 257, 8, 8, 128, False, 0, False),
-        ("t1", 1, 1, 2, 2, 48, True, 0, False),
-        ("d32_noncausal_t200", 2, 200, 8, 8, 32, False, 0, False),
-        ("strided_qkv", 2, 100, 4, 4, 32, True, 0, True),
+         None),
+        ("noncausal_t257_d128", 2, 257, 8, 8, 128, False, 0, None),
+        ("t1", 1, 1, 2, 2, 48, True, 0, None),
+        ("d32_noncausal_t200", 2, 200, 8, 8, 32, False, 0, None),
+        ("strided_qkv", 2, 100, 4, 4, 32, True, 0, "strided"),
+        # the tile edges of the tensor-core design: T around the 64-row
+        # tiles, D off the multiples of 16 (33: rows off 16 bytes, so
+        # 4-byte copies), D past 128 (two column CTAs), GQA 8/1 with a
+        # window, every row off 16 bytes
+        ("t65", 2, 65, 4, 4, 64, True, 0, None),
+        ("t127_noncausal_gqa_4_2", 2, 127, 4, 2, 64, False, 0, None),
+        ("t129", 2, 129, 4, 4, 64, True, 0, None),
+        ("d8", 2, 200, 4, 4, 8, True, 0, None),
+        ("d40_gqa_4_2", 2, 150, 4, 2, 40, True, 0, None),
+        ("d72_noncausal", 2, 140, 4, 4, 72, False, 0, None),
+        ("d33", 2, 100, 4, 4, 33, True, 0, None),
+        ("d160_noncausal", 1, 90, 2, 2, 160, False, 0, None),
+        ("gqa_8_1_window64", 2, 300, 8, 1, 64, True, 64, None),
+        ("offset_views", 2, 100, 4, 4, 64, True, 0, "offset"),
     ]
     worst = {"dq": 0.0, "dkv": 0.0}
-    for i, (name, b, t, h, kv, d, causal, window, strided) in \
+    for i, (name, b, t, h, kv, d, causal, window, layout) in \
             enumerate(cases):
-        q, k, v, do = bwd_inputs(b, t, h, kv, d, 300 + i, strided)
+        q, k, v, do = bwd_inputs(b, t, h, kv, d, 300 + i, layout)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                         window=window)
+        before = [counters.get(n) for n in (fa.DKV_LAUNCHES,
+                                            fa.DQ_LAUNCHES)]
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                      window=window)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                        window=window)
+        launched = [counters.get(n) - c for n, c in zip(
+            (fa.DKV_LAUNCHES, fa.DQ_LAUNCHES), before)]
         ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                causal=causal, window=window)
         # autograd through the differentiable entry vs through the plain
@@ -545,16 +577,18 @@ def phase_kernels_bwd(fa):
         same = all(torch.equal(a, r) for a, r in zip(got, again))
         finite = all(bool(torch.isfinite(a).all()) for a in got)
         emit("kernels_bwd", case=name, shape=[b, t, h, kv, d],
-             causal=causal, window=window, strided=strided,
+             causal=causal, window=window, layout=layout,
              max_abs_err_dq=errs[0], max_abs_err_dk=errs[1],
              max_abs_err_dv=errs[2], limits=limits,
              autograd_max_abs_err=auto_errs,
-             bit_identical_relaunch=same, finite=finite)
-        if not finite or not same or any(e > lim for e, lim in zip(
-                errs + auto_errs, limits + auto_limits)):
+             bit_identical_relaunch=same, finite=finite,
+             launches_dkv_dq=launched)
+        if not finite or not same or launched != [2, 2] or any(
+                e > lim for e, lim in zip(errs + auto_errs,
+                                          limits + auto_limits)):
             raise AssertionError("flash backward disagrees with its plain "
-                                 "version on %s: %s / %s / %s"
-                                 % (name, errs, auto_errs, same))
+                                 "version on %s: %s / %s / %s / %s"
+                                 % (name, errs, auto_errs, same, launched))
         worst["dq"] = max(worst["dq"], errs[0])
         worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
     return worst
@@ -585,17 +619,18 @@ def phase_timing_bwd(fa, card):
     library_ms = cuda_time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 30)
     work = fa.backward_work(b, t, h, d, causal=True, kv=kv)
+    bounds = fa.backward_bounds(b, t, h, d, causal=True, kv=kv)
     records = {}
     for name in ("dkv", "dq"):
         flops, nbytes = work[name]
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        bound = bounds[name]
         rec = dict(shape=[b, t, h, kv, d], causal=True, card=card,
                    ms=ms[name], pair_ms=pair_ms, plain_ms=plain_ms,
                    library_ms=library_ms, flops=flops, bytes=nbytes,
-                   bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   achieved_tflops=flops / (ms[name] * 1e-3) / 1e12)
+                   bound_ms=bound["f32"], bound_tc_ms=bound["tc"],
+                   bound_by=bound["bound_by"],
+                   achieved_tflops=flops / (ms[name] * 1e-3) / 1e12,
+                   share_of_tc_bound=bound["tc"] / ms[name])
         emit("timing_bwd", kernel="flash_attention_bwd_" + name, **rec)
         records[name] = rec
     return records
@@ -732,9 +767,8 @@ def phase_train_lm_breakdown(card, wf):
                          dataset, targets, plan, mask, 1.0)
 
     run()                               # warm
-    rec = profiled(run)
-    flash = {key: sum(k["ms"] for k in rec["top_kernels"] if key in k["name"])
-             for key in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    rec = profiled(run, ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    flash = rec.pop("matched_ms")
     busy = rec["device_busy_ms"] or float("nan")
     emit("train_lm_breakdown", card=card, steps=4,
          step_ms=rec["profiled_wall_ms"] / 4,
@@ -877,10 +911,11 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def profiled(fn):
+def profiled(fn, match=()):
     """Host wall ms of ``fn()`` under torch.profiler, and the device's
     busy ms, idle share, kernel launches and top kernels by device time
-    (null when the profiler sees no device time)."""
+    (null when the profiler sees no device time); ``matched_ms`` sums the
+    device ms of every kernel whose name holds each of ``match``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -897,7 +932,9 @@ def profiled(fn):
         device_idle_share=(1 - busy_ms / wall_ms) if kernels else None,
         kernel_launches=sum(k[2] for k in kernels) if kernels else None,
         top_kernels=[{"name": k[1][:80], "ms": k[0], "calls": k[2]}
-                     for k in kernels[:12]])
+                     for k in kernels[:12]],
+        matched_ms={m: sum(k[0] for k in kernels if m in k[1])
+                    for m in match})
 
 
 def phase_breakdown(card, model, prompts):
@@ -976,8 +1013,9 @@ def main():
                 "replaces": "veles_tpu/ops/flash_attention.py:%d" % what,
                 "launches": launches_lm[name],
                 "max_abs_err": worst_bwd[name], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"],
+                "plain_ms": rec["plain_ms"],
+                # the kernels' products run on the tensor cores in 3xTF32
+                "bound_ms": rec["bound_tc_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], "pair_ms": rec["pair_ms"],
                 "ok": True}
 

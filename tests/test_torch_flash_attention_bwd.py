@@ -6,7 +6,8 @@ interpret mode on the CPU through the custom VJP, as
 tests/test_flash_attention.py runs it, and its blockwise oracle
 (``_bwd_blockwise``). On the CPU the port runs its plain backward; the
 hand-written CUDA kernels are held against it on the card by
-tests/test_torch_gpu.py and chip_smoke.py.
+tests/test_torch_gpu.py and chip_smoke.py, and their 3xTF32 arithmetic,
+emulated (``flash_attention_bwd_tf32``), against the Pallas pair here.
 
 Tolerance rtol 1e-4 / atol 1e-5 after dividing both sides by max|ref|,
 as tests/test_flash_attention.py: float32 on both sides, only the
@@ -114,6 +115,23 @@ def test_autograd_gradients_match_pallas(name):
                               window=window or None)
     for g, want in zip(got, torch.autograd.grad(ref, plain,
                                                 torch.from_numpy(do))):
+        close(g, want)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tf32x3_backward_matches_pallas(name):
+    """The kernels' arithmetic (every product 3xTF32, emulated on the CPU
+    by ``flash_attention_bwd_tf32``) against the Pallas pair, at the
+    float32 tolerance."""
+    b, h, kv, d, causal, window = CASES[name]
+    (q, k, v, do), want_grads = pallas_case(name)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = fa.flash_attention_fwd(tq, tk, tv, causal=causal,
+                                    window=window)
+    got = fa.flash_attention_bwd_tf32(tq, tk, tv, o, lse, tdo,
+                                      causal=causal, window=window)
+    for g, want, x in zip(got, want_grads, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == torch.float32
         close(g, want)
 
 

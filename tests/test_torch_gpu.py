@@ -11,7 +11,8 @@ JAX, and ``tests/conftest.py`` imports it — so run it there with
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 Tolerance: max abs error <= 1e-4 for kernel vs plain in float32 (only
-the summation order differs; for the backward, 1e-4 · max(1, max|plain|));
+the summation order differs; for the backward, whose products are 3xTF32
+on the tensor cores, float32-grade: 1e-4 · max(1, max|plain|));
 for the fused-FC epoch also the loss sum within 1e-5 relative and the
 error count exact; a small LM's epoch, kernel vs plain attention: NLL
 per token within 1e-5 relative, weights within 1e-3 (99.9 % within
@@ -171,7 +172,15 @@ BWD_CASES = [
     (16, 512, 8, 8, 64, True, 0), (2, 300, 8, 2, 64, True, 0),
     (2, 512, 8, 8, 64, True, 128), (1, 333, 4, 2, 256, True, 100),
     (2, 257, 8, 8, 128, False, 0), (1, 1, 2, 2, 48, True, 0),
-    (2, 200, 8, 8, 32, False, 0)]
+    (2, 200, 8, 8, 32, False, 0),
+    # the tensor-core design's tile edges: T around the 64-row tiles; D
+    # off the multiples of 16, 33 (rows off 16 bytes: 4-byte copies) and
+    # 160 (two column CTAs); GQA 8/1 with a window
+    (2, 65, 4, 4, 64, True, 0), (2, 127, 4, 2, 64, False, 0),
+    (2, 129, 4, 4, 64, True, 0), (2, 200, 4, 4, 8, True, 0),
+    (2, 150, 4, 2, 40, True, 0), (2, 140, 4, 4, 72, False, 0),
+    (2, 100, 4, 4, 33, True, 0), (1, 90, 2, 2, 160, False, 0),
+    (2, 300, 8, 1, 64, True, 64)]
 
 
 @pytest.mark.parametrize("b,t,h,kv,d,causal,window", BWD_CASES)
@@ -209,6 +218,70 @@ def test_backward_kernels_read_strided_inputs(cuda):
     for a, r in zip(got, want):
         assert float((a - r).abs().max()) <= 1e-4 * max(
             1.0, float(r.abs().max()))
+
+
+def test_backward_kernels_read_rows_off_16_bytes(cuda):
+    """q/k/v/do as views one element into their buffers: no row starts on
+    16 bytes, so every tile row takes the kernels' 4-byte copies."""
+    def view(heads):
+        return torch.randn(2 * 100 * heads * 64 + 1, device=cuda)[1:].view(
+            2, 100, heads, 64)
+
+    q, k, v, do = view(4), view(2), view(2), view(4)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    before = [counters.get(n) for n in (fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                            causal=True)
+    torch.cuda.synchronize()
+    assert [counters.get(n) for n in (fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)] \
+        == [x + 2 for x in before]
+    for a, r in zip(got, want):
+        assert float((a - r).abs().max()) <= 1e-4 * max(
+            1.0, float(r.abs().max()))
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.parametrize("where,causal", [
+    ("do", False), ("lse", False), ("lse", True)])
+def test_backward_kernels_keep_nan(cuda, where, causal):
+    """A NaN made by the card's arithmetic (0/0: bits 0x7fffffff) in one
+    element of do or of lse reaches the gradients. Unmasked, the kernels
+    are NaN exactly where the plain backward is. Under causal masking a
+    masked probability is 0 in the kernels but exp(NEG_INF - NaN) = NaN
+    in the plain backward, so the kernels are NaN exactly where the NaN row
+    reaches: its dq row and the dk/dv rows of the keys it sees. Every
+    other element agrees with the plain backward."""
+    b, t, h, d, i = 1, 100, 2, 64, 70
+    q, k, v = qkv(cuda, b, t, h, h, d, seed=5)
+    do = qkv(cuda, b, t, h, h, d, seed=6)[0]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    nan = torch.zeros((), device=cuda) / torch.zeros((), device=cuda)
+    if where == "do":
+        do = do.clone()
+        do[0, i, 1, 5] = nan
+    else:
+        lse = lse.clone()
+        lse[0, 1, i] = nan
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                            causal=causal)
+    torch.cuda.synchronize()
+    if causal:
+        dq_nan = torch.zeros(got[0].shape, dtype=torch.bool, device=cuda)
+        dq_nan[0, i, 1] = True
+        kv_nan = torch.zeros(got[1].shape, dtype=torch.bool, device=cuda)
+        kv_nan[0, :i + 1, 1] = True
+        expect = [dq_nan, kv_nan, kv_nan]
+    else:
+        expect = [torch.isnan(r) for r in want]
+    for a, r, e in zip(got, want, expect):
+        assert bool(e.any())
+        assert torch.equal(torch.isnan(a), e)
+        both = ~torch.isnan(r) & ~e
+        assert float((a[both] - r[both]).abs().max()) <= 1e-4 * max(
+            1.0, float(r[both].abs().max()))
 
 
 def test_backward_kernels_reject_what_they_do_not_take(cuda):

@@ -100,6 +100,23 @@ def test_build_paths_are_keyed_by_source(tmp_path, monkeypatch):
     assert _build.library_path("k") != first
 
 
+def test_build_paths_are_keyed_by_headers(tmp_path, monkeypatch):
+    """A source's library is keyed by every csrc/*.cuh as well: an edited
+    header rebuilds the sources that may include it."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    header.write_text("// two\n")
+    second = _build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert _build.library_path("k") not in (first, second)
+    assert _build.sources() == ["k"]
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)

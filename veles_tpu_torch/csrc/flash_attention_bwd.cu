@@ -10,41 +10,71 @@
 //   dv = p^T do,  dp = do v^T,  ds = p * (dp - delta) * scale,
 //   dk = ds^T q,  dq = ds k.
 //
-// What bounds it on this card. At the training slice's shape (B=16,
-// T=512, H=8, Dh=64, causal; 131,328 live (q, k) pairs per head) the
-// dK/dV kernel needs 8*Dh FLOP per live pair (s, dv, dp, dk), 8.6 GFLOP,
-// and the dQ kernel 6*Dh (s, dp, dq), 6.5 GFLOP: 0.128 ms and 0.096 ms at
-// the 67 TFLOP/s float32 FMA peak, against about 0.03 ms each to move
-// their ~100 MB and ~84 MB at 3.35 TB/s. So both are compute-bound, and
-// as in the forward the practical ceiling is the shared-memory operand
-// traffic that feeds the FMA units (about one 4-byte load per two FMAs).
-// The two-kernel split (the reference's) recomputes s and dp in each
-// kernel: 14*Dh FLOP per pair where the function alone needs 10*Dh.
+// What bounds it on this card. Per live (q, k) pair the dK/dV kernel
+// needs 8*Dh FLOP (s, dp, dv, dk) and the dQ kernel 6*Dh (s, dp, dq):
+// the two-kernel split (the reference's) recomputes s and dp. At the
+// training slice's shape (B=16, T=512, H=8, Dh=64, causal; 131,328 live
+// pairs per head) that is 8.61 and 6.46 GFLOP against ~101 and ~84 MB of
+// HBM traffic (0.030 and 0.025 ms at 3.35 TB/s), so both kernels are
+// bound by operations: 0.128 and 0.096 ms at the CUDA cores' 67 TFLOP/s
+// of float32 FMA, 0.052 and 0.039 ms on the tensor cores in 3xTF32
+// (three TF32 products a product at 495 TFLOP/s). The products run on
+// the tensor cores, so the second pair of bounds is the one that holds.
+// One TF32 product would be three times cheaper but misses the port's
+// 1e-4 float32 tolerance (tests/test_torch_tf32.py), so every product
+// is 3xTF32 (tf32x3.cuh): float32-grade.
 //
-// The design, the simple one first:
-//   - dK/dV: one CTA of 256 threads per (batch*kv head, K/V tile). The
-//     K_j and V_j tiles stay in shared memory, the dK_j and dV_j
-//     accumulators in registers. A loop inside the CTA takes the place
-//     of the TPU kernel's sequential grid dimension: it walks (query head
-//     of the group, q tile) in a fixed order, so a kv head sums its whole
-//     group's contributions without atomics and two launches on the
-//     same inputs give the same bits;
-//   - dQ: one CTA per (batch*head, Q tile), looping over the live K/V
-//     tiles; grouped K/V are read by index (query head h reads kv head
-//     h / (H / KV), the mapping of _kv_fold_of), never expanded;
+// The design, and what it does about the limits of the CUDA-core kernel
+// it replaces (scalar FMAs fed one shared-memory word per two FMAs,
+// synchronous tile copies with a barrier on each side, 100-166 KB of
+// shared memory a CTA):
+//   - all five products (s = q k^T, dp = do v^T, dv += p^T do,
+//     dk += ds^T q, dq += ds k) are mma.sync m16n8k8 TF32 triples, issued
+//     pass by pass over all of a warp's accumulators so that no mma waits
+//     on the one before it; the masks, p = 2^(s scale log2 e - lse log2 e)
+//     and p * (dp - delta) * scale stay float32 on the CUDA cores;
+//   - one CTA of 4 warps holds a 64-row resident tile (K and V for dK/dV,
+//     q and do for dQ), 16 rows a warp, with the accumulators in mma C
+//     fragments. dK/dV computes s^T = k q^T and dp^T = v do^T, so p^T and
+//     ds^T come out as C fragments of the warp's own k rows and feed dv
+//     and dk as A operands in registers (tf32x3.cuh's column order); dQ
+//     does the same with s = q k^T. No score tile goes through shared
+//     memory;
+//   - the streamed tiles (q, do, lse, delta for dK/dV; k, v for dQ) go
+//     through a two-stage ring of cp.async copies (16 bytes where the
+//     source row allows it, 4 bytes elsewhere): the next tile is in
+//     flight while the current one computes. Each thread splits the
+//     chunks it copied into hi and lo TF32 planes once they land, so a
+//     streamed element is split once a step, not once per warp and
+//     product, and one barrier a stage publishes the planes. The resident
+//     tile stays float32 (half the shared memory of planes) and is split
+//     as its A fragments are loaded, once per 4 n tiles;
+//   - rows are Dp + 4 floats (Dp: D rounded up to the variant's 32, 64,
+//     128 or 256, zero-filled past D, never padded in device memory), so
+//     every fragment load of a warp hits 32 distinct banks. A CTA takes
+//     ~55 KB (D <= 32), ~105 KB (D <= 64, 32 streamed rows a step) or
+//     ~101 KB (D <= 128, 16 rows), so two or more share an SM; D <= 256
+//     takes ~200 KB, streams 8 rows and splits the gradient's columns
+//     over two CTAs (blockIdx.z), each recomputing s and dp, so that no
+//     variant spills;
 //   - the loop bounds come from the forward's liveness predicate
-//     (_block_live): a tile pair with no unmasked score is never loaded.
-//     Inside a live pair the causal, sliding-window (q - k < window) and
-//     ragged-edge (q, k < T) masks apply per element, so any T is taken
-//     and Dh is never padded in memory;
-//   - register tiles: each thread holds an R x R block of the score tile
-//     and an R x (DMAX/16) block of each accumulator; shared-memory rows
-//     are padded by one word so the 16 lanes of a row group hit 16 banks;
+//     (_block_live): a tile pair with no unmasked score is never loaded,
+//     a warp whose 16 rows are all masked against the current tile skips
+//     its products, and a warp whose rows are all unmasked skips the
+//     per-element masks. Elsewhere the causal, sliding-window (q - k <
+//     window) and ragged-edge (q, k < T) masks apply per element, so any
+//     T is taken;
+//   - under causal masking the first k tiles see the most q tiles (and
+//     the last q tiles the most k tiles): the flat grid index is
+//     tile * pairs + (batch, head) pair, with the tiles longest first,
+//     so the short CTAs fill the card's tail;
+//   - dK/dV walks (query head of the group, q tile) in a fixed order
+//     inside one CTA, the TPU kernel's sequential grid dimension: a kv
+//     head sums its whole group without atomics, and two launches on the
+//     same inputs give the same bits. dQ reads grouped K/V by index
+//     (query head h reads kv head h / (H / KV), _kv_fold_of);
 //   - q, k, v, do and the gradients are read and written through their
 //     (B, T, heads, Dh) strides; lse and delta are flat (B*H, T).
-// A later design moves the products onto the tensor cores (wgmma on
-// TF32 or bf16 operands fed by TMA) and fuses the two kernels into one
-// pass, which removes the recomputed s and dp.
 //
 // C interface: veles_flash_attention_bwd_dkv_f32(...) and
 // veles_flash_attention_bwd_dq_f32(...) launch on the given stream and
@@ -53,22 +83,45 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
+
 
 namespace {
 
-constexpr int THREADS = 256;  // 16 row groups x 16 column groups
+using tf32x3::a_from_c;
+using tf32x3::load_a;
+using tf32x3::load_b;
+using tf32x3::mma;
 
-template <int DMAX>
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 16 * WARPS;  // rows of the resident tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// DS: head-dim columns the s and dp products run over (D zero-filled up
+// to it in shared memory); DA: gradient columns one CTA accumulates;
+// RS: rows of the streamed tile a step. Every tile is row-major with
+// rows of LD floats: the resident x and w (K and V for dK/dV, q and do
+// for dQ) in float32, split as each fragment is loaded; the streamed y
+// and z (q and do, or K and V) as a hi and a lo TF32 plane each, split
+// once a step by the threads that copied them
+template <int DS_, int DA_, int RS_>
 struct Cfg {
-  static constexpr int TILE = DMAX <= 128 ? 64 : 32;  // q and k/v rows
-  static constexpr int R = TILE / 16;   // tile rows (score columns) a thread holds
-  static constexpr int DC = DMAX / 16;  // head-dim columns a thread holds
-  static constexpr int XS = DMAX + 1;   // q/do/k/v tile row stride
-  static constexpr int PS = TILE + 1;   // score tile row stride
-  static constexpr size_t dkv_bytes =
-      sizeof(float) * (4 * TILE * XS + 2 * TILE * PS + 2 * TILE);
-  static constexpr size_t dq_bytes =
-      sizeof(float) * (4 * TILE * XS + TILE * PS + 2 * TILE);
+  static constexpr int DS = DS_, DA = DA_, RS = RS_;
+  static constexpr int LD = DS + 4;  // row stride: 4 mod 32 banks
+  static constexpr int KS = DS / 8;  // k steps of s and dp
+  static constexpr int NS = RS / 8;  // n tiles of s and dp a warp holds
+  static constexpr int NA = DA / 8;  // n tiles of an accumulator
+  static constexpr int ST = RS * LD;  // one streamed plane
+  static constexpr int Z = 2 * ST;    // z's planes, after y's
+  // resident x and w; then two stages of (y hi, y lo, z hi, z lo, two
+  // row vectors)
+  static constexpr int RES = 2 * ROWS * LD;
+  static constexpr int STAGE = 4 * ST + 2 * RS;
+  static constexpr int G = NA < 4 ? NA : 4;  // accumulator tiles a pass
+  static constexpr size_t bytes = sizeof(float) * (RES + 2 * STAGE);
 };
 
 struct Args {
@@ -88,291 +141,508 @@ struct Args {
   int causal, window;
 };
 
-__device__ __forceinline__ bool live(int qi, int kj, int T, int causal,
-                                     int window) {
-  bool keep = qi < T && kj < T;
-  if (causal) keep = keep && kj <= qi;
-  if (window > 0) keep = keep && (qi - kj < window);
+__device__ __forceinline__ bool live(int qi, int kj, const Args& a) {
+  bool keep = qi < a.T && kj < a.T;
+  if (a.causal) keep = keep && kj <= qi;
+  if (a.window > 0) keep = keep && (qi - kj < a.window);
   return keep;
 }
 
-// rows t0 .. t0+TILE-1 of one head into a padded shared tile; rows past
-// T and columns past D are zero, not stale (0 * NaN would poison a sum)
-template <int DMAX>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
+// whether any pair of q rows [q_lo, q_hi] and k rows [k_lo, k_hi] is
+// unmasked (the forward's _block_live)
+__device__ __forceinline__ bool block_live(int q_lo, int q_hi, int k_lo,
+                                           int k_hi, const Args& a) {
+  bool keep = q_lo < a.T && k_lo < a.T;
+  if (a.causal) keep = keep && k_lo <= q_hi;
+  if (a.window > 0) keep = keep && (q_lo - k_hi < a.window);
+  return keep;
+}
+
+// whether every pair is unmasked: the per-element masks can be skipped
+__device__ __forceinline__ bool block_full(int q_lo, int q_hi, int k_lo,
+                                           int k_hi, const Args& a) {
+  bool full = q_hi < a.T && k_hi < a.T;
+  if (a.causal) full = full && k_hi <= q_lo;
+  if (a.window > 0) full = full && (q_hi - k_lo < a.window);
+  return full;
+}
+
+// rows t0 .. t0+R-1 of one head (row stride st), columns 0 .. DS-1, into
+// a shared tile, asynchronously: 16-byte copies where the source is
+// 16-byte aligned, 4-byte copies elsewhere; rows past T and columns past
+// D are zeros, not stale (0 * NaN would poison a sum). A thread copies
+// the 4-column chunks idx = threadIdx.x + k * THREADS, and split_tile
+// splits the same chunks, so that no other thread's copies need to have
+// landed
+template <class C, int R>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src,
                                           long long st, int t0, int T,
                                           int D) {
-  using C = Cfg<DMAX>;
-  for (int idx = threadIdx.x; idx < C::TILE * DMAX; idx += THREADS) {
-    const int r = idx / DMAX, d = idx - (idx / DMAX) * DMAX;
+  constexpr int CH = C::DS / 4;  // 4-column chunks a row
+  for (int idx = threadIdx.x; idx < R * CH; idx += THREADS) {
+    const int r = idx / CH, c = (idx - r * CH) * 4;
+    float* d = dst + r * C::LD + c;
     const int t = t0 + r;
-    dst[r * C::XS + d] = (t < T && d < D) ? src[t * st + d] : 0.f;
-  }
-}
-
-template <int DMAX>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int t0, int T) {
-  using C = Cfg<DMAX>;
-  for (int r = threadIdx.x; r < C::TILE; r += THREADS)
-    dst[r] = t0 + r < T ? src[t0 + r] : 0.f;
-}
-
-// p and ds of one (q tile, k tile) pair. Thread (ty, tx) computes the
-// rows ty + 16*i of the q tile against the rows tx + 16*j of the k tile:
-// s = q k^T and dp = do v^T in one pass over the head dim, then the
-// masks, p = exp(s * scale - lse) and ds = p * (dp - delta) * scale.
-template <int DMAX>
-__device__ __forceinline__ void pair_grads(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    const float* lse_s, const float* delta_s, float* ps, float* dss,
-    int q0, int k0, const Args& a) {
-  using C = Cfg<DMAX>;
-  constexpr int R = C::R;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[R][R], dp[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < a.D; ++d) {
-    float qv[R], dov[R], kv[R], vv[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      qv[i] = qs[(ty + 16 * i) * C::XS + d];
-      dov[i] = dos[(ty + 16 * i) * C::XS + d];
+    if (t >= T || c >= D) {
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
     }
+    const float* s = src + t * st + c;
+    if (c + 4 <= D && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      tf32x3::copy16(d, s);
+    } else {
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      kv[j] = ks[(tx + 16 * j) * C::XS + d];
-      vv[j] = vs[(tx + 16 * j) * C::XS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        if (c + e < D)
+          tf32x3::copy4(d + e, s + e);
+        else
+          d[e] = 0.f;
       }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = ty + 16 * i;
-    const float l = lse_s[r], dl = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int c = tx + 16 * j;
-      const float p = live(q0 + r, k0 + c, a.T, a.causal, a.window)
-                          ? expf(s[i][j] * a.scale - l)
-                          : 0.f;
-      if (ps != nullptr) ps[r * C::PS + c] = p;
-      dss[r * C::PS + c] = p * (dp[i][j] - dl) * a.scale;
     }
   }
 }
 
-template <int DMAX>
+// this thread's chunks of a landed streamed tile split in place: the
+// float32 values become the hi plane, the lo plane ST floats on
+template <class C>
+__device__ __forceinline__ void split_tile(float* hi) {
+  constexpr int CH = C::DS / 4;
+  for (int idx = threadIdx.x; idx < C::RS * CH; idx += THREADS) {
+    const int r = idx / CH, c = (idx - r * CH) * 4;
+    tf32x3::split4(hi + r * C::LD + c, hi + C::ST + r * C::LD + c);
+  }
+}
+
+// this thread's chunks of a landed resident tile (R rows) cleaned of the
+// NaNs that to_tf32 would lose, so that its fragment loads split with no
+// NaN check
+template <class C, int R>
+__device__ __forceinline__ void clean_tile(float* tile) {
+  constexpr int CH = C::DS / 4;
+  for (int idx = threadIdx.x; idx < R * CH; idx += THREADS) {
+    const int r = idx / CH, c = (idx - r * CH) * 4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tf32x3::clean(tile[r * C::LD + c + e]);
+  }
+}
+
+// row values t0 .. t0+R-1 of a flat (B*H, T) row, zeros past T
+template <int R>
+__device__ __forceinline__ void copy_row(float* dst, const float* src,
+                                         int t0, int T) {
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    if (t0 + r < T)
+      tf32x3::copy4(dst + r, src + t0 + r);
+    else
+      dst[r] = 0.f;
+  }
+}
+
+// s and dp of a warp's 16 resident rows (r0, r0 + 8 of each lane)
+// against the RS streamed rows: s = x y^T and dp = w z^T over DS columns
+// (zeros past D). The three TF32 products of each k step are issued pass
+// by pass over all 2 NS accumulators, so that no mma waits on the one
+// before it
+template <class C>
+__device__ __forceinline__ void scores(const float* res, const float* stage,
+                                       int r0, float (&s)[C::NS][4],
+                                       float (&dp)[C::NS][4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* ys = stage;
+  const float* zs = stage + C::Z;
+#pragma unroll
+  for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C::KS; ++kk) {
+    const int c = 8 * kk + t;
+    uint32_t xh[4], xl[4], wh[4], wl[4];
+    load_a(res, C::LD, r0, c, xh, xl);
+    load_a(res + ROWS * C::LD, C::LD, r0, c, wh, wl);
+    uint32_t yh[C::NS][2], yl[C::NS][2], zh[C::NS][2], zl[C::NS][2];
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      const int at = (8 * j + g) * C::LD + c;
+      load_b(ys, ys + C::ST, at, at + 4, yh[j], yl[j]);
+      load_b(zs, zs + C::ST, at, at + 4, zh[j], zl[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      mma(s[j], xl, yh[j]);
+      mma(dp[j], wl, zh[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      mma(s[j], xh, yl[j]);
+      mma(dp[j], wh, zl[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      mma(s[j], xh, yh[j]);
+      mma(dp[j], wh, zh[j]);
+    }
+  }
+}
+
+// acc[n] += a b_n for the G accumulator tiles n0 .. n0+G-1 of a streamed
+// tile's planes (hi at y, lo ST floats on), in three passes; B rows are
+// read in the A operand's column order: row 2t at `at`, 2t + 1 a row on
+template <class C>
+__device__ __forceinline__ void accumulate(float (&acc)[C::NA][4], int n0,
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const float* y, int at) {
+  uint32_t bh[C::G][2], bl[C::G][2];
+#pragma unroll
+  for (int n = 0; n < C::G; ++n) {
+    const int e = at + 8 * (n0 + n);
+    load_b(y, y + C::ST, e, e + C::LD, bh[n], bl[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], al, bh[n]);
+#pragma unroll
+  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bl[n]);
+#pragma unroll
+  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bh[n]);
+}
+
+// 2^x on the special-function unit (relative error ~2^-22)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p and ds of the dK/dV kernel in place of s^T and dp^T: element (j, i)
+// is k row kj0 + 8 (i / 2) against streamed q column 8 j + 2 t +
+// (i % 2); lse_s holds lse * log2(e), so p = 2^(s scale log2(e) - that);
+// MASK applies the per-element masks
+template <class C, bool MASK>
+__device__ __forceinline__ void probs_dkv(float (&s)[C::NS][4],
+                                          float (&dp)[C::NS][4],
+                                          const float* lse_s,
+                                          const float* delta_s, int q0,
+                                          int kj0, const Args& a) {
+  const int t = threadIdx.x & 3;
+  const float scale_log2 = a.scale * LOG2E;
+#pragma unroll
+  for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qc = 8 * j + 2 * t + (i & 1);
+      const bool keep = !MASK || live(q0 + qc, kj0 + 8 * (i >> 1), a);
+      const float p = keep ? exp2_approx(s[j][i] * scale_log2 - lse_s[qc])
+                           : 0.f;
+      s[j][i] = p;
+      dp[j][i] = p * (dp[j][i] - delta_s[qc]) * a.scale;
+    }
+}
+
+// ds of the dQ kernel in place of dp: element (j, i) is q row qi0 +
+// 8 (i / 2) against streamed k column kt + 8 j + 2 t + (i % 2); lse
+// holds lse * log2(e)
+template <class C, bool MASK>
+__device__ __forceinline__ void probs_dq(const float (&s)[C::NS][4],
+                                         float (&dp)[C::NS][4],
+                                         const float (&lse)[2],
+                                         const float (&delta)[2], int qi0,
+                                         int kt, const Args& a) {
+  const int t = threadIdx.x & 3;
+  const float scale_log2 = a.scale * LOG2E;
+#pragma unroll
+  for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i >> 1;
+      const bool keep =
+          !MASK || live(qi0 + 8 * r, kt + 8 * j + 2 * t + (i & 1), a);
+      const float p = keep ? exp2_approx(s[j][i] * scale_log2 - lse[r])
+                           : 0.f;
+      dp[j][i] = p * (dp[j][i] - delta[r]) * a.scale;
+    }
+}
+
+template <class C>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const Args a) {
-  using C = Cfg<DMAX>;
-  constexpr int TILE = C::TILE, R = C::R, DC = C::DC;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + TILE * C::XS;
-  float* qs = vs + TILE * C::XS;
-  float* dos = qs + TILE * C::XS;
-  float* ps = dos + TILE * C::XS;
-  float* dss = ps + TILE * C::PS;
-  float* lse_s = dss + TILE * C::PS;
-  float* delta_s = lse_s + TILE;
+  extern __shared__ __align__(16) float smem[];
+  float* res = smem;  // K and V
+  float* ring = smem + C::RES;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * TILE;
-  const int bk = blockIdx.y;  // batch * KV + kv head
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  // all (batch, kv head) pairs of one k tile are launched together, the
+  // first tiles first: under causal they see the most q tiles, and the
+  // short ones that come last fill the card's tail
+  const int pairs = gridDim.x / ((a.T + ROWS - 1) / ROWS);
+  const int tile = blockIdx.x / pairs;
+  const int bk = blockIdx.x - tile * pairs;  // batch * KV + kv head
+  const int k0 = tile * ROWS;
   const int b = bk / a.KV;
   const int kvh = bk - b * a.KV;
+  const int c0 = blockIdx.z * C::DA;  // this CTA's gradient columns
   const int group = a.H / a.KV;
-  const int T = a.T;
+  const int T = a.T, D = a.D;
+  const int r0 = 16 * warp + g;  // this lane's k rows: r0, r0 + 8
 
-  load_tile<DMAX>(ks, a.k + b * a.sk[0] + kvh * a.sk[2], a.sk[1], k0, T,
-                  a.D);
-  load_tile<DMAX>(vs, a.v + b * a.sv[0] + kvh * a.sv[2], a.sv[1], k0, T,
-                  a.D);
+  copy_tile<C, ROWS>(res, a.k + b * a.sk[0] + kvh * a.sk[2], a.sk[1], k0, T,
+                     D);
+  copy_tile<C, ROWS>(res + ROWS * C::LD, a.v + b * a.sv[0] + kvh * a.sv[2],
+                     a.sv[1], k0, T, D);
 
-  float dk[R][DC], dv[R][DC];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  // the q tiles with a live score against this k tile (_block_live)
+  // the q tiles with a live score against this k tile (_block_live),
+  // for each query head of the group in turn
   const int q_lo = a.causal ? k0 : 0;
-  const int q_hi = a.window > 0 ? min(T, k0 + TILE - 1 + a.window) : T;
+  const int q_hi = a.window > 0 ? min(T, k0 + ROWS - 1 + a.window) : T;
+  const int nq = (q_hi - q_lo + C::RS - 1) / C::RS;
+  const int steps = group * nq;
 
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    const float* qb = a.q + b * a.sq[0] + h * a.sq[2];
-    const float* dob = a.dout + b * a.sdo[0] + h * a.sdo[2];
+  // the streamed q, do, lse and delta of step it, into stage it % 2
+  auto issue = [&](int it) {
+    const int gi = it / nq;
+    const int q0 = q_lo + (it - gi * nq) * C::RS;
+    const int h = kvh * group + gi;
     const long long row = ((long long)b * a.H + h) * T;
-    for (int q0 = q_lo; q0 < q_hi; q0 += TILE) {
-      __syncthreads();  // the previous pair's tile reads are done
-      load_tile<DMAX>(qs, qb, a.sq[1], q0, T, a.D);
-      load_tile<DMAX>(dos, dob, a.sdo[1], q0, T, a.D);
-      load_rows<DMAX>(lse_s, a.lse + row, q0, T);
-      load_rows<DMAX>(delta_s, a.delta + row, q0, T);
-      __syncthreads();
-      pair_grads<DMAX>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, q0, k0, a);
-      __syncthreads();
-      // dv += p^T do and dk += ds^T q over the q rows of this tile; this
-      // thread's k rows are ty + 16*i, its head-dim columns tx + 16*c
-      const int qn = min(TILE, T - q0);
-      for (int qq = 0; qq < qn; ++qq) {
-        float pv[R], dsv[R], dov[DC], qv[DC];
+    float* st = ring + (it & 1) * C::STAGE;
+    copy_tile<C, C::RS>(st, a.q + b * a.sq[0] + h * a.sq[2], a.sq[1], q0, T,
+                        D);
+    copy_tile<C, C::RS>(st + C::Z, a.dout + b * a.sdo[0] + h * a.sdo[2],
+                        a.sdo[1], q0, T, D);
+    copy_row<C::RS>(st + 4 * C::ST, a.lse + row, q0, T);
+    copy_row<C::RS>(st + 4 * C::ST + C::RS, a.delta + row, q0, T);
+    tf32x3::commit();
+  };
+
+  float dk[C::NA][4], dv[C::NA][4];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          pv[i] = ps[qq * C::PS + ty + 16 * i];
-          dsv[i] = dss[qq * C::PS + ty + 16 * i];
-        }
+  for (int n = 0; n < C::NA; ++n)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dov[c] = dos[qq * C::XS + tx + 16 * c];
-          qv[c] = qs[qq * C::XS + tx + 16 * c];
-        }
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  if (steps > 0) issue(0);
+  for (int it = 0; it < steps; ++it) {
+    // this thread's copies of step it have landed: it splits its own
+    // chunks into the hi/lo planes and scales its own lse values; one
+    // barrier then publishes the stage, and every warp is done with step
+    // it - 1, whose stage the next copies overwrite
+    tf32x3::wait_all();
+    if (it == 0) {  // K and V have landed with the first stage
+      clean_tile<C, ROWS>(res);
+      clean_tile<C, ROWS>(res + ROWS * C::LD);
+    }
+    float* st = ring + (it & 1) * C::STAGE;
+    split_tile<C>(st);
+    split_tile<C>(st + C::Z);
+    for (int r = threadIdx.x; r < C::RS; r += THREADS)
+      st[4 * C::ST + r] *= LOG2E;
+    __syncthreads();
+    if (it + 1 < steps) issue(it + 1);
+
+    const int gi = it / nq;
+    const int q0 = q_lo + (it - gi * nq) * C::RS;
+    const int kw = k0 + 16 * warp;  // this warp's k rows kw .. kw + 15
+    if (!block_live(q0, q0 + C::RS - 1, kw, kw + 15, a)) continue;
+
+    // s^T = k q^T and dp^T = v do^T: rows are this warp's k rows,
+    // columns the step's q rows; then p^T and ds^T in their place
+    float s[C::NS][4], dp[C::NS][4];
+    scores<C>(res, st, r0, s, dp);
+    const float* lse_s = st + 4 * C::ST;
+    if (block_full(q0, q0 + C::RS - 1, kw, kw + 15, a))
+      probs_dkv<C, false>(s, dp, lse_s, lse_s + C::RS, q0, k0 + r0, a);
+    else
+      probs_dkv<C, true>(s, dp, lse_s, lse_s + C::RS, q0, k0 + r0, a);
+
+    // dv += p^T do, dk += ds^T q over the step's q rows
 #pragma unroll
-        for (int i = 0; i < R; ++i)
+    for (int kk = 0; kk < C::NS; ++kk) {
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      a_from_c(s[kk], ph, pl);
+      a_from_c(dp[kk], dh, dl);
+      const int at = (8 * kk + 2 * t) * C::LD + c0 + g;
 #pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            dv[i][c] = fmaf(pv[i], dov[c], dv[i][c]);
-            dk[i][c] = fmaf(dsv[i], qv[c], dk[i][c]);
-          }
+      for (int n0 = 0; n0 < C::NA; n0 += C::G) {
+        accumulate<C>(dv, n0, ph, pl, st + C::Z, at);
+        accumulate<C>(dk, n0, dh, dl, st, at);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int kj = k0 + ty + 16 * i;
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + r0 + 8 * (i >> 1);
     if (kj >= T) continue;
     float* dkrow = a.dk + b * a.sdk[0] + kj * a.sdk[1] + kvh * a.sdk[2];
     float* dvrow = a.dv + b * a.sdv[0] + kj * a.sdv[1] + kvh * a.sdv[2];
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < a.D) {
-        dkrow[d] = dk[i][c];
-        dvrow[d] = dv[i][c];
+    for (int n = 0; n < C::NA; ++n) {
+      const int d = c0 + 8 * n + 2 * t + (i & 1);
+      if (d < D) {
+        dkrow[d] = dk[n][i];
+        dvrow[d] = dv[n][i];
       }
     }
   }
 }
 
-template <int DMAX>
+template <class C>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const Args a) {
-  using C = Cfg<DMAX>;
-  constexpr int TILE = C::TILE, R = C::R, DC = C::DC;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + TILE * C::XS;
-  float* ks = dos + TILE * C::XS;
-  float* vs = ks + TILE * C::XS;
-  float* dss = vs + TILE * C::XS;
-  float* lse_s = dss + TILE * C::PS;
-  float* delta_s = lse_s + TILE;
+  extern __shared__ __align__(16) float smem[];
+  float* res = smem;  // q and do
+  float* ring = smem + C::RES;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * TILE;
-  const int bh = blockIdx.y;  // batch * H + head
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  // all (batch, head) pairs of one q tile are launched together, the last
+  // tiles first: under causal they see the most K/V tiles
+  const int tiles = (a.T + ROWS - 1) / ROWS;
+  const int pairs = gridDim.x / tiles;
+  const int tile = blockIdx.x / pairs;
+  const int bh = blockIdx.x - tile * pairs;  // batch * H + head
+  const int q0 = (tiles - 1 - tile) * ROWS;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
   const int kvh = h / (a.H / a.KV);
-  const int T = a.T;
+  const int c0 = blockIdx.z * C::DA;
+  const int T = a.T, D = a.D;
+  const int r0 = 16 * warp + g;  // this lane's q rows: r0, r0 + 8
   const long long row = (long long)bh * T;
 
-  load_tile<DMAX>(qs, a.q + b * a.sq[0] + h * a.sq[2], a.sq[1], q0, T, a.D);
-  load_tile<DMAX>(dos, a.dout + b * a.sdo[0] + h * a.sdo[2], a.sdo[1], q0,
-                  T, a.D);
-  load_rows<DMAX>(lse_s, a.lse + row, q0, T);
-  load_rows<DMAX>(delta_s, a.delta + row, q0, T);
+  copy_tile<C, ROWS>(res, a.q + b * a.sq[0] + h * a.sq[2], a.sq[1], q0, T, D);
+  copy_tile<C, ROWS>(res + ROWS * C::LD, a.dout + b * a.sdo[0] + h * a.sdo[2],
+                     a.sdo[1], q0, T, D);
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
+    lse[i] = qi < T ? a.lse[row + qi] * LOG2E : 0.f;
+    delta[i] = qi < T ? a.delta[row + qi] : 0.f;
+  }
   const float* kb = a.k + b * a.sk[0] + kvh * a.sk[2];
   const float* vb = a.v + b * a.sv[0] + kvh * a.sv[2];
 
-  float acc[R][DC];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
   // the K/V range any row of this q tile can see (the forward's bounds)
-  const int q_last = min(q0 + TILE, T) - 1;
+  const int q_last = min(q0 + ROWS, T) - 1;
   const int k_hi = a.causal ? q_last + 1 : T;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int steps = (k_hi - k_lo + C::RS - 1) / C::RS;
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += TILE) {
-    __syncthreads();  // the previous step's K and dS reads are done
-    load_tile<DMAX>(ks, kb, a.sk[1], k0, T, a.D);
-    load_tile<DMAX>(vs, vb, a.sv[1], k0, T, a.D);
+  // the streamed k and v of step it, into stage it % 2
+  auto issue = [&](int it) {
+    const int kt = k_lo + it * C::RS;
+    float* st = ring + (it & 1) * C::STAGE;
+    copy_tile<C, C::RS>(st, kb, a.sk[1], kt, T, D);
+    copy_tile<C, C::RS>(st + C::Z, vb, a.sv[1], kt, T, D);
+    tf32x3::commit();
+  };
+
+  float acc[C::NA][4];
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  if (steps > 0) issue(0);
+  for (int it = 0; it < steps; ++it) {
+    tf32x3::wait_all();  // as in the dK/dV kernel: one barrier a stage
+    if (it == 0) {
+      clean_tile<C, ROWS>(res);
+      clean_tile<C, ROWS>(res + ROWS * C::LD);
+    }
+    float* st = ring + (it & 1) * C::STAGE;
+    split_tile<C>(st);
+    split_tile<C>(st + C::Z);
     __syncthreads();
-    pair_grads<DMAX>(qs, dos, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0,
-                     a);
-    __syncthreads();
-    // dq += ds k: this thread's q rows are ty + 16*i, its head-dim
-    // columns tx + 16*c
-    const int kn = min(TILE, k_hi - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float dsv[R], kv[DC];
+    if (it + 1 < steps) issue(it + 1);
+
+    const int kt = k_lo + it * C::RS;
+    const int qw = q0 + 16 * warp;  // this warp's q rows qw .. qw + 15
+    if (!block_live(qw, qw + 15, kt, kt + C::RS - 1, a)) continue;
+
+    // s = q k^T and dp = do v^T: rows are this warp's q rows; then ds in
+    // dp's place
+    float s[C::NS][4], dp[C::NS][4];
+    scores<C>(res, st, r0, s, dp);
+    if (block_full(qw, qw + 15, kt, kt + C::RS - 1, a))
+      probs_dq<C, false>(s, dp, lse, delta, q0 + r0, kt, a);
+    else
+      probs_dq<C, true>(s, dp, lse, delta, q0 + r0, kt, a);
+
+    // dq += ds k over the step's k rows
 #pragma unroll
-      for (int i = 0; i < R; ++i) dsv[i] = dss[(ty + 16 * i) * C::PS + kk];
+    for (int kk = 0; kk < C::NS; ++kk) {
+      uint32_t dh[4], dl[4];
+      a_from_c(dp[kk], dh, dl);
+      const int at = (8 * kk + 2 * t) * C::LD + c0 + g;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = ks[kk * C::XS + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
+      for (int n0 = 0; n0 < C::NA; n0 += C::G)
+        accumulate<C>(acc, n0, dh, dl, st, at);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qi = q0 + ty + 16 * i;
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + r0 + 8 * (i >> 1);
     if (qi >= T) continue;
     float* dqrow = a.dq + b * a.sdq[0] + qi * a.sdq[1] + h * a.sdq[2];
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < a.D) dqrow[d] = acc[i][c];
+    for (int n = 0; n < C::NA; ++n) {
+      const int d = c0 + 8 * n + 2 * t + (i & 1);
+      if (d < D) dqrow[d] = acc[n][i];
     }
   }
 }
 
-template <int DMAX>
+template <class C>
+cudaError_t prepare(const void* kernel) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+  if (err != cudaSuccess) return err;
+  // as much of the SM's 256 KB for shared memory as it takes, so that
+  // two CTAs of ~105 KB fit
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <class C>
 cudaError_t launch_dkv(const Args& a, int B, cudaStream_t stream) {
-  using C = Cfg<DMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<DMAX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dkv_bytes);
+  cudaError_t err =
+      prepare<C>(reinterpret_cast<const void*>(flash_bwd_dkv_kernel<C>));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + C::TILE - 1) / C::TILE, B * a.KV);
-  flash_bwd_dkv_kernel<DMAX><<<grid, THREADS, C::dkv_bytes, stream>>>(a);
+  const int tiles = (a.T + ROWS - 1) / ROWS, z = (a.D + C::DA - 1) / C::DA;
+  const dim3 grid(tiles * B * a.KV, 1, z);
+  flash_bwd_dkv_kernel<C><<<grid, THREADS, C::bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <class C>
 cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
-  using C = Cfg<DMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<DMAX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dq_bytes);
+  cudaError_t err =
+      prepare<C>(reinterpret_cast<const void*>(flash_bwd_dq_kernel<C>));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + C::TILE - 1) / C::TILE, B * a.H);
-  flash_bwd_dq_kernel<DMAX><<<grid, THREADS, C::dq_bytes, stream>>>(a);
+  const int tiles = (a.T + ROWS - 1) / ROWS, z = (a.D + C::DA - 1) / C::DA;
+  const dim3 grid(tiles * B * a.H, 1, z);
+  flash_bwd_dq_kernel<C><<<grid, THREADS, C::bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
+// the variant for head dim D: (DS, DA, RS). A CTA takes ~55 KB (D <=
+// 32), ~105 KB (D <= 64), ~101 KB (D <= 128, 16 streamed rows a step) or
+// ~200 KB (D <= 256, 8 streamed rows, and the gradient's columns split
+// over two CTAs so that the accumulators fit in registers)
+using Cfg32 = Cfg<32, 32, 32>;
+using Cfg64 = Cfg<64, 64, 32>;
+using Cfg128 = Cfg<128, 128, 16>;
+using Cfg256 = Cfg<256, 128, 8>;
+
+// the flat grid index (tile, batch, head) fits the grid's x, which
+// takes 2^31 - 1 blocks
 bool valid(int B, int T, int H, int KV, int D) {
   return B >= 1 && T >= 1 && KV >= 1 && H % KV == 0 && D >= 1 && D <= 256 &&
-         B * H <= 65535;
+         (long long)((T + ROWS - 1) / ROWS) * B * H <= 0x7fffffffLL;
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
@@ -416,10 +686,10 @@ extern "C" int veles_flash_attention_bwd_dkv_f32(
   const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, T, H,
                            KV, D, strides, scale, causal, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch_dkv<32>(a, B, s);
-  if (D <= 64) return (int)launch_dkv<64>(a, B, s);
-  if (D <= 128) return (int)launch_dkv<128>(a, B, s);
-  return (int)launch_dkv<256>(a, B, s);
+  if (D <= 32) return (int)launch_dkv<Cfg32>(a, B, s);
+  if (D <= 64) return (int)launch_dkv<Cfg64>(a, B, s);
+  if (D <= 128) return (int)launch_dkv<Cfg128>(a, B, s);
+  return (int)launch_dkv<Cfg256>(a, B, s);
 }
 
 extern "C" int veles_flash_attention_bwd_dq_f32(
@@ -431,8 +701,8 @@ extern "C" int veles_flash_attention_bwd_dq_f32(
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, T,
                            H, KV, D, strides, scale, causal, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch_dq<32>(a, B, s);
-  if (D <= 64) return (int)launch_dq<64>(a, B, s);
-  if (D <= 128) return (int)launch_dq<128>(a, B, s);
-  return (int)launch_dq<256>(a, B, s);
+  if (D <= 32) return (int)launch_dq<Cfg32>(a, B, s);
+  if (D <= 64) return (int)launch_dq<Cfg64>(a, B, s);
+  if (D <= 128) return (int)launch_dq<Cfg128>(a, B, s);
+  return (int)launch_dq<Cfg256>(a, B, s);
 }

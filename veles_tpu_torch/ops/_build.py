@@ -1,13 +1,14 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface and loaded with
-``ctypes`` — no PyTorch headers, so a build takes seconds, not minutes.
-The library lands in the git-ignored ``build/veles_tpu_torch/`` at the
-repository root, in a file named by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one loads at once. The
-build runs at first use, never at import: the CPU tests import every
-module on a host without ``nvcc``.
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it includes) is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library with a
+plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
+build takes seconds, not minutes. The library lands in the git-ignored
+``build/veles_tpu_torch/`` at the repository root, in a file named by a
+hash of the source, the headers and the flags, so an edited source or
+header rebuilds and an unchanged one loads at once. The build runs at
+first use, never at import: the CPU tests import every module on a host
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -53,10 +54,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to: keyed by the source's bytes
-    and the compiler flags."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source's bytes,
+    those of every header in ``csrc/`` (``*.cuh``, which a source may
+    include) and the compiler flags."""
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for path in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, path), "rb") as f:
+            digest.update(path.encode() + b"\0" + f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "lib%s-%s.so"
                         % (name, digest.hexdigest()[:16]))

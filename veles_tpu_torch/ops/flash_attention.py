@@ -11,7 +11,10 @@ without expanding them, and takes any T and any head dim up to
 (``csrc/flash_attention_bwd.cu``) replaces ``_bwd_dkv_kernel`` and
 ``_bwd_dq_kernel``: dK/dV per K/V tile summed over the query heads of its
 group in a fixed order (no atomics), then dQ per Q tile, both
-recomputing the probabilities from the forward's log-sum-exp.
+recomputing the probabilities from the forward's log-sum-exp, with every
+product on the tensor cores in 3xTF32. :func:`tf32_round` and
+:func:`flash_attention_bwd_tf32` emulate that arithmetic on the CPU for
+the tests; no entry point uses them.
 
 Layout contract, as in the reference: q ``(B, T, H, Dh)``, k/v
 ``(B, T, KV, Dh)`` with ``H % KV == 0``, o ``(B, T, H, Dh)``; lse is
@@ -44,7 +47,7 @@ from ..telemetry.counters import inc
 NEG_INF = -1e30
 
 #: largest head dim the kernels take (their accumulators live in
-#: registers: DMAX/16 columns of a few rows per thread)
+#: registers: the backward's in tensor-core C fragments)
 MAX_D = 256
 
 _SOURCE = "flash_attention_fwd"
@@ -118,6 +121,63 @@ def backward_work(b: int, t: int, h: int, d: int, causal: bool = False,
             "dq": (6.0 * d * pairs, float(3 * io * h + 2 * io * kv + rows))}
 
 
+#: published dense peaks of one H100 SXM (NVIDIA data sheet): float32
+#: FMA on the CUDA cores, TF32 on the tensor cores, HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def backward_bounds(b: int, t: int, h: int, d: int, causal: bool = False,
+                    window: int = 0, kv: Optional[int] = None
+                    ) -> Dict[str, Dict[str, float]]:
+    """Each backward kernel's least time on the card, in ms, from
+    :func:`backward_work`: ``f32`` with the products on the CUDA cores,
+    ``tc`` with them on the tensor cores in 3xTF32 (three TF32 products
+    each), each the larger of its operations time and the bytes over
+    HBM's rate. The kernels run against ``tc``; ``bound_by`` names the
+    side that sets it."""
+    out = {}
+    for name, (flops, nbytes) in backward_work(b, t, h, d, causal, window,
+                                               kv).items():
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        out[name] = {"f32": max(flops / PEAK_F32_FLOPS * 1e3, t_bytes),
+                     "tc": max(t_tc, t_bytes),
+                     "bound_by": "operations" if t_tc >= t_bytes
+                     else "bytes"}
+    return out
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 explicit mantissa bits) as
+    ``cvt.rna.tf32.f32`` rounds: to nearest, ties away from zero, on the
+    float32 bit pattern; ±0 and ±inf stay, subnormals round like the
+    rest (no flush) and the largest finites overflow to inf. A NaN is not
+    rounded (the carry would turn 0x7fffffff into -0): it becomes the
+    quiet NaN 0x7fc00000, as the kernels' split makes it. The result is
+    float32 with the low 13 bits clear."""
+    x = x.float().contiguous()
+    bits = (x.view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isnan(x), torch.full_like(x, math.nan),
+                       bits.view(torch.float32))
+
+
+def tf32x3_einsum(eq: str, a, b, passes: int = 3):
+    """``torch.einsum(eq, a, b)`` as the backward kernels take a product
+    on the tensor cores: each operand split into hi = tf32(x) and lo =
+    tf32(x − hi), then lo·hi + hi·lo + hi·hi summed in float32 (3xTF32);
+    ``passes=1`` is the plain TF32 product hi·hi, which the kernels do
+    not use (it misses their 1e-4 tolerance)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    hi = torch.einsum(eq, a_hi, b_hi)
+    if passes == 1:
+        return hi
+    a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + hi)
+
+
 def _check_window(window, causal: bool, t: int) -> int:
     window = int(window or 0)
     if window < 0:
@@ -145,10 +205,11 @@ def _expand(x, h: int):
         b, t, h, d)
 
 
-def _scores(q, k, causal: bool, window: int, scale: float):
+def _scores(q, k, causal: bool, window: int, scale: float,
+            einsum=torch.einsum):
     """f32 scaled scores (B, H, T, T) with the masked pairs at NEG_INF."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                     _expand(k, q.shape[2]).float()) * scale
+    s = einsum("bqhd,bkhd->bhqk", q.float(),
+               _expand(k, q.shape[2]).float()) * scale
     keep = _keep(q.shape[1], causal, window, q.device)
     if keep is not None:
         s = torch.where(keep, s, torch.full_like(s, NEG_INF))
@@ -173,19 +234,22 @@ def flash_attention_fwd_reference(q, k, v, causal: bool = False,
 
 
 def _bwd_plain(q, k, v, lse, delta, do, causal: bool, window: int,
-               scale: float):
+               scale: float, einsum=torch.einsum):
     """The backward's function with a full (T, T) f32 recompute: lse and
     delta are (B, H, T); the gradients of grouped k/v sum their query
-    heads. Returns f32 (dq, dk, dv)."""
+    heads. Returns f32 (dq, dk, dv). ``einsum`` takes the five products
+    (:func:`tf32x3_einsum` emulates the kernels' tensor-core
+    arithmetic)."""
     b, t, h, d = q.shape
     kv = k.shape[2]
-    p = torch.exp(_scores(q, k, causal, window, scale) - lse[..., None])
+    p = torch.exp(_scores(q, k, causal, window, scale, einsum)
+                  - lse[..., None])
     dof = do.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, _expand(v, h).float())
+    dv = einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = einsum("bqhd,bkhd->bhqk", dof, _expand(v, h).float())
     ds = p * (dp - delta[..., None]) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand(k, h).float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dq = einsum("bhqk,bkhd->bqhd", ds, _expand(k, h).float())
+    dk = einsum("bhqk,bqhd->bkhd", ds, q.float())
     g = h // kv
     return (dq, dk.reshape(b, t, kv, g, d).sum(3),
             dv.reshape(b, t, kv, g, d).sum(3))
@@ -205,6 +269,22 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
     dq, dk, dv = _bwd_plain(q, k, v, lse.float(), delta, do, causal, window,
                             scale)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_tf32(q, k, v, o, lse, do, causal: bool = False,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None,
+                             passes: int = 3):
+    """f32 ``(dq, dk, dv)`` of :func:`flash_attention_bwd_reference` with
+    every product taken as the backward kernels take it on the tensor
+    cores (:func:`tf32x3_einsum`; ``passes=1``: plain TF32). A CPU
+    emulation for the tests; no entry point calls it."""
+    window = _check_window(window, causal, q.shape[1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+    return _bwd_plain(q, k, v, lse.float(), delta, do, causal, window, scale,
+                      functools.partial(tf32x3_einsum, passes=passes))
 
 
 def _check(q, k, v):
