@@ -10,9 +10,9 @@ JAX, and ``tests/conftest.py`` imports it — so run it there with
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
-Tolerance: max abs error <= 1e-4 for kernel vs plain in float32 (only
-the summation order differs; for the backward, whose products are 3xTF32
-on the tensor cores, float32-grade: 1e-4 · max(1, max|plain|));
+Tolerance: max abs error <= 1e-4 for kernel vs plain in float32 (the
+kernels' products are 3xTF32 on the tensor cores, float32-grade; for the
+backward's gradients 1e-4 · max(1, max|plain|));
 for the fused-FC epoch also the loss sum within 1e-5 relative and the
 error count exact; a small LM's epoch, kernel vs plain attention: NLL
 per token within 1e-5 relative, weights within 1e-3 (99.9 % within
@@ -62,7 +62,16 @@ def qkv(device, b, t, h, kv, d, seed):
     (4, 512, 8, 8, 64, True, 0), (2, 300, 8, 2, 64, True, 0),
     (2, 512, 8, 8, 64, True, 128), (1, 333, 4, 2, 256, True, 100),
     (2, 200, 8, 8, 32, False, 0), (2, 257, 8, 4, 128, False, 0),
-    (1, 1, 2, 2, 48, True, 0)])
+    (1, 1, 2, 2, 48, True, 0),
+    # the tensor-core design's tile edges: T around the 64-row q tiles
+    # and the streamed K/V tiles; D off the multiples of 16, 33 (rows off
+    # 16 bytes: 4-byte copies) and 160 (o's columns over two CTAs); GQA
+    # 8/1 with a window
+    (2, 65, 4, 4, 64, True, 0), (2, 127, 4, 2, 64, False, 0),
+    (2, 129, 4, 4, 64, True, 0), (2, 200, 4, 4, 8, True, 0),
+    (2, 150, 4, 2, 40, True, 0), (2, 140, 4, 4, 72, False, 0),
+    (2, 100, 4, 4, 33, True, 0), (1, 90, 2, 2, 160, False, 0),
+    (2, 300, 8, 1, 64, True, 64)])
 def test_kernel_matches_plain(cuda, b, t, h, kv, d, causal, window):
     q, k, v = qkv(cuda, b, t, h, kv, d, seed=t)
     before = counters.get(LAUNCHES)
@@ -83,6 +92,58 @@ def test_kernel_reads_strided_inputs(cuda):
     o, _ = fa.flash_attention_fwd(q, k, v, causal=True)
     ro, _ = fa.flash_attention_fwd_reference(q, k, v, causal=True)
     assert float((o - ro).abs().max()) <= 1e-4
+
+
+def test_kernel_reads_rows_off_16_bytes(cuda):
+    """q/k/v as views one element into their buffers: no row starts on 16
+    bytes, so every tile row takes the kernel's 4-byte copies."""
+    def view(heads):
+        return torch.randn(2 * 100 * heads * 64 + 1, device=cuda)[1:].view(
+            2, 100, heads, 64)
+
+    q, k, v = view(4), view(2), view(2)
+    before = counters.get(LAUNCHES)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert counters.get(LAUNCHES) == before + 1
+    assert float((o - ro).abs().max()) <= 1e-4
+    assert float((lse - rlse).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("where", ["q", "k", "v"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_keeps_nan(cuda, where, causal):
+    """A NaN made by the card's arithmetic (0/0: bits 0x7fffffff) in one
+    element of q, k or v reaches o and lse where it reaches the plain
+    version's: a q row's NaN its own o row and lse; a NaN at key row 0,
+    which every query row sees, its head's every o row and lse (k) or one
+    column of o (v). Every other element agrees within 1e-4."""
+    b, t, h, d, i = 1, 100, 2, 64, 70
+    q, k, v = qkv(cuda, b, t, h, h, d, seed=7)
+    nan = torch.zeros((), device=cuda) / torch.zeros((), device=cuda)
+    x = {"q": q, "k": k, "v": v}[where]
+    x[0, i if where == "q" else 0, 1, 5] = nan
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ro).any())
+    for a, r in ((o, ro), (lse, rlse)):
+        expect = torch.isnan(r)
+        assert torch.equal(torch.isnan(a), expect)
+        both = ~expect
+        assert float((a[both] - r[both]).abs().max()) <= 1e-4
+
+
+def test_kernel_takes_more_than_65535_heads(cuda):
+    """B * H = 65,544 (batch, head) pairs: one flat grid index, so no
+    65,535 cap from a grid axis."""
+    q, k, v = qkv(cuda, 8193, 2, 8, 8, 8, seed=8)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert float((o - ro).abs().max()) <= 1e-4
+    assert float((lse - rlse).abs().max()) <= 1e-4
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

@@ -85,20 +85,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
 #include "tf32x3.cuh"
-
 
 namespace {
 
+using namespace flash;
 using tf32x3::a_from_c;
 using tf32x3::load_a;
 using tf32x3::load_b;
 using tf32x3::mma;
-
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int ROWS = 16 * WARPS;  // rows of the resident tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 // DS: head-dim columns the s and dp products run over (D zero-filled up
 // to it in shared memory); DA: gradient columns one CTA accumulates;
@@ -140,91 +136,6 @@ struct Args {
   float scale;
   int causal, window;
 };
-
-__device__ __forceinline__ bool live(int qi, int kj, const Args& a) {
-  bool keep = qi < a.T && kj < a.T;
-  if (a.causal) keep = keep && kj <= qi;
-  if (a.window > 0) keep = keep && (qi - kj < a.window);
-  return keep;
-}
-
-// whether any pair of q rows [q_lo, q_hi] and k rows [k_lo, k_hi] is
-// unmasked (the forward's _block_live)
-__device__ __forceinline__ bool block_live(int q_lo, int q_hi, int k_lo,
-                                           int k_hi, const Args& a) {
-  bool keep = q_lo < a.T && k_lo < a.T;
-  if (a.causal) keep = keep && k_lo <= q_hi;
-  if (a.window > 0) keep = keep && (q_lo - k_hi < a.window);
-  return keep;
-}
-
-// whether every pair is unmasked: the per-element masks can be skipped
-__device__ __forceinline__ bool block_full(int q_lo, int q_hi, int k_lo,
-                                           int k_hi, const Args& a) {
-  bool full = q_hi < a.T && k_hi < a.T;
-  if (a.causal) full = full && k_hi <= q_lo;
-  if (a.window > 0) full = full && (q_hi - k_lo < a.window);
-  return full;
-}
-
-// rows t0 .. t0+R-1 of one head (row stride st), columns 0 .. DS-1, into
-// a shared tile, asynchronously: 16-byte copies where the source is
-// 16-byte aligned, 4-byte copies elsewhere; rows past T and columns past
-// D are zeros, not stale (0 * NaN would poison a sum). A thread copies
-// the 4-column chunks idx = threadIdx.x + k * THREADS, and split_tile
-// splits the same chunks, so that no other thread's copies need to have
-// landed
-template <class C, int R>
-__device__ __forceinline__ void copy_tile(float* dst, const float* src,
-                                          long long st, int t0, int T,
-                                          int D) {
-  constexpr int CH = C::DS / 4;  // 4-column chunks a row
-  for (int idx = threadIdx.x; idx < R * CH; idx += THREADS) {
-    const int r = idx / CH, c = (idx - r * CH) * 4;
-    float* d = dst + r * C::LD + c;
-    const int t = t0 + r;
-    if (t >= T || c >= D) {
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-      continue;
-    }
-    const float* s = src + t * st + c;
-    if (c + 4 <= D && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
-      tf32x3::copy16(d, s);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (c + e < D)
-          tf32x3::copy4(d + e, s + e);
-        else
-          d[e] = 0.f;
-      }
-    }
-  }
-}
-
-// this thread's chunks of a landed streamed tile split in place: the
-// float32 values become the hi plane, the lo plane ST floats on
-template <class C>
-__device__ __forceinline__ void split_tile(float* hi) {
-  constexpr int CH = C::DS / 4;
-  for (int idx = threadIdx.x; idx < C::RS * CH; idx += THREADS) {
-    const int r = idx / CH, c = (idx - r * CH) * 4;
-    tf32x3::split4(hi + r * C::LD + c, hi + C::ST + r * C::LD + c);
-  }
-}
-
-// this thread's chunks of a landed resident tile (R rows) cleaned of the
-// NaNs that to_tf32 would lose, so that its fragment loads split with no
-// NaN check
-template <class C, int R>
-__device__ __forceinline__ void clean_tile(float* tile) {
-  constexpr int CH = C::DS / 4;
-  for (int idx = threadIdx.x; idx < R * CH; idx += THREADS) {
-    const int r = idx / CH, c = (idx - r * CH) * 4;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) tf32x3::clean(tile[r * C::LD + c + e]);
-  }
-}
 
 // row values t0 .. t0+R-1 of a flat (B*H, T) row, zeros past T
 template <int R>
@@ -307,13 +218,6 @@ __device__ __forceinline__ void accumulate(float (&acc)[C::NA][4], int n0,
   for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bh[n]);
 }
 
-// 2^x on the special-function unit (relative error ~2^-22)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // p and ds of the dK/dV kernel in place of s^T and dp^T: element (j, i)
 // is k row kj0 + 8 (i / 2) against streamed q column 8 j + 2 t +
 // (i % 2); lse_s holds lse * log2(e), so p = 2^(s scale log2(e) - that);
@@ -386,10 +290,11 @@ flash_bwd_dkv_kernel(const Args a) {
   const int T = a.T, D = a.D;
   const int r0 = 16 * warp + g;  // this lane's k rows: r0, r0 + 8
 
-  copy_tile<C, ROWS>(res, a.k + b * a.sk[0] + kvh * a.sk[2], a.sk[1], k0, T,
-                     D);
-  copy_tile<C, ROWS>(res + ROWS * C::LD, a.v + b * a.sv[0] + kvh * a.sv[2],
-                     a.sv[1], k0, T, D);
+  copy_tile<ROWS, C::DS, C::LD>(res, a.k + b * a.sk[0] + kvh * a.sk[2],
+                                 a.sk[1], k0, T, D);
+  copy_tile<ROWS, C::DS, C::LD>(res + ROWS * C::LD,
+                                 a.v + b * a.sv[0] + kvh * a.sv[2], a.sv[1],
+                                 k0, T, D);
 
   // the q tiles with a live score against this k tile (_block_live),
   // for each query head of the group in turn
@@ -405,10 +310,11 @@ flash_bwd_dkv_kernel(const Args a) {
     const int h = kvh * group + gi;
     const long long row = ((long long)b * a.H + h) * T;
     float* st = ring + (it & 1) * C::STAGE;
-    copy_tile<C, C::RS>(st, a.q + b * a.sq[0] + h * a.sq[2], a.sq[1], q0, T,
-                        D);
-    copy_tile<C, C::RS>(st + C::Z, a.dout + b * a.sdo[0] + h * a.sdo[2],
-                        a.sdo[1], q0, T, D);
+    copy_tile<C::RS, C::DS, C::LD>(st, a.q + b * a.sq[0] + h * a.sq[2],
+                                   a.sq[1], q0, T, D);
+    copy_tile<C::RS, C::DS, C::LD>(st + C::Z,
+                                   a.dout + b * a.sdo[0] + h * a.sdo[2],
+                                   a.sdo[1], q0, T, D);
     copy_row<C::RS>(st + 4 * C::ST, a.lse + row, q0, T);
     copy_row<C::RS>(st + 4 * C::ST + C::RS, a.delta + row, q0, T);
     tf32x3::commit();
@@ -428,12 +334,12 @@ flash_bwd_dkv_kernel(const Args a) {
     // it - 1, whose stage the next copies overwrite
     tf32x3::wait_all();
     if (it == 0) {  // K and V have landed with the first stage
-      clean_tile<C, ROWS>(res);
-      clean_tile<C, ROWS>(res + ROWS * C::LD);
+      clean_tile<ROWS, C::DS, C::LD>(res);
+      clean_tile<ROWS, C::DS, C::LD>(res + ROWS * C::LD);
     }
     float* st = ring + (it & 1) * C::STAGE;
-    split_tile<C>(st);
-    split_tile<C>(st + C::Z);
+    split_tile<C::RS, C::DS, C::LD, C::ST>(st);
+    split_tile<C::RS, C::DS, C::LD, C::ST>(st + C::Z);
     for (int r = threadIdx.x; r < C::RS; r += THREADS)
       st[4 * C::ST + r] *= LOG2E;
     __syncthreads();
@@ -510,9 +416,11 @@ flash_bwd_dq_kernel(const Args a) {
   const int r0 = 16 * warp + g;  // this lane's q rows: r0, r0 + 8
   const long long row = (long long)bh * T;
 
-  copy_tile<C, ROWS>(res, a.q + b * a.sq[0] + h * a.sq[2], a.sq[1], q0, T, D);
-  copy_tile<C, ROWS>(res + ROWS * C::LD, a.dout + b * a.sdo[0] + h * a.sdo[2],
-                     a.sdo[1], q0, T, D);
+  copy_tile<ROWS, C::DS, C::LD>(res, a.q + b * a.sq[0] + h * a.sq[2],
+                                 a.sq[1], q0, T, D);
+  copy_tile<ROWS, C::DS, C::LD>(res + ROWS * C::LD,
+                                 a.dout + b * a.sdo[0] + h * a.sdo[2],
+                                 a.sdo[1], q0, T, D);
   float lse[2], delta[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -533,8 +441,8 @@ flash_bwd_dq_kernel(const Args a) {
   auto issue = [&](int it) {
     const int kt = k_lo + it * C::RS;
     float* st = ring + (it & 1) * C::STAGE;
-    copy_tile<C, C::RS>(st, kb, a.sk[1], kt, T, D);
-    copy_tile<C, C::RS>(st + C::Z, vb, a.sv[1], kt, T, D);
+    copy_tile<C::RS, C::DS, C::LD>(st, kb, a.sk[1], kt, T, D);
+    copy_tile<C::RS, C::DS, C::LD>(st + C::Z, vb, a.sv[1], kt, T, D);
     tf32x3::commit();
   };
 
@@ -548,12 +456,12 @@ flash_bwd_dq_kernel(const Args a) {
   for (int it = 0; it < steps; ++it) {
     tf32x3::wait_all();  // as in the dK/dV kernel: one barrier a stage
     if (it == 0) {
-      clean_tile<C, ROWS>(res);
-      clean_tile<C, ROWS>(res + ROWS * C::LD);
+      clean_tile<ROWS, C::DS, C::LD>(res);
+      clean_tile<ROWS, C::DS, C::LD>(res + ROWS * C::LD);
     }
     float* st = ring + (it & 1) * C::STAGE;
-    split_tile<C>(st);
-    split_tile<C>(st + C::Z);
+    split_tile<C::RS, C::DS, C::LD, C::ST>(st);
+    split_tile<C::RS, C::DS, C::LD, C::ST>(st + C::Z);
     __syncthreads();
     if (it + 1 < steps) issue(it + 1);
 
@@ -596,21 +504,9 @@ flash_bwd_dq_kernel(const Args a) {
 }
 
 template <class C>
-cudaError_t prepare(const void* kernel) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
-  if (err != cudaSuccess) return err;
-  // as much of the SM's 256 KB for shared memory as it takes, so that
-  // two CTAs of ~105 KB fit
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
-template <class C>
 cudaError_t launch_dkv(const Args& a, int B, cudaStream_t stream) {
-  cudaError_t err =
-      prepare<C>(reinterpret_cast<const void*>(flash_bwd_dkv_kernel<C>));
+  const cudaError_t err = prepare(
+      reinterpret_cast<const void*>(flash_bwd_dkv_kernel<C>), C::bytes);
   if (err != cudaSuccess) return err;
   const int tiles = (a.T + ROWS - 1) / ROWS, z = (a.D + C::DA - 1) / C::DA;
   const dim3 grid(tiles * B * a.KV, 1, z);
@@ -620,8 +516,8 @@ cudaError_t launch_dkv(const Args& a, int B, cudaStream_t stream) {
 
 template <class C>
 cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
-  cudaError_t err =
-      prepare<C>(reinterpret_cast<const void*>(flash_bwd_dq_kernel<C>));
+  const cudaError_t err = prepare(
+      reinterpret_cast<const void*>(flash_bwd_dq_kernel<C>), C::bytes);
   if (err != cudaSuccess) return err;
   const int tiles = (a.T + ROWS - 1) / ROWS, z = (a.D + C::DA - 1) / C::DA;
   const dim3 grid(tiles * B * a.H, 1, z);
@@ -637,13 +533,6 @@ using Cfg32 = Cfg<32, 32, 32>;
 using Cfg64 = Cfg<64, 64, 32>;
 using Cfg128 = Cfg<128, 128, 16>;
 using Cfg256 = Cfg<256, 128, 8>;
-
-// the flat grid index (tile, batch, head) fits the grid's x, which
-// takes 2^31 - 1 blocks
-bool valid(int B, int T, int H, int KV, int D) {
-  return B >= 1 && T >= 1 && KV >= 1 && H % KV == 0 && D >= 1 && D <= 256 &&
-         (long long)((T + ROWS - 1) / ROWS) * B * H <= 0x7fffffffLL;
-}
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, void* dk,
@@ -682,7 +571,7 @@ extern "C" int veles_flash_attention_bwd_dkv_f32(
     const void* lse, const void* delta, void* dk, void* dv, int B, int T,
     int H, int KV, int D, const long long* strides, float scale, int causal,
     int window, void* stream) {
-  if (!valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;
+  if (!flash::valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, T, H,
                            KV, D, strides, scale, causal, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -697,7 +586,7 @@ extern "C" int veles_flash_attention_bwd_dq_f32(
     const void* lse, const void* delta, void* dq, int B, int T, int H,
     int KV, int D, const long long* strides, float scale, int causal,
     int window, void* stream) {
-  if (!valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;
+  if (!flash::valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, T,
                            H, KV, D, strides, scale, causal, window);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -3,37 +3,75 @@
 // Replaces the TPU kernel veles_tpu/ops/flash_attention.py::_kernel
 // (reached through _fwd_pallas / flash_attention): online-softmax
 // attention o = softmax(scale * q k^T + mask) v, plus the per-row
-// log-sum-exp, without materialising the (T, T) score matrix.
+// log-sum-exp lse that the backward recomputes p from, without
+// materialising the (T, T) score matrix.
 //
-// What bounds it on this card. At the serving slice's prefill shapes
-// (B=4, T=512, H=8, Dh=64, causal) the work is 4*B*H*T*(T/2)*Dh, about
-// 1.07 GFLOP: about 16 us at the 67 TFLOP/s float32 FMA peak of the CUDA
-// cores, against about 5 us to move q, k, v and o (16.8 MB) at
-// 3.35 TB/s. So the kernel is compute-bound, and its design aims at
-// feeding the FMA units:
-//   - one CTA of 256 threads per (64-row q tile, batch*head); a loop
-//     inside the CTA walks the K/V tiles of 64 rows (the TPU kernel's
-//     sequential grid dimension);
-//   - the loop bounds come from the causal and sliding-window
-//     predicates (the counterpart of _block_live), so a K/V tile with no
-//     unmasked score is never loaded; inside a live tile the causal,
-//     window (q - k < window, the Mistral convention) and ragged-edge
-//     (k < T) masks apply per element, so any T is accepted and D is
-//     never padded in memory;
-//   - register tiles: each thread holds a 4x4 block of the score tile
-//     and a 4 x (DMAX/16) block of the output accumulator, so every
-//     value read from shared memory feeds 4 FMAs;
-//   - GQA: query head h reads kv head h / (H / KV) (the mapping of
-//     _kv_fold_of); K/V are never expanded;
-//   - q, k, v and o are read and written in their (B, T, H, Dh) layout
-//     through strides; lse is written flat as (B*H, T).
-// The shared-memory operands still cost about two bytes per FMA, so
-// shared-memory bandwidth, not the FMA units, is the practical ceiling.
-// A later design changes the bound by moving the two products onto the
-// tensor cores (wgmma on bf16 or TF32 operands, TMA tile loads into a
-// ring of shared-memory stages, warp-specialised producer and
-// consumers), at which point HBM traffic and the softmax's exp become
-// the limits.
+// What bounds it on this card. The work is 4*Dh FLOP per live (q, k)
+// pair (s = q k^T and o += p v). At the serving slice's prefill shape
+// (B=4, T=512, H=8, Dh=64, causal; 131,328 live pairs a head) that is
+// 1.08 GFLOP against 16.8 MB of q, k, v, o and lse (0.005 ms at
+// 3.35 TB/s); at the training slice's (B=16) 4.30 GFLOP and 67 MB; at a
+// 2048-token prefill (B=2) 8.59 GFLOP and 34 MB. So the kernel is bound
+// by operations: 0.016 / 0.064 / 0.128 ms at the CUDA cores' 67 TFLOP/s
+// of float32 FMA, 0.0065 / 0.026 / 0.052 ms on the tensor cores in
+// 3xTF32 (three TF32 products a product at 495 TFLOP/s). The products
+// run on the tensor cores, so the second set of bounds is the one that
+// holds. One TF32 product would be three times cheaper but misses the
+// port's 1e-4 float32 tolerance (tests/test_torch_tf32.py), so both
+// products are 3xTF32 (tf32x3.cuh): float32-grade.
+//
+// The design, and what it does about the limits of the CUDA-core kernel
+// it replaces (scalar FMAs fed one shared-memory word per two FMAs,
+// synchronous K/V copies with a barrier on each side, B*H on the grid's
+// y, which caps it at 65,535):
+//   - both products are mma.sync m16n8k8 TF32 triples, issued pass by
+//     pass over all of a warp's accumulators so that no mma waits on the
+//     one before it: s = q k^T with q as the A operand and K as B, and
+//     o += p v with p taken straight from s's C fragments as the A
+//     operand (tf32x3.cuh's column order) and V as B, its rows read in
+//     the order 2t, 2t + 1. No score or probability goes through shared
+//     memory;
+//   - one CTA of 4 warps per (64-row q tile, batch * head), 16 q rows a
+//     warp, the o accumulator in C fragments. At D <= 64 a warp's q
+//     fragments are split into hi/lo once and stay in registers (q lands
+//     in the ring's second stage, which the second K/V tile then
+//     overwrites); above that q stays a float32 tile, cleaned of NaN as
+//     it lands and split as its fragments load;
+//   - online softmax on the C fragments: a row's 8 columns of an n tile
+//     sit in the 4 lanes of a quad, so its max takes two shuffles; the
+//     running sum stays a per-lane partial until the end. scale * log2 e
+//     is folded into the scores and p = 2^(s - m) runs on ex2; lse =
+//     m ln 2 + log l;
+//   - K/V tiles go through a two-stage ring of cp.async copies (16 bytes
+//     where the source row allows it, 4 bytes elsewhere): the next tile
+//     is in flight while the current one computes. Each thread splits
+//     the chunks it copied into hi and lo TF32 planes once they land, so
+//     a streamed element is split once a step, and one barrier a stage
+//     publishes the planes;
+//   - rows are Dp + 4 floats (Dp: D rounded up to the variant's 32, 64,
+//     128 or 256, zero-filled past D, never padded in device memory), so
+//     every fragment load of a warp hits 32 distinct banks. A CTA takes
+//     ~37 KB (D <= 32), ~70 KB (D <= 64, 32 K/V rows a step), ~101 KB
+//     (D <= 128, 16 rows) or ~167 KB (D <= 256, 16 rows, o's columns
+//     split over two CTAs on blockIdx.z, each recomputing s, so that the
+//     accumulator fits in registers);
+//   - the loop bounds come from the causal and sliding-window predicates
+//     (_block_live): a K/V tile with no unmasked score is never loaded, a
+//     warp whose 16 rows are all masked against the current tile skips
+//     it, and a warp whose rows are all unmasked skips the per-element
+//     masks. Elsewhere the causal, window (q - k < window) and
+//     ragged-edge (q, k < T) masks apply per element, so any T is taken;
+//   - under causal masking the last q tiles see the most K/V tiles: the
+//     flat grid index is tile * pairs + (batch, head) pair, the longest
+//     tiles first, so the short CTAs fill the card's tail and any B * H
+//     whose tensors fit the card is taken;
+//   - NaN is kept: a NaN in q, k or v reaches o and lse as it does in the
+//     plain version (the q tile is cleaned as it lands, the streamed
+//     tiles' split keeps NaN, p's split checks its hi only, and the
+//     epilogue's floor on l lets a NaN through);
+//   - GQA: query head h reads kv head h / (H / KV) (_kv_fold_of); K/V are
+//     never expanded. q, k, v and o are read and written through their
+//     (B, T, heads, Dh) strides; lse is written flat as (B*H, T).
 //
 // C interface: veles_flash_attention_fwd_f32(...) launches on the given
 // stream and returns cudaGetLastError() (0 on success). It allocates
@@ -41,226 +79,349 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "flash_tiles.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per CTA
-constexpr int BK = 64;        // k/v rows per loop step
-constexpr int THREADS = 256;  // 16 row groups x 16 column groups
+using namespace flash;
+using tf32x3::a_from_c;
+using tf32x3::load_a;
+using tf32x3::load_b;
+using tf32x3::mma;
+
+constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_INF = -1e30f;
 
-template <int DMAX>
-struct Layout {
-  static constexpr int QS = DMAX;      // q tile row stride
-  static constexpr int KS = DMAX + 1;  // k tile row stride: the score
-                                       // loop walks 16 k rows at once,
-                                       // the pad puts them on 16 banks
-  static constexpr int VS = DMAX;      // v tile row stride
-  static constexpr int PS = BK + 1;    // probability tile row stride
-  static constexpr size_t bytes =
-      sizeof(float) * (BQ * QS + BK * KS + BK * VS + BQ * PS);
+// DS: head-dim columns of s = q k^T (D zero-filled up to it in shared
+// memory); DA: columns of o one CTA accumulates; RS: K/V rows a step.
+// K's rows are LD floats, V's LDA; each streamed tile is a hi and a lo
+// TF32 plane, split once a step by the threads that copied it. At DS <=
+// 64 the warps keep q's fragments in registers (QREG); above, q stays a
+// float32 tile in front of the ring
+template <int DS_, int DA_, int RS_>
+struct Cfg {
+  static constexpr int DS = DS_, DA = DA_, RS = RS_;
+  static constexpr int LD = DS + 4;    // q and K rows: 4 mod 32 banks
+  static constexpr int LDA = DA + 4;   // V rows
+  static constexpr int KS = DS / 8;    // k steps of s
+  static constexpr int NS = RS / 8;    // n tiles of s, k steps of p v
+  static constexpr int NA = DA / 8;    // n tiles of o
+  static constexpr int KP = RS * LD;   // one K plane
+  static constexpr int VP = RS * LDA;  // one V plane
+  static constexpr int V = 2 * KP;     // V's planes, after K's
+  static constexpr int STAGE = 2 * KP + 2 * VP;
+  static constexpr bool QREG = DS <= 64;
+  static constexpr int RES = QREG ? 0 : ROWS * LD;
+  static constexpr int G = NA < 4 ? NA : 4;  // o tiles a pass
+  static constexpr size_t bytes = sizeof(float) * (RES + 2 * STAGE);
+  static_assert(!QREG || ROWS * LD <= STAGE, "q lands in stage 1's place");
 };
 
-__device__ __forceinline__ bool live(int qi, int kj, int T, int causal,
-                                     int window) {
-  bool keep = kj < T;
-  if (causal) keep = keep && kj <= qi;
-  if (window > 0) keep = keep && (qi - kj < window);
-  return keep;
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* lse;  // (B*H, T)
+  int T, H, KV, D;
+  // element strides (batch, time, head) of q, k, v, o
+  long long sq[3], sk[3], sv[3], so[3];
+  float scale;
+  int causal, window;
+};
+
+// a warp's q fragments: split once, for every k step of s (QREG only)
+template <class C>
+struct QFrag {
+  uint32_t h[C::QREG ? C::KS : 1][4], l[C::QREG ? C::KS : 1][4];
+};
+
+// s = q k^T of a warp's 16 q rows (r0, r0 + 8 of each lane) against the
+// step's RS K rows, over DS columns (zeros past D). The three TF32
+// products of each k step are issued pass by pass over all NS
+// accumulators
+template <class C>
+__device__ __forceinline__ void scores(const QFrag<C>& qf, const float* qs,
+                                       const float* k, int r0,
+                                       float (&s)[C::NS][4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C::KS; ++kk) {
+    uint32_t ah[4], al[4];
+    if constexpr (C::QREG) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ah[e] = qf.h[kk][e];
+        al[e] = qf.l[kk][e];
+      }
+    } else {
+      load_a(qs, C::LD, r0, 8 * kk + t, ah, al);
+    }
+    uint32_t bh[C::NS][2], bl[C::NS][2];
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      const int at = (8 * j + g) * C::LD + 8 * kk + t;
+      load_b(k, k + C::KP, at, at + 4, bh[j], bl[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) mma(s[j], al, bh[j]);
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) mma(s[j], ah, bl[j]);
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) mma(s[j], ah, bh[j]);
+  }
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int T, int H, int KV, int D,
-                 long long sqb, long long sqt, long long sqh,
-                 long long skb, long long skt, long long skh,
-                 long long svb, long long svt, long long svh,
-                 long long sob, long long sot, long long soh,
-                 float scale, int causal, int window) {
-  using L = Layout<DMAX>;
-  constexpr int DC = DMAX / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + BQ * L::QS;
-  float* vs = ks + BK * L::KS;
-  float* ps = vs + BK * L::VS;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // columns tx + 16*j of the score tile
-  const int ty = tid >> 4;  // rows ty + 16*i; one row group = 16 lanes
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int kvh = h / (H / KV);
-
-  const float* qb = q + b * sqb + h * sqh;
-  const float* kb = k + b * skb + kvh * skh;
-  const float* vb = v + b * svb + kvh * svh;
-
-  for (int idx = tid; idx < BQ * DMAX; idx += THREADS) {
-    const int r = idx / DMAX, d = idx - (idx / DMAX) * DMAX;
-    const int t = q0 + r;
-    qs[r * L::QS + d] = (t < T && d < D) ? qb[t * sqt + d] : 0.f;
-  }
-
-  // dead-tile skip: the K/V range any row of this q tile can see
-  const int q_last = min(q0 + BQ, T) - 1;
-  const int k_hi = causal ? q_last + 1 : T;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-
-  float m_i[4], l_i[4], acc[4][DC];
+// one step of the online softmax, in place of s: element (j, i) is q row
+// qi0 + 8 (i / 2) against K row kt + 8 j + 2 t + (i % 2). m (in log2
+// units) and this lane's partial row sums l move to the step's maxima, o
+// is rescaled by 2^(m_old - m_new), and s becomes p = 2^(s scale log2 e
+// - m). MASK applies the per-element masks: a masked score is NEG_INF
+// for the max and its p is 0
+template <class C, bool MASK>
+__device__ __forceinline__ void softmax_step(float (&s)[C::NS][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&acc)[C::NA][4],
+                                             int qi0, int kt,
+                                             const Args& a) {
+  const int t = threadIdx.x & 3;
+  const float scale_log2 = a.scale * LOG2E;
+  float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // the previous step's K/V/P reads are done
-    for (int idx = tid; idx < BK * DMAX; idx += THREADS) {
-      const int r = idx / DMAX, d = idx - (idx / DMAX) * DMAX;
-      const int t = k0 + r;
-      const bool in = t < T && d < D;
-      // rows past T are zero, not stale: their probability is 0 and
-      // 0 * NaN would poison the accumulator
-      ks[r * L::KS + d] = in ? kb[t * skt + d] : 0.f;
-      vs[r * L::VS + d] = in ? vb[t * svt + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * L::QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * L::KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
+  for (int j = 0; j < C::NS; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        s[i][j] = live(qi, kj, T, causal, window) ? s[i][j] * scale
-                                                  : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 lanes of a row group hold one row between them
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const float p =
-            live(qi, kj, T, causal, window) ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        ps[(ty + 16 * i) * L::PS + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+      const int r = i >> 1;
+      float x = s[j][i] * scale_log2;
+      if (MASK && !live(qi0 + 8 * r, kt + 8 * j + 2 * t + (i & 1), a))
+        x = NEG_INF;
+      s[j][i] = x;
+      mx[r] = fmaxf(mx[r], x);
     }
-    __syncwarp();  // a row group's P row is written by its own 16 lanes
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // a row's columns sit in the 4 lanes of a quad
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2_approx(m[r] - mn);
+    m[r] = mn;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i >> 1;
+      float p = exp2_approx(s[j][i] - m[r]);
+      if (MASK && !live(qi0 + 8 * r, kt + 8 * j + 2 * t + (i & 1), a))
+        p = 0.f;
+      s[j][i] = p;
+      l[r] += p;
+    }
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
+}
 
-    const int kn = min(BK, k_hi - k0);
-    for (int c = 0; c < kn; ++c) {
-      float pv[4], vv[DC];
+// acc[n] += p v_n for the G o tiles n0 .. n0+G-1, from V's planes (hi at
+// v, lo VP floats on), in three passes; V's rows are read in the A
+// operand's column order: row 2t at `at`, 2t + 1 a row on
+template <class C>
+__device__ __forceinline__ void accumulate(float (&acc)[C::NA][4], int n0,
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const float* v, int at) {
+  uint32_t bh[C::G][2], bl[C::G][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * L::PS + c];
+  for (int n = 0; n < C::G; ++n) {
+    const int e = at + 8 * (n0 + n);
+    load_b(v, v + C::VP, e, e + C::LDA, bh[n], bl[n]);
+  }
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) vv[cc] = vs[c * L::VS + tx + 16 * cc];
+  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], al, bh[n]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bl[n]);
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc)
-          acc[i][cc] = fmaf(pv[i], vv[cc], acc[i][cc]);
+  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bh[n]);
+}
+
+template <class C>
+__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem + C::RES;
+
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  // all (batch, head) pairs of one q tile are launched together, the last
+  // tiles first: under causal they see the most K/V tiles
+  const int tiles = (a.T + ROWS - 1) / ROWS;
+  const int pairs = gridDim.x / tiles;
+  const int tile = blockIdx.x / pairs;
+  const int bh = blockIdx.x - tile * pairs;  // batch * H + head
+  const int q0 = (tiles - 1 - tile) * ROWS;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int kvh = h / (a.H / a.KV);
+  const int c0 = blockIdx.z * C::DA;  // this CTA's o columns
+  const int T = a.T, D = a.D;
+  const int r0 = 16 * warp + g;  // this lane's q rows: r0, r0 + 8
+
+  // q lands in front of the ring, or, when its fragments go to
+  // registers, in stage 1's place
+  float* qs = C::QREG ? ring + C::STAGE : smem;
+  copy_tile<ROWS, C::DS, C::LD>(qs, a.q + b * a.sq[0] + h * a.sq[2],
+                                a.sq[1], q0, T, D);
+  const float* kb = a.k + b * a.sk[0] + kvh * a.sk[2];
+  const float* vb = a.v + b * a.sv[0] + kvh * a.sv[2] + c0;
+
+  // the K/V range any row of this q tile can see (_block_live)
+  const int q_last = min(q0 + ROWS, T) - 1;
+  const int k_hi = a.causal ? q_last + 1 : T;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int steps = (k_hi - k_lo + C::RS - 1) / C::RS;
+
+  // the K and V rows of step it, into stage it % 2
+  auto issue = [&](int it) {
+    const int kt = k_lo + it * C::RS;
+    float* st = ring + (it & 1) * C::STAGE;
+    copy_tile<C::RS, C::DS, C::LD>(st, kb, a.sk[1], kt, T, D);
+    copy_tile<C::RS, C::DA, C::LDA>(st + C::V, vb, a.sv[1], kt, T, D - c0);
+    tf32x3::commit();
+  };
+
+  QFrag<C> qf;
+  float acc[C::NA][4];
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  issue(0);  // q's copies ride in the first group
+  for (int it = 0; it < steps; ++it) {
+    // this thread's copies of step it have landed: it splits its own
+    // chunks into the hi/lo planes; one barrier then publishes the stage,
+    // and every warp is done with step it - 1, whose stage the next
+    // copies overwrite
+    tf32x3::wait_all();
+    if (it == 0) clean_tile<ROWS, C::DS, C::LD>(qs);
+    float* st = ring + (it & 1) * C::STAGE;
+    split_tile<C::RS, C::DS, C::LD, C::KP>(st);
+    split_tile<C::RS, C::DA, C::LDA, C::VP>(st + C::V);
+    __syncthreads();
+    if constexpr (C::QREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < C::KS; ++kk)
+          load_a(qs, C::LD, r0, 8 * kk + t, qf.h[kk], qf.l[kk]);
+        __syncthreads();  // stage 1's copies overwrite q
+      }
+    }
+    if (it + 1 < steps) issue(it + 1);
+
+    const int kt = k_lo + it * C::RS;
+    const int qw = q0 + 16 * warp;  // this warp's q rows qw .. qw + 15
+    if (!block_live(qw, qw + 15, kt, kt + C::RS - 1, a)) continue;
+
+    float s[C::NS][4];
+    scores<C>(qf, qs, st, r0, s);
+    if (block_full(qw, qw + 15, kt, kt + C::RS - 1, a))
+      softmax_step<C, false>(s, m, l, acc, q0 + r0, kt, a);
+    else
+      softmax_step<C, true>(s, m, l, acc, q0 + r0, kt, a);
+
+    // o += p v over the step's K/V rows
+#pragma unroll
+    for (int kk = 0; kk < C::NS; ++kk) {
+      uint32_t ph[4], pl[4];
+      a_from_c(s[kk], ph, pl);
+      const int at = (8 * kk + 2 * t) * C::LDA + g;
+#pragma unroll
+      for (int n0 = 0; n0 < C::NA; n0 += C::G)
+        accumulate<C>(acc, n0, ph, pl, st + C::V, at);
     }
   }
 
+  const long long row = (long long)bh * T;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // a floor that lets a NaN through (fmaxf would drop it)
+    l[r] = l[r] < 1e-30f ? 1e-30f : l[r];
+    const int qi = q0 + r0 + 8 * r;
     if (qi >= T) continue;
-    const float l = fmaxf(l_i[i], 1e-30f);
-    float* orow = o + b * sob + qi * sot + h * soh;
+    float* orow = a.o + b * a.so[0] + qi * a.so[1] + h * a.so[2];
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) orow[d] = acc[i][cc] / l;
-    }
-    if (tx == 0) lse[(long long)bh * T + qi] = m_i[i] + logf(l);
+    for (int n = 0; n < C::NA; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = c0 + 8 * n + 2 * t + e;
+        if (d < D) orow[d] = acc[n][2 * r + e] / l[r];
+      }
+    if (blockIdx.z == 0 && t == 0) a.lse[row + qi] = m[r] * LN2 + logf(l[r]);
   }
 }
 
-template <int DMAX>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   float* o, float* lse, int B, int T, int H, int KV,
-                   int D, const long long* st, float scale, int causal,
-                   int window, cudaStream_t stream) {
-  const size_t smem = Layout<DMAX>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <class C>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const cudaError_t err = prepare(
+      reinterpret_cast<const void*>(flash_fwd_kernel<C>), C::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<DMAX><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, lse, T, H, KV, D, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, causal,
-      window);
+  const int tiles = (a.T + ROWS - 1) / ROWS, z = (a.D + C::DA - 1) / C::DA;
+  const dim3 grid(tiles * B * a.H, 1, z);
+  flash_fwd_kernel<C><<<grid, THREADS, C::bytes, stream>>>(a);
   return cudaGetLastError();
 }
+
+// the variant for head dim D: (DS, DA, RS). A CTA takes ~37 KB (D <= 32),
+// ~70 KB (D <= 64, q's fragments in registers), ~101 KB (D <= 128, 16 K/V
+// rows a step) or ~167 KB (D <= 256, 16 rows, and o's columns split over
+// two CTAs so that the accumulator fits in registers)
+using Cfg32 = Cfg<32, 32, 32>;
+using Cfg64 = Cfg<64, 64, 32>;
+using Cfg128 = Cfg<128, 128, 16>;
+using Cfg256 = Cfg<256, 128, 16>;
 
 }  // namespace
 
 // strides: 12 element strides (batch, time, head) of q, k, v and o, in
-// that order; the head-dim stride of each must be 1.
+// that order; the head-dim stride of each must be 1. lse is written as
+// contiguous (B*H, T) float32.
 extern "C" int veles_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int T, int H, int KV, int D, const long long* strides,
     float scale, int causal, int window, void* stream) {
-  if (B < 1 || T < 1 || KV < 1 || H % KV != 0 || D < 1 || D > 256 ||
-      B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(o);
-  float* lf = static_cast<float*>(lse);
+  if (!flash::valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.T = T;
+  a.H = H;
+  a.KV = KV;
+  a.D = D;
+  long long* dst[4] = {a.sq, a.sk, a.sv, a.so};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+  a.scale = scale;
+  a.causal = causal;
+  a.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32)
-    return (int)launch<32>(qf, kf, vf, of, lf, B, T, H, KV, D, strides,
-                           scale, causal, window, s);
-  if (D <= 64)
-    return (int)launch<64>(qf, kf, vf, of, lf, B, T, H, KV, D, strides,
-                           scale, causal, window, s);
-  if (D <= 128)
-    return (int)launch<128>(qf, kf, vf, of, lf, B, T, H, KV, D, strides,
-                            scale, causal, window, s);
-  return (int)launch<256>(qf, kf, vf, of, lf, B, T, H, KV, D, strides,
-                          scale, causal, window, s);
+  if (D <= 32) return (int)launch<Cfg32>(a, B, s);
+  if (D <= 64) return (int)launch<Cfg64>(a, B, s);
+  if (D <= 128) return (int)launch<Cfg128>(a, B, s);
+  return (int)launch<Cfg256>(a, B, s);
 }

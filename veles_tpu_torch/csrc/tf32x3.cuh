@@ -1,6 +1,7 @@
 // Float32 products on Hopper's tensor cores in 3xTF32, and asynchronous
-// global -> shared tile copies: the building blocks of the flash
-// backward kernels (flash_attention_bwd.cu).
+// global -> shared tile copies: the building blocks of the flash forward
+// kernel (flash_attention_fwd.cu) and the flash backward kernels
+// (flash_attention_bwd.cu).
 //
 // 3xTF32. A TF32 operand keeps 10 of float32's 23 mantissa bits, so one
 // TF32 product is good to about 1e-3 relative: too coarse for a port
@@ -21,7 +22,8 @@
 // C fragment serves as the A operand of a next product directly, with
 // its 8 columns taken in the order 0 2 4 6 1 3 5 7: a = (c0, c2, c1,
 // c3), and the B operand's rows read in the same order (b0 from row
-// 2t, b1 from row 2t + 1). That keeps p and ds in registers.
+// 2t, b1 from row 2t + 1). That keeps p (and the backward's ds) in
+// registers.
 
 #pragma once
 

@@ -7,12 +7,13 @@ kernel ``veles_tpu/ops/flash_attention.py::_kernel``: online-softmax
 attention that streams K/V tiles instead of materialising the (T, T)
 scores, skips tiles the causal/window masks kill, reads grouped K/V (GQA)
 without expanding them, and takes any T and any head dim up to
-:data:`MAX_D` with no padding. The backward pair
+:data:`MAX_D` with no padding; both of its products (q·kᵀ and p·v) run
+on the tensor cores in 3xTF32. The backward pair
 (``csrc/flash_attention_bwd.cu``) replaces ``_bwd_dkv_kernel`` and
 ``_bwd_dq_kernel``: dK/dV per K/V tile summed over the query heads of its
 group in a fixed order (no atomics), then dQ per Q tile, both
 recomputing the probabilities from the forward's log-sum-exp, with every
-product on the tensor cores in 3xTF32. :func:`tf32_round` and
+product on the tensor cores in 3xTF32 too. :func:`tf32_round`, :func:`flash_attention_fwd_tf32` and
 :func:`flash_attention_bwd_tf32` emulate that arithmetic on the CPU for
 the tests; no entry point uses them.
 
@@ -47,7 +48,7 @@ from ..telemetry.counters import inc
 NEG_INF = -1e30
 
 #: largest head dim the kernels take (their accumulators live in
-#: registers: the backward's in tensor-core C fragments)
+#: registers, in tensor-core C fragments)
 MAX_D = 256
 
 _SOURCE = "flash_attention_fwd"
@@ -128,6 +129,38 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 
+def _bounds(flops: float, nbytes: float) -> Dict[str, float]:
+    """A kernel's least time on the card, in ms, for ``flops`` and
+    ``nbytes``: ``f32`` with the products on the CUDA cores, ``tc`` with
+    them on the tensor cores in 3xTF32 (three TF32 products each), each
+    the larger of its operations time and the bytes over HBM's rate;
+    ``bound_by`` names the side that sets ``tc``."""
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    return {"f32": max(flops / PEAK_F32_FLOPS * 1e3, t_bytes),
+            "tc": max(t_tc, t_bytes),
+            "bound_by": "operations" if t_tc >= t_bytes else "bytes"}
+
+
+def forward_work(b: int, t: int, h: int, d: int, causal: bool = False,
+                 window: int = 0, kv: Optional[int] = None,
+                 dtype_bytes: int = 4) -> Tuple[float, float]:
+    """(FLOPs, bytes) the forward kernel needs over this call's live
+    pairs: :func:`analytic_cost`'s (4·D FLOPs a pair; q, k, v read once,
+    o and lse written once)."""
+    return analytic_cost(b, t, h, d, causal, window, kv, dtype_bytes)
+
+
+def forward_bounds(b: int, t: int, h: int, d: int, causal: bool = False,
+                   window: int = 0, kv: Optional[int] = None
+                   ) -> Dict[str, float]:
+    """The forward kernel's least time on the card, in ms, from
+    :func:`forward_work`: ``f32`` (float32 FMA on the CUDA cores) and
+    ``tc`` (3xTF32 on the tensor cores, the one the kernel runs
+    against), with ``bound_by``."""
+    return _bounds(*forward_work(b, t, h, d, causal, window, kv))
+
+
 def backward_bounds(b: int, t: int, h: int, d: int, causal: bool = False,
                     window: int = 0, kv: Optional[int] = None
                     ) -> Dict[str, Dict[str, float]]:
@@ -137,16 +170,8 @@ def backward_bounds(b: int, t: int, h: int, d: int, causal: bool = False,
     each), each the larger of its operations time and the bytes over
     HBM's rate. The kernels run against ``tc``; ``bound_by`` names the
     side that sets it."""
-    out = {}
-    for name, (flops, nbytes) in backward_work(b, t, h, d, causal, window,
-                                               kv).items():
-        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-        t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
-        out[name] = {"f32": max(flops / PEAK_F32_FLOPS * 1e3, t_bytes),
-                     "tc": max(t_tc, t_bytes),
-                     "bound_by": "operations" if t_tc >= t_bytes
-                     else "bytes"}
-    return out
+    return {name: _bounds(flops, nbytes) for name, (flops, nbytes)
+            in backward_work(b, t, h, d, causal, window, kv).items()}
 
 
 def tf32_round(x):
@@ -164,8 +189,8 @@ def tf32_round(x):
 
 
 def tf32x3_einsum(eq: str, a, b, passes: int = 3):
-    """``torch.einsum(eq, a, b)`` as the backward kernels take a product
-    on the tensor cores: each operand split into hi = tf32(x) and lo =
+    """``torch.einsum(eq, a, b)`` as the kernels take a product on the
+    tensor cores: each operand split into hi = tf32(x) and lo =
     tf32(x − hi), then lo·hi + hi·lo + hi·hi summed in float32 (3xTF32);
     ``passes=1`` is the plain TF32 product hi·hi, which the kernels do
     not use (it misses their 1e-4 tolerance)."""
@@ -231,6 +256,32 @@ def flash_attention_fwd_reference(q, k, v, causal: bool = False,
     o = torch.einsum("bhqk,bkhd->bqhd", p,
                      _expand(v, q.shape[2]).float()).to(q.dtype)
     return o, lse
+
+
+def flash_attention_fwd_tf32(q, k, v, causal: bool = False,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None,
+                             passes: int = 3):
+    """f32 ``(o, lse)`` of :func:`flash_attention_fwd_reference` with both
+    products taken as the forward kernel takes them on the tensor cores
+    (:func:`tf32x3_einsum`; ``passes=1``: plain TF32): s = q·kᵀ, then the
+    unnormalised p = exp(s − max) against v, divided by p's row sum;
+    lse = max + log(row sum). A CPU emulation for the tests; no entry point
+    calls it."""
+    window = _check_window(window, causal, q.shape[1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    einsum = functools.partial(tf32x3_einsum, passes=passes)
+    s = _scores(q, k, causal, window, scale, einsum)
+    m = s.max(dim=-1, keepdim=True).values
+    p = torch.exp(s - m)
+    keep = _keep(q.shape[1], causal, window, q.device)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    rowsum = p.sum(-1, keepdim=True)
+    o = einsum("bhqk,bkhd->bqhd", p, _expand(v, q.shape[2]).float())
+    return (o / rowsum.permute(0, 2, 1, 3),
+            (m + torch.log(rowsum))[..., 0])
 
 
 def _bwd_plain(q, k, v, lse, delta, do, causal: bool, window: int,
