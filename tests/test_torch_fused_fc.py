@@ -144,22 +144,91 @@ def test_epoch_work_drops_only_layer_zero_d_h(shapes, mb, steps):
 
 
 @pytest.mark.parametrize("shapes,mb,cluster,expect", [
-    ([(784, 100), (100, 10)], 100, 8, 8),
-    ([(20, 12), (12, 3)], 10, 8, 8),
-    ([(784, 256), (256, 64), (64, 10)], 100, 16, 16),
+    ([(784, 100), (100, 10)], 100, 16, ("rows", 16)),
+    ([(20, 12), (12, 3)], 10, 16, ("rows", 16)),
+    ([(784, 256), (256, 64), (64, 10)], 100, 16, ("columns", 16)),
     ([(16, 2048), (2048, 2048), (2048, 3)], 20, None, None),
 ])
 def test_shared_memory_budget(shapes, mb, cluster, expect):
-    """MNIST fits one CTA's 227 KB at cluster 8; the 3-layer chain of the
-    chip check needs 16; the reference's oversized chain fits neither."""
-    assert ff.choose_cluster(shapes, mb) == expect
+    """MNIST fits one CTA's 227 KB in the rows layout (16 CTAs); the
+    3-layer chain of the chip check only in the columns layout at 16;
+    the reference's oversized chain in neither. The rows layout has no
+    other cluster size, and a larger cluster never needs more in the
+    columns layout."""
+    assert ff.choose_geometry(shapes, mb) == expect
     if cluster is not None:
-        assert ff.smem_bytes(shapes, mb, cluster) <= ff.SMEM_BUDGET
-    assert ff.smem_bytes(shapes, mb, 16) <= ff.smem_bytes(shapes, mb, 8)
+        assert ff.smem_bytes(shapes, mb, cluster, expect[0]) \
+            <= ff.SMEM_BUDGET
+    with pytest.raises(ValueError):
+        ff.smem_bytes(shapes, mb, 8, "rows")
+    assert ff.smem_bytes(shapes, mb, 16, "columns") \
+        <= ff.smem_bytes(shapes, mb, 8, "columns")
 
 
 def test_mnist_footprint():
-    assert ff.smem_bytes([(784, 100), (100, 10)], 100, 8) == 112168
+    """The rows layout at 16 CTAs: W_0 and V_0 for 56 rows of 104
+    floats, the replicated 100 x 10 layer in two buffers and its V (104
+    rows of 24), the activations and two x tiles at 112 rows, two label
+    rows, a 650-float stripe; the columns layout at 8 is unchanged."""
+    shapes = [(784, 100), (100, 10)]
+    assert ff.smem_bytes(shapes, 100, 16, "rows") == 192016
+    assert ff.smem_bytes(shapes, 100, 16, "rows") == 4 * (
+        2 * 56 * 104 + 2 * (100 + 12) + 3 * 104 * 24 + 112 * (104 + 24)
+        + 2 * 112 * 60 + 2 * 100 + 652 + 16)
+    assert ff.smem_bytes(shapes, 100, 8, "columns") == 112168
+
+
+@pytest.mark.parametrize("d0", [784, 20, 33, 8, 1, 1000, 100, 129, 7, 16,
+                                17, 2048])
+def test_row_groups_partition_layer_zero(d0):
+    """The 16 CTAs' rows are whole 8-row chunks, in rank order, covering
+    every input row once; the chunk counts differ by at most one, and
+    only the last CTA's may end in a part chunk."""
+    rows = ff.cta_rows(d0)
+    assert len(rows) == ff.CLUSTERS["rows"][0]
+    assert rows[0][0] == 0 and sum(n for _, n in rows) == d0
+    assert all(i0 + n == j0 for (i0, n), (j0, _) in zip(rows, rows[1:]))
+    assert all(i0 % ff.CHUNK == 0 and n % ff.CHUNK == 0
+               for i0, n in rows[:-1])
+    chunks = [-(-n // ff.CHUNK) for _, n in rows]
+    assert max(chunks) - min(chunks) <= 1
+
+
+def test_mnist_row_groups():
+    """784 inputs: 98 chunks over 16 CTAs, 6 or 7 each; the busiest
+    CTA holds 56 rows, what the footprint reserves."""
+    rows = ff.cta_rows(784)
+    assert sorted({n for _, n in rows}) == [48, 56]
+    assert [n for _, n in rows].count(56) == 98 - 16 * 6
+
+
+@pytest.mark.parametrize("shapes,mb,expect", [
+    ([(784, 100), (100, 10)], 100, [("rows", 16)]),
+    ([(784, 100), (100, 10)], 37, [("rows", 16)]),
+    ([(20, 12), (12, 3)], 10, [("rows", 16)]),
+    ([(784, 256), (256, 64), (64, 10)], 100, [("columns", 16)]),
+    ([(784, 200), (200, 10)], 100, [("columns", 16), ("columns", 8)]),
+    ([(16, 2048), (2048, 2048), (2048, 3)], 20, []),
+])
+def test_geometries_keep_one_layout(shapes, mb, expect):
+    """The wrapper may launch a chain in its one layout: rows at 16 CTAs
+    when it fits, else columns at every cluster size that fits (so every
+    geometry gives the same bits); a cluster with no geometry is
+    refused, not swapped for the other layout."""
+    assert ff.geometries(shapes, mb) == expect
+    assert ff.choose_geometry(shapes, mb, 8) == (
+        expect[-1] if expect and expect[-1][1] == 8 else None)
+
+
+def test_mnist_epoch_bounds():
+    """3xTF32 runs at a third of the 495 TFLOP/s TF32 rate: 0.117 ms for
+    the epoch's 19.37 GFLOP; 16 of the 132 SMs make 0.968 ms."""
+    b = ff.epoch_bounds([(784, 100), (100, 10)], 100, 600, 16)
+    assert round(b["bound_ms"], 3) == 0.289
+    assert round(b["bound_tc_ms"], 4) == 0.1174
+    assert round(b["cluster_ceiling_ms"], 3) == 0.968
+    assert round(b["cluster_ceiling_f32_ms"], 3) == 2.385
+    assert b["bound_by"] == "operations"
 
 
 def test_cpu_tensors_never_build_the_kernel(monkeypatch):

@@ -410,7 +410,9 @@ def test_lm_train_steps_kernel_route_match_plain(cuda):
 FFC_LAUNCHES = "veles_fused_fc_launches_total"
 
 
-def ffc_inputs(device, dims, mb, steps, n_rows, seed):
+def ffc_inputs(device, dims, mb, steps, n_rows, seed, plan="permutation"):
+    """``plan``: "permutation" (each row once) or "repeats" (drawn with
+    replacement: rows recur within and across steps)."""
     rng = numpy.random.RandomState(seed)
 
     def dev(a):
@@ -422,29 +424,61 @@ def ffc_inputs(device, dims, mb, steps, n_rows, seed):
     vbs = [torch.zeros_like(b) for b in bs]
     ds = dev(rng.rand(n_rows, dims[0]).astype("float32"))
     lb = dev(rng.randint(0, dims[-1], n_rows).astype("int32"))
-    plan = dev(rng.permutation(n_rows)[:steps * mb].reshape(steps, mb)
-               .astype("int32"))
-    return [ws, bs, vws, vbs], ds, lb, plan
+    rows = (rng.permutation(n_rows)[:steps * mb] if plan == "permutation"
+            else rng.randint(0, n_rows, steps * mb))
+    return ([ws, bs, vws, vbs], ds, lb,
+            dev(rows.reshape(steps, mb).astype("int32")))
 
 
 def assert_ffc_close(out, ref):
     for xs, ys in zip(out[:4], ref[:4]):
         for a, b in zip(xs, ys):
-            assert float((a - b).abs().max()) <= 1e-4
-    assert abs(float(out[4]) - float(ref[4])) <= 1e-5 * abs(float(ref[4]))
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            live = ~torch.isnan(b)
+            if bool(live.any()):
+                assert float((a[live] - b[live]).abs().max()) <= 1e-4
+    if numpy.isnan(float(ref[4])):
+        assert numpy.isnan(float(out[4]))
+    else:
+        assert abs(float(out[4]) - float(ref[4])) <= 1e-5 * abs(
+            float(ref[4]))
     assert float(out[5]) == float(ref[5])
 
 
-@pytest.mark.parametrize("dims,mb,kw", [
-    ([20, 12, 3], 10, dict(act_a=1.0, act_b=1.0)),
-    ([20, 12, 3], 10, dict(momentum=0.9, wd=1e-3, wd_bias=1e-4,
-                           lr_bias_ratio=0.5)),
-    ([20, 16, 8, 3], 10, dict(act_a=1.7159, act_b=0.6666, momentum=0.5)),
-    ([784, 100, 10], 100, dict(act_a=1.7159, act_b=0.6666)),
-    ([784, 100, 10], 37, dict(act_a=1.7159, act_b=0.6666, momentum=0.9)),
-])
-def test_fused_fc_kernel_matches_plain(cuda, dims, mb, kw):
-    state, ds, lb, plan = ffc_inputs(cuda, dims, mb, 12, 1500, seed=mb)
+def same_bits(x, y):
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for xs, ys in zip(x[:4], y[:4]) for a, b in zip(xs, ys))
+
+
+@pytest.mark.parametrize("dims,mb,steps,plan,kw", [
+    ([20, 12, 3], 10, 12, "permutation", dict(act_a=1.0, act_b=1.0)),
+    ([20, 12, 3], 10, 12, "permutation",
+     dict(momentum=0.9, wd=1e-3, wd_bias=1e-4, lr_bias_ratio=0.5)),
+    ([20, 16, 8, 3], 10, 12, "permutation",
+     dict(act_a=1.7159, act_b=0.6666, momentum=0.5)),
+    ([784, 100, 10], 100, 12, "permutation",
+     dict(act_a=1.7159, act_b=0.6666)),
+    ([784, 100, 10], 37, 12, "permutation",
+     dict(act_a=1.7159, act_b=0.6666, momentum=0.9)),
+    # rows of 33 floats (4-byte copies), a one-step plan, a plan that
+    # repeats rows, the chain that keeps the column layout
+    ([33, 100, 10], 100, 12, "permutation",
+     dict(act_a=1.7159, act_b=0.6666, momentum=0.9)),
+    ([784, 100, 10], 100, 1, "permutation",
+     dict(act_a=1.7159, act_b=0.6666)),
+    ([784, 100, 10], 100, 12, "repeats",
+     dict(act_a=1.7159, act_b=0.6666, momentum=0.9)),
+    ([784, 256, 64, 10], 100, 12, "permutation",
+     dict(act_a=1.7159, act_b=0.6666, momentum=0.5)),
+    # an empty plan: the state comes back as it went in
+    ([784, 100, 10], 100, 0, "permutation",
+     dict(act_a=1.7159, act_b=0.6666, momentum=0.9)),
+], ids=["unit_ab", "momentum_decay", "three_layer", "mnist", "mb37",
+        "d33", "one_step", "repeated_rows", "columns_784_256_64_10",
+        "no_steps"])
+def test_fused_fc_kernel_matches_plain(cuda, dims, mb, steps, plan, kw):
+    state, ds, lb, plan = ffc_inputs(cuda, dims, mb, steps, 1500, seed=mb,
+                                     plan=plan)
     before = counters.get(FFC_LAUNCHES)
     out = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.05, **kw)
     again = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.05, **kw)
@@ -453,8 +487,7 @@ def test_fused_fc_kernel_matches_plain(cuda, dims, mb, kw):
     assert counters.get(FFC_LAUNCHES) == before + 2
     assert_ffc_close(out, ref)
     # fixed reduction order: two launches are bit-identical
-    for xs, ys in zip(out[:4], again[:4]):
-        assert all(torch.equal(a, b) for a, b in zip(xs, ys))
+    assert same_bits(out, again)
     # a second epoch continues from the returned state
     out2 = ff.fused_fc_sgd_epoch(*out[:4], ds, lb, plan, 0.05, **kw)
     ref2 = ff.fused_fc_sgd_epoch_reference(*ref[:4], ds, lb, plan, 0.05,
@@ -462,16 +495,40 @@ def test_fused_fc_kernel_matches_plain(cuda, dims, mb, kw):
     assert_ffc_close(out2, ref2)
 
 
-@pytest.mark.parametrize("cluster", ff.CLUSTERS)
-def test_fused_fc_cluster_sizes_agree(cuda, cluster):
-    """Every sum runs in one order, so both cluster sizes give the same
-    bits."""
-    state, ds, lb, plan = ffc_inputs(cuda, [784, 100, 10], 100, 6, 1000, 1)
-    base = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.03, cluster=8)
+def test_fused_fc_kernel_keeps_nan(cuda):
+    """A NaN in one dataset row that step 5 reads: the outputs are NaN
+    exactly where the plain version's are (every one, once the NaN has
+    reached the sums), the error count the same."""
+    kw = dict(act_a=1.7159, act_b=0.6666, momentum=0.9)
+    state, ds, lb, plan = ffc_inputs(cuda, [784, 100, 10], 100, 12, 1500, 3)
+    ds[int(plan[5, 7]), 300] = float("nan")
+    out = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.05, **kw)
+    ref = ff.fused_fc_sgd_epoch_reference(*state, ds, lb, plan, 0.05, **kw)
+    assert bool(torch.isnan(ref[0][0]).any())
+    assert_ffc_close(out, ref)
+
+
+#: (chain, mb) cases and every geometry the wrapper may choose for each
+FFC_GEOMETRY_CASES = [
+    (dims, mb, geometry)
+    for dims, mb in (([784, 100, 10], 100), ([784, 100, 10], 37),
+                     ([20, 12, 3], 10), ([784, 256, 64, 10], 100),
+                     ([784, 200, 10], 100))
+    for geometry in ff.geometries(list(zip(dims, dims[1:])), mb)]
+
+
+@pytest.mark.parametrize(
+    "dims,mb,geometry", FFC_GEOMETRY_CASES,
+    ids=["%s-mb%d-%s%d" % ("-".join(map(str, d)), mb, *g)
+         for d, mb, g in FFC_GEOMETRY_CASES])
+def test_fused_fc_cluster_sizes_agree(cuda, dims, mb, geometry):
+    """Every sum runs in one order fixed by the shapes, so every geometry
+    the wrapper may choose gives the default's bits."""
+    state, ds, lb, plan = ffc_inputs(cuda, dims, mb, 6, 1000, 1)
+    base = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.03)
     out = ff.fused_fc_sgd_epoch(*state, ds, lb, plan, 0.03,
-                                cluster=cluster)
-    for xs, ys in zip(out[:4], base[:4]):
-        assert all(torch.equal(a, b) for a, b in zip(xs, ys))
+                                cluster=geometry[1])
+    assert same_bits(out, base)
 
 
 def test_fused_fc_kernel_builds_for_sm90a(cuda):

@@ -123,6 +123,18 @@ def test_greedy_batched_tokens_identical(stacks, name):
                                         temperature=0)
 
 
+@pytest.mark.parametrize("batched", [False, True],
+                         ids=["unbatched", "batched"])
+def test_zero_new_tokens_match_reference(stacks, batched):
+    """``n_new=0`` yields no token, as the reference's scan over
+    ``arange(0)`` does: ``[]``, or one empty row per prompt."""
+    wf, port = stacks["char_lm"]
+    prompt = [[1, 2, 3], [4, 5, 6]] if batched else [1, 2, 3]
+    ref = jsampling.generate(wf, prompt, 0, temperature=0)
+    assert ref == ([[], []] if batched else [])
+    assert tsampling.generate(port, prompt, 0, temperature=0) == ref
+
+
 def test_sampled_rows_invariant_to_batch_composition(stacks):
     _, port = stacks["char_lm"]
     prompts = _prompts(5, 3, 8)

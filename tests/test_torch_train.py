@@ -318,7 +318,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_mnist_workflow_is_baseline_one():
     """models/mnist.py's graph: 784 → 100 tanh → 10 softmax, mb 100,
-    exp_decay(0.98), the fused kernel eligible at cluster 8."""
+    exp_decay(0.98), the fused kernel eligible."""
     root.common.engine.fused_fc_scan = True
     wf = mnist.build_workflow(epochs=1, epochs_per_dispatch=4)
     assert [type(f).__name__ for f in wf.forwards] == ["All2AllTanh",

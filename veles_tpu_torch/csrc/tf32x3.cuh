@@ -1,7 +1,7 @@
 // Float32 products on Hopper's tensor cores in 3xTF32, and asynchronous
 // global -> shared tile copies: the building blocks of the flash forward
-// kernel (flash_attention_fwd.cu) and the flash backward kernels
-// (flash_attention_bwd.cu).
+// kernel (flash_attention_fwd.cu), the flash backward kernels
+// (flash_attention_bwd.cu) and the fused-FC epoch (fused_fc_sgd.cu).
 //
 // 3xTF32. A TF32 operand keeps 10 of float32's 23 mantissa bits, so one
 // TF32 product is good to about 1e-3 relative: too coarse for a port
@@ -145,6 +145,11 @@ __device__ __forceinline__ void commit() {
 
 __device__ __forceinline__ void wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// all but the most recent committed group have completed
+__device__ __forceinline__ void wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
 }  // namespace tf32x3

@@ -205,6 +205,9 @@ def generate(forwards, prompt, n_new: int, temperature: float = 1.0,
             "generation to %d positions exceeds the PositionalEmbedding "
             "table (%d rows); use RoPE blocks for open-ended generation"
             % (t_max, pos_emb.max_len))
+    if n_new <= 0:
+        # the reference's scan over arange(n_new) yields no token
+        return [[] for _ in range(bsz)] if batched else []
     device = forwards.device
     gens = _row_generators(seed, bsz, device) if temperature > 0 else None
     with torch.inference_mode():

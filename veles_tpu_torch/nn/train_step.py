@@ -209,12 +209,13 @@ class TrainStep(AcceleratedUnit):
         # delta recurrences and a minibatch's activations
         mb = self.loader.max_minibatch_size
         shapes = [tuple(self.params[f.name]["weights"].shape) for f in fs]
-        cluster = ff.choose_cluster(shapes, mb)
-        if cluster is None:
-            return reject("shared-memory budget: %d bytes per CTA at "
-                          "cluster %d exceed the %d a CTA has"
-                          % (ff.smem_bytes(shapes, mb, ff.CLUSTERS[-1]),
-                             ff.CLUSTERS[-1], ff.SMEM_BUDGET))
+        geometry = ff.choose_geometry(shapes, mb)
+        if geometry is None:
+            return reject("shared-memory budget: %d bytes per CTA in the "
+                          "columns layout at cluster 16 exceed the %d a "
+                          "CTA has" % (ff.smem_bytes(shapes, mb, 16,
+                                                     "columns"),
+                                       ff.SMEM_BUDGET))
         ds = self.loader.original_data
         if ds is None or not ds or ds.mem.ndim != 2:
             return reject("flat (N, features) dataset only")
@@ -225,8 +226,8 @@ class TrainStep(AcceleratedUnit):
             "names": tuple(f.name for f in fs),
         }
         self.info("fused_fc_scan engaged: whole-epoch fused-FC SGD kernel "
-                  "(%s), cluster %d", " → ".join(f.name for f in fs),
-                  cluster)
+                  "(%s), %s layout, cluster %d",
+                  " → ".join(f.name for f in fs), *geometry)
         if self.epochs_per_dispatch == 1:
             self.info("fused_fc_scan: epochs_per_dispatch is 1, and the "
                       "kernel runs only inside an epoch block — the "

@@ -10,8 +10,13 @@ p -= delta`` (bias: ``lr·lr_bias_ratio`` and ``wd_bias``), over the
 The kernel (``csrc/fused_fc_sgd.cu``) replaces the TPU kernel
 ``veles_tpu/ops/fused_fc.py::_kernel``: one thread-block cluster keeps
 the weights and both delta recurrences in its shared memory for all K
-steps and gathers each minibatch's rows by plan index. Its eligibility
-limit is :func:`smem_bytes` against :data:`SMEM_BUDGET`.
+steps and gathers each minibatch's rows by plan index. It has two
+decompositions (:data:`LAYOUTS`): "rows" splits layer 0 over its input
+rows on a 16-CTA cluster and replicates the later layers (3xTF32
+products on the tensor cores); "columns" splits every layer over its
+output columns, for the chains the rows layout cannot hold.
+:func:`choose_geometry` picks the first (layout, cluster) whose
+:func:`smem_bytes` fits :data:`SMEM_BUDGET`.
 
 :func:`fused_fc_sgd_epoch` is the wrapper: on CUDA tensors it launches
 the kernel or raises; on CPU tensors it runs
@@ -26,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,14 +41,20 @@ _SOURCE = "fused_fc_sgd"
 
 #: layers one launch takes (``MAXL`` in the kernel)
 MAX_LAYERS = 8
-#: threads per CTA and input columns per streamed tile (``NT``, ``TI``)
+#: threads per CTA (``NT``); input columns per streamed tile of the
+#: columns layout (``TI``)
 THREADS = 256
 TILE = 32
+#: rows layout: layer-0 input rows per chunk (``KC``)
+CHUNK = 8
 #: dynamic shared memory one CTA may use on an H100 (227 KB)
 SMEM_BUDGET = 232448
-#: cluster sizes the kernel runs at: 8 is portable, 16 needs the
-#: non-portable cluster attribute
-CLUSTERS = (8, 16)
+#: the kernel's decompositions, in the order preferred (``layout`` 0, 1)
+LAYOUTS = ("rows", "columns")
+#: each layout's cluster sizes, in the order preferred: 16 (all of a
+#: GPC's SMs the launch may take; the non-portable cluster attribute)
+#: before 8. The rows layout runs at 16 only (``NCTA``)
+CLUSTERS = {"rows": (16,), "columns": (16, 8)}
 
 
 def analytic_cost(layer_shapes: Sequence, mb: int, steps: int
@@ -80,30 +91,113 @@ def epoch_work(layer_shapes: Sequence, mb: int, steps: int
     return float(flops), float(reads + 2 * 2 * params * 4)
 
 
+def epoch_bounds(layer_shapes: Sequence, mb: int, steps: int,
+                 cluster: int) -> Dict[str, object]:
+    """The epoch's least time on the card, in ms, from :func:`epoch_work`:
+    ``bound_ms`` at the card-wide float32 FMA rate, ``bound_tc_ms`` with
+    the products in 3xTF32 on the tensor cores (a third of the TF32
+    rate), each at least the bytes over the memory rate; and the 3xTF32
+    and float32 ceilings of the ``cluster`` SMs one launch runs on."""
+    from .flash_attention import (PEAK_F32_FLOPS, PEAK_HBM_BYTES,
+                                  PEAK_TF32_FLOPS)
+    flops, nbytes = epoch_work(layer_shapes, mb, steps)
+    t_f32 = flops / PEAK_F32_FLOPS * 1e3
+    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_f32, t_bytes), "bound_tc_ms": max(t_tc, t_bytes),
+            "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+            "cluster_ceiling_ms": t_tc * N_SMS / cluster,
+            "cluster_ceiling_f32_ms": t_f32 * N_SMS / cluster}
+
+
+#: streaming multiprocessors of an H100 SXM
+N_SMS = 132
+
+
 def _dims(layer_shapes: Sequence) -> List[int]:
     return [int(layer_shapes[0][0])] + [int(o) for _, o in layer_shapes]
 
 
-def smem_bytes(layer_shapes: Sequence, mb: int, cluster: int) -> int:
-    """Shared-memory bytes one CTA of a ``cluster``-CTA launch needs: the
-    kernel's ``make_layout``, float for float."""
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _ld_b(w: int) -> int:
+    """``ld_b``: the row stride of a width-``w`` B operand."""
+    ld = -(-w // 8) * 8
+    return ld + 8 if ld % 32 in (0, 16) else ld
+
+
+def _ld_a(w: int) -> int:
+    """``ld_a``: the row stride of the x tile, an odd multiple of 4."""
+    ld = _pad4(w)
+    return ld + 4 if ld % 8 == 0 else ld
+
+
+def cta_rows(d0: int) -> List[Tuple[int, int]]:
+    """(first row, row count) of layer 0's ``d0`` inputs that each CTA of
+    the rows layout owns (``cta_row``): whole chunks of :data:`CHUNK`
+    rows, CTA r's from chunk ``r * n_chunks // 16``, in rank order."""
+    n = CLUSTERS["rows"][0]
+    n_ch = -(-d0 // CHUNK)
+    bounds = [min(CHUNK * (r * n_ch // n), d0) for r in range(n + 1)]
+    return [(a, b - a) for a, b in zip(bounds, bounds[1:])]
+
+
+def smem_bytes(layer_shapes: Sequence, mb: int, cluster: int,
+               layout: str = "rows") -> int:
+    """Shared-memory bytes one CTA of a ``cluster``-CTA launch in
+    ``layout`` needs: the kernel's ``make_layout``, float for float (the
+    rows layout's at its one cluster size)."""
     dims = _dims(layer_shapes)
     n = len(dims) - 1
-    own = [-(-dims[i + 1] // cluster) for i in range(n)]
-    floats = sum(2 * dims[i] * own[i] + 2 * own[i] + 2 * mb * own[i]
-                 for i in range(n))
-    floats += mb * (TILE + 1) + TILE * max([1] + own[:-1]) + 2 * THREADS
+    if layout == "columns":
+        own = [-(-dims[i + 1] // cluster) for i in range(n)]
+        floats = sum(2 * dims[i] * own[i] + 2 * own[i] + 2 * mb * own[i]
+                     for i in range(n))
+        floats += mb * (TILE + 1) + TILE * max([1] + own[:-1]) + 2 * THREADS
+        return 4 * floats
+    if layout != "rows" or cluster not in CLUSTERS["rows"]:
+        raise ValueError("the layouts are rows at %s CTAs and columns, got "
+                         "%r at %s" % (CLUSTERS["rows"], layout, cluster))
+    rows = max(n for _, n in cta_rows(dims[0]))
+    ld = [0] + [_ld_b(w) for w in dims[1:]]
+    floats = 2 * rows * ld[1]
+    floats += sum(2 * _pad4(w) for w in dims[1:])
+    mbp = -(-mb // 16) * 16
+    floats += sum(3 * -(-dims[i] // 8) * 8 * ld[i + 1] for i in range(1, n))
+    floats += sum(mbp * ld[i] for i in range(1, n + 1))
+    floats += 2 * mbp * _ld_a(rows) + 2 * _pad4(mb)
+    floats += _pad4(-(-mb * ld[1] // cluster)) + 2 * (THREADS // 32)
     return 4 * floats
 
 
-def choose_cluster(layer_shapes: Sequence, mb: int) -> Optional[int]:
-    """The smallest cluster size whose footprint fits the budget, or
-    None when even the largest does not (the chain is then ineligible)."""
+def geometries(layer_shapes: Sequence, mb: int) -> List[Tuple[str, int]]:
+    """Every (layout, cluster) the wrapper may launch the chain at, the
+    default first. The layout is the chain's alone: "rows" when it fits
+    (at 16 CTAs), else "columns" at each cluster size, 16 before 8, that
+    fits one CTA's shared memory. Every entry gives the same bits (the
+    kernel's sums run in an order fixed by the shapes)."""
     if not 1 <= len(layer_shapes) <= MAX_LAYERS:
-        return None
-    for c in CLUSTERS:
-        if smem_bytes(layer_shapes, mb, c) <= SMEM_BUDGET:
-            return c
+        return []
+    for lay in LAYOUTS:
+        fits = [(lay, c) for c in CLUSTERS[lay]
+                if smem_bytes(layer_shapes, mb, c, lay) <= SMEM_BUDGET]
+        if fits:
+            return fits
+    return []
+
+
+def choose_geometry(layer_shapes: Sequence, mb: int,
+                    cluster: Optional[int] = None
+                    ) -> Optional[Tuple[str, int]]:
+    """The launch's (layout, cluster): the first of :func:`geometries`
+    (at ``cluster`` when one is given), or None when there is none (the
+    chain is then ineligible, or does not fit at that cluster)."""
+    for lay, c in geometries(layer_shapes, mb):
+        if cluster is None or c == int(cluster):
+            return lay, c
     return None
 
 
@@ -181,7 +275,7 @@ def _library():
     lib = _build.load(_SOURCE)
     lib.veles_fused_fc_sgd_epoch_f32.restype = ctypes.c_int
     lib.veles_fused_fc_sgd_epoch_f32.argtypes = [
-        ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -200,12 +294,13 @@ def _launch(weights, biases, vel_w, vel_b, dataset, labels, plan, lr,
     n = len(weights)
     shapes = [tuple(w.shape) for w in weights]
     mb = int(plan.shape[1])
-    if cluster is None:
-        cluster = choose_cluster(shapes, mb)
-        if cluster is None:
-            raise ValueError("chain %s at mb %d needs more shared memory "
-                             "than a CTA has (%d bytes at cluster 16)"
-                             % (shapes, mb, smem_bytes(shapes, mb, 16)))
+    geometry = choose_geometry(shapes, mb, cluster)
+    if geometry is None:
+        raise ValueError("chain %s at mb %d runs at %s, not at cluster %s "
+                         "(%d bytes a CTA in the columns layout at 16)"
+                         % (shapes, mb, geometries(shapes, mb) or "none",
+                            cluster, smem_bytes(shapes, mb, 16, "columns")))
+    layout, cluster = geometry
     ins = [t.contiguous() for t in tensors]
     dataset = ins[-1]
     labels, plan = labels.contiguous(), plan.contiguous()
@@ -230,10 +325,11 @@ def _launch(weights, biases, vel_w, vel_b, dataset, labels, plan, lr,
     fn = _library().veles_fused_fc_sgd_epoch_f32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.byref(args), int(cluster), stream)
+        err = fn(ctypes.byref(args), cluster, LAYOUTS.index(layout), stream)
     if err != 0:
-        raise RuntimeError("fused_fc_sgd_epoch kernel launch failed "
-                           "(cluster %d): CUDA error %d" % (cluster, err))
+        raise RuntimeError("fused_fc_sgd_epoch kernel launch failed (%s "
+                           "layout, cluster %d): CUDA error %d"
+                           % (layout, cluster, err))
     inc("veles_fused_fc_launches_total")
     f32 = acc.float()
     return (outs[:n], outs[n:2 * n], outs[2 * n:3 * n], outs[3 * n:],
@@ -253,8 +349,8 @@ def fused_fc_sgd_epoch(weights: Sequence, biases: Sequence,
     - vel_w/vel_b: the delta recurrences (zeros for a fresh run);
     - dataset (N, d_0) float32, labels (N,) int32, plan (K, mb) int32;
     - lr: the weights' learning rate, already scaled by the schedule;
-    - cluster: the kernel's cluster size (default: the smallest that
-      fits, :func:`choose_cluster`); ignored on the CPU.
+    - cluster: the kernel's cluster size, one of :func:`geometries`
+      (default: the first, :func:`choose_geometry`); ignored on the CPU.
 
     CUDA tensors go through the kernel — or raise; CPU tensors through
     the plain version. Each kernel launch adds one to
