@@ -13,8 +13,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              print the compiler's register / shared-memory / spill report;
 3. kernels — each kernel's wrapper on card tensors against its plain
              torch version at the main paths' shapes and at edge cases.
-             flash_attention_fwd (3xTF32 on the tensor cores): 23 cases
-             (ragged T 1, 65, 127, 129, D 8..256 including 33, 40, 72 and
+             flash_attention_fwd (3xTF32 on the tensor cores): 26 cases
+             (the engine's B1 prefills at T 128, 1024, 2048, ragged T 1,
+             65, 127, 129, D 8..256 including 33, 40, 72 and
              160, GQA 8/1 with a window, views offset by one element, B*H
              65,544) with max abs error of o and lse <= 1e-4 and one
              launch each, and a NaN in q, k or v (causal and not) landing
@@ -33,10 +34,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              wrapper may choose, give the same bits;
 4. timing  — kernel, plain version and the library yardstick with CUDA
              events, beside the bound the published peaks give. The
-             flash forward at B4 T512, B16 T512 and B2 T2048 (H8 D64
-             causal) against SDPA, each record with ``bound_ms`` (float32
-             FMA), ``bound_tc_ms`` (3xTF32 on the tensor cores, the one
-             the kernel runs against and the kernels line's ``bound_ms``)
+             flash forward at B4 T512, B16 T512, B2 T2048 and the
+             engine's B1 T128 and B1 T2048 (H8 D64 causal) against
+             SDPA, each record with ``bound_ms`` (float32 FMA),
+             ``bound_tc_ms`` (3xTF32 on the tensor cores, the one the
+             kernel runs against and the kernels line's ``bound_ms``)
              and ``pct_of_tc_bound``. The
              fused-FC MNIST epoch (K 600) at every geometry the wrapper
              may choose, µs a step, ``bound_ms`` (float32 FMA),
@@ -52,8 +54,26 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              8 concurrent HTTP requests; checks the answers, that the
              greedy tokens equal the plain-attention path's, that the
              prefill logits agree within 1e-3, and that every prefill
-             block launched the flash kernel;
-6. train   — MNIST-784 (784 → 100 tanh → 10 softmax, mb 100, 60k/10k
+             block launched the flash kernel; the window plane, pinned
+             with ``engine="window"``;
+6. serve_continuous — the same LM behind ``GenerationAPI``'s default
+             continuous engine (8 slots, buckets 128..2048, max_context
+             2048, pages of 16, decode_block 1): 24 requests posted at
+             once (prompts of 60, 120, 250, 480, 900 and 1800 tokens,
+             four each, two greedy and two sampled at 0.8, n_new
+             16/32/48, a seed each), and the same 24 through the window
+             plane in the same run. Checks: every answer is the
+             engine's and equals the window plane's, admitted = retired
+             = 24, flash launches = 6 x prefills = 6 x 24, each prefill
+             at its prompt's bucket, peak slots 2..8, the page ledger
+             empty afterwards, continuous tokens/s above the window
+             plane's; prints both planes' tokens/s, latency and TTFT
+             percentiles, the median decode tick, peak slots, pages and
+             memory;
+7. serve_continuous_breakdown — torch.profiler over 20 decode ticks
+             while all 8 rows are live: device ms by kernel, launches a
+             tick, the device's idle share;
+8. train   — MNIST-784 (784 → 100 tanh → 10 softmax, mb 100, 60k/10k
              synthetic rows) through ``models.mnist.build_workflow``,
              8 epochs at 4 per dispatch, once with ``fused_fc_scan`` on
              and once off, from the same seed: the fused run launched the
@@ -62,7 +82,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              within 0.005 and its final weights within 1e-4; then one
              fused 4-epoch block under
              torch.profiler: device busy share and top kernels;
-7. kernels_bwd — the flash backward pair (dK/dV, dQ; 3xTF32 on the
+9. kernels_bwd — the flash backward pair (dK/dV, dQ; 3xTF32 on the
              tensor cores) against the plain backward on 18 cases (the
              bench shape, GQA 8/2 and 8/1, windows, ragged T 1, 65, 127,
              129, D 8..256 including 33, 40, 72 and 160, strided q/k/v
@@ -72,7 +92,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              counted once by each kernel's launch counter, and autograd
              through ``flash_attention`` against autograd through the
              plain attention;
-8. timing_bwd — each backward kernel at the bench shape with CUDA
+10. timing_bwd — each backward kernel at the bench shape with CUDA
              events, its bounds (``ops/flash_attention.backward_bounds``:
              3xTF32 on the tensor cores, ``bound_tc_ms``, the one the
              kernels run against and the kernels line's ``bound_ms``; and
@@ -80,7 +100,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              comparable with earlier runs), the plain backward's
              time and SDPA's backward (the yardstick; it computes the
              pair's function);
-9. train_lm — the bench LM (``models/char_lm.build_bench_workflow``:
+11. train_lm — the bench LM (``models/char_lm.build_bench_workflow``:
              6 RoPE blocks, d_model 512, 8 heads, FFN 2048, vocab 256,
              T 512, mb 16, 1,024 / 128 rows, adam lr 1e-4), one epoch
              from one seed with the kernels and with the plain
@@ -92,7 +112,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              rounding noise by up to 2 lr a step); epoch ms, tokens/s,
              peak memory; then 16 greedy tokens from the trained
              weights through the sampler, equal to the plain path's;
-10. train_lm_breakdown — torch.profiler over 4 train steps: device busy
+12. train_lm_breakdown — torch.profiler over 4 train steps: device busy
              share, launches per step, top kernels, the flash kernels'
              share.
 
@@ -192,6 +212,10 @@ def phase_kernels(fa):
         ("serve_b4_t512", 4, 512, 8, 8, 64, True, 0, None),
         ("serve_b2_t2048", 2, 2048, 8, 8, 64, True, 0, None),
         ("serve_b1_t300", 1, 300, 8, 8, 64, True, 0, None),
+        # the continuous engine's prefills: one prompt padded to a bucket
+        ("serve_continuous_b1_t128", 1, 128, 8, 8, 64, True, 0, None),
+        ("serve_continuous_b1_t1024", 1, 1024, 8, 8, 64, True, 0, None),
+        ("serve_continuous_b1_t2048", 1, 2048, 8, 8, 64, True, 0, None),
         ("train_b16_t512", 16, 512, 8, 8, 64, True, 0, None),
         ("gqa_kv2", 4, 512, 8, 2, 64, True, 0, None),
         ("window128", 4, 512, 8, 8, 64, True, 128, None),
@@ -280,7 +304,9 @@ def phase_timing(fa, card):
     records keyed by (B, T)."""
     import torch.nn.functional as F
     records = {}
-    for b, t in ((4, 512), (16, 512), (2, 2048)):
+    # the window plane's batch, the training batch, the longest prompt;
+    # the continuous engine's smallest and largest prefill buckets
+    for b, t in ((4, 512), (16, 512), (2, 2048), (1, 128), (1, 2048)):
         h = kv = 8
         d = 64
         q, k, v = qkv(b, t, h, kv, d, seed=7)
@@ -909,18 +935,24 @@ def post(url, payload, timeout=600.0):
     return code, body, (time.perf_counter() - t0) * 1e3
 
 
+def bench_lm():
+    """The bench-width LM on the card, weights from numpy seed 0 in the
+    reference's layout."""
+    from veles_tpu_torch.convert import params_from_jax, random_params
+    from veles_tpu_torch.nn.standard_workflow import build_forwards
+    model = build_forwards(BENCH_LAYERS)          # default device: card
+    return params_from_jax(model, random_params(model, seed=0))
+
+
 def phase_serve(card):
     import numpy
     import torch
     from veles_tpu_torch.config import root
-    from veles_tpu_torch.convert import params_from_jax, random_params
     from veles_tpu_torch.nn import sampling
-    from veles_tpu_torch.nn.standard_workflow import build_forwards
     from veles_tpu_torch.restful_api import GenerationAPI
     from veles_tpu_torch.telemetry import counters
 
-    model = build_forwards(BENCH_LAYERS)          # default device: card
-    params_from_jax(model, random_params(model, seed=0))
+    model = bench_lm()
     n_blocks = sum(1 for c in BENCH_LAYERS
                    if c["type"] == "transformer_block")
     rng = numpy.random.RandomState(1)
@@ -939,7 +971,8 @@ def phase_serve(card):
     sampling.generate(model, requests[6]["prompt"][:64], 2, temperature=0)
     torch.cuda.synchronize()
 
-    api = GenerationAPI(model, port=0, batch_window=0.5).initialize()
+    api = GenerationAPI(model, port=0, batch_window=0.5,
+                        engine="window").initialize()
     try:
         url = "http://127.0.0.1:%d/generate" % api.port
         results = [None] * len(requests)
@@ -1016,6 +1049,204 @@ def phase_serve(card):
     phase_breakdown(card, model, [requests[i]["prompt"]
                                   for i in groups[512]])
     return launches
+
+
+#: the serve_continuous phase's engine (the reference's knobs, at the
+#: bench LM's context) and its load: four requests at each prompt
+#: length, two greedy and two sampled, n_new cycling 16/32/48, a seed each
+CONT_ENGINE = dict(max_slots=8, buckets=(128, 256, 512, 1024, 2048),
+                   max_context=2048, page_size=16, decode_block=1)
+CONT_LENGTHS = (60, 120, 250, 480, 900, 1800)
+CONT_N_NEW = (16, 32, 48)
+CONT_TICKS = 20
+
+
+def continuous_load():
+    import numpy
+    rng = numpy.random.RandomState(3)
+    reqs = []
+    for length in CONT_LENGTHS:
+        for j in range(4):
+            req = {"prompt": [int(x) for x in rng.randint(0, 256, length)],
+                   "n_new": CONT_N_NEW[len(reqs) % 3],
+                   "seed": 1000 + len(reqs)}
+            if j >= 2:
+                req.update(mode="sample", temperature=0.8)
+            reqs.append(req)
+    return reqs
+
+
+def post_all(url, requests):
+    """POST every request at once, one thread each; (answers, wall s)."""
+    results = [None] * len(requests)
+
+    def fire(i):
+        results[i] = post(url, requests[i])
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def pct(values, q):
+    import numpy
+    return float(numpy.percentile(numpy.asarray(values, float), q))
+
+
+def phase_serve_continuous(card):
+    """The bench LM behind GenerationAPI's continuous engine, against
+    the window plane on the same 24 requests in the same run."""
+    import torch
+    from veles_tpu_torch.nn import sampling
+    from veles_tpu_torch.restful_api import GenerationAPI
+    from veles_tpu_torch.serving import ContinuousEngine, make_request
+    from veles_tpu_torch.telemetry import counters
+
+    model = bench_lm()
+    n_blocks = sum(1 for c in BENCH_LAYERS
+                   if c["type"] == "transformer_block")
+    requests = continuous_load()
+    # CUDA / cuBLAS warm-up for both planes, outside the measured runs
+    sampling.generate(model, requests[0]["prompt"], 2, temperature=0)
+    warm = ContinuousEngine(model, name="warm", **CONT_ENGINE).start()
+    try:
+        warm.serve([make_request(requests[0]["prompt"], 2),
+                    make_request(requests[-1]["prompt"], 2,
+                                 temperature=0.8)])
+    finally:
+        warm.stop()
+    del warm
+    torch.cuda.synchronize()
+
+    planes = {}
+    for kind in ("window", "continuous"):
+        api = GenerationAPI(model, port=0, batch_window=0.5, engine=kind,
+                            **CONT_ENGINE).initialize()
+        engine = api._engine
+        try:
+            counters.counters.reset()
+            torch.cuda.reset_peak_memory_stats()
+            results, wall = post_all(
+                "http://127.0.0.1:%d/generate" % api.port, requests)
+            torch.cuda.synchronize()
+            snap = counters.counters.snapshot()
+            peak_bytes = torch.cuda.max_memory_allocated()
+            stats = engine.stats() if engine is not None else None
+        finally:
+            api.stop()
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200:
+                raise AssertionError("%s request %d failed: %r"
+                                     % (kind, i, res))
+        planes[kind] = dict(results=results, wall=wall, snap=snap,
+                            engine=engine, stats=stats, peak=peak_bytes,
+                            tokens=sum(len(r[1]["tokens"])
+                                       for r in results))
+
+    win, cont = planes["window"], planes["continuous"]
+    engine, snap = cont["engine"], cont["snap"]
+    if engine is None:
+        raise AssertionError("GenerationAPI built no continuous engine")
+    for i, (w, c) in enumerate(zip(win["results"], cont["results"])):
+        if c[1].get("engine") != "continuous":
+            raise AssertionError("request %d was not served by the engine"
+                                 % i)
+        if c[1]["tokens"] != w[1]["tokens"]:
+            raise AssertionError(
+                "request %d (T=%d, %s): continuous tokens %r != window "
+                "tokens %r" % (i, len(requests[i]["prompt"]),
+                               requests[i].get("mode", "greedy"),
+                               c[1]["tokens"], w[1]["tokens"]))
+    n = len(requests)
+    if not engine.admitted == engine.retired == n:
+        raise AssertionError("admitted %d, retired %d, sent %d"
+                             % (engine.admitted, engine.retired, n))
+    prefills = snap.get("veles_serving_prefill_dispatches_total", 0)
+    launches = snap.get("veles_flash_attention_launches_total", 0)
+    if prefills != n or launches != n_blocks * prefills:
+        raise AssertionError("flash launches %d, prefills %d: want %d x "
+                             "%d" % (launches, prefills, n_blocks, n))
+    want = {}
+    for req in requests:
+        b = engine.scheduler.bucket_for(len(req["prompt"]))
+        want[b] = want.get(b, 0) + 1
+    if engine.prefills_by_bucket != want:
+        raise AssertionError("prefills by bucket %r, want %r"
+                             % (engine.prefills_by_bucket, want))
+    if not 2 <= engine.peak_slots <= CONT_ENGINE["max_slots"]:
+        raise AssertionError("peak slots %d" % engine.peak_slots)
+    if engine.page_pool.ledger() or engine.page_pool.in_use():
+        raise AssertionError("pages left in use: %r"
+                             % engine.page_pool.ledger())
+    tps = {k: planes[k]["tokens"] / planes[k]["wall"] for k in planes}
+    if not tps["continuous"] > tps["window"]:
+        raise AssertionError("continuous %.1f tokens/s <= window %.1f"
+                             % (tps["continuous"], tps["window"]))
+    lat = {k: [r[2] for r in planes[k]["results"]] for k in planes}
+    ttft = list(engine.ttft_ms)
+    emit("serve_continuous", card=card, requests=n,
+         engine=CONT_ENGINE, prompt_lengths=list(CONT_LENGTHS),
+         n_new=list(CONT_N_NEW), tokens=cont["tokens"],
+         wall_s=cont["wall"], tokens_per_s=tps["continuous"],
+         window_wall_s=win["wall"], window_tokens_per_s=tps["window"],
+         speedup=tps["continuous"] / tps["window"],
+         request_ms_p50=pct(lat["continuous"], 50),
+         request_ms_max=max(lat["continuous"]),
+         window_request_ms_p50=pct(lat["window"], 50),
+         window_request_ms_max=max(lat["window"]),
+         ttft_ms_p50=pct(ttft, 50), ttft_ms_max=max(ttft),
+         decode_tick_ms_p50=pct(engine.decode_ms, 50),
+         decode_ticks=snap.get("veles_serving_decode_dispatches_total", 0),
+         prefills=prefills, prefills_by_bucket=engine.prefills_by_bucket,
+         flash_launches=launches, n_blocks=n_blocks,
+         peak_slots=engine.peak_slots, peak_pages=engine.peak_pages,
+         pages_total=engine.pages,
+         kv_pool_bytes=cont["stats"]["kv_pool_bytes"],
+         peak_memory_bytes=int(cont["peak"]),
+         window_peak_memory_bytes=int(win["peak"]))
+    phase_serve_continuous_breakdown(card, model, requests)
+    return launches
+
+
+def phase_serve_continuous_breakdown(card, model, requests):
+    """torch.profiler over CONT_TICKS decode ticks of the engine while
+    all eight rows are live: device ms by kernel, launches a tick, the
+    device's idle share."""
+    import torch
+    from veles_tpu_torch.serving import ContinuousEngine, make_request
+    from veles_tpu_torch.serving.scheduler import Ticket
+    engine = ContinuousEngine(model, name="profiled", **CONT_ENGINE)
+    try:
+        for req in requests[:CONT_ENGINE["max_slots"]]:
+            engine.submit(make_request(req["prompt"], CONT_TICKS + 8,
+                                       temperature=req.get(
+                                           "temperature", 0.0),
+                                       seed=req["seed"]), Ticket())
+        with torch.inference_mode():
+            engine._tick()            # the admissions and one step
+            live = engine.scheduler.busy_count()
+            if live != CONT_ENGINE["max_slots"]:
+                raise AssertionError("%d rows live, not %d"
+                                     % (live, CONT_ENGINE["max_slots"]))
+
+            def ticks():
+                for _ in range(CONT_TICKS):
+                    engine._tick()
+
+            rec = profiled(ticks)
+    finally:
+        engine.stop()
+    emit("serve_continuous_breakdown", card=card, live_rows=live,
+         ticks=CONT_TICKS,
+         tick_ms=rec["profiled_wall_ms"] / CONT_TICKS,
+         launches_per_tick=(None if rec["kernel_launches"] is None
+                            else rec["kernel_launches"] / CONT_TICKS),
+         **rec)
 
 
 def host_ms(fn):
@@ -1116,6 +1347,7 @@ def main():
     timing = phase_timing(fa, card)[(4, 512)]
     timing_ffc = phase_timing_fused_fc(ff, card)
     launches = phase_serve(card)
+    launches_cont = phase_serve_continuous(card)
     launches_ffc = phase_train(card)
     phase_train_breakdown(card)
     worst_bwd = phase_kernels_bwd(fa)
@@ -1147,6 +1379,7 @@ def main():
         "bound_ms": timing["bound_tc_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "launches_by_path": {"serve": launches,
+                             "serve_continuous": launches_cont,
                              "train_lm": launches_lm["fwd"]},
         "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",

@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need the CUDA card: the hand-written
 flash-attention forward and backward kernels and the fused-FC SGD kernel
 against their plain torch versions, their builds for ``sm_90a``, the
-serving path and LM training through the flash kernels, and the MNIST
+serving path (the window plane and the continuous engine) and LM
+training through the flash kernels, and the MNIST
 training workflow through the fused-FC kernel. Each skips without a
 card (decided inside the fixture, never at import).
 
@@ -201,6 +202,63 @@ def test_generation_api_serves_on_the_card(model):
         api.stop()
     assert body["tokens"] == sampling.generate(model, [1, 2, 3, 4], 6,
                                                temperature=0)
+
+
+def _engine_requests(seed, n, vocab=64):
+    rng = numpy.random.RandomState(seed)
+    from veles_tpu_torch.serving import make_request
+    return [make_request(rng.randint(1, vocab, int(t_p)).tolist(),
+                         int(n_new), temperature=0.8 if i % 2 else 0.0,
+                         seed=seed + i)
+            for i, (t_p, n_new) in enumerate(zip(
+                rng.randint(1, 120, n), rng.randint(1, 20, n)))]
+
+
+def test_engine_on_the_card_matches_solo(model):
+    """The continuous engine on the card (GQA 2/1, one block with a
+    window of 50): greedy and sampled rows equal the port's solo
+    generate, every prefill block is one flash-forward launch, and the
+    page ledger is empty afterwards."""
+    from veles_tpu_torch.serving import ContinuousEngine
+    reqs = _engine_requests(5, 10)
+    engine = ContinuousEngine(model, max_slots=4, buckets=(32, 64, 128),
+                              max_context=160, name="gpu_eng").start()
+    try:
+        before = counters.counters.snapshot()
+        out = engine.serve(reqs)
+        delta = counters.counters.delta(before)
+    finally:
+        engine.stop()
+    for req, toks in zip(reqs, out):
+        assert toks == sampling.generate(
+            model, req["prompt"], req["n_new"],
+            temperature=req["temperature"], seed=req["seed"])
+    assert delta["veles_serving_prefill_dispatches_total"] == len(reqs)
+    assert delta[LAUNCHES] == 2 * len(reqs)           # 2 blocks each
+    assert engine.peak_slots >= 2
+    assert engine.page_pool.ledger() == {}
+    assert engine.page_pool.in_use() == 0
+
+
+def test_engine_reuses_retired_pages_on_the_card(model):
+    """A page-constrained pool on the card hands a retired slot's pages
+    to new requests; each still gets its solo tokens."""
+    from veles_tpu_torch.serving import ContinuousEngine
+    reqs = _engine_requests(9, 8)
+    solo = [sampling.generate(model, r["prompt"], r["n_new"],
+                              temperature=r["temperature"], seed=r["seed"])
+            for r in reqs]
+    engine = ContinuousEngine(model, max_slots=3, buckets=(32, 64, 128),
+                              max_context=160, page_size=16, pages=12,
+                              name="gpu_tight").start()
+    try:
+        for _wave in range(2):
+            assert engine.serve(list(reqs)) == solo
+            assert engine.serve(list(reversed(reqs))) == solo[::-1]
+        assert engine.page_pool.ledger() == {}
+        assert not engine._page_table.any()
+    finally:
+        engine.stop()
 
 
 def test_flash_forward_refuses_to_drop_gradients(cuda):

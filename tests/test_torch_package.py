@@ -182,5 +182,12 @@ def test_counters_are_registered_names_only():
 def test_config_defaults():
     assert root.common.engine.flash_attention is True
     assert root.common.engine.precision_type == "float32"
-    assert root.common.serving.engine == "window"
+    # the reference's serving defaults (veles_tpu/config.py)
+    assert root.common.serving.engine == "continuous"
+    assert (root.common.serving.max_slots, root.common.serving.buckets,
+            root.common.serving.max_context,
+            root.common.serving.decode_block,
+            root.common.serving.page_size) == (8, [16, 32, 64, 128], 640,
+                                               1, 16)
+    assert root.common.serving.get("pages", 7) is None
     assert root.common.serving.get("no_such_key", 7) == 7

@@ -1,8 +1,9 @@
 """The port's GenerationAPI (veles_tpu_torch/restful_api.py) over real
-HTTP on the CPU: the window plane coalesces concurrent requests into one
-batched decode whose rows equal their solo decodes, eos trimming, the
-400 answers for what is not ported, and the 503 for an expired
-deadline. The served tokens are also held against the JAX package's
+HTTP on the CPU, on the window plane (``engine="window"``; the
+continuous engine is tests/test_torch_serving_engine.py): the window
+plane coalesces concurrent requests into one batched decode whose rows
+equal their solo decodes, eos trimming, the 400 answers for what is not
+ported, and the 503 for an expired deadline. The served tokens are also held against the JAX package's
 sampler on the same weights."""
 import json
 import threading
@@ -66,7 +67,7 @@ def model():
 @pytest.fixture(scope="module")
 def served(model):
     api = GenerationAPI(model, port=0, device="cpu", batch_window=0.3,
-                        name="torch-genapi").initialize()
+                        engine="window", name="torch-genapi").initialize()
     yield api, "http://127.0.0.1:%d/generate" % api.port
     api.stop()
 
@@ -174,7 +175,8 @@ def test_healthz_and_unknown_path(served):
 
 def test_expired_deadline_answers_503(model):
     api = GenerationAPI(model, port=0, device="cpu", batch_window=0.5,
-                        request_timeout=0.05, name="expiry").initialize()
+                        request_timeout=0.05, engine="window",
+                        name="expiry").initialize()
     try:
         code, body, headers = _post(
             "http://127.0.0.1:%d/generate" % api.port,
@@ -182,17 +184,6 @@ def test_expired_deadline_answers_503(model):
         assert code == 503 and "expired" in body["error"]
         assert headers.get("Retry-After") == "1"
         assert body["request_id"]
-    finally:
-        api.stop()
-
-
-def test_continuous_engine_answers_400(model):
-    api = GenerationAPI(model, port=0, device="cpu", engine="continuous",
-                        name="cont").initialize()
-    try:
-        code, body, _ = _post("http://127.0.0.1:%d/generate" % api.port,
-                              {"prompt": [1, 2, 3], "n_new": 2})
-        assert code == 400 and "not ported yet" in body["error"]
     finally:
         api.stop()
 

@@ -94,9 +94,21 @@ def _default_root() -> Config:
             "max_queue": 256,         # GenerationAPI queue bound
         },
         "serving": {
-            # the window plane (shape-keyed coalescing worker) is the
-            # only decode plane ported so far
-            "engine": "window",
+            # the reference's defaults. "continuous" = the paged
+            # slot-pool engine (serving/engine.py); "window" = the
+            # shape-keyed coalescing worker, which also takes every
+            # request the pool cannot hold. Not ported yet: the
+            # reference's spec_gamma, beam_width, qos, prefix_cache,
+            # prefill_chunk, artifact and tp knobs (the engine raises
+            # "not ported yet" for the ones it takes as arguments)
+            "engine": "continuous",
+            "max_slots": 8,
+            "buckets": [16, 32, 64, 128],
+            "max_context": 640,
+            "decode_block": 1,
+            "page_size": 16,
+            # None = the dense-equivalent max_slots x pages_per_slot
+            "pages": None,
         },
     })
     # models/mnist.py defaults (the reference's optimisable ranges

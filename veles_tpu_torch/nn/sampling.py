@@ -11,7 +11,11 @@ step is later work). Caches are updated in place.
 
 Operates on the ``Embedding`` → [``PositionalEmbedding``] →
 ``TransformerBlock``×N → ``LMHead`` stack and reuses transformer.py's
-norm/FFN/RoPE so the cached and the full forward cannot drift.
+norm/FFN/RoPE so the cached and the full forward cannot drift. The
+continuous-batching engine (``serving/engine.py``) advances rows that
+sit at different positions with :func:`_block_step_rows`, the same
+arithmetic as :func:`_block_step` over each row's paged view, and draws
+each sampled row's token with :func:`_draw`, as :func:`_pick` does.
 """
 
 from __future__ import annotations
@@ -33,6 +37,14 @@ def _rope_at(x, pos: int, base=10000.0):
     """RoPE for a SINGLE position: x (B, 1, H, Dh). The angles are
     those of row ``pos`` of :func:`transformer._rope`, bit for bit."""
     return _rotate(x, rope_angles([pos], x.shape[-1], base))
+
+
+def _rope_rows(x, positions, base=10000.0):
+    """RoPE of x (S, 1, H, Dh), row ``s`` at its own position
+    ``positions[s]``: the angles of :func:`_rope_at` at that position,
+    bit for bit."""
+    ang = rope_angles(positions, x.shape[-1], base)
+    return _rotate(x.transpose(0, 1), ang).transpose(0, 1)
 
 
 def split_stack(forwards) -> Dict[str, object]:
@@ -61,29 +73,27 @@ def split_stack(forwards) -> Dict[str, object]:
             "head": head}
 
 
-def _block_step(block, x_t, cache_k, cache_v, pos: int):
-    """One-token pass: x_t (B, 1, D), caches (B, T_max, KV, Dh) updated
-    in place at row ``pos``; attention reads the cache rows <= pos (and
-    > pos - window). Scores and softmax in f32; GQA reads the
-    unrepeated cache through a (kv, group) view of the query heads."""
-    b, _, d = x_t.shape
+def _visible(rows, pos, window):
+    """Causal (and sliding-window) visibility of cache ``rows`` from a
+    query at ``pos``: rows <= pos (and > pos - window)."""
+    valid = rows <= pos
+    if window:
+        valid = valid & (rows > pos - window)
+    return valid
+
+
+def _attend(block, p, x_t, q, cache_k, cache_v, valid):
+    """The one-token attention over a cache and the rest of the block:
+    q (B, 1, H, Dh) already rotated, caches (B, T, KV, Dh), ``valid``
+    broadcastable to the (B, KV, G, 1, T) scores. Scores and softmax in
+    f32; GQA reads the unrepeated cache through a (kv, group) view of
+    the query heads."""
+    b = x_t.shape[0]
     h, kv = block.n_heads, block.n_kv_heads
     g, hd = h // kv, block.head_dim
-    p = block.params()
-    q, k, v = block_qkv(block, p, block_norm(block, p, x_t, "ln1"))
-    if block.rope:
-        q = _rope_at(q, pos, block.rope_base)
-        k = _rope_at(k, pos, block.rope_base)
-    cache_k[:, pos] = k[:, 0]
-    cache_v[:, pos] = v[:, 0]
-    t_max = cache_k.shape[1]
     q5 = q.reshape(b, 1, kv, g, hd).float()
     s = torch.einsum("bqkgd,btkd->bkgqt", q5,
                      cache_k.float()) / math.sqrt(hd)
-    rows = torch.arange(t_max, device=x_t.device)
-    valid = rows <= pos
-    if block.window:
-        valid = valid & (rows > pos - block.window)
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     w = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = w / w.sum(dim=-1, keepdim=True)
@@ -91,6 +101,50 @@ def _block_step(block, x_t, cache_k, cache_v, pos: int):
                      cache_v.float()).to(x_t.dtype).reshape(b, 1, h * hd)
     x_t = x_t + o @ p["wo"]
     return x_t + block_ffn(block, p, block_norm(block, p, x_t, "ln2"))
+
+
+def _block_step(block, x_t, cache_k, cache_v, pos: int):
+    """One-token pass: x_t (B, 1, D), caches (B, T_max, KV, Dh) updated
+    in place at row ``pos``; attention reads the cache rows <= pos (and
+    > pos - window)."""
+    p = block.params()
+    q, k, v = block_qkv(block, p, block_norm(block, p, x_t, "ln1"))
+    if block.rope:
+        q = _rope_at(q, pos, block.rope_base)
+        k = _rope_at(k, pos, block.rope_base)
+    cache_k[:, pos] = k[:, 0]
+    cache_v[:, pos] = v[:, 0]
+    rows = torch.arange(cache_k.shape[1], device=x_t.device)
+    return _attend(block, p, x_t, q, cache_k, cache_v,
+                   _visible(rows, pos, block.window))
+
+
+def _block_step_rows(block, x_t, pool_k, pool_v, tables, positions,
+                     targets):
+    """One-token pass of S rows that sit at different positions, over a
+    paged cache: x_t (S, 1, D); pools (pages + 1, page_size, KV, Dh);
+    ``tables`` (S, P) page ids on the pools' device; ``positions`` the
+    S host-side positions; ``targets`` = (page ids, in-page offsets),
+    (S,) each, where each row's new K/V row is written (in place; a
+    masked row's target is the sink page 0). Each row then reads its
+    view through its page-table row, with its own causal and window
+    mask: :func:`_block_step`'s arithmetic row by row."""
+    p = block.params()
+    q, k, v = block_qkv(block, p, block_norm(block, p, x_t, "ln1"))
+    if block.rope:
+        q = _rope_rows(q, positions, block.rope_base)
+        k = _rope_rows(k, positions, block.rope_base)
+    page, off = targets
+    pool_k[page, off] = k[:, 0]
+    pool_v[page, off] = v[:, 0]
+    cache_k = pool_k[tables].flatten(1, 2)        # (S, P*page_size, ...)
+    cache_v = pool_v[tables].flatten(1, 2)
+    rows = torch.arange(cache_k.shape[1], device=x_t.device)
+    pos = torch.as_tensor(numpy.asarray(positions, numpy.int64),
+                          device=x_t.device)[:, None]
+    valid = _visible(rows[None, :], pos, block.window)
+    return _attend(block, p, x_t, q, cache_k, cache_v,
+                   valid[:, None, None, None, :])
 
 
 def _embed_ids(stem, ids):
@@ -108,6 +162,19 @@ def _embed_prompt(stem, pos_emb, ids, pos0: int = 0):
         idx = (pos0 + torch.arange(ids.shape[-1], device=ids.device)
                ).clamp(0, pos_emb.max_len - 1)
         x = x + pos_emb.table[idx][None]
+    return x
+
+
+def _embed_rows(stem, pos_emb, tok, positions):
+    """(S,) token ids at per-row ``positions`` → (S, 1, D): the row-wise
+    counterpart of :func:`_embed_prompt` (positions clamp to the
+    table)."""
+    x = _embed_ids(stem, tok[:, None])
+    if pos_emb is not None:
+        idx = torch.as_tensor(numpy.asarray(positions, numpy.int64),
+                              device=tok.device).clamp(
+                                  0, pos_emb.max_len - 1)
+        x = x + pos_emb.table[idx][:, None]
     return x
 
 
@@ -166,6 +233,14 @@ def _row_generators(seed, batch: int, device) -> List[torch.Generator]:
     return gens
 
 
+def _draw(logits_row, temperature: float, gen):
+    """One row's sampled token, (V,) logits → (1,): a draw from the
+    row's OWN generator at ``temperature`` — the one draw of every
+    sampled row, solo, batched or in the engine's pool."""
+    probs = torch.softmax(logits_row.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)
+
+
 def _pick(logits, temperature: float, gens):
     """(B, V) logits → (B,) tokens: argmax (lowest index on ties) when
     greedy, else each row draws from its OWN generator, so a row's
@@ -173,8 +248,7 @@ def _pick(logits, temperature: float, gens):
     batch-mates."""
     if gens is None:
         return torch.argmax(logits, dim=-1)
-    probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.cat([torch.multinomial(probs[r], 1, generator=g)
+    return torch.cat([_draw(logits[r], temperature, g)
                       for r, g in enumerate(gens)])
 
 

@@ -4,19 +4,29 @@
 POST ``/generate`` with ``{"prompt": [ids], "n_new": N}`` (+ optional
 ``mode``: ``greedy`` | ``sample``, ``temperature``, ``seed``,
 ``eos_id``, ``request_id``) → ``{"tokens": [...], "batched_with": k,
-"request_id": ...}``. ``GET /healthz`` answers while the service runs.
+"request_id": ...}`` (+ ``"engine": "continuous"`` when the slot pool
+answered). ``GET /healthz`` answers while the service runs; ``GET
+/stats`` is the engine's occupancy as JSON and
+``GET /metrics`` the counters and serving gauges as plain text.
 
-The decode plane is the reference's **window plane**: a worker thread
-coalesces the queue for ``batch_window`` seconds and runs the requests
-that share a shape key (:meth:`GenerationAPI._batch_key`) as ONE
-batched ``nn.sampling.generate`` call. Per-row generator streams keep
-every row's tokens equal to its solo decode, so batching never changes
-answers. A ticket past its ``request_timeout`` deadline is answered
-503 + Retry-After when the worker dequeues it.
+Two decode planes, as in the reference:
 
-Not ported yet, and answered 400 "not ported yet": ``mode=speculative``
-and ``mode=beam``, and a service built with ``engine="continuous"``
-(the reference's continuous-batching slot pool).
+- the **continuous-batching engine** (``serving/engine.py``, the
+  default ``engine="continuous"``): a paged KV slot pool, bucketed
+  prefill, one batched decode step for every live row. A stack that is
+  not a generation stack falls back to the window plane with a warning;
+  knob geometry that cannot work raises ValueError;
+- the **window plane**, which takes every request the pool cannot hold
+  (a prompt longer than the largest bucket, a window past
+  ``max_context``, too cold a temperature): a worker thread coalesces
+  the queue for ``batch_window`` seconds and runs the requests that
+  share a shape key (:meth:`GenerationAPI._batch_key`) as ONE batched
+  ``nn.sampling.generate`` call. Per-row generator streams keep every
+  row's tokens equal to its solo decode.
+
+A ticket past its ``request_timeout`` deadline is answered 503 +
+Retry-After when a plane dequeues it. Not ported yet, and answered 400
+"not ported yet": ``mode=speculative`` and ``mode=beam``.
 """
 
 from __future__ import annotations
@@ -32,15 +42,22 @@ from .config import root
 from .error import VelesError
 from .logger import Logger
 from .nn import sampling
+from .serving import ContinuousEngine
 from .serving.scheduler import Ticket, shed_expired, split_expired
+from .telemetry.counters import METRICS_CONTENT_TYPE, metrics_text
+
+ENGINES = ("continuous", "window")
 
 
 class GenerationAPI(Logger):
     """Generation over HTTP for a :class:`~veles_tpu_torch.nn.
     standard_workflow.Forwards` stack. ``device`` defaults to the card
-    (``backends.device_for``); the model is moved there. ``initialize``
-    starts the HTTP service and the worker, ``stop`` drains them; the
-    bound port is ``self.port``."""
+    (``backends.device_for``); the model is moved there. ``engine``
+    (default ``root.common.serving.engine``, "continuous") picks the
+    decode plane; the slot-pool knobs default to
+    ``root.common.serving``. ``initialize`` starts the engine, the
+    window worker and the HTTP service, ``stop`` drains them; the bound
+    port is ``self.port``."""
 
     MODES = ("greedy", "sample", "speculative", "beam")
     PORTED_MODES = ("greedy", "sample")
@@ -49,7 +66,12 @@ class GenerationAPI(Logger):
                  max_new: int = 512, batch_window: float = 0.02,
                  request_timeout: float = 120.0,
                  max_queue: Optional[int] = None,
-                 engine: Optional[str] = None, device=None,
+                 engine: Optional[str] = None,
+                 max_slots: Optional[int] = None, buckets=None,
+                 max_context: Optional[int] = None,
+                 decode_block: Optional[int] = None,
+                 page_size: Optional[int] = None,
+                 pages: Optional[int] = None, device=None,
                  name: str = "generation_api") -> None:
         self.device = device_for(device)
         self.model = model.to(self.device)
@@ -62,8 +84,22 @@ class GenerationAPI(Logger):
         self.max_queue = int(max_queue if max_queue is not None
                              else root.common.resilience.get(
                                  "max_queue", 256))
-        self.engine_kind = str(engine or root.common.serving.get(
-            "engine", "window"))
+        cfg = root.common.serving
+        self.engine_kind = str(engine or cfg.get("engine", "continuous"))
+        if self.engine_kind not in ENGINES:
+            raise ValueError("engine=%s is not ported yet (have: %s)"
+                             % (self.engine_kind, ", ".join(ENGINES)))
+
+        def knob(value, key, default):
+            return cfg.get(key, default) if value is None else value
+
+        self.max_slots = int(knob(max_slots, "max_slots", 8))
+        self.buckets = knob(buckets, "buckets", (16, 32, 64, 128))
+        self.max_context = int(knob(max_context, "max_context", 640))
+        self.decode_block = int(knob(decode_block, "decode_block", 1))
+        self.page_size = page_size
+        self.pages = pages
+        self._engine: Optional[ContinuousEngine] = None
         self._service: Optional[HTTPService] = None
         self._queue: list = []
         self._cv = threading.Condition()
@@ -188,21 +224,40 @@ class GenerationAPI(Logger):
                 api.debug("http: " + fmt, *args)
 
             def do_GET(self):
-                if self.path != "/healthz":
+                engine = api._engine       # stop() may null it mid-GET
+                if self.path == "/healthz":
+                    json_reply(self, 200, {
+                        "status": "ok",
+                        "engine": ("continuous" if engine is not None
+                                   else "window"),
+                        "device": str(api.device)})
+                elif self.path == "/stats":
+                    stats = {"engine": ("continuous" if engine is not None
+                                        else "window"),
+                             "batches_run": api.batches_run,
+                             "max_batch": api.max_batch,
+                             "queue_depth": len(api._queue)}
+                    if engine is not None:
+                        stats["continuous"] = engine.stats()
+                    json_reply(self, 200, stats)
+                elif self.path == "/metrics":
+                    data = metrics_text(api._metrics_gauges()).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", METRICS_CONTENT_TYPE)
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                else:
                     self.send_error(404)
-                    return
-                json_reply(self, 200, {"status": "ok",
-                                       "engine": api.engine_kind,
-                                       "device": str(api.device)})
+
+            def _shed(self, reason, ticket, retry_after):
+                json_reply(self, 503, {"error": reason,
+                                       "request_id": ticket.request_id},
+                           headers={"Retry-After": str(retry_after)})
 
             def do_POST(self):
                 if self.path != api.path:
                     self.send_error(404)
-                    return
-                if api.engine_kind != "window":
-                    json_reply(self, 400, {
-                        "error": "engine=%s is not ported yet (the port "
-                                 "serves engine=window)" % api.engine_kind})
                     return
                 try:
                     req = api._parse(read_json_object(self))
@@ -211,21 +266,36 @@ class GenerationAPI(Logger):
                     return
                 ticket = Ticket(deadline=time.time() + api.request_timeout,
                                 request_id=req["request_id"])
-                with api._cv:
+                engine = api._engine
+                if engine is not None and engine.accepts(req) is None:
+                    # the slot pool: admitted at the next step boundary
                     if api._closing:
-                        reason = "server shutting down"
-                    elif len(api._queue) >= api.max_queue:
-                        reason = "generation queue full (%d/%d)" % (
-                            len(api._queue), api.max_queue)
-                    else:
-                        reason = None
-                        api._queue.append((req, ticket))
-                        api._cv.notify()
-                if reason is not None:
-                    json_reply(self, 503, {"error": reason,
-                                           "request_id": ticket.request_id},
-                               headers={"Retry-After": "1"})
-                    return
+                        self._shed("server shutting down", ticket, 5)
+                        return
+                    if not engine.submit(req, ticket,
+                                         max_queue=api.max_queue,
+                                         checked=True):
+                        if engine.closing:
+                            self._shed("server shutting down", ticket, 5)
+                        else:
+                            self._shed("generation queue full (%d/%d)" % (
+                                engine.scheduler.queue_depth(),
+                                api.max_queue), ticket, 1)
+                        return
+                else:
+                    with api._cv:
+                        if api._closing:
+                            reason = "server shutting down"
+                        elif len(api._queue) >= api.max_queue:
+                            reason = "generation queue full (%d/%d)" % (
+                                len(api._queue), api.max_queue)
+                        else:
+                            reason = None
+                            api._queue.append((req, ticket))
+                            api._cv.notify()
+                    if reason is not None:
+                        self._shed(reason, ticket, 1)
+                        return
                 # slack past the deadline: the worker's expiry answer
                 # (503 + Retry-After) wins the race against this 504
                 if not ticket.event.wait(api.request_timeout + 1.0):
@@ -244,10 +314,52 @@ class GenerationAPI(Logger):
 
         return Handler
 
+    def _metrics_gauges(self) -> Dict[str, float]:
+        """The serving gauges behind ``GET /metrics``."""
+        gauges = {"veles_generate_batches_run": self.batches_run,
+                  "veles_generate_max_batch": self.max_batch,
+                  "veles_generate_queue_depth": len(self._queue),
+                  "veles_generate_queue_bound": self.max_queue}
+        engine = self._engine
+        if engine is not None:
+            st = engine.stats()
+            gauges.update({
+                "veles_serving_slots": st["slots"],
+                "veles_serving_slots_busy": st["slots_busy"],
+                "veles_serving_peak_slots": st["peak_slots"],
+                "veles_serving_queue_depth": st["queue_depth"],
+                "veles_serving_pages_total": st["pages_total"],
+                "veles_serving_pages_in_use": st["pages_in_use"],
+                "veles_serving_page_size": st["page_size"],
+                "veles_serving_page_fragmentation":
+                    st["page_fragmentation"],
+                "veles_serving_kv_pool_bytes": st["kv_pool_bytes"]})
+        return gauges
+
+    def _build_engine(self) -> Optional[ContinuousEngine]:
+        """The continuous engine, or None (with a warning) when the
+        model is not a generation stack. Knob geometry that cannot work
+        raises ValueError: an operator who asked for the slot pool must
+        not silently get the window plane instead."""
+        try:
+            return ContinuousEngine(
+                self.model, max_slots=self.max_slots,
+                buckets=self.buckets, max_context=self.max_context,
+                decode_block=self.decode_block, page_size=self.page_size,
+                pages=self.pages, device=self.device,
+                name=self.name).start()
+        except VelesError as e:
+            self.warning("%s: continuous batching unavailable (%s); "
+                         "serving via the window worker", self.name, e)
+            return None
+
     def initialize(self) -> "GenerationAPI":
-        """Start the worker and the HTTP service (idempotent)."""
+        """Start the engine, the worker and the HTTP service
+        (idempotent)."""
         if self._service is not None:
             return self
+        if self.engine_kind == "continuous" and self._engine is None:
+            self._engine = self._build_engine()
         self._closing = False
         self._worker = threading.Thread(target=self._worker_loop,
                                         daemon=True,
@@ -259,18 +371,22 @@ class GenerationAPI(Logger):
         self._service.start_serving()
         self.info("%s: generation API on http://127.0.0.1:%d%s (%s, "
                   "engine=%s)", self.name, self.port, self.path,
-                  self.device, self.engine_kind)
+                  self.device,
+                  "continuous" if self._engine is not None else "window")
         return self
 
     def stop(self) -> None:
-        """Stop the HTTP service, let the worker finish the queue, and
-        join it."""
+        """Stop the HTTP service, stop the engine (answering what it
+        still holds), let the worker finish the queue, and join it."""
         if self._service is not None:
             self._service.stop_serving()
             self._service = None
         with self._cv:
             self._closing = True
             self._cv.notify_all()
+        engine, self._engine = self._engine, None
+        if engine is not None:
+            engine.stop()
         if self._worker is not None:
             self._worker.join(timeout=30)
             self._worker = None

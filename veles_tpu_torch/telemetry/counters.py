@@ -3,13 +3,14 @@
 
 A flat, thread-safe name → value registry. Only registered names can be
 incremented, so a typo fails loudly instead of counting into a series
-nobody reads.
+nobody reads. :func:`metrics_text` renders the registry and a caller's
+gauges as the plain-text exposition page behind ``GET /metrics``.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 #: every counter this package increments, with what one unit means
 DESCRIPTIONS: Dict[str, str] = {
@@ -27,7 +28,39 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_fused_fc_launches_total":
         "launches of the hand-written whole-epoch fused-FC SGD kernel "
         "(one per trained epoch on the fused path)",
+    # continuous-batching serving engine (serving/), the reference's
+    # names
+    "veles_serving_admitted_total":
+        "Requests admitted into continuous-batching KV-cache slots",
+    "veles_serving_retired_total":
+        "Slot rows retired (eos_id emitted or own n_new reached)",
+    "veles_serving_prefill_dispatches_total":
+        "Bucketed prefill programs dispatched by the serving engine",
+    "veles_serving_decode_dispatches_total":
+        "Pooled fixed-shape decode steps dispatched by the serving "
+        "engine",
+    "veles_serving_tokens_total":
+        "Tokens emitted by the continuous-batching engine",
+    "veles_serving_queue_wait_seconds_total":
+        "Seconds requests waited in the serving queue before a slot",
+    "veles_serving_expired_total":
+        "Queued generation requests answered 503 past their deadline",
+    "veles_serving_pages_alloc_total":
+        "KV-cache pages allocated from the paged serving pool "
+        "(admission prefills + decode-time growth)",
+    "veles_serving_pages_free_total":
+        "KV-cache pages returned to the paged serving pool at row "
+        "retirement",
+    "veles_serving_pages_exhausted_total":
+        "Page allocations refused by an exhausted pool (admission "
+        "waits; decode-time growth sheds 503 + Retry-After)",
+    "veles_shed_requests_total":
+        "Requests answered 503 + Retry-After (expired in the queue, or "
+        "shed by the serving pool)",
 }
+
+#: Content-Type of every /metrics reply
+METRICS_CONTENT_TYPE = "text/plain; version=0.0.4"
 
 
 class CounterRegistry:
@@ -50,10 +83,44 @@ class CounterRegistry:
         with self._lock:
             return self._values.get(name, 0)
 
+    def snapshot(self) -> Dict[str, float]:
+        """Point-in-time copy of every counter."""
+        with self._lock:
+            return dict(self._values)
+
+    def delta(self, before: Dict[str, float]) -> Dict[str, float]:
+        """Per-counter growth since a :meth:`snapshot`; counters that
+        did not grow are omitted."""
+        out = {}
+        for k, v in self.snapshot().items():
+            d = v - before.get(k, 0)
+            if d:
+                out[k] = d
+        return out
+
     def reset(self) -> None:
         """Set every counter to 0 (a measurement window's start)."""
         with self._lock:
             self._values.clear()
+
+
+def _number(value) -> str:
+    # integral values print without a trailing .0
+    val = float(value)
+    return str(int(val)) if val.is_integer() else repr(val)
+
+
+def metrics_text(gauges: Optional[Dict[str, float]] = None) -> str:
+    """The /metrics page in the plain-text exposition format: every
+    counter of the registry (one snapshot), then the caller's gauges."""
+    lines = []
+    for name, val in sorted(counters.snapshot().items()):
+        lines += ["# HELP %s %s" % (name, DESCRIPTIONS[name]),
+                  "# TYPE %s counter" % name,
+                  "%s %s" % (name, _number(val))]
+    for name, val in sorted((gauges or {}).items()):
+        lines += ["# TYPE %s gauge" % name, "%s %s" % (name, _number(val))]
+    return "\n".join(lines) + "\n"
 
 
 #: the process-wide registry
