@@ -114,9 +114,44 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              weights through the sampler, equal to the plain path's;
 12. train_lm_breakdown — torch.profiler over 4 train steps: device busy
              share, launches per step, top kernels, the flash kernels'
-             share.
+             share;
+13. kernels_amp — the mixed-precision instances of the three flash
+             kernels (q/k and v float32 or bf16: f32_bf16, bf16_f32,
+             bf16_bf16; the f32 one is phases 3 and 9) against their
+             plain versions in the same dtypes (the forward in the
+             kernel's K/V blocks, whose running max its p is rounded
+             against) on 17 cases (the bench shape, windows, GQA 8/1, T
+             1/65/127/129, D 8..256 including 33, 72 and 160, views off
+             by one element) and a NaN in q, k or v: the largest error of
+             a bf16 output within 2^-7 · max(1, max|plain|) (one bf16 ulp
+             of its largest element), of a float32 one within 1e-3 of it;
+             the mean error within 4e-6 of it, and the control — the
+             plain versions on float32 copies, which round nothing —
+             beyond that on every case of more than one key, for every
+             output the instance rounds p or ds for; outputs in the
+             inputs' dtypes, NaN patterns equal, relaunches
+             bit-identical, each call counted once under its instance;
+14. timing_amp — each instance's three kernels at B16 and B4 T512 H8
+             D64 causal: CUDA events, the plain version, the bound
+             (``forward_bounds``/``backward_bounds`` of the instance: bf16
+             products at the bf16 peak, the others 3xTF32) and SDPA in
+             bf16 for the all-bf16 instance, SDPA on float32 inputs for
+             the mixed ones (no library call takes two dtypes);
+15. train_lm_amp — the bench LM under ``engine.mixed_precision``, one
+             epoch from one seed through the kernels and through the plain
+             attention: block 0 takes the (f32, f32, bf16) instance 72 /
+             64 / 64 times, the other 5 blocks the f32 one 5 × 72 / 5 × 64;
+             NLL/token kernels vs plain within 1e-4 relative (the kernels
+             round p to bf16 before p·v as the reference's kernel does,
+             the plain attention does not); float32 masters; epoch ms,
+             tokens/s, peak memory beside ``train_lm``'s; 16 greedy tokens
+             from the trained weights equal to the plain path's; then the
+             same for the bench LM without RoPE, whose block 0 takes the
+             all-bf16 instance 72 / 64 / 64 times.
 
-Then the card's line, the kernels line (``{"kernels": [...]}``) and,
+Then the card's line, the kernels line (``{"kernels": [...]}``; the
+flash kernels' AMP instances as entries of their own, each with its
+launches in the AMP epochs) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and the run exits non-zero without the last line; without a card
 it exits 1 at once.
@@ -796,8 +831,8 @@ def lm_workflow(flash):
 
 def phase_train_lm(card):
     """The bench LM, one epoch with the kernels and one with the plain
-    attention, from one seed; returns the kernel run's workflow and its
-    launches per kernel."""
+    attention, from one seed; returns the kernel run's workflow, its
+    launches per kernel and its epoch ms, tokens/s and peak memory."""
     import torch
     from veles_tpu_torch.config import root
     from veles_tpu_torch.models import char_lm
@@ -889,7 +924,9 @@ def phase_train_lm(card):
         raise AssertionError("greedy tokens from the trained LM differ from "
                              "the plain path: %s vs %s"
                              % (tokens, plain_tokens))
-    return wf, dict(zip(("fwd", "dkv", "dq"), kern["launches"]))
+    return wf, dict(zip(("fwd", "dkv", "dq"), kern["launches"])), dict(
+        epoch_ms=kern["wall"] * 1e3,
+        tokens_per_s=train_tokens / kern["wall"], peak=kern["peak"])
 
 
 def phase_train_lm_breakdown(card, wf):
@@ -919,6 +956,442 @@ def phase_train_lm_breakdown(card, wf):
          flash_ms=flash,
          flash_share_of_device={k: v / busy for k, v in flash.items()},
          **rec)
+
+
+#: the mixed-precision instances of the flash kernels, "<q/k>_<v>"
+#: dtypes (the float32 one is held by the kernels and kernels_bwd phases)
+AMP_INSTANCES = ("f32_bf16", "bf16_f32", "bf16_bf16")
+#: an AMP instance's output, kernel vs plain, times max(1, max|plain|):
+#: the largest error of a float32 output within 1e-3, of a bf16 one within
+#: one bf16 ulp of its largest element (2^-7: both round float32 sums
+#: that differ in their last bits, so an element can land one ulp apart,
+#: and an ulp of an element in the top binade is more than 2^-8 of the
+#: largest); the mean error within 4e-6, which the control — the plain
+#: versions on float32 copies of the inputs, which round no p and no ds
+#: — misses wherever the instance rounds (NVIDIA H100 80GB HBM3: the
+#: kernels' mean error at most 1.2e-6, the control's at least 1.9e-5)
+TOL_AMP_F32 = 1e-3
+TOL_AMP_BF16 = 2.0 ** -7
+TOL_AMP_MEAN = 4e-6
+#: the outputs of each instance whose products take p or ds rounded to
+#: bf16 (p to v's and do's dtype, ds to q's and k's)
+AMP_ROUNDED = {"f32_bf16": ("o",), "bf16_f32": ("dq", "dk", "dv"),
+               "bf16_bf16": ("o", "dq", "dk", "dv")}
+#: the bench LM under mixed precision, kernels vs plain attention, same
+#: seed: per-epoch NLL/token (relative), as the float32 train_lm's. The
+#: kernels round p to bf16 before p·v in the first block's forward, as
+#: the reference's kernel does; the plain attention, as the reference's
+#: attention_reference, does not where q is float32
+TOL_LM_AMP_LOSS_REL = 1e-4
+
+
+#: the cases of kernels_amp, the bench shape first
+AMP_CASES = [
+    # (name, B, T, H, KV, D, causal, window, layout)
+    ("bench_b16_t512", 16, 512, 8, 8, 64, True, 0, None),
+    ("b4_t512", 4, 512, 8, 8, 64, True, 0, None),
+    ("window128", 2, 512, 8, 8, 64, True, 128, None),
+    ("gqa_8_1_window64", 2, 300, 8, 1, 64, True, 64, None),
+    ("noncausal_t127_gqa_4_2", 2, 127, 4, 2, 64, False, 0, None),
+    ("t1", 1, 1, 2, 2, 48, True, 0, None),
+    ("t65", 2, 65, 4, 4, 64, True, 0, None),
+    ("t129", 2, 129, 4, 4, 64, True, 0, None),
+    ("d8", 2, 200, 4, 4, 8, True, 0, None),
+    ("d32_noncausal", 2, 200, 8, 8, 32, False, 0, None),
+    ("d33", 2, 100, 4, 4, 33, True, 0, None),
+    ("d40_gqa_4_2", 2, 150, 4, 2, 40, True, 0, None),
+    ("d72_noncausal", 2, 140, 4, 4, 72, False, 0, None),
+    ("d128_noncausal_t257", 2, 257, 8, 8, 128, False, 0, None),
+    ("d160_noncausal", 1, 90, 2, 2, 160, False, 0, None),
+    ("d256_gqa_4_2_window100", 1, 333, 4, 2, 256, True, 100, None),
+    ("offset_views", 2, 100, 4, 2, 64, True, 0, "offset"),
+]
+
+
+def amp_dtypes(inst):
+    """(q/k dtype, v dtype) of an instance name."""
+    import torch
+    return tuple(torch.bfloat16 if n == "bf16" else torch.float32
+                 for n in inst.split("_"))
+
+
+def amp_inputs(b, t, h, kv, d, seed, inst, layout=None):
+    """q, k, v, do on the card in an instance's dtypes (do in q's).
+    ``layout`` "offset": each a view one element into its buffer."""
+    import torch
+    qk, vt = amp_dtypes(inst)
+    xs = [x.to(vt if i == 2 else qk)
+          for i, x in enumerate(bwd_inputs(b, t, h, kv, d, seed))]
+    if layout == "offset":
+        def off(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            return view
+        xs = [off(x) for x in xs]
+    return xs
+
+
+def amp_outputs(fa, q, k, v, do, causal, window, o=None, lse=None,
+                f32=False):
+    """The plain versions' o, lse and (dq, dk, dv) in the inputs' dtypes,
+    the forward in the kernel's K/V blocks, the backward from ``o`` and
+    ``lse`` (the forward's own by default). ``f32``: computed on float32
+    copies of the inputs (the control: no p or ds rounded)."""
+    xs = (q, k, v, do)
+    if f32:
+        xs = tuple(x.float() for x in xs)
+    po, plse = fa.flash_attention_fwd_reference(
+        *xs[:3], causal=causal, window=window,
+        block_k=fa.kernel_block_k(q.shape[-1]))
+    grads = fa.flash_attention_bwd_reference(
+        *xs[:3], po if o is None else o, plse if lse is None else lse,
+        xs[3], causal=causal, window=window)
+    return dict(o=po.to(q.dtype), lse=plse,
+                **{n: g.to(x.dtype) for n, g, x in zip(
+                    ("dq", "dk", "dv"), grads, (q, k, v))})
+
+
+def amp_error(got, want, control=None):
+    """One output of an AMP instance against the plain version's: max and
+    mean abs error over the elements the plain version has finite, their
+    limits, the control's mean error, and whether the NaN patterns
+    agree."""
+    import torch
+    got, want_f = got.float(), want.float()
+    live = ~torch.isnan(want_f)
+    rec = dict(same_nan=bool(torch.equal(torch.isnan(got), ~live)),
+               max=0.0, mean=0.0, control_mean=None)
+    if bool(live.any()):
+        diff = (got[live] - want_f[live]).abs()
+        rec.update(max=float(diff.max()), mean=float(diff.mean()))
+        if control is not None:
+            rec["control_mean"] = float(
+                (control.float()[live] - want_f[live]).abs().mean())
+    scale = max(1.0, float(want_f[live].abs().max())) if bool(
+        live.any()) else 1.0
+    tol = TOL_AMP_BF16 if want.dtype == torch.bfloat16 else TOL_AMP_F32
+    rec.update(limit=tol * scale, mean_limit=TOL_AMP_MEAN * scale)
+    rec["ok"] = (rec["same_nan"] and rec["max"] <= rec["limit"]
+                 and rec["mean"] <= rec["mean_limit"])
+    return rec
+
+
+def phase_kernels_amp(fa):
+    """Each mixed-precision instance of the three flash kernels against
+    its plain version in the same dtypes on the card; returns the
+    largest abs error and the largest share of its limit, by (instance,
+    kernel)."""
+    import torch
+    from veles_tpu_torch.telemetry import counters
+    worst, share = {}, {}
+    for inst in AMP_INSTANCES:
+        for i, case in enumerate(AMP_CASES):
+            errs, ok = amp_case(fa, inst, case, 500 + i)
+            if not ok:
+                raise AssertionError(
+                    "flash %s instance disagrees with its plain version "
+                    "on %s: %s" % (inst, case[0], errs))
+            if case[2] > 1:
+                # the control misses where the instance rounds (one key
+                # gives p = 1, which rounds to itself): the check sees
+                # the reference's rounding points
+                missed = {n: errs[n]["control_mean"] > errs[n]["mean_limit"]
+                          for n in AMP_ROUNDED[inst]}
+                if not all(missed.values()):
+                    raise AssertionError(
+                        "flash %s instance: the unrounded control meets "
+                        "the limits on %s: %s" % (inst, case[0], errs))
+            for kern, outs in (("fwd", ("o", "lse")), ("dkv", ("dk", "dv")),
+                               ("dq", ("dq",))):
+                key = (inst, kern)
+                worst[key] = max([worst.get(key, 0.0)]
+                                 + [errs[n]["max"] for n in outs])
+                share[key] = max([share.get(key, 0.0)] + [
+                    max(errs[n]["max"] / errs[n]["limit"],
+                        errs[n]["mean"] / errs[n]["mean_limit"])
+                    for n in outs])
+        # a NaN made by the card's arithmetic (0/0) in q (row 70), k or v
+        # (key row 0, which every query row sees): NaN exactly where the
+        # plain version has it, the rest within the limits
+        nan = torch.zeros((), device="cuda") / torch.zeros((), device="cuda")
+        for where in ("q", "k", "v"):
+            for causal in (False, True):
+                q, k, v, _ = amp_inputs(1, 100, 2, 2, 64, 550, inst)
+                {"q": q, "k": k, "v": v}[where][
+                    0, 70 if where == "q" else 0, 1, 5] = nan
+                o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+                ref = amp_outputs(fa, q, k, v, q, causal, 0)
+                torch.cuda.synchronize()
+                errs = [amp_error(o, ref["o"]), amp_error(lse, ref["lse"])]
+                n_nan = int(torch.isnan(ref["o"].float()).sum())
+                emit("kernels_amp", instance=inst, case="nan_in_%s" % where,
+                     shape=[1, 100, 2, 2, 64], causal=causal,
+                     nan_elements_o=n_nan, errors=errs)
+                if n_nan == 0 or not all(e["ok"] for e in errs):
+                    raise AssertionError(
+                        "flash %s instance does not keep a NaN in %s "
+                        "(causal %s): %s" % (inst, where, causal, errs))
+    return worst, share
+
+
+def amp_case(fa, inst, case, seed):
+    """One case of ``kernels_amp``: the instance's three kernels on it,
+    each output against the plain version's and the control's; emits the
+    record and returns (errors by output, whether every check holds)."""
+    import torch
+    from veles_tpu_torch.telemetry import counters
+    name, b, t, h, kv, d, causal, window, layout = case
+    names = {k_: fa.launch_counter(n, inst) for k_, n in (
+        ("fwd", fa.FWD_LAUNCHES), ("dkv", fa.DKV_LAUNCHES),
+        ("dq", fa.DQ_LAUNCHES))}
+    q, k, v, do = amp_inputs(b, t, h, kv, d, seed, inst, layout)
+    before = {k_: counters.get(n) for k_, n in names.items()}
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    launched = {k_: counters.get(n) - before[k_] for k_, n in names.items()}
+    ref = amp_outputs(fa, q, k, v, do, causal, window, o, lse)
+    ctl = amp_outputs(fa, q, k, v, do, causal, window, o, lse, f32=True)
+    torch.cuda.synchronize()
+    outs = dict(o=o, lse=lse, dq=got[0], dk=got[1], dv=got[2])
+    errs = {n: amp_error(x, ref[n], ctl[n]) for n, x in outs.items()}
+    dtypes_ok = (o.dtype == q.dtype and [g.dtype for g in got]
+                 == [q.dtype, k.dtype, v.dtype])
+    same = all(torch.equal(a, r) for a, r in zip(got, again))
+    finite = all(bool(torch.isfinite(x).all()) for x in outs.values())
+    emit("kernels_amp", instance=inst, case=name, shape=[b, t, h, kv, d],
+         causal=causal, window=window, layout=layout, errors=errs,
+         bit_identical_relaunch=same, finite=finite, dtypes_ok=dtypes_ok,
+         launches=launched)
+    ok = (finite and same and dtypes_ok
+          and launched == {"fwd": 1, "dkv": 2, "dq": 2}
+          and all(e["ok"] for e in errs.values()))
+    return errs, ok
+
+
+def phase_timing_amp(fa, card):
+    """Each mixed-precision instance of the three flash kernels at the
+    bench shape (B16 T512 H8 D64 causal) and at B4 T512, with CUDA events:
+    kernel, plain version, bound, and the library yardstick — SDPA in bf16
+    for the all-bf16 instance, and SDPA on float32 inputs for the mixed
+    ones (no library call takes q/k and v in two dtypes); returns the
+    records keyed by (instance, kernel, B)."""
+    import torch
+    import torch.nn.functional as F
+    records = {}
+    h = kv = 8
+    d, t = 64, 512
+    scale = 1.0 / math.sqrt(d)
+    for b in (16, 4):
+        for inst in AMP_INSTANCES:
+            q, k, v, do = amp_inputs(b, t, h, kv, d, 9, inst)
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+            delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+            args = (q, k, v, do, lse, delta, True, 0, scale)
+            ms = {"fwd": cuda_time_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, causal=True), 100),
+                "dkv": cuda_time_ms(lambda: fa.launch_bwd_dkv(*args), 30),
+                "dq": cuda_time_ms(lambda: fa.launch_bwd_dq(*args), 30)}
+            plain = {"fwd": cuda_time_ms(
+                lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                         causal=True), 10)}
+            plain["dkv"] = plain["dq"] = cuda_time_ms(
+                lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, o, lse, do, causal=True), 5)
+            lib_dtype = (torch.bfloat16 if inst == "bf16_bf16"
+                         else torch.float32)
+            qt, kt, vt = (x.transpose(1, 2).to(lib_dtype).detach().clone()
+                          .requires_grad_() for x in (q, k, v))
+            lib = {"fwd": cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True), 100)}
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            dot = do.transpose(1, 2).to(lib_dtype)
+            lib["dkv"] = lib["dq"] = cuda_time_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), 30)
+            qb, vb = (2 if n == "bf16" else 4 for n in inst.split("_"))
+            work = {"fwd": fa.forward_work(b, t, h, d, True, 0, kv, qb, vb)}
+            work.update(fa.backward_work(b, t, h, d, True, 0, kv, qb, vb))
+            bounds = {"fwd": fa.forward_bounds(b, t, h, d, True, 0, kv,
+                                               inst)}
+            bounds.update(fa.backward_bounds(b, t, h, d, True, 0, kv, inst))
+            for kern in ("fwd", "dkv", "dq"):
+                flops, nbytes = work[kern]
+                bound = bounds[kern]
+                rec = dict(instance=inst, kernel=kern,
+                           shape=[b, t, h, kv, d], causal=True, card=card,
+                           ms=ms[kern], plain_ms=plain[kern],
+                           library_ms=lib[kern],
+                           library=("sdpa bf16" if lib_dtype == torch.bfloat16
+                                    else "sdpa float32 (inputs widened)"),
+                           flops=flops, bytes=nbytes,
+                           bound_ms=bound["tc"], bound_by=bound["bound_by"],
+                           bound_f32_ms=bound["f32"],
+                           share_of_bound=bound["tc"] / ms[kern])
+                emit("timing_amp", **rec)
+                records[(inst, kern, b)] = rec
+    return records
+
+
+def phase_train_lm_amp(card, f32_run):
+    """The bench LM under mixed precision (``engine.mixed_precision``),
+    one epoch from one seed through the kernels and through the plain
+    attention, beside the float32 ``train_lm`` of this run (``f32_run``:
+    its epoch ms, tokens/s and peak memory); then the same for the bench
+    LM without RoPE (its first block's attention takes q, k and v in
+    bf16). Returns the
+    launches by (instance, kernel): the RoPE run's, and the RoPE-less
+    run's of the all-bf16 instance."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.telemetry import counters
+    totals = {"fwd": fa.FWD_LAUNCHES, "dkv": fa.DKV_LAUNCHES,
+              "dq": fa.DQ_LAUNCHES}
+
+    def run(flash, rope=True):
+        root.common.engine.flash_attention = bool(flash)
+        prng.seed_all(LM_SEED)
+        wf = char_lm.build_bench_workflow()
+        if not rope:
+            # the bench LM without RoPE (not a reference cell): under mixed
+            # precision its first block's attention takes q, k and v in bf16
+            for unit in wf.forwards:
+                if hasattr(unit, "rope"):
+                    unit.rope = False
+        wf.decision.max_epochs = 1
+        wf.initialize()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters.counters.reset()
+        t0 = time.perf_counter()
+        wf.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"%s/%s" % (inst, kern): int(counters.get(
+            fa.launch_counter(n, inst)))
+            for inst in fa.INSTANCES for kern, n in totals.items()}
+        return dict(wf=wf, wall=wall, launches=launches,
+                    peak=int(torch.cuda.max_memory_allocated()),
+                    loss={cls: list(wf.decision.epoch_losses[cls])
+                          for cls in (1, 2)},
+                    err={cls: list(wf.decision.epoch_metrics[cls])
+                         for cls in (1, 2)})
+
+    def greedy(wf):
+        """16 greedy tokens from the trained weights, through the kernels
+        and through the plain attention."""
+        prompt = [int(x) for x in wf.loader.original_data.mem[0][:32]]
+        out = []
+        for flash in (True, False):
+            root.common.engine.flash_attention = flash
+            out.append(char_lm.generate(wf, prompt, LM_N_NEW, temperature=0))
+        return out
+
+    root.common.engine.mixed_precision = True
+    try:
+        kern, plain = run(True), run(False)
+        norope, norope_plain = run(True, rope=False), run(False, rope=False)
+        tokens, plain_tokens = greedy(kern["wf"])
+        norope_tokens, norope_plain_tokens = greedy(norope["wf"])
+    finally:
+        root.common.engine.mixed_precision = False
+        root.common.engine.flash_attention = True
+    wf = kern["wf"]
+    masters = sorted({str(t.dtype) for run_ in (kern, norope)
+                      for p in run_["wf"].train_step.params.values()
+                      for t in p.values()})
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for cls in (1, 2)
+                   for x, y in zip(a["loss"][cls], b["loss"][cls]))
+    loss_rel, norope_rel = rel(kern, plain), rel(norope, norope_plain)
+    steps = wf.loader.class_lengths[2] // wf.loader.max_minibatch_size
+    valid_steps = -(-wf.loader.class_lengths[1]
+                    // wf.loader.max_minibatch_size)
+    train_tokens = (wf.loader.class_lengths[2]
+                    * wf.loader.original_data.shape[1])
+    emit("train_lm_amp", card=card, model="char-lm-bench 6x512 h8 ffn2048 "
+         "v256 T512, engine.mixed_precision", mb=wf.loader.max_minibatch_size,
+         epochs=1, train_steps=steps, valid_steps=valid_steps,
+         launches_kernel_run={k: v for k, v in kern["launches"].items() if v},
+         launches_plain_run={k: v for k, v in plain["launches"].items()
+                             if v},
+         launches_norope_run={k: v for k, v in norope["launches"].items()
+                              if v},
+         launches_norope_plain_run={
+             k: v for k, v in norope_plain["launches"].items() if v},
+         nll_per_token_kernel={"train": kern["loss"][2],
+                               "validation": kern["loss"][1]},
+         nll_per_token_plain={"train": plain["loss"][2],
+                              "validation": plain["loss"][1]},
+         nll_per_token_norope={"train": norope["loss"][2],
+                               "validation": norope["loss"][1]},
+         nll_per_token_norope_plain={"train": norope_plain["loss"][2],
+                                     "validation": norope_plain["loss"][1]},
+         err_kernel={"train": kern["err"][2], "validation": kern["err"][1]},
+         err_plain={"train": plain["err"][2], "validation": plain["err"][1]},
+         nll_max_rel_diff=loss_rel, nll_max_rel_diff_norope=norope_rel,
+         limit=TOL_LM_AMP_LOSS_REL,
+         master_dtypes=masters,
+         epoch_ms_kernel=kern["wall"] * 1e3,
+         epoch_ms_plain=plain["wall"] * 1e3,
+         epoch_ms_norope=norope["wall"] * 1e3,
+         epoch_ms_norope_plain=norope_plain["wall"] * 1e3,
+         epoch_ms_f32=f32_run["epoch_ms"],
+         train_tokens_per_s_kernel=train_tokens / kern["wall"],
+         train_tokens_per_s_plain=train_tokens / plain["wall"],
+         train_tokens_per_s_f32=f32_run["tokens_per_s"],
+         peak_memory_bytes_kernel=kern["peak"],
+         peak_memory_bytes_plain=plain["peak"],
+         peak_memory_bytes_norope=norope["peak"],
+         peak_memory_bytes_f32=f32_run["peak"],
+         greedy_tokens=tokens, greedy_tokens_plain=plain_tokens,
+         greedy_tokens_norope=norope_tokens,
+         greedy_tokens_norope_plain=norope_plain_tokens)
+    # block 0 takes (f32, f32, bf16) operands, the later 5 float32: the
+    # forward 64 train + 8 validation steps, each backward 64
+    fwd, bwd = steps + valid_steps, steps
+    want = {"f32_bf16/fwd": fwd, "f32_bf16/dkv": bwd, "f32_bf16/dq": bwd,
+            "f32_f32/fwd": 5 * fwd, "f32_f32/dkv": 5 * bwd,
+            "f32_f32/dq": 5 * bwd}
+    want_norope = {"bf16_bf16/fwd": fwd, "bf16_bf16/dkv": bwd,
+                   "bf16_bf16/dq": bwd, "f32_f32/fwd": 5 * fwd,
+                   "f32_f32/dkv": 5 * bwd, "f32_f32/dq": 5 * bwd}
+    got = {k: v for k, v in kern["launches"].items() if v}
+    got_norope = {k: v for k, v in norope["launches"].items() if v}
+    if got != want or got_norope != want_norope or any(
+            plain["launches"].values()) or any(
+            norope_plain["launches"].values()) or fwd != 72 or bwd != 64:
+        raise AssertionError("AMP LM launches %s / %s (plain %s / %s), want "
+                             "%s / %s" % (got, got_norope, plain["launches"],
+                                          norope_plain["launches"], want,
+                                          want_norope))
+    if not all(math.isfinite(x) for run_ in (kern, plain, norope,
+                                             norope_plain)
+               for cls in (1, 2) for x in run_["loss"][cls]):
+        raise AssertionError("non-finite AMP LM loss")
+    if max(loss_rel, norope_rel) > TOL_LM_AMP_LOSS_REL:
+        raise AssertionError("AMP NLL/token kernel vs plain differs by %g "
+                             "(RoPE-less %g) relative"
+                             % (loss_rel, norope_rel))
+    if masters != ["torch.float32"]:
+        raise AssertionError("AMP masters are %s, not float32" % masters)
+    for got_, want_ in ((tokens, plain_tokens),
+                        (norope_tokens, norope_plain_tokens)):
+        if len(got_) != LM_N_NEW or got_ != want_:
+            raise AssertionError("greedy tokens from an AMP-trained LM "
+                                 "differ from the plain path: %s vs %s"
+                                 % (got_, want_))
+    out = {tuple(k.split("/")): v for k, v in got.items()}
+    out.update((tuple(k.split("/")), v) for k, v in got_norope.items()
+               if not k.startswith("f32_f32"))
+    return out
 
 
 def post(url, payload, timeout=600.0):
@@ -1352,8 +1825,11 @@ def main():
     phase_train_breakdown(card)
     worst_bwd = phase_kernels_bwd(fa)
     timing_bwd = phase_timing_bwd(fa, card)
-    lm_wf, launches_lm = phase_train_lm(card)
+    lm_wf, launches_lm, lm_f32 = phase_train_lm(card)
     phase_train_lm_breakdown(card, lm_wf)
+    worst_amp, share_amp = phase_kernels_amp(fa)
+    timing_amp = phase_timing_amp(fa, card)
+    launches_amp = phase_train_lm_amp(card, lm_f32)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -1366,6 +1842,32 @@ def main():
                 # the kernels' products run on the tensor cores in 3xTF32
                 "bound_ms": rec["bound_tc_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], "pair_ms": rec["pair_ms"],
+                "launches_by_path": {"train_lm": launches_lm[name],
+                                     "train_lm_amp": launches_amp[
+                                         ("f32_f32", name)]},
+                "ok": True}
+
+    def amp_entry(inst, kern):
+        """A mixed-precision instance's entry: its launches in the AMP
+        bench-LM epochs (the RoPE one takes f32_bf16, the RoPE-less one
+        bf16_bf16; no model path of the port gives q/k bf16 and v
+        float32), its worst error here, its times at the bench shape."""
+        rec = timing_amp[(inst, kern, 16)]
+        launches = launches_amp.get((inst, kern), 0)
+        return {"name": "flash_attention_%s[%s]" % (
+                    "fwd" if kern == "fwd" else "bwd_" + kern, inst),
+                "route": "cuda",
+                "source": "veles_tpu_torch/csrc/flash_attention_%s.cu"
+                          % ("fwd" if kern == "fwd" else "bwd"),
+                "replaces": "veles_tpu/ops/flash_attention.py:%d"
+                            % {"fwd": 77, "dkv": 248, "dq": 309}[kern],
+                "instance": inst, "launches": launches,
+                "main_path": launches > 0,
+                "max_abs_err": worst_amp[(inst, kern)],
+                "share_of_limit": share_amp[(inst, kern)],
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"], "library": rec["library"],
                 "ok": True}
 
     print(card, flush=True)
@@ -1380,7 +1882,9 @@ def main():
         "library_ms": timing["library_ms"],
         "launches_by_path": {"serve": launches,
                              "serve_continuous": launches_cont,
-                             "train_lm": launches_lm["fwd"]},
+                             "train_lm": launches_lm["fwd"],
+                             "train_lm_amp": launches_amp[("f32_f32",
+                                                           "fwd")]},
         "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",
         "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",
@@ -1393,7 +1897,9 @@ def main():
         "bound_by": timing_ffc["bound_by"], "library_ms": None,
         "general_path_ms": timing_ffc["general_path_ms"],
         "us_per_step": timing_ffc["us_per_step"], "ok": True},
-        bwd_entry("dkv", 248), bwd_entry("dq", 309)]}), flush=True)
+        bwd_entry("dkv", 248), bwd_entry("dq", 309)] + [
+        amp_entry(inst, kern) for inst in AMP_INSTANCES
+        for kern in ("fwd", "dkv", "dq")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

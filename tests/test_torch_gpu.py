@@ -17,7 +17,15 @@ backward's gradients 1e-4 · max(1, max|plain|));
 for the fused-FC epoch also the loss sum within 1e-5 relative and the
 error count exact; a small LM's epoch, kernel vs plain attention: NLL
 per token within 1e-5 relative, weights within 1e-3 (99.9 % within
-1e-5)."""
+1e-5). The kernels' mixed-precision instances (q/k and v in float32 or
+bf16) against their plain versions in the same dtypes (the forward in
+the kernel's K/V blocks): the largest error of a bf16 output within
+2^-7 · max(1, max|plain|) (one bf16 ulp of its largest element), of a
+float32 one within 1e-3 of it; the mean error within 4e-6 of it, which
+the plain versions on float32 copies miss wherever the instance rounds
+p or ds; remat is bit-identical to no remat through the kernels, and
+accumulating 2 chunks follows the direct step within rtol 2e-3 / atol
+2e-4 (tests/test_train_e2e.py's tolerances)."""
 import json
 import urllib.request
 
@@ -150,7 +158,7 @@ def test_kernel_takes_more_than_65535_heads(cuda):
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = qkv(cuda, 1, 16, 2, 2, 32, seed=0)
     with pytest.raises(TypeError):
-        fa.flash_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16())
+        fa.flash_attention_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head dim"):
         big = torch.zeros(1, 4, 1, 320, device=cuda)
         fa.flash_attention_fwd(big, big, big)
@@ -407,7 +415,7 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
     q, k, v = qkv(cuda, 1, 16, 2, 2, 32, seed=0)
     o, lse = fa.flash_attention_fwd(q, k, v)
     with pytest.raises(TypeError):
-        fa.flash_attention_bwd(q, k, v, o, lse, o.bfloat16())
+        fa.flash_attention_bwd(q, k, v, o, lse, o.half())
     with pytest.raises(ValueError, match="head dim"):
         big = torch.zeros(1, 4, 1, 320, device=cuda)
         fa.flash_attention_bwd(big, big, big, big, torch.zeros(
@@ -463,6 +471,137 @@ def test_lm_train_steps_kernel_route_match_plain(cuda):
                       for k, t in p.items()])
     assert float(diff.max()) <= 1e-3
     assert float(torch.quantile(diff, 0.999)) <= 1e-5
+
+
+AMP_CASES = [
+    # (B, T, H, KV, D, causal, window)
+    (16, 512, 8, 8, 64, True, 0), (2, 300, 8, 1, 64, True, 64),
+    (2, 127, 4, 2, 64, False, 0), (1, 1, 2, 2, 48, True, 0),
+    (2, 65, 4, 4, 8, True, 0), (2, 100, 4, 4, 33, True, 0),
+    (2, 140, 4, 4, 72, False, 0), (1, 333, 4, 2, 256, True, 100)]
+
+
+#: the outputs of each instance whose products take p or ds rounded to
+#: bf16 (p to v's and do's dtype, ds to q's and k's)
+AMP_ROUNDED = {"f32_bf16": ("o",), "bf16_f32": ("dq", "dk", "dv"),
+               "bf16_bf16": ("o", "dq", "dk", "dv")}
+
+
+def amp_plain(q, k, v, do, causal, window, o, lse, f32=False):
+    """The plain versions' outputs in the inputs' dtypes, the forward in
+    the kernel's K/V blocks, the backward from the kernel's o and lse;
+    ``f32``: on float32 copies of the inputs (no p or ds rounded)."""
+    xs = tuple(x.float() for x in (q, k, v, do)) if f32 else (q, k, v, do)
+    ro, rlse = fa.flash_attention_fwd_reference(
+        *xs[:3], causal=causal, window=window,
+        block_k=fa.kernel_block_k(q.shape[-1]))
+    grads = fa.flash_attention_bwd_reference(*xs[:3], o, lse, xs[3],
+                                             causal=causal, window=window)
+    return dict(o=ro.to(q.dtype), lse=rlse, **{
+        n: g.to(x.dtype) for n, g, x in zip(("dq", "dk", "dv"), grads,
+                                            (q, k, v))})
+
+
+def amp_errors(got, want, control):
+    """(max abs error, its limit, mean abs error, its limit, the
+    control's mean abs error) of a kernel output against the plain
+    version's ``want``: the max within one bf16 ulp of the largest element
+    for bf16, 1e-3 for float32; the mean within 4e-6 (each times max(1,
+    max|want|))."""
+    want_f = want.float()
+    scale = max(1.0, float(want_f.abs().max()))
+    limit = (2.0 ** -7 if want.dtype == torch.bfloat16 else 1e-3) * scale
+    diff = (got.float() - want_f).abs()
+    return (float(diff.max()), limit, float(diff.mean()), 4e-6 * scale,
+            float((control.float() - want_f).abs().mean()))
+
+
+@pytest.mark.parametrize("inst", ["f32_bf16", "bf16_f32", "bf16_bf16"])
+@pytest.mark.parametrize("b,t,h,kv,d,causal,window", AMP_CASES)
+def test_amp_instances_match_plain(cuda, inst, b, t, h, kv, d, causal,
+                                   window):
+    """Each mixed-precision instance of the three kernels against its
+    plain version in the same dtypes: outputs in the inputs' dtypes, each
+    kernel launched once and counted under its instance; the control,
+    which rounds no p and no ds, misses the mean limit of every output
+    the instance rounds for (beyond one key, where p = 1)."""
+    qk, vt = (torch.bfloat16 if n == "bf16" else torch.float32
+              for n in inst.split("_"))
+    q, k, v = qkv(cuda, b, t, h, kv, d, seed=t + d)
+    q, k, v = q.to(qk), k.to(qk), v.to(vt)
+    do = torch.randn_like(q, dtype=torch.float32).to(qk)
+    names = [fa.launch_counter(n, inst) for n in (
+        LAUNCHES, fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)]
+    before = [counters.get(n) for n in names]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    assert [counters.get(n) - c for n, c in zip(names, before)] == [1, 1, 1]
+    ref = amp_plain(q, k, v, do, causal, window, o, lse)
+    ctl = amp_plain(q, k, v, do, causal, window, o, lse, f32=True)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and lse.dtype == torch.float32
+    assert [g.dtype for g in got] == [q.dtype, k.dtype, v.dtype]
+    outs = dict(o=o, lse=lse, dq=got[0], dk=got[1], dv=got[2])
+    for n, x in outs.items():
+        assert bool(torch.isfinite(x.float()).all())
+        err, limit, mean, mean_limit, ctl_mean = amp_errors(x, ref[n],
+                                                            ctl[n])
+        assert err <= limit and mean <= mean_limit, (n, err, limit, mean,
+                                                     mean_limit)
+        if t > 1 and n in AMP_ROUNDED[inst]:
+            assert ctl_mean > mean_limit, (n, ctl_mean, mean_limit)
+
+
+def _small_lm(remat=False, grad_accumulation=1):
+    """The small char LM of the test above on the card under mixed
+    precision (resolved at initialize), 2 train steps of 16 rows and
+    one validation step through the kernels: trained, its params."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import char_lm
+    root.common.engine.mixed_precision = True
+    try:
+        prng.seed_all(11)
+        wf = char_lm.build_workflow(epochs=1, minibatch_size=16, n_train=32,
+                                    n_valid=16, n_blocks=2, dim=64, lr=1e-4)
+        wf.train_step.remat = remat
+        wf.train_step.grad_accumulation = grad_accumulation
+        wf.initialize()
+    finally:
+        root.common.engine.mixed_precision = False
+    assert wf.train_step.mixed_precision
+    wf.run()
+    return {(n, k): t for n, p in wf.train_step.params.items()
+            for k, t in p.items()}
+
+
+def test_remat_is_bit_identical_through_the_kernels(cuda):
+    """2 steps of a small LM under mixed precision through the kernels
+    (its first block takes the (f32, f32, bf16) instance), with and
+    without remat: the same bits in every parameter, the forward kernels
+    launched again in the recompute."""
+    names = [fa.launch_counter(LAUNCHES, "f32_bf16"),
+             fa.launch_counter(fa.DKV_LAUNCHES, "f32_bf16")]
+    runs, launched = {}, {}
+    for remat in (False, True):
+        before = [counters.get(n) for n in names]
+        runs[remat] = _small_lm(remat=remat)
+        launched[remat] = [counters.get(n) - c
+                           for n, c in zip(names, before)]
+    # 2 train steps and 1 validation step, the recompute once a train step
+    assert launched == {False: [3, 2], True: [5, 2]}
+    for key, t in runs[False].items():
+        assert torch.equal(t, runs[True][key]), key
+        assert t.dtype == torch.float32
+
+
+def test_grad_accumulation_follows_the_direct_step(cuda):
+    """2 steps of a small LM under mixed precision through the kernels,
+    the minibatch of 16 as 2 accumulated chunks and as one."""
+    direct = _small_lm()
+    accum = _small_lm(grad_accumulation=2)
+    for key, t in direct.items():
+        torch.testing.assert_close(accum[key], t, rtol=2e-3, atol=2e-4)
 
 
 FFC_LAUNCHES = "veles_fused_fc_launches_total"

@@ -66,6 +66,18 @@ def test_device_for_cpu_and_policy():
         backends.device_for("meta")
 
 
+def test_device_for_turns_reduced_precision_reductions_off():
+    """A bf16 (or float16) product on the card accumulates in float32:
+    cuBLAS may not reduce its split-K partial sums in the narrow type,
+    whatever other code in the process set before."""
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    matmul.allow_fp16_reduced_precision_reduction = True
+    assert backends.device_for("cpu") == torch.device("cpu")
+    assert matmul.allow_bf16_reduced_precision_reduction is False
+    assert matmul.allow_fp16_reduced_precision_reduction is False
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(VelesError, match="CUDA"):

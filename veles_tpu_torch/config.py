@@ -84,6 +84,14 @@ def _default_root() -> Config:
             # parameter dtype of the stacks build_forwards makes; this
             # slice runs float32 end to end
             "precision_type": "float32",
+            # TrainStep's bf16 forward/backward over float32 masters,
+            # and bf16 storage of the interlayer activations under it;
+            # off by default, as in the reference
+            "mixed_precision": False,
+            "bf16_activations": False,
+            # storage dtype of float datasets (loader/fullbatch.py);
+            # None = precision_type
+            "dataset_dtype": None,
             # the hand-written flash kernel for prefill attention. True =
             # use it on a CUDA device whenever the head dim qualifies
             # (ops/flash_attention.choose_flash); False = always the

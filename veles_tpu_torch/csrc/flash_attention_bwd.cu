@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), float32: dK/dV and dQ.
+// Flash-attention backward for Hopper (sm_90a): dK/dV and dQ, in float32,
+// bf16 and the mixed operands of mixed precision.
 //
 // Replaces the TPU kernel pair of veles_tpu/ops/flash_attention.py:
 // _bwd_dkv_kernel and _bwd_dq_kernel (reached through _bwd_pallas_core
@@ -76,55 +77,76 @@
 //   - q, k, v, do and the gradients are read and written through their
 //     (B, T, heads, Dh) strides; lse and delta are flat (B*H, T).
 //
-// C interface: veles_flash_attention_bwd_dkv_f32(...) and
-// veles_flash_attention_bwd_dq_f32(...) launch on the given stream and
-// return cudaGetLastError() (0 on success). They allocate nothing and do
-// not synchronise.
+// Operand types. As the forward, the kernels are templated on the type
+// of q, k and do (TQ: do has o's type, which is q's) and of v (TV), float32
+// or bf16: four instances. Each product takes its operands as the
+// reference's kernels give them: p is cast to do's type before dv += p^T
+// do, ds to q's type before dk += ds^T q and to k's type before dq += ds
+// k, and s = q k^T and dp = do v^T take their inputs as they are. Where
+// both operands are bf16 a product is one bf16 mma.sync.m16n8k16 with
+// float32 accumulation (bf16_mma.cuh), p and ds rounded to bf16 in
+// registers as they are packed; where one is float32 it is 3xTF32, a bf16
+// operand widened exactly as it loads and its zero lo part's product
+// skipped (dp = do v^T when do and v differ). The masks, p and ds stay
+// float32; lse, delta and the gradients are float32 (the wrapper casts
+// the gradients to their inputs' types).
+//
+// C interface: veles_flash_attention_bwd_dkv_<qk>_<v>(...) and
+// veles_flash_attention_bwd_dq_<qk>_<v>(...), <qk> and <v> each f32 or
+// bf16, launch on the given stream and return cudaGetLastError() (0 on
+// success). They allocate nothing and do not synchronise.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "flash_tiles.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
 using namespace flash;
-using tf32x3::a_from_c;
-using tf32x3::load_a;
-using tf32x3::load_b;
-using tf32x3::mma;
+using bf16mma::bf16;
+using bf16mma::is_bf16;
 
 // DS: head-dim columns the s and dp products run over (D zero-filled up
 // to it in shared memory); DA: gradient columns one CTA accumulates;
-// RS: rows of the streamed tile a step. Every tile is row-major with
-// rows of LD floats: the resident x and w (K and V for dK/dV, q and do
-// for dQ) in float32, split as each fragment is loaded; the streamed y
-// and z (q and do, or K and V) as a hi and a lo TF32 plane each, split
-// once a step by the threads that copied them
-template <int DS_, int DA_, int RS_>
+// RS: rows of the streamed tiles a step. The resident x and w (K and V
+// for dK/dV, q and do for dQ; types TX, TW) are row-major tiles kept as
+// they land (a float32 one cleaned of NaN and split as each fragment is
+// loaded); the streamed y and z (q and do, or K and V; types TY, TZ) are
+// a hi and a lo TF32 plane each in float32, split once a step by the
+// threads that copied them, or one bf16 plane. Rows are row_stride
+// values (flash_tiles.cuh). Sizes in bytes
+template <int DS_, int DA_, int RS_, class TX_, class TW_, class TY_,
+          class TZ_>
 struct Cfg {
+  using TX = TX_;
+  using TW = TW_;
+  using TY = TY_;
+  using TZ = TZ_;
   static constexpr int DS = DS_, DA = DA_, RS = RS_;
-  static constexpr int LD = DS + 4;  // row stride: 4 mod 32 banks
-  static constexpr int KS = DS / 8;  // k steps of s and dp
+  static constexpr int LX = row_stride<TX>(DS), LW = row_stride<TW>(DS);
+  static constexpr int LY = row_stride<TY>(DS), LZ = row_stride<TZ>(DS);
   static constexpr int NS = RS / 8;  // n tiles of s and dp a warp holds
   static constexpr int NA = DA / 8;  // n tiles of an accumulator
-  static constexpr int ST = RS * LD;  // one streamed plane
-  static constexpr int Z = 2 * ST;    // z's planes, after y's
-  // resident x and w; then two stages of (y hi, y lo, z hi, z lo, two
-  // row vectors)
-  static constexpr int RES = 2 * ROWS * LD;
-  static constexpr int STAGE = 4 * ST + 2 * RS;
+  static constexpr int YP = RS * LY, ZP = RS * LZ;  // planes, in values
+  static constexpr int XB = ROWS * LX * (int)sizeof(TX);
+  static constexpr int RES = XB + ROWS * LW * (int)sizeof(TW);
+  static constexpr int YB = (is_bf16<TY>::value ? 1 : 2) * YP * (int)sizeof(TY);
+  static constexpr int ZB = (is_bf16<TZ>::value ? 1 : 2) * ZP * (int)sizeof(TZ);
+  // a stage: y, z, then the two row vectors (lse and delta)
+  static constexpr int STAGE = YB + ZB + 2 * RS * (int)sizeof(float);
   static constexpr int G = NA < 4 ? NA : 4;  // accumulator tiles a pass
-  static constexpr size_t bytes = sizeof(float) * (RES + 2 * STAGE);
+  static constexpr size_t bytes = RES + 2 * STAGE;
 };
 
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* dout;
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
   const float* lse;    // (B*H, T)
   const float* delta;  // (B*H, T)
   float* dq;
@@ -149,73 +171,43 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src,
   }
 }
 
-// s and dp of a warp's 16 resident rows (r0, r0 + 8 of each lane)
-// against the RS streamed rows: s = x y^T and dp = w z^T over DS columns
-// (zeros past D). The three TF32 products of each k step are issued pass
-// by pass over all 2 NS accumulators, so that no mma waits on the one
-// before it
+// the landed stage's float32 planes split, and the resident float32 tiles
+// cleaned with the first stage: each thread passes over its own chunks
 template <class C>
-__device__ __forceinline__ void scores(const float* res, const float* stage,
-                                       int r0, float (&s)[C::NS][4],
+__device__ __forceinline__ void prepare_stage(unsigned char* res,
+                                              unsigned char* st, bool first) {
+  if constexpr (!is_bf16<typename C::TX>::value)
+    if (first) clean_tile<ROWS, C::DS, C::LX>(reinterpret_cast<float*>(res));
+  if constexpr (!is_bf16<typename C::TW>::value)
+    if (first)
+      clean_tile<ROWS, C::DS, C::LW>(reinterpret_cast<float*>(res + C::XB));
+  if constexpr (!is_bf16<typename C::TY>::value)
+    split_tile<C::RS, C::DS, C::LY, C::YP>(reinterpret_cast<float*>(st));
+  if constexpr (!is_bf16<typename C::TZ>::value)
+    split_tile<C::RS, C::DS, C::LZ, C::ZP>(
+        reinterpret_cast<float*>(st + C::YB));
+}
+
+// s = x y^T and dp = w z^T of a warp's 16 resident rows (r0, r0 + 8 of
+// each lane) against the RS streamed rows, over DS columns (zeros past D)
+template <class C>
+__device__ __forceinline__ void scores(const unsigned char* res,
+                                       const unsigned char* st, int r0,
+                                       float (&s)[C::NS][4],
                                        float (&dp)[C::NS][4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float* ys = stage;
-  const float* zs = stage + C::Z;
 #pragma unroll
   for (int j = 0; j < C::NS; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < C::KS; ++kk) {
-    const int c = 8 * kk + t;
-    uint32_t xh[4], xl[4], wh[4], wl[4];
-    load_a(res, C::LD, r0, c, xh, xl);
-    load_a(res + ROWS * C::LD, C::LD, r0, c, wh, wl);
-    uint32_t yh[C::NS][2], yl[C::NS][2], zh[C::NS][2], zl[C::NS][2];
-#pragma unroll
-    for (int j = 0; j < C::NS; ++j) {
-      const int at = (8 * j + g) * C::LD + c;
-      load_b(ys, ys + C::ST, at, at + 4, yh[j], yl[j]);
-      load_b(zs, zs + C::ST, at, at + 4, zh[j], zl[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < C::NS; ++j) {
-      mma(s[j], xl, yh[j]);
-      mma(dp[j], wl, zh[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < C::NS; ++j) {
-      mma(s[j], xh, yl[j]);
-      mma(dp[j], wh, zl[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < C::NS; ++j) {
-      mma(s[j], xh, yh[j]);
-      mma(dp[j], wh, zh[j]);
-    }
-  }
-}
-
-// acc[n] += a b_n for the G accumulator tiles n0 .. n0+G-1 of a streamed
-// tile's planes (hi at y, lo ST floats on), in three passes; B rows are
-// read in the A operand's column order: row 2t at `at`, 2t + 1 a row on
-template <class C>
-__device__ __forceinline__ void accumulate(float (&acc)[C::NA][4], int n0,
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const float* y, int at) {
-  uint32_t bh[C::G][2], bl[C::G][2];
-#pragma unroll
-  for (int n = 0; n < C::G; ++n) {
-    const int e = at + 8 * (n0 + n);
-    load_b(y, y + C::ST, e, e + C::LD, bh[n], bl[n]);
-  }
-#pragma unroll
-  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], al, bh[n]);
-#pragma unroll
-  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bl[n]);
-#pragma unroll
-  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bh[n]);
+  using TX = typename C::TX;
+  using TW = typename C::TW;
+  using TY = typename C::TY;
+  using TZ = typename C::TZ;
+  rows_product2<C::NS, C::DS, RowsStep<C::NS, TX, C::LX, TY, C::LY, C::YP>,
+                RowsStep<C::NS, TW, C::LW, TZ, C::LZ, C::ZP>>(
+      s, reinterpret_cast<const TX*>(res), reinterpret_cast<const TY*>(st),
+      dp, reinterpret_cast<const TW*>(res + C::XB),
+      reinterpret_cast<const TZ*>(st + C::YB), r0);
 }
 
 // p and ds of the dK/dV kernel in place of s^T and dp^T: element (j, i)
@@ -267,15 +259,17 @@ __device__ __forceinline__ void probs_dq(const float (&s)[C::NS][4],
     }
 }
 
+// C: x = K, w = V, y = q, z = do
 template <class C>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* res = smem;  // K and V
-  float* ring = smem + C::RES;
+  using TQ = typename C::TY;
+  using TV = typename C::TW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem + C::RES;
 
   const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int g = (threadIdx.x & 31) >> 2;
   // all (batch, kv head) pairs of one k tile are launched together, the
   // first tiles first: under causal they see the most q tiles, and the
   // short ones that come last fill the card's tail
@@ -290,11 +284,14 @@ flash_bwd_dkv_kernel(const Args a) {
   const int T = a.T, D = a.D;
   const int r0 = 16 * warp + g;  // this lane's k rows: r0, r0 + 8
 
-  copy_tile<ROWS, C::DS, C::LD>(res, a.k + b * a.sk[0] + kvh * a.sk[2],
-                                 a.sk[1], k0, T, D);
-  copy_tile<ROWS, C::DS, C::LD>(res + ROWS * C::LD,
-                                 a.v + b * a.sv[0] + kvh * a.sv[2], a.sv[1],
-                                 k0, T, D);
+  copy_tile<ROWS, C::DS, C::LX>(
+      reinterpret_cast<TQ*>(smem),
+      static_cast<const TQ*>(a.k) + b * a.sk[0] + kvh * a.sk[2], a.sk[1], k0,
+      T, D);
+  copy_tile<ROWS, C::DS, C::LW>(
+      reinterpret_cast<TV*>(smem + C::XB),
+      static_cast<const TV*>(a.v) + b * a.sv[0] + kvh * a.sv[2], a.sv[1], k0,
+      T, D);
 
   // the q tiles with a live score against this k tile (_block_live),
   // for each query head of the group in turn
@@ -309,14 +306,18 @@ flash_bwd_dkv_kernel(const Args a) {
     const int q0 = q_lo + (it - gi * nq) * C::RS;
     const int h = kvh * group + gi;
     const long long row = ((long long)b * a.H + h) * T;
-    float* st = ring + (it & 1) * C::STAGE;
-    copy_tile<C::RS, C::DS, C::LD>(st, a.q + b * a.sq[0] + h * a.sq[2],
-                                   a.sq[1], q0, T, D);
-    copy_tile<C::RS, C::DS, C::LD>(st + C::Z,
-                                   a.dout + b * a.sdo[0] + h * a.sdo[2],
-                                   a.sdo[1], q0, T, D);
-    copy_row<C::RS>(st + 4 * C::ST, a.lse + row, q0, T);
-    copy_row<C::RS>(st + 4 * C::ST + C::RS, a.delta + row, q0, T);
+    unsigned char* st = ring + (it & 1) * C::STAGE;
+    copy_tile<C::RS, C::DS, C::LY>(
+        reinterpret_cast<TQ*>(st),
+        static_cast<const TQ*>(a.q) + b * a.sq[0] + h * a.sq[2], a.sq[1], q0,
+        T, D);
+    copy_tile<C::RS, C::DS, C::LZ>(
+        reinterpret_cast<TQ*>(st + C::YB),
+        static_cast<const TQ*>(a.dout) + b * a.sdo[0] + h * a.sdo[2],
+        a.sdo[1], q0, T, D);
+    float* rows = reinterpret_cast<float*>(st + C::YB + C::ZB);
+    copy_row<C::RS>(rows, a.lse + row, q0, T);
+    copy_row<C::RS>(rows + C::RS, a.delta + row, q0, T);
     tf32x3::commit();
   };
 
@@ -333,15 +334,10 @@ flash_bwd_dkv_kernel(const Args a) {
     // barrier then publishes the stage, and every warp is done with step
     // it - 1, whose stage the next copies overwrite
     tf32x3::wait_all();
-    if (it == 0) {  // K and V have landed with the first stage
-      clean_tile<ROWS, C::DS, C::LD>(res);
-      clean_tile<ROWS, C::DS, C::LD>(res + ROWS * C::LD);
-    }
-    float* st = ring + (it & 1) * C::STAGE;
-    split_tile<C::RS, C::DS, C::LD, C::ST>(st);
-    split_tile<C::RS, C::DS, C::LD, C::ST>(st + C::Z);
-    for (int r = threadIdx.x; r < C::RS; r += THREADS)
-      st[4 * C::ST + r] *= LOG2E;
+    unsigned char* st = ring + (it & 1) * C::STAGE;
+    prepare_stage<C>(smem, st, it == 0);  // K and V landed with stage 0
+    float* lse_s = reinterpret_cast<float*>(st + C::YB + C::ZB);
+    for (int r = threadIdx.x; r < C::RS; r += THREADS) lse_s[r] *= LOG2E;
     __syncthreads();
     if (it + 1 < steps) issue(it + 1);
 
@@ -353,28 +349,21 @@ flash_bwd_dkv_kernel(const Args a) {
     // s^T = k q^T and dp^T = v do^T: rows are this warp's k rows,
     // columns the step's q rows; then p^T and ds^T in their place
     float s[C::NS][4], dp[C::NS][4];
-    scores<C>(res, st, r0, s, dp);
-    const float* lse_s = st + 4 * C::ST;
+    scores<C>(smem, st, r0, s, dp);
     if (block_full(q0, q0 + C::RS - 1, kw, kw + 15, a))
       probs_dkv<C, false>(s, dp, lse_s, lse_s + C::RS, q0, k0 + r0, a);
     else
       probs_dkv<C, true>(s, dp, lse_s, lse_s + C::RS, q0, k0 + r0, a);
 
-    // dv += p^T do, dk += ds^T q over the step's q rows
-#pragma unroll
-    for (int kk = 0; kk < C::NS; ++kk) {
-      uint32_t ph[4], pl[4], dh[4], dl[4];
-      a_from_c(s[kk], ph, pl);
-      a_from_c(dp[kk], dh, dl);
-      const int at = (8 * kk + 2 * t) * C::LD + c0 + g;
-#pragma unroll
-      for (int n0 = 0; n0 < C::NA; n0 += C::G) {
-        accumulate<C>(dv, n0, ph, pl, st + C::Z, at);
-        accumulate<C>(dk, n0, dh, dl, st, at);
-      }
-    }
+    // dv += p^T do (p in do's type), dk += ds^T q (ds in q's type) over
+    // the step's q rows
+    frag_product<C::NS, C::NA, C::G, TQ, C::LZ, C::ZP>(
+        dv, s, reinterpret_cast<const TQ*>(st + C::YB) + c0);
+    frag_product<C::NS, C::NA, C::G, TQ, C::LY, C::YP>(
+        dk, dp, reinterpret_cast<const TQ*>(st) + c0);
   }
 
+  const int t = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + r0 + 8 * (i >> 1);
@@ -392,15 +381,17 @@ flash_bwd_dkv_kernel(const Args a) {
   }
 }
 
+// C: x = q, w = do, y = K, z = V
 template <class C>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* res = smem;  // q and do
-  float* ring = smem + C::RES;
+  using TQ = typename C::TX;
+  using TV = typename C::TZ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem + C::RES;
 
   const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int g = (threadIdx.x & 31) >> 2;
   // all (batch, head) pairs of one q tile are launched together, the last
   // tiles first: under causal they see the most K/V tiles
   const int tiles = (a.T + ROWS - 1) / ROWS;
@@ -416,11 +407,14 @@ flash_bwd_dq_kernel(const Args a) {
   const int r0 = 16 * warp + g;  // this lane's q rows: r0, r0 + 8
   const long long row = (long long)bh * T;
 
-  copy_tile<ROWS, C::DS, C::LD>(res, a.q + b * a.sq[0] + h * a.sq[2],
-                                 a.sq[1], q0, T, D);
-  copy_tile<ROWS, C::DS, C::LD>(res + ROWS * C::LD,
-                                 a.dout + b * a.sdo[0] + h * a.sdo[2],
-                                 a.sdo[1], q0, T, D);
+  copy_tile<ROWS, C::DS, C::LX>(
+      reinterpret_cast<TQ*>(smem),
+      static_cast<const TQ*>(a.q) + b * a.sq[0] + h * a.sq[2], a.sq[1], q0,
+      T, D);
+  copy_tile<ROWS, C::DS, C::LW>(
+      reinterpret_cast<TQ*>(smem + C::XB),
+      static_cast<const TQ*>(a.dout) + b * a.sdo[0] + h * a.sdo[2], a.sdo[1],
+      q0, T, D);
   float lse[2], delta[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -428,8 +422,8 @@ flash_bwd_dq_kernel(const Args a) {
     lse[i] = qi < T ? a.lse[row + qi] * LOG2E : 0.f;
     delta[i] = qi < T ? a.delta[row + qi] : 0.f;
   }
-  const float* kb = a.k + b * a.sk[0] + kvh * a.sk[2];
-  const float* vb = a.v + b * a.sv[0] + kvh * a.sv[2];
+  const TQ* kb = static_cast<const TQ*>(a.k) + b * a.sk[0] + kvh * a.sk[2];
+  const TV* vb = static_cast<const TV*>(a.v) + b * a.sv[0] + kvh * a.sv[2];
 
   // the K/V range any row of this q tile can see (the forward's bounds)
   const int q_last = min(q0 + ROWS, T) - 1;
@@ -440,9 +434,11 @@ flash_bwd_dq_kernel(const Args a) {
   // the streamed k and v of step it, into stage it % 2
   auto issue = [&](int it) {
     const int kt = k_lo + it * C::RS;
-    float* st = ring + (it & 1) * C::STAGE;
-    copy_tile<C::RS, C::DS, C::LD>(st, kb, a.sk[1], kt, T, D);
-    copy_tile<C::RS, C::DS, C::LD>(st + C::Z, vb, a.sv[1], kt, T, D);
+    unsigned char* st = ring + (it & 1) * C::STAGE;
+    copy_tile<C::RS, C::DS, C::LY>(reinterpret_cast<TQ*>(st), kb, a.sk[1],
+                                   kt, T, D);
+    copy_tile<C::RS, C::DS, C::LZ>(reinterpret_cast<TV*>(st + C::YB), vb,
+                                   a.sv[1], kt, T, D);
     tf32x3::commit();
   };
 
@@ -455,13 +451,8 @@ flash_bwd_dq_kernel(const Args a) {
   if (steps > 0) issue(0);
   for (int it = 0; it < steps; ++it) {
     tf32x3::wait_all();  // as in the dK/dV kernel: one barrier a stage
-    if (it == 0) {
-      clean_tile<ROWS, C::DS, C::LD>(res);
-      clean_tile<ROWS, C::DS, C::LD>(res + ROWS * C::LD);
-    }
-    float* st = ring + (it & 1) * C::STAGE;
-    split_tile<C::RS, C::DS, C::LD, C::ST>(st);
-    split_tile<C::RS, C::DS, C::LD, C::ST>(st + C::Z);
+    unsigned char* st = ring + (it & 1) * C::STAGE;
+    prepare_stage<C>(smem, st, it == 0);
     __syncthreads();
     if (it + 1 < steps) issue(it + 1);
 
@@ -472,24 +463,18 @@ flash_bwd_dq_kernel(const Args a) {
     // s = q k^T and dp = do v^T: rows are this warp's q rows; then ds in
     // dp's place
     float s[C::NS][4], dp[C::NS][4];
-    scores<C>(res, st, r0, s, dp);
+    scores<C>(smem, st, r0, s, dp);
     if (block_full(qw, qw + 15, kt, kt + C::RS - 1, a))
       probs_dq<C, false>(s, dp, lse, delta, q0 + r0, kt, a);
     else
       probs_dq<C, true>(s, dp, lse, delta, q0 + r0, kt, a);
 
-    // dq += ds k over the step's k rows
-#pragma unroll
-    for (int kk = 0; kk < C::NS; ++kk) {
-      uint32_t dh[4], dl[4];
-      a_from_c(dp[kk], dh, dl);
-      const int at = (8 * kk + 2 * t) * C::LD + c0 + g;
-#pragma unroll
-      for (int n0 = 0; n0 < C::NA; n0 += C::G)
-        accumulate<C>(acc, n0, dh, dl, st, at);
-    }
+    // dq += ds k (ds in k's type) over the step's k rows
+    frag_product<C::NS, C::NA, C::G, TQ, C::LY, C::YP>(
+        acc, dp, reinterpret_cast<const TQ*>(st) + c0);
   }
 
+  const int t = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + r0 + 8 * (i >> 1);
@@ -525,24 +510,39 @@ cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the variant for head dim D: (DS, DA, RS). A CTA takes ~55 KB (D <=
-// 32), ~105 KB (D <= 64), ~101 KB (D <= 128, 16 streamed rows a step) or
-// ~200 KB (D <= 256, 8 streamed rows, and the gradient's columns split
-// over two CTAs so that the accumulators fit in registers)
-using Cfg32 = Cfg<32, 32, 32>;
-using Cfg64 = Cfg<64, 64, 32>;
-using Cfg128 = Cfg<128, 128, 16>;
-using Cfg256 = Cfg<256, 128, 8>;
+// the variant for head dim D: (DS, DA, RS). In float32 a CTA takes ~55 KB
+// (D <= 32), ~105 KB (D <= 64), ~101 KB (D <= 128, 16 streamed rows a
+// step) or ~200 KB (D <= 256, 8 streamed rows, and the gradient's columns
+// split over two CTAs so that the accumulators fit in registers); a bf16
+// tile takes about half of its float32 room. dK/dV: x = K, w = V, y = q,
+// z = do; dQ: x = q, w = do, y = K, z = V
+template <class TQ, class TV>
+cudaError_t dkv_for(const Args& a, int B, cudaStream_t s) {
+  if (a.D <= 32) return launch_dkv<Cfg<32, 32, 32, TQ, TV, TQ, TQ>>(a, B, s);
+  if (a.D <= 64) return launch_dkv<Cfg<64, 64, 32, TQ, TV, TQ, TQ>>(a, B, s);
+  if (a.D <= 128)
+    return launch_dkv<Cfg<128, 128, 16, TQ, TV, TQ, TQ>>(a, B, s);
+  return launch_dkv<Cfg<256, 128, 8, TQ, TV, TQ, TQ>>(a, B, s);
+}
+
+template <class TQ, class TV>
+cudaError_t dq_for(const Args& a, int B, cudaStream_t s) {
+  if (a.D <= 32) return launch_dq<Cfg<32, 32, 32, TQ, TQ, TQ, TV>>(a, B, s);
+  if (a.D <= 64) return launch_dq<Cfg<64, 64, 32, TQ, TQ, TQ, TV>>(a, B, s);
+  if (a.D <= 128)
+    return launch_dq<Cfg<128, 128, 16, TQ, TQ, TQ, TV>>(a, B, s);
+  return launch_dq<Cfg<256, 128, 8, TQ, TQ, TQ, TV>>(a, B, s);
+}
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, void* dk,
                void* dv, int T, int H, int KV, int D, const long long* st,
                float scale, int causal, int window) {
   Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.dout = static_cast<const float*>(dout);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.dq = static_cast<float*>(dq);
@@ -564,34 +564,33 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // strides: 21 element strides (batch, time, head) of q, k, v, do, dq, dk
-// and dv, in that order; the head-dim stride of each must be 1. lse and
-// delta are contiguous (B*H, T) float32.
-extern "C" int veles_flash_attention_bwd_dkv_f32(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int T,
-    int H, int KV, int D, const long long* strides, float scale, int causal,
-    int window, void* stream) {
-  if (!flash::valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, T, H,
-                           KV, D, strides, scale, causal, window);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch_dkv<Cfg32>(a, B, s);
-  if (D <= 64) return (int)launch_dkv<Cfg64>(a, B, s);
-  if (D <= 128) return (int)launch_dkv<Cfg128>(a, B, s);
-  return (int)launch_dkv<Cfg256>(a, B, s);
-}
+// and dv, in that order; the head-dim stride of each must be 1. do has
+// q's type; lse and delta are contiguous (B*H, T) float32, and the
+// gradients are written float32.
+#define VELES_BWD(NAME, TQ, TV)                                              \
+  extern "C" int veles_flash_attention_bwd_dkv_##NAME(                       \
+      const void* q, const void* k, const void* v, const void* dout,         \
+      const void* lse, const void* delta, void* dk, void* dv, int B, int T,  \
+      int H, int KV, int D, const long long* strides, float scale,           \
+      int causal, int window, void* stream) {                                \
+    if (!flash::valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;    \
+    const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, T,  \
+                             H, KV, D, strides, scale, causal, window);      \
+    return (int)dkv_for<TQ, TV>(a, B, static_cast<cudaStream_t>(stream));    \
+  }                                                                          \
+  extern "C" int veles_flash_attention_bwd_dq_##NAME(                        \
+      const void* q, const void* k, const void* v, const void* dout,         \
+      const void* lse, const void* delta, void* dq, int B, int T, int H,     \
+      int KV, int D, const long long* strides, float scale, int causal,      \
+      int window, void* stream) {                                            \
+    if (!flash::valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;    \
+    const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr,         \
+                             nullptr, T, H, KV, D, strides, scale, causal,   \
+                             window);                                        \
+    return (int)dq_for<TQ, TV>(a, B, static_cast<cudaStream_t>(stream));     \
+  }
 
-extern "C" int veles_flash_attention_bwd_dq_f32(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int B, int T, int H,
-    int KV, int D, const long long* strides, float scale, int causal,
-    int window, void* stream) {
-  if (!flash::valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, T,
-                           H, KV, D, strides, scale, causal, window);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch_dq<Cfg32>(a, B, s);
-  if (D <= 64) return (int)launch_dq<Cfg64>(a, B, s);
-  if (D <= 128) return (int)launch_dq<Cfg128>(a, B, s);
-  return (int)launch_dq<Cfg256>(a, B, s);
-}
+VELES_BWD(f32_f32, float, float)
+VELES_BWD(f32_bf16, float, bf16)
+VELES_BWD(bf16_f32, bf16, float)
+VELES_BWD(bf16_bf16, bf16, bf16)

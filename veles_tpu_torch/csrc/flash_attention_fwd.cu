@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), float32.
+// Flash-attention forward for Hopper (sm_90a): float32, bf16, and the
+// mixed operands of mixed precision.
 //
 // Replaces the TPU kernel veles_tpu/ops/flash_attention.py::_kernel
 // (reached through _fwd_pallas / flash_attention): online-softmax
@@ -73,58 +74,82 @@
 //     never expanded. q, k, v and o are read and written through their
 //     (B, T, heads, Dh) strides; lse is written flat as (B*H, T).
 //
-// C interface: veles_flash_attention_fwd_f32(...) launches on the given
-// stream and returns cudaGetLastError() (0 on success). It allocates
-// nothing and does not synchronise.
+// Operand types. The reference's kernel takes any operand dtype: q k^T
+// accumulates in float32, p is cast to v's dtype before p v, and o is
+// written in q's dtype. Mixed precision gives it q, k and v in bf16 (an
+// all-bf16 model) or q and k in float32 and v in bf16 (RoPE's float32
+// tables promote q and k; v stays bf16). So the kernel is templated on
+// the type of q and k (TQ, which o takes too) and of v (TV), float32 or
+// bf16: four instances. A product with two bf16 operands is one bf16
+// mma.sync.m16n8k16 with float32 accumulation (bf16_mma.cuh): q k^T when
+// TQ is bf16, p v when TV is bf16, with p rounded to bf16 in registers as
+// it is packed, the reference's rounding point. A product with a float32
+// operand is the 3xTF32 one above. bf16 tiles are copied as bf16, in rows
+// of D + 8 values (bank-conflict-free for the bf16 fragments), and need
+// no split. At the training shape the all-bf16 instance's products are
+// 4.30 GFLOP at the 989 TFLOP/s of bf16 (0.0043 ms) against 34 MB of
+// bf16 q, k, v, o and float32 lse (0.010 ms): bound by bytes; the
+// (float32, float32, bf16) instance's s is 3xTF32 and its p v bf16, 0.015
+// ms of operations against 59 MB (0.018 ms): bound by bytes too.
+//
+// C interface: veles_flash_attention_fwd_<qk>_<v>(...), <qk> and <v> each
+// f32 or bf16, launches on the given stream and returns
+// cudaGetLastError() (0 on success). It allocates nothing and does not
+// synchronise.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "flash_tiles.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
 using namespace flash;
-using tf32x3::a_from_c;
-using tf32x3::load_a;
-using tf32x3::load_b;
-using tf32x3::mma;
+using bf16mma::bf16;
+using bf16mma::is_bf16;
 
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_INF = -1e30f;
 
 // DS: head-dim columns of s = q k^T (D zero-filled up to it in shared
-// memory); DA: columns of o one CTA accumulates; RS: K/V rows a step.
-// K's rows are LD floats, V's LDA; each streamed tile is a hi and a lo
-// TF32 plane, split once a step by the threads that copied it. At DS <=
-// 64 the warps keep q's fragments in registers (QREG); above, q stays a
-// float32 tile in front of the ring
-template <int DS_, int DA_, int RS_>
+// memory); DA: columns of o one CTA accumulates; RS: K/V rows a step; TQ,
+// TV: the element types of q/K/o and of V. q and K rows are LD values, V
+// rows LDA (flash_tiles.cuh's row_stride). A float32 streamed tile is a hi and a
+// lo TF32 plane, split once a step by the threads that copied it; a bf16
+// tile is one plane. At DS <= 64 the warps keep q's fragments in
+// registers (QREG); above, q stays a tile in front of the ring. Sizes in
+// bytes
+template <int DS_, int DA_, int RS_, class TQ_, class TV_>
 struct Cfg {
+  using TQ = TQ_;
+  using TV = TV_;
   static constexpr int DS = DS_, DA = DA_, RS = RS_;
-  static constexpr int LD = DS + 4;    // q and K rows: 4 mod 32 banks
-  static constexpr int LDA = DA + 4;   // V rows
-  static constexpr int KS = DS / 8;    // k steps of s
-  static constexpr int NS = RS / 8;    // n tiles of s, k steps of p v
+  static constexpr bool BQ = is_bf16<TQ>::value, BV = is_bf16<TV>::value;
+  static constexpr int LD = row_stride<TQ>(DS);   // q and K rows
+  static constexpr int LDA = row_stride<TV>(DA);  // V rows
+  static constexpr int NS = RS / 8;    // n tiles of s
   static constexpr int NA = DA / 8;    // n tiles of o
-  static constexpr int KP = RS * LD;   // one K plane
-  static constexpr int VP = RS * LDA;  // one V plane
-  static constexpr int V = 2 * KP;     // V's planes, after K's
-  static constexpr int STAGE = 2 * KP + 2 * VP;
+  static constexpr int KP = RS * LD;   // one K plane, in values
+  static constexpr int VP = RS * LDA;  // one V plane, in values
+  static constexpr int KBYTES = (BQ ? 1 : 2) * KP * (int)sizeof(TQ);
+  static constexpr int STAGE = KBYTES + (BV ? 1 : 2) * VP * (int)sizeof(TV);
   static constexpr bool QREG = DS <= 64;
-  static constexpr int RES = QREG ? 0 : ROWS * LD;
+  static constexpr int QBYTES = ROWS * LD * (int)sizeof(TQ);
+  static constexpr int RES = QREG ? 0 : QBYTES;
+  static constexpr int KQ = BQ ? DS / 16 : DS / 8;  // k steps of s
   static constexpr int G = NA < 4 ? NA : 4;  // o tiles a pass
-  static constexpr size_t bytes = sizeof(float) * (RES + 2 * STAGE);
-  static_assert(!QREG || ROWS * LD <= STAGE, "q lands in stage 1's place");
+  static constexpr size_t bytes = RES + 2 * STAGE;
+  static_assert(!QREG || QBYTES <= STAGE, "q lands in stage 1's place");
 };
 
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
   float* lse;  // (B*H, T)
   int T, H, KV, D;
   // element strides (batch, time, head) of q, k, v, o
@@ -133,49 +158,70 @@ struct Args {
   int causal, window;
 };
 
-// a warp's q fragments: split once, for every k step of s (QREG only)
+// a warp's q fragments, loaded once (QREG only): TF32 hi and lo a k step
+// of 8, or bf16 pairs a k step of 16
 template <class C>
 struct QFrag {
-  uint32_t h[C::QREG ? C::KS : 1][4], l[C::QREG ? C::KS : 1][4];
+  static constexpr int N = C::QREG ? C::KQ : 1;
+  uint32_t h[N][4], l[C::BQ ? 1 : N][4];
 };
 
-// s = q k^T of a warp's 16 q rows (r0, r0 + 8 of each lane) against the
-// step's RS K rows, over DS columns (zeros past D). The three TF32
-// products of each k step are issued pass by pass over all NS
-// accumulators
 template <class C>
-__device__ __forceinline__ void scores(const QFrag<C>& qf, const float* qs,
-                                       const float* k, int r0,
+__device__ __forceinline__ void load_q(QFrag<C>& qf,
+                                       const typename C::TQ* qs, int r0) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < C::KQ; ++kk) {
+    if constexpr (C::BQ)
+      bf16mma::load_a(qs, C::LD, r0, 16 * kk + 2 * t, qf.h[kk]);
+    else
+      tf32x3::load_a(qs, C::LD, r0, 8 * kk + t, qf.h[kk], qf.l[kk]);
+  }
+}
+
+// s = q k^T of a warp's 16 q rows (r0, r0 + 8 of each lane) against the
+// step's RS K rows, over DS columns (zeros past D): from q's fragments in
+// registers (QREG), or as rows_product of the q tile
+template <class C>
+__device__ __forceinline__ void scores(const QFrag<C>& qf,
+                                       const typename C::TQ* qs,
+                                       const typename C::TQ* k, int r0,
                                        float (&s)[C::NS][4]) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int j = 0; j < C::NS; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+  if constexpr (!C::QREG) {
+    rows_product<C::NS, C::DS,
+                 RowsStep<C::NS, typename C::TQ, C::LD, typename C::TQ, C::LD,
+                          C::KP>>(s, qs, r0, k);
+  } else if constexpr (C::BQ) {
 #pragma unroll
-  for (int kk = 0; kk < C::KS; ++kk) {
-    uint32_t ah[4], al[4];
-    if constexpr (C::QREG) {
+    for (int kk = 0; kk < C::KQ; ++kk) {
+      uint32_t b[C::NS][2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ah[e] = qf.h[kk][e];
-        al[e] = qf.l[kk][e];
+      for (int j = 0; j < C::NS; ++j)
+        bf16mma::load_b_along(k, C::LD, 8 * j + g, 16 * kk + 2 * t, b[j]);
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j) bf16mma::mma(s[j], qf.h[kk], b[j]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < C::KQ; ++kk) {
+      uint32_t bh[C::NS][2], bl[C::NS][2];
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j) {
+        const int at = (8 * j + g) * C::LD + 8 * kk + t;
+        tf32x3::load_b(k, k + C::KP, at, at + 4, bh[j], bl[j]);
       }
-    } else {
-      load_a(qs, C::LD, r0, 8 * kk + t, ah, al);
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j) tf32x3::mma(s[j], qf.l[kk], bh[j]);
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j) tf32x3::mma(s[j], qf.h[kk], bl[j]);
+#pragma unroll
+      for (int j = 0; j < C::NS; ++j) tf32x3::mma(s[j], qf.h[kk], bh[j]);
     }
-    uint32_t bh[C::NS][2], bl[C::NS][2];
-#pragma unroll
-    for (int j = 0; j < C::NS; ++j) {
-      const int at = (8 * j + g) * C::LD + 8 * kk + t;
-      load_b(k, k + C::KP, at, at + 4, bh[j], bl[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < C::NS; ++j) mma(s[j], al, bh[j]);
-#pragma unroll
-    for (int j = 0; j < C::NS; ++j) mma(s[j], ah, bl[j]);
-#pragma unroll
-    for (int j = 0; j < C::NS; ++j) mma(s[j], ah, bh[j]);
   }
 }
 
@@ -233,35 +279,15 @@ __device__ __forceinline__ void softmax_step(float (&s)[C::NS][4],
     for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
 }
 
-// acc[n] += p v_n for the G o tiles n0 .. n0+G-1, from V's planes (hi at
-// v, lo VP floats on), in three passes; V's rows are read in the A
-// operand's column order: row 2t at `at`, 2t + 1 a row on
-template <class C>
-__device__ __forceinline__ void accumulate(float (&acc)[C::NA][4], int n0,
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const float* v, int at) {
-  uint32_t bh[C::G][2], bl[C::G][2];
-#pragma unroll
-  for (int n = 0; n < C::G; ++n) {
-    const int e = at + 8 * (n0 + n);
-    load_b(v, v + C::VP, e, e + C::LDA, bh[n], bl[n]);
-  }
-#pragma unroll
-  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], al, bh[n]);
-#pragma unroll
-  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bl[n]);
-#pragma unroll
-  for (int n = 0; n < C::G; ++n) mma(acc[n0 + n], ah, bh[n]);
-}
-
 template <class C>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* ring = smem + C::RES;
+  using TQ = typename C::TQ;
+  using TV = typename C::TV;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem + C::RES;
 
   const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int g = (threadIdx.x & 31) >> 2;
   // all (batch, head) pairs of one q tile are launched together, the last
   // tiles first: under causal they see the most K/V tiles
   const int tiles = (a.T + ROWS - 1) / ROWS;
@@ -278,24 +304,31 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
 
   // q lands in front of the ring, or, when its fragments go to
   // registers, in stage 1's place
-  float* qs = C::QREG ? ring + C::STAGE : smem;
-  copy_tile<ROWS, C::DS, C::LD>(qs, a.q + b * a.sq[0] + h * a.sq[2],
-                                a.sq[1], q0, T, D);
-  const float* kb = a.k + b * a.sk[0] + kvh * a.sk[2];
-  const float* vb = a.v + b * a.sv[0] + kvh * a.sv[2] + c0;
+  TQ* qs = reinterpret_cast<TQ*>(C::QREG ? ring + C::STAGE : smem);
+  copy_tile<ROWS, C::DS, C::LD>(
+      qs, static_cast<const TQ*>(a.q) + b * a.sq[0] + h * a.sq[2], a.sq[1],
+      q0, T, D);
+  const TQ* kb = static_cast<const TQ*>(a.k) + b * a.sk[0] + kvh * a.sk[2];
+  const TV* vb =
+      static_cast<const TV*>(a.v) + b * a.sv[0] + kvh * a.sv[2] + c0;
 
-  // the K/V range any row of this q tile can see (_block_live)
+  // the K/V range any row of this q tile can see (_block_live), in steps
+  // of RS rows from key 0: the blocks a p rounded to bf16 takes its
+  // running max over are the reference kernel's and the plain version's
   const int q_last = min(q0 + ROWS, T) - 1;
   const int k_hi = a.causal ? q_last + 1 : T;
-  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int k_lo =
+      a.window > 0 ? max(0, q0 - a.window + 1) / C::RS * C::RS : 0;
   const int steps = (k_hi - k_lo + C::RS - 1) / C::RS;
 
   // the K and V rows of step it, into stage it % 2
   auto issue = [&](int it) {
     const int kt = k_lo + it * C::RS;
-    float* st = ring + (it & 1) * C::STAGE;
-    copy_tile<C::RS, C::DS, C::LD>(st, kb, a.sk[1], kt, T, D);
-    copy_tile<C::RS, C::DA, C::LDA>(st + C::V, vb, a.sv[1], kt, T, D - c0);
+    unsigned char* st = ring + (it & 1) * C::STAGE;
+    copy_tile<C::RS, C::DS, C::LD>(reinterpret_cast<TQ*>(st), kb, a.sk[1],
+                                   kt, T, D);
+    copy_tile<C::RS, C::DA, C::LDA>(reinterpret_cast<TV*>(st + C::KBYTES),
+                                    vb, a.sv[1], kt, T, D - c0);
     tf32x3::commit();
   };
 
@@ -310,20 +343,22 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
   issue(0);  // q's copies ride in the first group
   for (int it = 0; it < steps; ++it) {
     // this thread's copies of step it have landed: it splits its own
-    // chunks into the hi/lo planes; one barrier then publishes the stage,
-    // and every warp is done with step it - 1, whose stage the next
-    // copies overwrite
+    // float32 chunks into the hi/lo planes; one barrier then publishes the
+    // stage, and every warp is done with step it - 1, whose stage the
+    // next copies overwrite
     tf32x3::wait_all();
-    if (it == 0) clean_tile<ROWS, C::DS, C::LD>(qs);
-    float* st = ring + (it & 1) * C::STAGE;
-    split_tile<C::RS, C::DS, C::LD, C::KP>(st);
-    split_tile<C::RS, C::DA, C::LDA, C::VP>(st + C::V);
+    unsigned char* st = ring + (it & 1) * C::STAGE;
+    if constexpr (!C::BQ) {
+      if (it == 0) clean_tile<ROWS, C::DS, C::LD>(qs);
+      split_tile<C::RS, C::DS, C::LD, C::KP>(reinterpret_cast<float*>(st));
+    }
+    if constexpr (!C::BV)
+      split_tile<C::RS, C::DA, C::LDA, C::VP>(
+          reinterpret_cast<float*>(st + C::KBYTES));
     __syncthreads();
     if constexpr (C::QREG) {
       if (it == 0) {
-#pragma unroll
-        for (int kk = 0; kk < C::KS; ++kk)
-          load_a(qs, C::LD, r0, 8 * kk + t, qf.h[kk], qf.l[kk]);
+        load_q<C>(qf, qs, r0);
         __syncthreads();  // stage 1's copies overwrite q
       }
     }
@@ -334,24 +369,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
     if (!block_live(qw, qw + 15, kt, kt + C::RS - 1, a)) continue;
 
     float s[C::NS][4];
-    scores<C>(qf, qs, st, r0, s);
+    scores<C>(qf, qs, reinterpret_cast<const TQ*>(st), r0, s);
     if (block_full(qw, qw + 15, kt, kt + C::RS - 1, a))
       softmax_step<C, false>(s, m, l, acc, q0 + r0, kt, a);
     else
       softmax_step<C, true>(s, m, l, acc, q0 + r0, kt, a);
 
-    // o += p v over the step's K/V rows
-#pragma unroll
-    for (int kk = 0; kk < C::NS; ++kk) {
-      uint32_t ph[4], pl[4];
-      a_from_c(s[kk], ph, pl);
-      const int at = (8 * kk + 2 * t) * C::LDA + g;
-#pragma unroll
-      for (int n0 = 0; n0 < C::NA; n0 += C::G)
-        accumulate<C>(acc, n0, ph, pl, st + C::V, at);
-    }
+    // o += p v over the step's K/V rows, p rounded to V's type
+    frag_product<C::NS, C::NA, C::G, TV, C::LDA, C::VP>(
+        acc, s, reinterpret_cast<const TV*>(st + C::KBYTES));
   }
 
+  const int t = threadIdx.x & 3;
   const long long row = (long long)bh * T;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -361,13 +390,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
     l[r] = l[r] < 1e-30f ? 1e-30f : l[r];
     const int qi = q0 + r0 + 8 * r;
     if (qi >= T) continue;
-    float* orow = a.o + b * a.so[0] + qi * a.so[1] + h * a.so[2];
+    TQ* orow = static_cast<TQ*>(a.o) + b * a.so[0] + qi * a.so[1] +
+               h * a.so[2];
 #pragma unroll
     for (int n = 0; n < C::NA; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = c0 + 8 * n + 2 * t + e;
-        if (d < D) orow[d] = acc[n][2 * r + e] / l[r];
+        if (d < D) store(orow + d, acc[n][2 * r + e] / l[r]);
       }
     if (blockIdx.z == 0 && t == 0) a.lse[row + qi] = m[r] * LN2 + logf(l[r]);
   }
@@ -384,30 +414,29 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the variant for head dim D: (DS, DA, RS). A CTA takes ~37 KB (D <= 32),
-// ~70 KB (D <= 64, q's fragments in registers), ~101 KB (D <= 128, 16 K/V
-// rows a step) or ~167 KB (D <= 256, 16 rows, and o's columns split over
-// two CTAs so that the accumulator fits in registers)
-using Cfg32 = Cfg<32, 32, 32>;
-using Cfg64 = Cfg<64, 64, 32>;
-using Cfg128 = Cfg<128, 128, 16>;
-using Cfg256 = Cfg<256, 128, 16>;
+// the variant for head dim D: (DS, DA, RS). In float32 a CTA takes ~37
+// KB (D <= 32), ~70 KB (D <= 64, q's fragments in registers), ~101 KB
+// (D <= 128, 16 K/V rows a step) or ~167 KB (D <= 256, 16 rows, and o's
+// columns split over two CTAs so that the accumulator fits in
+// registers); a bf16 tile takes about half of its float32 room
+template <class TQ, class TV>
+cudaError_t launch_for(const Args& a, int B, cudaStream_t s) {
+  if (a.D <= 32) return launch<Cfg<32, 32, 32, TQ, TV>>(a, B, s);
+  if (a.D <= 64) return launch<Cfg<64, 64, 32, TQ, TV>>(a, B, s);
+  if (a.D <= 128) return launch<Cfg<128, 128, 16, TQ, TV>>(a, B, s);
+  return launch<Cfg<256, 128, 16, TQ, TV>>(a, B, s);
+}
 
-}  // namespace
-
-// strides: 12 element strides (batch, time, head) of q, k, v and o, in
-// that order; the head-dim stride of each must be 1. lse is written as
-// contiguous (B*H, T) float32.
-extern "C" int veles_flash_attention_fwd_f32(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    int B, int T, int H, int KV, int D, const long long* strides,
-    float scale, int causal, int window, void* stream) {
+template <class TQ, class TV>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+        int B, int T, int H, int KV, int D, const long long* strides,
+        float scale, int causal, int window, void* stream) {
   if (!flash::valid(B, T, H, KV, D)) return (int)cudaErrorInvalidValue;
   Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.o = static_cast<float*>(o);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
   a.lse = static_cast<float*>(lse);
   a.T = T;
   a.H = H;
@@ -419,9 +448,24 @@ extern "C" int veles_flash_attention_fwd_f32(
   a.scale = scale;
   a.causal = causal;
   a.window = window;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch<Cfg32>(a, B, s);
-  if (D <= 64) return (int)launch<Cfg64>(a, B, s);
-  if (D <= 128) return (int)launch<Cfg128>(a, B, s);
-  return (int)launch<Cfg256>(a, B, s);
+  return (int)launch_for<TQ, TV>(a, B, static_cast<cudaStream_t>(stream));
 }
+
+}  // namespace
+
+// strides: 12 element strides (batch, time, head) of q, k, v and o, in
+// that order; the head-dim stride of each must be 1. o has q's type; lse
+// is written as contiguous (B*H, T) float32.
+#define VELES_FWD(NAME, TQ, TV)                                              \
+  extern "C" int veles_flash_attention_fwd_##NAME(                           \
+      const void* q, const void* k, const void* v, void* o, void* lse,       \
+      int B, int T, int H, int KV, int D, const long long* strides,          \
+      float scale, int causal, int window, void* stream) {                   \
+    return fwd<TQ, TV>(q, k, v, o, lse, B, T, H, KV, D, strides, scale,      \
+                       causal, window, stream);                              \
+  }
+
+VELES_FWD(f32_f32, float, float)
+VELES_FWD(f32_bf16, float, bf16)
+VELES_FWD(bf16_f32, bf16, float)
+VELES_FWD(bf16_bf16, bf16, bf16)

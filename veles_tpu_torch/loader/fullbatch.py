@@ -4,7 +4,11 @@ for fused steps (counterpart of ``veles_tpu/loader/fullbatch.py``).
 The dataset (and, for :class:`FullBatchLoaderMSE`, the row-aligned
 targets) is placed on the workflow's device once; a fused ``TrainStep``
 gathers each minibatch's rows there by plan index, so no sample crosses
-from the host per step. Integer arrays (token ids) keep their dtype.
+from the host per step. Integer arrays (token ids) keep their dtype; float
+arrays take ``engine.dataset_dtype`` when it is set (bfloat16 halves the
+dataset's device memory), else ``engine.precision_type``. numpy has no
+bfloat16, so a bfloat16 array is kept as a CPU torch tensor
+(``memory.Array`` takes one as its host side).
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy
+import torch
 
 from ..config import root
 from ..memory import Array
@@ -19,11 +24,31 @@ from .base import TRAIN, VALID, Loader, LoaderMSE
 
 
 def _storage_dtype(arr: numpy.ndarray):
-    """Integer arrays (token ids) keep their dtype; float arrays take the
-    engine's precision."""
+    """The reference's storage policy: integer arrays (token ids) keep
+    their dtype — a float policy would corrupt large ids; float arrays
+    take ``engine.dataset_dtype`` when it is set, else the param policy
+    dtype ``engine.precision_type``."""
     if numpy.issubdtype(arr.dtype, numpy.integer):
         return arr.dtype
-    return root.common.engine.precision_type
+    return (root.common.engine.get("dataset_dtype", None)
+            or root.common.engine.precision_type)
+
+
+def _stored(arr: numpy.ndarray):
+    """``arr`` contiguous in its storage dtype: a numpy array, or a CPU
+    torch tensor for bfloat16."""
+    dtype = _storage_dtype(arr)
+    if str(dtype) in ("bfloat16", "torch.bfloat16"):
+        return torch.from_numpy(numpy.ascontiguousarray(
+            arr, dtype=numpy.float32)).to(torch.bfloat16)
+    return numpy.ascontiguousarray(arr, dtype=dtype)
+
+
+def _zeros(shape, dtype):
+    """A host buffer of a stored array's dtype (numpy or torch)."""
+    if isinstance(dtype, torch.dtype):
+        return torch.zeros(shape, dtype=dtype)
+    return numpy.zeros(shape, dtype=dtype)
 
 
 class FullBatchLoader(Loader):
@@ -39,9 +64,7 @@ class FullBatchLoader(Loader):
 
     def create_originals(self, data: numpy.ndarray,
                          labels: Optional[numpy.ndarray] = None) -> None:
-        data = numpy.asarray(data)
-        self.original_data.reset(numpy.ascontiguousarray(
-            data, dtype=_storage_dtype(data)))
+        self.original_data.reset(_stored(numpy.asarray(data)))
         if labels is not None:
             self.original_labels.reset(
                 numpy.ascontiguousarray(labels, dtype=numpy.int32))
@@ -63,9 +86,9 @@ class FullBatchLoader(Loader):
 
     def create_minibatch_data(self) -> None:
         n = self.max_minibatch_size
-        self.minibatch_data.reset(numpy.zeros(
+        self.minibatch_data.reset(_zeros(
             (n,) + tuple(self.original_data.shape[1:]),
-            dtype=self.original_data.dtype))
+            self.original_data.dtype))
         if self.original_labels:
             self.minibatch_labels.reset(numpy.zeros(n, dtype=numpy.int32))
 
@@ -92,17 +115,15 @@ class FullBatchLoaderMSE(FullBatchLoader, LoaderMSE):
     def create_originals(self, data, labels=None, targets=None):
         super().create_originals(data, labels)
         if targets is not None:
-            targets = numpy.asarray(targets)
-            self.original_targets.reset(numpy.ascontiguousarray(
-                targets, dtype=_storage_dtype(targets)))
+            self.original_targets.reset(_stored(numpy.asarray(targets)))
 
     def create_minibatch_data(self) -> None:
         super().create_minibatch_data()
         if self.original_targets:
             n = self.max_minibatch_size
-            self.minibatch_targets.reset(numpy.zeros(
-                (n,) + self.original_targets.shape[1:],
-                dtype=self.original_targets.dtype))
+            self.minibatch_targets.reset(_zeros(
+                (n,) + tuple(self.original_targets.shape[1:]),
+                self.original_targets.dtype))
 
     def fill_minibatch(self) -> None:
         super().fill_minibatch()

@@ -11,6 +11,10 @@ The protocol tracks which side is newer:
   side becomes the newer one (no copy until someone reads);
 - ``device_view(dev)``  → the tensor for compute on ``dev``, pushing the
   host data if it is newer or the cached tensor lies elsewhere.
+
+The host side is a numpy array, or a CPU ``torch.Tensor`` for a dtype
+numpy has not (a bfloat16 dataset, ``engine.dataset_dtype``); ``mem``
+then is that tensor, and the protocol is the same.
 """
 
 from __future__ import annotations
@@ -72,9 +76,13 @@ class Array(Logger):
     def map_read(self) -> numpy.ndarray:
         with self._lock:
             if self._dev_newer:
-                host = self.devmem.detach().cpu().numpy()
-                if self.mem is not None and host.dtype != self.mem.dtype:
-                    host = host.astype(self.mem.dtype)
+                host = self.devmem.detach().cpu()
+                if isinstance(self.mem, torch.Tensor):
+                    host = host.to(self.mem.dtype)
+                else:
+                    host = host.numpy()
+                    if self.mem is not None and host.dtype != self.mem.dtype:
+                        host = host.astype(self.mem.dtype)
                 self.mem = host
                 self._dev_newer = False
             return self.mem
@@ -123,8 +131,9 @@ class Array(Logger):
                     raise Bug("Array %s: device_view before reset"
                               % self.name)
                 target = want or torch.device("cpu")
-                self.devmem = torch.from_numpy(
-                    numpy.array(self.mem)).to(target)
+                host = (self.mem.clone() if isinstance(self.mem, torch.Tensor)
+                        else torch.from_numpy(numpy.array(self.mem)))
+                self.devmem = host.to(target)
                 self._host_newer = False
             return self.devmem
 

@@ -4,7 +4,11 @@
 Weights are stored (in_features, out_features) as in the reference and
 initialised from the unit's keyed stream: normal with stddev
 ``weights_stddev`` or 1/sqrt(fan_in), bias zero unless ``bias_stddev``.
-Products are full float32 (``ops/precision.py``: no TF32).
+Products are full float32 (``ops/precision.py``: no TF32). As in the
+reference, the operands are promoted to their common dtype, the product
+is summed into a float32 result (``preferred_element_type``) to which the
+bias is added, and only then is the sum cast to the operands' dtype: under
+mixed precision a bf16 chain rounds once a layer, after the bias.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from ..config import root
 from ..memory import Array
 from .. import prng
+from ..ops.precision import dot_f32, promote_operands
 from .nn_units import ForwardBase, GradientDescentBase, matches
 
 
@@ -59,10 +64,12 @@ class All2All(ForwardBase):
         return params
 
     def _linear(self, params, x):
-        y = x.reshape(x.shape[0], -1) @ params["weights"]
+        xx, ww, ct = promote_operands(x.reshape(x.shape[0], -1),
+                                      params["weights"])
+        y = dot_f32(xx, ww)
         if "bias" in params:
             y = y + params["bias"]
-        return y.reshape((x.shape[0],) + self.output_sample_shape)
+        return y.to(ct).reshape((x.shape[0],) + self.output_sample_shape)
 
     def activation(self, a):
         return a

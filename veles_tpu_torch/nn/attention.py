@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from ..ops import flash_attention as fa
+from ..ops.precision import promote_operands
 
 
 def expand_kv(x, n_heads: int):
@@ -31,10 +32,17 @@ def attention_reference(q, k, v, causal: bool = False,
                         window: Optional[int] = None):
     """Single-device exact attention: f32 scores, masked with -1e30
     (causal; ``window=W``: each query sees itself plus W-1
-    predecessors), full softmax."""
+    predecessors), full softmax. Mixed operand dtypes are promoted as
+    ``jnp.einsum`` promotes them (``torch.einsum`` refuses them): under
+    mixed precision the reference gives the first RoPE block q and k in
+    float32 and v in bf16, so p stays float32 (it is cast to q's dtype)
+    and v is widened — p is not rounded to bf16, unlike in the flash
+    kernels. Two bf16 operands give a bf16 product (the scores rounded
+    to bf16 before the float32 softmax, as in the reference)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = torch.einsum("bqhd,bkhd->bhqk",
+                     *promote_operands(q, k)[:2]).float() * scale
     if window is not None and int(window) < 0:
         raise ValueError("window must be >= 1 (or None)")
     if window and not causal:
@@ -49,7 +57,8 @@ def attention_reference(q, k, v, causal: bool = False,
         s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+    return torch.einsum("bhqk,bkhd->bqhd",
+                        *promote_operands(p.to(q.dtype), v)[:2])
 
 
 def attention_core(q, k, v, *, causal: bool = False,

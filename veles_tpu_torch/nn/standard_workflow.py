@@ -144,10 +144,11 @@ class StandardWorkflow(AcceleratedWorkflow):
                  decision_config: Optional[Dict[str, Any]] = None,
                  lr_schedule=None, snapshotter_unit=None,
                  steps_per_dispatch: int = 16,
-                 epochs_per_dispatch: int = 1, **kwargs):
-        for key in ("target_mode", "pipeline_microbatches", "remat",
-                    "grad_accumulation", "evaluator_config",
-                    "mcdnnic_topology", "mcdnnic_parameters"):
+                 epochs_per_dispatch: int = 1, remat: bool = False,
+                 grad_accumulation: int = 1, **kwargs):
+        for key in ("target_mode", "pipeline_microbatches",
+                    "evaluator_config", "mcdnnic_topology",
+                    "mcdnnic_parameters"):
             if kwargs.pop(key, None) not in (None, False, 1, {}):
                 raise VelesError("StandardWorkflow(%s=...) is not ported "
                                  "yet" % key)
@@ -158,6 +159,8 @@ class StandardWorkflow(AcceleratedWorkflow):
                              % (loss_function, ", ".join(LOSSES)))
         self._steps_per_dispatch = steps_per_dispatch
         self._epochs_per_dispatch = epochs_per_dispatch
+        self._remat = remat
+        self._grad_accumulation = grad_accumulation
         super().__init__(workflow, **kwargs)
         self.layers_config = list(layers)
         self.loss_function = loss_function
@@ -202,7 +205,8 @@ class StandardWorkflow(AcceleratedWorkflow):
             self, forwards=self.forwards, evaluator=self.evaluator,
             loader=self.loader, target_mode=target_mode,
             steps_per_dispatch=self._steps_per_dispatch,
-            epochs_per_dispatch=self._epochs_per_dispatch)
+            epochs_per_dispatch=self._epochs_per_dispatch,
+            remat=self._remat, grad_accumulation=self._grad_accumulation)
         self.decision.loader = self.loader
         self.decision.step_unit = self.train_step
         if self._epochs_per_dispatch > 1 and self.loader is not None:

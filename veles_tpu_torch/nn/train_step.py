@@ -26,6 +26,27 @@ tokens):
 
 Metrics accumulate on the device and reach the host once per drain
 (``drain_epoch_blocks``).
+
+The reference's memory and precision knobs:
+
+- ``root.common.engine.mixed_precision``: the train and eval steps run
+  the forward (and autograd its backward) on a bf16 view of the params
+  and of a float batch (``ops/precision.amp_cast``); the masters, the
+  optimiser state, the gradients that reach it, the loss and the metric
+  sums stay float32;
+- ``root.common.engine.bf16_activations`` (under mixed precision only;
+  ignored with the reference's warning otherwise): an interlayer
+  activation that leaves a unit float32 is stored bf16; the head's
+  output is not;
+- ``remat=True``: the forward runs under one ``torch.utils.checkpoint``
+  (non-reentrant, RNG state kept), its activations recomputed in the
+  backward — the same numbers, less memory;
+- ``grad_accumulation=G``: each minibatch runs as G chunks, one backward
+  each, and ONE update from the float32 chunk gradients weighted by the
+  chunks' valid rows.
+
+None of them reaches the fused-FC kernel, which refuses each with the
+reference's reason.
 """
 
 from __future__ import annotations
@@ -34,11 +55,13 @@ from typing import Any, Dict, List, Optional
 
 import numpy
 import torch
+import torch.utils.checkpoint
 
 from ..accelerated import AcceleratedUnit
 from ..config import root
 from ..error import Bug, VelesError
 from ..loader.base import TEST, TRAIN, VALID
+from ..ops.precision import amp_cast
 from .all2all import All2AllSoftmax, All2AllTanh
 from .evaluator import EvaluatorSoftmax
 from .nn_units import MATCHING, ForwardBase, GradientDescentBase
@@ -74,9 +97,8 @@ class TrainStep(AcceleratedUnit):
                  pipeline_microbatches: Optional[int] = None,
                  remat: bool = False, grad_accumulation: int = 1,
                  **kwargs):
-        if pipeline_microbatches or remat or int(grad_accumulation) > 1:
-            raise VelesError("pipeline microbatches, remat and gradient "
-                             "accumulation are not ported yet")
+        if pipeline_microbatches:
+            raise VelesError("pipeline microbatches are not ported yet")
         if target_mode not in TARGET_MODES:
             raise VelesError("target_mode %r is not ported yet (%s)"
                              % (target_mode, ", ".join(TARGET_MODES)))
@@ -94,6 +116,15 @@ class TrainStep(AcceleratedUnit):
             if self.epochs_per_dispatch > 1:
                 loader.block_epochs = self.epochs_per_dispatch
         self.target_mode = target_mode
+        #: recompute the forward's activations in the backward
+        #: (torch.utils.checkpoint)
+        self.remat = bool(remat)
+        #: chunks a minibatch runs as, one update from their gradients
+        self.grad_accumulation = max(1, int(grad_accumulation))
+        #: engine.mixed_precision and engine.bf16_activations, resolved
+        #: at initialize
+        self.mixed_precision = False
+        self._bf16_acts = False
         self.gds: List[GradientDescentBase] = list(gds) if gds else []
         self.lr_scale = 1.0        # linked from LearningRateAdjust
         self.params: Tree = {}
@@ -133,10 +164,24 @@ class TrainStep(AcceleratedUnit):
         for f in self.forwards:
             if f.PARAMETERIZED and not f.param_arrays():
                 return True
-        for knob in ("mixed_precision", "bf16_activations",
-                     "fused_epilogue"):
-            if root.common.engine.get(knob, False):
-                raise VelesError("engine.%s is not ported yet" % knob)
+        if root.common.engine.get("fused_epilogue", False):
+            raise VelesError("engine.fused_epilogue is not ported yet")
+        self.mixed_precision = bool(
+            root.common.engine.get("mixed_precision", False))
+        self._bf16_acts = bool(
+            root.common.engine.get("bf16_activations", False))
+        if self._bf16_acts and not self.mixed_precision:
+            # as the reference: bf16 activation storage only makes sense
+            # under AMP, where the params and the batch are bf16 already
+            self.warning("bf16_activations needs "
+                         "engine.mixed_precision — ignored")
+            self._bf16_acts = False
+        if self.grad_accumulation > 1:
+            mb = self.loader.max_minibatch_size
+            if mb % self.grad_accumulation:
+                raise Bug("minibatch size %d not divisible into %d "
+                          "gradient-accumulation chunks"
+                          % (mb, self.grad_accumulation))
         self._ensure_gds()
         gd_by_fwd = {gd.forward: gd for gd in self.gds}
         self._gd_for = {f.name: gd_by_fwd[f]
@@ -182,6 +227,9 @@ class TrainStep(AcceleratedUnit):
                           "softmax] chain")
         if not isinstance(self.evaluator, EvaluatorSoftmax):
             return reject("needs plain softmax-CE evaluator")
+        if self.mixed_precision or self.remat \
+                or self.grad_accumulation > 1:
+            return reject("amp/remat/grad-accumulation not fused")
         knobs = set()
         for f in fs:
             if set(self.params[f.name]) != {"weights", "bias"}:
@@ -236,7 +284,9 @@ class TrainStep(AcceleratedUnit):
     # -- pure functions -------------------------------------------------------
     def _forward(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
         """The forward chain; a softmax head yields logits for the fused
-        log-softmax cross-entropy."""
+        log-softmax cross-entropy. ``bf16_activations``: an interlayer
+        activation that left a unit float32 is stored bf16 (the head's
+        output feeds the evaluator as it is)."""
         last = self.forwards[-1]
         use_logits = (isinstance(last, All2AllSoftmax)
                       and isinstance(self.evaluator, EvaluatorSoftmax))
@@ -245,6 +295,9 @@ class TrainStep(AcceleratedUnit):
             if f is last and use_logits:
                 return f.logits(p, x)
             x = f.apply(p, x)
+            if self._bf16_acts and f is not last \
+                    and x.dtype == torch.float32:
+                x = x.to(torch.bfloat16)
         return x
 
     def _zero_accum(self) -> Dict[str, torch.Tensor]:
@@ -257,31 +310,80 @@ class TrainStep(AcceleratedUnit):
                                                                     mask)
         return {k: accum[k] + metrics[k] for k in accum}
 
-    def _train_step(self, params, opt_state, accum, dataset, targets,
-                    indices, mask, lr_scale):
-        """One minibatch: autograd forward + loss, the GD updates, the
-        metrics. ``targets`` is the array the rows' targets are gathered
-        from (``_dataset``). Returns (params, opt_state, accum, loss)."""
-        idx = indices.long()
-        batch = dataset[idx]
-        tgt = targets[idx]
+    def _grads(self, params, batch, tgt, mask):
+        """Autograd forward + loss over ``batch`` (a minibatch, or one
+        accumulation chunk of it): (loss, out, grads), the grads in the
+        params' tree. Under mixed precision the forward runs on the bf16
+        view of the params (the batch is cast by the caller) and the
+        grads reach the float32 masters through the cast; under remat
+        the forward runs in one non-reentrant checkpoint."""
         leaves = {n: {k: v.detach().requires_grad_(True)
                       for k, v in p.items()} for n, p in params.items()}
         with torch.enable_grad():
-            out = self._forward(leaves, batch)
+            p = amp_cast(leaves) if self.mixed_precision else leaves
+            if self.remat:
+                out = torch.utils.checkpoint.checkpoint(
+                    self._forward, p, batch, use_reentrant=False,
+                    preserve_rng_state=True)
+            else:
+                out = self._forward(p, batch)
             loss = self.evaluator.loss(out, tgt, mask)
             flat = [t for p in leaves.values() for t in p.values()]
             grads_flat = torch.autograd.grad(loss, flat)
         it = iter(grads_flat)
         grads = {n: {k: next(it) for k in p} for n, p in leaves.items()}
+        return loss.detach(), out.detach(), grads
+
+    def _train_step(self, params, opt_state, accum, dataset, targets,
+                    indices, mask, lr_scale):
+        """One minibatch: autograd forward + loss, the GD updates, the
+        metrics. ``targets`` is the array the rows' targets are gathered
+        from (``_dataset``). With ``grad_accumulation`` G > 1 the
+        minibatch runs as G chunks in order, and the update takes the
+        sum of their float32 gradients weighted by each chunk's valid
+        rows over the minibatch's valid rows — the whole minibatch's
+        gradient up to the order of the sums (each chunk's loss is its
+        valid rows' mean); the metrics accumulate chunk by chunk and
+        the loss returned is the weighted mean of the chunks'. Returns
+        (params, opt_state, accum, loss)."""
+        idx = indices.long()
+        batch = dataset[idx]
+        tgt = targets[idx]
+        if self.mixed_precision:
+            batch = amp_cast(batch)
+        ga = self.grad_accumulation
+        if ga == 1:
+            loss, out, grads = self._grads(params, batch, tgt, mask)
+            with torch.no_grad():
+                accum = self._metrics(out, tgt, mask, loss, accum)
+        else:
+            rows = mask.shape[0] // ga
+            total = torch.clamp(mask.sum().float(), min=1.0)
+            g_sum = l_sum = None
+            for c in range(ga):
+                part = slice(c * rows, (c + 1) * rows)
+                loss_c, out, g = self._grads(params, batch[part], tgt[part],
+                                             mask[part])
+                with torch.no_grad():
+                    w = mask[part].sum().float()
+                    g = {n: {k: v.float() * w for k, v in t.items()}
+                         for n, t in g.items()}
+                    g_sum = g if g_sum is None else {
+                        n: {k: g_sum[n][k] + v for k, v in t.items()}
+                        for n, t in g.items()}
+                    l_sum = (loss_c * w if l_sum is None
+                             else l_sum + loss_c * w)
+                    accum = self._metrics(out, tgt[part], mask[part],
+                                          loss_c, accum)
+            grads = {n: {k: (v / total).to(params[n][k].dtype)
+                         for k, v in t.items()} for n, t in g_sum.items()}
+            loss = l_sum / total
         with torch.no_grad():
             # an all-padded plan row must not decay the params
             valid = mask.sum() > 0
             params, opt_state = self._apply_updates(params, grads,
                                                     opt_state, lr_scale,
                                                     valid)
-            out, loss = out.detach(), loss.detach()
-            accum = self._metrics(out, tgt, mask, loss, accum)
         return params, opt_state, accum, loss
 
     def _apply_updates(self, params, grads, opt_state, lr_scale, valid):
@@ -310,7 +412,10 @@ class TrainStep(AcceleratedUnit):
     def _eval_step(self, params, accum, dataset, targets, indices, mask):
         idx = indices.long()
         tgt = targets[idx]
-        out = self._forward(params, dataset[idx])
+        batch = dataset[idx]
+        if self.mixed_precision:
+            batch, params = amp_cast(batch), amp_cast(params)
+        out = self._forward(params, batch)
         return self._metrics(out, tgt, mask,
                              self.evaluator.loss(out, tgt, mask), accum)
 
@@ -396,7 +501,9 @@ class TrainStep(AcceleratedUnit):
                         [p[n]["bias"] for n in names],
                         [o[n]["weights"] for n in names],
                         [o[n]["bias"] for n in names],
-                        dataset, targets, idx[e],
+                        # a bf16 dataset (engine.dataset_dtype) widened, as
+                        # the reference's fused path casts it
+                        dataset.float(), targets, idx[e],
                         _f32(numpy.float32(scales[e])
                              * numpy.float32(ff["lr"])),
                         act_a=ff["act_a"], act_b=ff["act_b"],

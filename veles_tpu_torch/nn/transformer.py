@@ -23,6 +23,13 @@ functions of ``(layer, params, x)`` below (:func:`embed`,
 Block (pre-LN, GPT-style):
     h = x + W_o · attn(LN1(x))
     y = h + W2 · gelu(W1 · LN2(h))
+
+Under mixed precision (the train step's bf16 view of the parameters and
+the batch) the dtypes follow the reference's: every product promotes a
+mixed pair as ``jnp.dot`` does (``ops/precision.dot``); RoPE's float32
+tables make q and k float32 while v stays bf16; the residual stream turns
+float32 at the first ``x + o·W_o`` whose o is float32; GELU returns
+float32 (its constant is a numpy float32); the logits are float32.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from torch import nn
 from ..config import root
 from ..memory import Array
 from .. import prng
+from ..ops.precision import dot
 from .attention import attention_core
 from .nn_units import ForwardBase, GradientDescentBase, matches
 
@@ -50,9 +58,11 @@ def _layernorm(x, g, b, eps=1e-5):
 
 
 def _gelu(x):
-    # tanh approximation — the reference's formula
+    # tanh approximation — the reference's formula. Its constant is a
+    # numpy float32 scalar, which jnp does not treat as weak: a bf16 x
+    # comes out float32, the tanh's argument computed in float32
     c = float(numpy.sqrt(2.0 / numpy.pi).astype("float32"))
-    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3)))
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3).float()))
 
 
 def _rmsnorm(x, g, eps=1e-5):
@@ -76,8 +86,8 @@ def block_ffn(block, p: Params, x):
     """The block's FFN sub-layer. ffn="swiglu": W2·(silu(W1 x) ⊙ W3 x),
     no biases; default GELU: W2·gelu(W1 x + b1) + b2."""
     if block.ffn == "swiglu":
-        return (_silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
-    return _gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+        return dot(_silu(dot(x, p["w1"])) * dot(x, p["w3"]), p["w2"])
+    return dot(_gelu(dot(x, p["w1"]) + p["b1"]), p["w2"]) + p["b2"]
 
 
 def block_qkv(block, p: Params, a_in):
@@ -85,9 +95,9 @@ def block_qkv(block, p: Params, a_in):
     UNREPEATED k, v (B, T, KV, Dh)."""
     b, t, d = a_in.shape
     hd = d // block.n_heads
-    q = (a_in @ p["wq"]).reshape(b, t, block.n_heads, hd)
-    k = (a_in @ p["wk"]).reshape(b, t, block.n_kv_heads, hd)
-    v = (a_in @ p["wv"]).reshape(b, t, block.n_kv_heads, hd)
+    q = dot(a_in, p["wq"]).reshape(b, t, block.n_heads, hd)
+    k = dot(a_in, p["wk"]).reshape(b, t, block.n_kv_heads, hd)
+    v = dot(a_in, p["wv"]).reshape(b, t, block.n_kv_heads, hd)
     return q, k, v
 
 
@@ -139,7 +149,7 @@ def block_apply(block, p: Params, x, cache=None, causal=None):
     o = attention_core(q, k, v,
                        causal=block.causal if causal is None else causal,
                        window=block.window).reshape(b, t, d)
-    x = x + o @ p["wo"]
+    x = x + dot(o, p["wo"])
     return x + block_ffn(block, p, block_norm(block, p, x, "ln2"))
 
 
@@ -156,7 +166,7 @@ def add_positions(table, x):
 
 def lm_logits(p: Params, x):
     """(…, D) → (…, V) per-position logits."""
-    return x @ p["weights"] + p["bias"]
+    return dot(x, p["weights"]) + p["bias"]
 
 
 def _block_config(obj, n_heads, causal, rope, n_kv_heads, window, norm,

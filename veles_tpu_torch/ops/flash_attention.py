@@ -30,6 +30,20 @@ launches its kernels or raises; on a CPU tensor each runs the plain
 version (:func:`flash_attention_fwd_reference`,
 :func:`flash_attention_bwd_reference`) that the CPU tests and
 ``chip_smoke.py`` hold the kernels against.
+
+Operand types, as the reference's kernels take them: q and k in one
+dtype, float32 or bfloat16, v in float32 or bfloat16, and ``do`` in o's
+dtype, which is q's: four instances of each kernel (:func:`instance`),
+each with its own launch counter besides the kernel's total. Mixed
+precision gives the bench LM's first block q and k in float32 (RoPE's
+float32 tables promote them) and v in bf16, and a model without RoPE
+bf16 throughout. The rounding points are the Pallas kernels': p is
+rounded to v's dtype before p·v (to do's before pᵀ·do), ds to q's before
+dsᵀ·q and to k's before ds·k, and each output takes its input's dtype;
+the scores, lse and delta stay float32. A product whose two operands are
+bf16 runs as a bf16 ``mma.sync`` with float32 accumulation; any other
+product stays 3xTF32, a bf16 operand widened exactly. Any other dtype
+(float16, q and k apart) raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -56,6 +70,35 @@ _BWD_SOURCE = "flash_attention_bwd"
 FWD_LAUNCHES = "veles_flash_attention_launches_total"
 DKV_LAUNCHES = "veles_flash_attention_bwd_dkv_launches_total"
 DQ_LAUNCHES = "veles_flash_attention_bwd_dq_launches_total"
+
+#: the operand dtypes the kernels take, by their names in the kernels'
+#: C symbols
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: the kernels' (q/k, v) instances, as :func:`instance` names them
+INSTANCES = ("f32_f32", "f32_bf16", "bf16_f32", "bf16_bf16")
+
+
+def instance(q, k, v, do=None) -> str:
+    """The kernels' instance for these operands, ``"<qk>_<v>"`` (e.g.
+    ``"f32_bf16"``); raises ``TypeError`` on dtypes no instance takes: q
+    and k must share float32 or bfloat16, v be float32 or bfloat16, and
+    ``do`` (the backward's) have q's dtype."""
+    if (q.dtype != k.dtype or q.dtype not in DTYPE_NAMES
+            or v.dtype not in DTYPE_NAMES
+            or (do is not None and do.dtype != q.dtype)):
+        raise TypeError(
+            "the flash kernels take q and k in one of float32/bfloat16, v "
+            "in float32/bfloat16 and do in q's dtype; got q %s, k %s, v %s%s"
+            % (q.dtype, k.dtype, v.dtype,
+               "" if do is None else ", do %s" % do.dtype))
+    return "%s_%s" % (DTYPE_NAMES[q.dtype], DTYPE_NAMES[v.dtype])
+
+
+def launch_counter(total: str, inst: str) -> str:
+    """The per-instance launch counter of a kernel whose total counter is
+    ``total`` (``FWD_LAUNCHES``, ``DKV_LAUNCHES`` or ``DQ_LAUNCHES``),
+    e.g. ``veles_flash_attention_launches_f32_bf16_total``."""
+    return "%s_%s_total" % (total[:-len("_total")], inst)
 
 
 def supported(d: int) -> bool:
@@ -89,54 +132,89 @@ def live_pairs(t: int, causal: bool, window: int = 0) -> int:
 
 def analytic_cost(b: int, t: int, h: int, d: int, causal: bool = False,
                   window: int = 0, kv: Optional[int] = None,
-                  dtype_bytes: int = 4, train: bool = False
-                  ) -> Tuple[float, float]:
+                  dtype_bytes: int = 4, train: bool = False,
+                  v_bytes: Optional[int] = None) -> Tuple[float, float]:
     """(FLOPs, bytes) of one forward call: 2·D FLOPs per live pair for
     q·k and as many for p·v; bytes are q, k, v read once and o, lse
-    written once (k/v at the ``kv`` grouped head count). ``train`` adds
-    the backward at the reference's standard model (3.5× the forward's
-    FLOPs, three round trips of the bytes), kept for telemetry parity;
-    :func:`backward_work` counts what the port's backward kernels need."""
+    written once (k/v at the ``kv`` grouped head count; q, k and o of
+    ``dtype_bytes`` each, v of ``v_bytes``, by default the same).
+    ``train`` adds the backward at the reference's standard model (3.5×
+    the forward's FLOPs, three round trips of the bytes), kept for
+    telemetry parity; :func:`backward_work` counts what the port's
+    backward kernels need."""
     kv = h if kv is None else kv
+    v_bytes = dtype_bytes if v_bytes is None else v_bytes
     flops = 4.0 * b * h * live_pairs(t, causal, window) * d
-    io = b * t * d * dtype_bytes
-    bytes_moved = float(2 * io * h + 2 * io * kv + b * h * t * 4)
+    io = b * t * d
+    bytes_moved = float(io * (2 * h + kv) * dtype_bytes + io * kv * v_bytes
+                        + b * h * t * 4)
     if train:
         return flops * 3.5, bytes_moved * 3
     return flops, bytes_moved
 
 
+def _nbytes(inst: str) -> Tuple[int, int]:
+    """Bytes of one q/k/o/do element and of one v element of an
+    instance."""
+    qk, v = inst.split("_")
+    return (2 if qk == "bf16" else 4), (2 if v == "bf16" else 4)
+
+
+def _products(inst: str, kernel: str) -> Tuple[bool, ...]:
+    """Whether each of a kernel's products (2·D FLOPs a live pair each)
+    has two bf16 operands: the forward's s and p·v; dK/dV's s, pᵀ·do,
+    dp and dsᵀ·q; dQ's s, dp and ds·k."""
+    qk, v = (x == "bf16" for x in inst.split("_"))
+    both = qk and v
+    return {"fwd": (qk, v), "dkv": (qk, qk, both, qk),
+            "dq": (qk, both, qk)}[kernel]
+
+
 def backward_work(b: int, t: int, h: int, d: int, causal: bool = False,
                   window: int = 0, kv: Optional[int] = None,
-                  dtype_bytes: int = 4) -> Dict[str, Tuple[float, float]]:
+                  dtype_bytes: int = 4, v_bytes: Optional[int] = None
+                  ) -> Dict[str, Tuple[float, float]]:
     """(FLOPs, bytes) each backward kernel needs over this call's live
     pairs: dK/dV 8·D FLOPs a pair (s, dv, dp, dk) and dQ 6·D (s, dp, dq);
-    bytes are each input read once (q, do, k, v, lse, delta) and each
-    output written once. The function alone needs 10·D a pair: the
-    two-kernel split recomputes s and dp."""
+    bytes are each input read once (q, do and k of ``dtype_bytes``, v of
+    ``v_bytes``, by default the same, and float32 lse and delta) and each
+    output written once, in float32 as the kernels write the gradients.
+    The function alone needs 10·D a pair: the two-kernel split
+    recomputes s and dp."""
     kv = h if kv is None else kv
+    v_bytes = dtype_bytes if v_bytes is None else v_bytes
     pairs = float(b * h * live_pairs(t, causal, window))
-    io = b * t * d * dtype_bytes
+    io = b * t * d
     rows = 2 * b * h * t * 4                      # lse and delta, f32
-    return {"dkv": (8.0 * d * pairs, float(2 * io * h + 4 * io * kv + rows)),
-            "dq": (6.0 * d * pairs, float(3 * io * h + 2 * io * kv + rows))}
+    inputs = io * ((2 * h + kv) * dtype_bytes + kv * v_bytes) + rows
+    return {"dkv": (8.0 * d * pairs, float(inputs + 2 * io * kv * 4)),
+            "dq": (6.0 * d * pairs, float(inputs + io * h * 4))}
 
 
 #: published dense peaks of one H100 SXM (NVIDIA data sheet): float32
-#: FMA on the CUDA cores, TF32 on the tensor cores, HBM3 bandwidth
+#: FMA on the CUDA cores, TF32 and bf16 on the tensor cores, HBM3
+#: bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
-def _bounds(flops: float, nbytes: float) -> Dict[str, float]:
+def _bounds(flops: float, nbytes: float, inst: str = "f32_f32",
+            kernel: str = "fwd") -> Dict[str, float]:
     """A kernel's least time on the card, in ms, for ``flops`` and
     ``nbytes``: ``f32`` with the products on the CUDA cores, ``tc`` with
-    them on the tensor cores in 3xTF32 (three TF32 products each), each
-    the larger of its operations time and the bytes over HBM's rate;
-    ``bound_by`` names the side that sets ``tc``."""
+    them on the tensor cores as the kernel runs them — a product of two
+    bf16 operands at the bf16 rate, any other in 3xTF32 (three TF32
+    products each) — each the larger of its operations time and the
+    bytes over HBM's rate; ``bound_by`` names the side that sets ``tc``.
+    ``inst`` and ``kernel`` ("fwd", "dkv" or "dq") say which product
+    takes which rate; ``flops`` splits evenly over the products."""
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    prods = _products(inst, kernel)
+    per = flops / len(prods)
+    t_tc = sum(per / (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3)
+               for bf16 in prods) * 1e3
     return {"f32": max(flops / PEAK_F32_FLOPS * 1e3, t_bytes),
             "tc": max(t_tc, t_bytes),
             "bound_by": "operations" if t_tc >= t_bytes else "bytes"}
@@ -144,34 +222,43 @@ def _bounds(flops: float, nbytes: float) -> Dict[str, float]:
 
 def forward_work(b: int, t: int, h: int, d: int, causal: bool = False,
                  window: int = 0, kv: Optional[int] = None,
-                 dtype_bytes: int = 4) -> Tuple[float, float]:
+                 dtype_bytes: int = 4, v_bytes: Optional[int] = None
+                 ) -> Tuple[float, float]:
     """(FLOPs, bytes) the forward kernel needs over this call's live
     pairs: :func:`analytic_cost`'s (4·D FLOPs a pair; q, k, v read once,
     o and lse written once)."""
-    return analytic_cost(b, t, h, d, causal, window, kv, dtype_bytes)
+    return analytic_cost(b, t, h, d, causal, window, kv, dtype_bytes,
+                         v_bytes=v_bytes)
 
 
 def forward_bounds(b: int, t: int, h: int, d: int, causal: bool = False,
-                   window: int = 0, kv: Optional[int] = None
-                   ) -> Dict[str, float]:
+                   window: int = 0, kv: Optional[int] = None,
+                   inst: str = "f32_f32") -> Dict[str, float]:
     """The forward kernel's least time on the card, in ms, from
-    :func:`forward_work`: ``f32`` (float32 FMA on the CUDA cores) and
-    ``tc`` (3xTF32 on the tensor cores, the one the kernel runs
-    against), with ``bound_by``."""
-    return _bounds(*forward_work(b, t, h, d, causal, window, kv))
+    :func:`forward_work` for instance ``inst``: ``f32`` (float32 FMA on
+    the CUDA cores) and ``tc`` (on the tensor cores as the kernel runs:
+    bf16 products at the bf16 rate, the others in 3xTF32; the one the
+    kernel runs against), with ``bound_by``."""
+    qk, v = _nbytes(inst)
+    return _bounds(*forward_work(b, t, h, d, causal, window, kv, qk, v),
+                   inst, "fwd")
 
 
 def backward_bounds(b: int, t: int, h: int, d: int, causal: bool = False,
-                    window: int = 0, kv: Optional[int] = None
-                    ) -> Dict[str, Dict[str, float]]:
+                    window: int = 0, kv: Optional[int] = None,
+                    inst: str = "f32_f32") -> Dict[str, Dict[str, float]]:
     """Each backward kernel's least time on the card, in ms, from
-    :func:`backward_work`: ``f32`` with the products on the CUDA cores,
-    ``tc`` with them on the tensor cores in 3xTF32 (three TF32 products
-    each), each the larger of its operations time and the bytes over
+    :func:`backward_work` for instance ``inst``: ``f32`` with the
+    products on the CUDA cores, ``tc`` with them on the tensor cores as
+    the kernels run them (bf16 products at the bf16 rate, the others in
+    3xTF32), each the larger of its operations time and the bytes over
     HBM's rate. The kernels run against ``tc``; ``bound_by`` names the
     side that sets it."""
-    return {name: _bounds(flops, nbytes) for name, (flops, nbytes)
-            in backward_work(b, t, h, d, causal, window, kv).items()}
+    qk, v = _nbytes(inst)
+    return {name: _bounds(flops, nbytes, inst, name)
+            for name, (flops, nbytes)
+            in backward_work(b, t, h, d, causal, window, kv, qk,
+                             v).items()}
 
 
 def tf32_round(x):
@@ -241,21 +328,61 @@ def _scores(q, k, causal: bool, window: int, scale: float,
     return s
 
 
+def _rounded(x, dtype):
+    """float32 ``x`` rounded to ``dtype`` (a cast the reference's kernels
+    make before a product), as float32."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def kernel_block_k(d: int) -> int:
+    """K/V rows the forward kernel streams a step at head dim ``d``
+    (``csrc/flash_attention_fwd.cu`` ``launch_for``), counted from key 0:
+    the blocks its online softmax takes p's running max over."""
+    return 32 if d <= 64 else 16
+
+
+def _running_max(s, block_k: int):
+    """Each score's online-softmax max: its row's max over the blocks of
+    ``block_k`` keys from key 0 up to and including its own block."""
+    t = s.shape[-1]
+    n = -(-t // block_k)
+    s = torch.nn.functional.pad(s, (0, n * block_k - t), value=NEG_INF)
+    run = s.unflatten(-1, (n, block_k)).amax(-1).cummax(-1).values
+    return run.repeat_interleave(block_k, -1)[..., :t]
+
+
 def flash_attention_fwd_reference(q, k, v, causal: bool = False,
                                   window: Optional[int] = None,
-                                  scale: Optional[float] = None):
+                                  scale: Optional[float] = None,
+                                  block_k: Optional[int] = None):
     """Plain torch full-softmax attention returning ``(o, lse)`` — the
     function the kernel computes, with the same masks (causal; window:
-    ``q - k < window``) and the same f32 scores."""
+    ``q - k < window``), the same f32 scores and the reference kernel's
+    rounding: the unnormalised p = exp(s − max) is rounded to v's dtype
+    before p·v (a product summed in f32), the row sum stays f32, and o
+    takes q's dtype. An online softmax takes p against the running max
+    of the K/V blocks seen so far, so a p rounded to bf16 depends on the
+    blocks: ``block_k`` keys a block from key 0, as the reference's kernel
+    and this port's (:func:`kernel_block_k`) stream them; None, one block
+    of the whole row."""
     window = _check_window(window, causal, q.shape[1])
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     s = _scores(q, k, causal, window, scale)
-    lse = torch.logsumexp(s, dim=-1)                       # (B, H, T)
-    p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bhqk,bkhd->bqhd", p,
-                     _expand(v, q.shape[2]).float()).to(q.dtype)
-    return o, lse
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)                        # (B, H, T, 1)
+    if v.dtype == torch.float32 or block_k is None or block_k >= s.shape[-1]:
+        pv = _rounded(p, v.dtype)
+    else:
+        # p rounded against its block's running max, then carried to the
+        # row's (a masked score of a block before the row's first live
+        # one has p = 1 against NEG_INF, and a carry of 0)
+        run = _running_max(s, block_k)
+        pv = _rounded(torch.exp(s - run), v.dtype) * torch.exp(run - m)
+    o = torch.einsum("bhqk,bkhd->bqhd", pv, _expand(v, q.shape[2]).float())
+    o = o / l.permute(0, 2, 1, 3)
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def flash_attention_fwd_tf32(q, k, v, causal: bool = False,
@@ -288,19 +415,22 @@ def _bwd_plain(q, k, v, lse, delta, do, causal: bool, window: int,
                scale: float, einsum=torch.einsum):
     """The backward's function with a full (T, T) f32 recompute: lse and
     delta are (B, H, T); the gradients of grouped k/v sum their query
-    heads. Returns f32 (dq, dk, dv). ``einsum`` takes the five products
-    (:func:`tf32x3_einsum` emulates the kernels' tensor-core
-    arithmetic)."""
+    heads. p is rounded to do's dtype before pᵀ·do, ds to k's before
+    ds·k and to q's before dsᵀ·q, as the reference's kernels cast them;
+    every product sums in f32. Returns f32 (dq, dk, dv). ``einsum`` takes
+    the five products (:func:`tf32x3_einsum` emulates the kernels'
+    tensor-core arithmetic)."""
     b, t, h, d = q.shape
     kv = k.shape[2]
     p = torch.exp(_scores(q, k, causal, window, scale, einsum)
                   - lse[..., None])
     dof = do.float()
-    dv = einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = einsum("bhqk,bqhd->bkhd", _rounded(p, do.dtype), dof)
     dp = einsum("bqhd,bkhd->bhqk", dof, _expand(v, h).float())
     ds = p * (dp - delta[..., None]) * scale
-    dq = einsum("bhqk,bkhd->bqhd", ds, _expand(k, h).float())
-    dk = einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dq = einsum("bhqk,bkhd->bqhd", _rounded(ds, k.dtype),
+                _expand(k, h).float())
+    dk = einsum("bhqk,bqhd->bkhd", _rounded(ds, q.dtype), q.float())
     g = h // kv
     return (dq, dk.reshape(b, t, kv, g, d).sum(3),
             dv.reshape(b, t, kv, g, d).sum(3))
@@ -356,12 +486,12 @@ def _check(q, k, v):
                          "got %s" % q.device)
 
 
-def _check_kernel_inputs(what: str, *xs) -> None:
-    """What every kernel takes: float32, a head dim in 1..MAX_D and a
-    contiguous head dim; anything else raises."""
-    if any(x.dtype != torch.float32 for x in xs):
-        raise TypeError("the %s kernel takes float32 tensors, got %s"
-                        % (what, tuple(x.dtype for x in xs)))
+def _check_kernel_inputs(what: str, *xs) -> str:
+    """What every kernel takes: q, k, v (and do) in the dtypes of one of
+    its instances (:func:`instance`, which names the one returned), a
+    head dim in 1..MAX_D and a contiguous head dim; anything else
+    raises."""
+    inst = instance(*xs)
     d = xs[0].shape[-1]
     if not supported(d):
         raise ValueError("head dim %d outside the kernel's 1..%d"
@@ -369,6 +499,7 @@ def _check_kernel_inputs(what: str, *xs) -> None:
     if any(x.stride(3) != 1 for x in xs):
         raise ValueError("the %s kernel needs a contiguous head dim "
                          "(stride 1)" % what)
+    return inst
 
 
 def _c_fn(source: str, symbol: str, n_ptrs: int):
@@ -385,18 +516,25 @@ def _c_fn(source: str, symbol: str, n_ptrs: int):
 
 
 @functools.cache
-def _kernel_fn():
-    return _c_fn(_SOURCE, "veles_flash_attention_fwd_f32", 5)
+def _kernel_fn(inst: str):
+    return _c_fn(_SOURCE, "veles_flash_attention_fwd_" + inst, 5)
 
 
 @functools.cache
-def _dkv_fn():
-    return _c_fn(_BWD_SOURCE, "veles_flash_attention_bwd_dkv_f32", 8)
+def _dkv_fn(inst: str):
+    return _c_fn(_BWD_SOURCE, "veles_flash_attention_bwd_dkv_" + inst, 8)
 
 
 @functools.cache
-def _dq_fn():
-    return _c_fn(_BWD_SOURCE, "veles_flash_attention_bwd_dq_f32", 7)
+def _dq_fn(inst: str):
+    return _c_fn(_BWD_SOURCE, "veles_flash_attention_bwd_dq_" + inst, 7)
+
+
+def _count(total: str, inst: str) -> None:
+    """One launch of a kernel's ``inst`` instance: its total and its
+    instance's counters."""
+    inc(total)
+    inc(launch_counter(total, inst))
 
 
 def _strides(*xs):
@@ -405,10 +543,11 @@ def _strides(*xs):
 
 
 def _launch(q, k, v, causal: bool, window: int, scale: float):
-    """Launch the forward kernel on the current stream."""
-    _check_kernel_inputs("flash_attention_fwd", q, k, v)
+    """Launch the forward kernel on the current stream: o in q's dtype,
+    f32 lse."""
+    inst = _check_kernel_inputs("flash_attention_fwd", q, k, v)
     b, t, h, d = q.shape
-    fn = _kernel_fn()
+    fn = _kernel_fn(inst)
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, o)
@@ -421,27 +560,27 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
     if err != 0:
         raise RuntimeError("flash_attention_fwd kernel launch failed: "
                            "CUDA error %d" % err)
-    inc(FWD_LAUNCHES)
+    _count(FWD_LAUNCHES, inst)
     return o, lse.view(b, h, t)
 
 
 def _bwd_operands(q, k, v, do, lse, delta):
-    """Checks what the backward kernels take and returns lse and delta
-    as the contiguous f32 (B*H, T) rows they read."""
-    _check_kernel_inputs("flash_attention_bwd", q, k, v, do)
+    """Checks what the backward kernels take and returns their instance,
+    and lse and delta as the contiguous f32 (B*H, T) rows they read."""
+    inst = _check_kernel_inputs("flash_attention_bwd", q, k, v, do)
     b, t, h, _ = q.shape
     if do.shape != q.shape:
         raise ValueError("do shape %s does not match q %s"
                          % (tuple(do.shape), tuple(q.shape)))
-    return (lse.reshape(b * h, t).to(torch.float32).contiguous(),
+    return (inst, lse.reshape(b * h, t).to(torch.float32).contiguous(),
             delta.reshape(b * h, t).to(torch.float32).contiguous())
 
 
-def _bwd_call(fn, name, counter, tensors, q, k, common):
+def _bwd_call(fn, name, counter, inst, tensors, q, k, common):
     """One backward kernel's launch on the current stream: pointers of
     ``tensors``, then B, T, H, KV, D, the strides of q, k, v, do and the
     three gradients, scale, causal, window; raises on a refused launch
-    and counts a launched one."""
+    and counts a launched one (``counter`` and ``inst``'s)."""
     b, t, h, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -450,7 +589,7 @@ def _bwd_call(fn, name, counter, tensors, q, k, common):
     if err != 0:
         raise RuntimeError("flash_attention_bwd %s kernel launch failed: "
                            "CUDA error %d" % (name, err))
-    inc(counter)
+    _count(counter, inst)
 
 
 def launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool, window: int,
@@ -458,11 +597,11 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool, window: int,
     """The dK/dV kernel: f32 (dk, dv) of grouped k/v (B, T, KV, Dh),
     each kv head summing its query heads in a fixed order. lse and delta
     are (B, H, T) float32."""
-    lse, delta = _bwd_operands(q, k, v, do, lse, delta)
+    inst, lse, delta = _bwd_operands(q, k, v, do, lse, delta)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     strides = _strides(q, k, v, do, q, dk, dv)     # no dq: q's as filler
-    _bwd_call(_dkv_fn(), "dK/dV", DKV_LAUNCHES,
+    _bwd_call(_dkv_fn(inst), "dK/dV", DKV_LAUNCHES, inst,
               (q, k, v, do, lse, delta, dk, dv), q, k,
               (ctypes.cast(strides, ctypes.c_void_p), float(scale),
                int(bool(causal)), int(window)))
@@ -473,10 +612,11 @@ def launch_bwd_dq(q, k, v, do, lse, delta, causal: bool, window: int,
                   scale: float):
     """The dQ kernel: f32 dq (B, T, H, Dh), grouped k/v read by index.
     lse and delta are (B, H, T) float32."""
-    lse, delta = _bwd_operands(q, k, v, do, lse, delta)
+    inst, lse, delta = _bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, do, dq, k, v)      # no dk/dv: k/v's
-    _bwd_call(_dq_fn(), "dQ", DQ_LAUNCHES, (q, k, v, do, lse, delta, dq),
+    _bwd_call(_dq_fn(inst), "dQ", DQ_LAUNCHES, inst,
+              (q, k, v, do, lse, delta, dq),
               q, k, (ctypes.cast(strides, ctypes.c_void_p), float(scale),
                      int(bool(causal)), int(window)))
     return dq
@@ -506,11 +646,13 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     (possibly grouped) k/v, forward only. A CUDA tensor goes through the
     hand-written kernel — or raises; a CPU tensor through the plain
     version. Each kernel launch adds one to
-    ``veles_flash_attention_launches_total``."""
+    ``veles_flash_attention_launches_total`` and to its instance's
+    counter (:func:`launch_counter`)."""
     window, scale = _prologue(q, k, v, causal, window, scale)
     if q.device.type == "cpu":
-        return flash_attention_fwd_reference(q, k, v, causal=causal,
-                                             window=window, scale=scale)
+        return flash_attention_fwd_reference(
+            q, k, v, causal=causal, window=window, scale=scale,
+            block_k=kernel_block_k(q.shape[-1]))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         # the kernel writes o outside autograd: a backward through it
         # would give q/k/v a zero gradient without a word
@@ -563,8 +705,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         if q.device.type == "cpu":
-            o, lse = flash_attention_fwd_reference(q, k, v, causal, window,
-                                                   scale)
+            o, lse = flash_attention_fwd_reference(
+                q, k, v, causal, window, scale, kernel_block_k(q.shape[-1]))
         else:
             o, lse = _launch(q, k, v, causal, window, scale)
         ctx.save_for_backward(q, k, v, o, lse)

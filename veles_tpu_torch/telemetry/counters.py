@@ -59,6 +59,18 @@ DESCRIPTIONS: Dict[str, str] = {
         "shed by the serving pool)",
 }
 
+# each flash kernel's launches also by its (q/k, v) dtype instance
+# (ops/flash_attention.instance), so that a run shows which one it took
+for _name, _kernel in (("launches", "forward"),
+                       ("bwd_dkv_launches", "dK/dV backward"),
+                       ("bwd_dq_launches", "dQ backward")):
+    for _qk in ("f32", "bf16"):
+        for _v in ("f32", "bf16"):
+            DESCRIPTIONS["veles_flash_attention_%s_%s_%s_total"
+                         % (_name, _qk, _v)] = (
+                "launches of the hand-written flash-attention %s kernel "
+                "with q/k in %s and v in %s" % (_kernel, _qk, _v))
+
 #: Content-Type of every /metrics reply
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4"
 
