@@ -147,7 +147,36 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              tokens/s, peak memory beside ``train_lm``'s; 16 greedy tokens
              from the trained weights equal to the plain path's; then the
              same for the bench LM without RoPE, whose block 0 takes the
-             all-bf16 instance 72 / 64 / 64 times.
+             all-bf16 instance 72 / 64 / 64 times;
+16. conv_units — the conv family (conv with each activation, strides,
+             asymmetric padding; deconv at stride 1 and 2 with an
+             asymmetric crop; max and avg pooling in ceil mode with ties
+             and k < s; depooling; the six activation units), forward and
+             the gradients of sum(y · g), on the card (cuDNN, TF32 off)
+             against the port on the CPU: worst error per unit <= 1e-4 ·
+             max(1, max|cpu|); a control with ``cudnn.allow_tf32`` forced
+             on lands above it; whether relaunches are bit-identical;
+17. train_ae — ImagenetAE's bench workflow
+             (``models/imagenet_ae.build_bench_workflow``: 128×128×3, mb
+             64, 1,024 / 128 synthetic rows, lr 1e-4), two epochs in
+             float32 and two under the reference bench's setting
+             (``engine.mixed_precision``, ``dataset_dtype="bfloat16"``):
+             the float32 run's first two train steps against the port on
+             the CPU from the same weights (loss and each weight update
+             within 1e-4 relative); rmse finite and falling; each
+             epoch's ms, train samples/s (the served rate times the train
+             share, as ``bench.py`` scales it), model TFLOP/s from the
+             counted work (1.8245 GFLOP forward a sample, ×3 a train
+             sample: 5.84 TFLOP an epoch with its validation pass) and
+             its share of the card's bf16 and float32 peaks; peak memory;
+             a third epoch under torch.profiler: the device's idle share
+             and top kernels;
+18. train_cifar — ``models/cifar.build_workflow`` (caffe quick, 50,000 /
+             10,000 surrogate rows, mb 100), one epoch: validation error,
+             epoch ms; then 20 train steps under torch.profiler: the
+             device's idle share and top kernels.
+             Phases 16–18 launch no hand-written kernel (the launch
+             counters stay 0): the conv path is cuDNN's.
 
 Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
@@ -193,6 +222,17 @@ TOL_LM_WEIGHTS_MAX = 1e-3
 TOL_LM_WEIGHTS_P999 = 1e-5
 LM_SEED = 77
 LM_N_NEW = 16
+#: conv-family units on the card vs the port on the CPU, float32 (max
+#: abs error over max(1, max|cpu|): cuDNN sums in another order)
+TOL_CONV = 1e-4
+#: the bench AE's first two float32 train steps, card vs CPU: the loss
+#: and each weight update (relative to its largest element)
+TOL_AE_STEP_REL = 1e-4
+AE_SEED = 99
+#: train steps of CIFAR's profiled window
+CIFAR_STEPS = 20
+#: published dense peaks of one H100 SXM at 700 W (TFLOP/s)
+PEAK_TFLOPS = {"bf16": 989.0, "f32": 67.0}
 
 BENCH_LAYERS = (
     [{"type": "embedding", "vocab_size": 256, "dim": 512}]
@@ -1722,6 +1762,355 @@ def phase_serve_continuous_breakdown(card, model, requests):
          **rec)
 
 
+def conv_cases():
+    """(name, unit, input shape, parameter shapes) of the conv family, as
+    tests/test_torch_gpu.py's."""
+    from veles_tpu_torch.nn import activation, conv, deconv, depooling
+    from veles_tpu_torch.nn import pooling
+
+    def unit(cls, **kw):
+        return cls(None, name="u", **kw)
+    acts = [(c.MAPPING, unit(c), (8, 16, 16, 32), {}) for c in (
+        activation.ForwardTanh, activation.ForwardRelu,
+        activation.ForwardStrictRelu, activation.ForwardSigmoid,
+        activation.ForwardLog)]
+    acts.append(("activation_mul", unit(activation.ForwardMul, factor=0.37),
+                 (8, 16, 16, 32), {}))
+    return [
+        ("conv_3x3_64", unit(conv.Conv, n_kernels=64, padding=(1, 1, 1, 1)),
+         (8, 32, 32, 64), {"weights": (3, 3, 64, 64), "bias": (64,)}),
+        ("conv_tanh_stride_asym", unit(
+            conv.ConvTanh, n_kernels=32, kx=5, ky=3, sliding=(2, 1),
+            padding=(2, 0, 1, 1)), (8, 33, 31, 16),
+         {"weights": (3, 5, 16, 32), "bias": (32,)}),
+        ("conv_relu_rgb_stem", unit(conv.ConvRelu, n_kernels=64, kx=5, ky=5,
+                                    padding=(2, 2, 2, 2)), (8, 32, 32, 3),
+         {"weights": (5, 5, 3, 64), "bias": (64,)}),
+        ("conv_sigmoid_no_bias", unit(
+            conv.ConvSigmoid, n_kernels=16, kx=3, ky=2, sliding=(1, 2),
+            padding=(0, 1, 2, 0), include_bias=False), (4, 17, 19, 8),
+         {"weights": (2, 3, 8, 16)}),
+        ("deconv_3x3_128_64", unit(deconv.Deconv, n_channels=64,
+                                   padding=(1, 1, 1, 1)), (8, 32, 32, 128),
+         {"weights": (3, 3, 128, 64)}),
+        ("deconv_s2_asym_bias", unit(
+            deconv.Deconv, n_channels=16, kx=4, ky=3, sliding=(2, 2),
+            padding=(1, 0, 2, 1), include_bias=True), (4, 15, 17, 32),
+         {"weights": (3, 4, 32, 16), "bias": (16,)}),
+        ("max_pool_3_2_ceil", unit(pooling.MaxPooling, kx=3, ky=3,
+                                   sliding=(2, 2)), (8, 33, 32, 32), {}),
+        ("max_pool_ties", unit(pooling.MaxPooling, kx=2, ky=2),
+         (8, 16, 15, 32), {}),
+        ("avg_pool_2_ceil", unit(pooling.AvgPooling, kx=2, ky=2),
+         (8, 33, 31, 32), {}),
+        ("avg_pool_k_below_s", unit(pooling.AvgPooling, kx=2, ky=2,
+                                    sliding=(3, 3)), (4, 17, 17, 8), {}),
+        ("depool_2", unit(depooling.Depooling), (8, 16, 16, 64), {}),
+    ] + acts
+
+
+def conv_inputs(name, x_shape, p_shapes, seed):
+    import numpy
+    rng = numpy.random.RandomState(seed)
+    if name.endswith("ties"):
+        x = (rng.rand(*x_shape) < 0.7).astype("float32")
+    else:
+        x = rng.randn(*x_shape).astype("float32")
+    params = {k: (rng.randn(*s) * (0.1 if k == "bias" else 1.0 / numpy.sqrt(
+        numpy.prod(s[:-1])))).astype("float32") for k, s in p_shapes.items()}
+    return x, params
+
+
+def unit_outputs(u, x, params, device, seed):
+    """y and the gradients of sum(y · g) on ``device``, as CPU tensors."""
+    import numpy
+    import torch
+    tp = {k: torch.from_numpy(v).to(device).requires_grad_(True)
+          for k, v in params.items()}
+    tx = torch.from_numpy(x).to(device).requires_grad_(True)
+    y = u.apply(tp, tx)
+    g = torch.from_numpy(numpy.random.RandomState(seed + 1).randn(
+        *y.shape).astype("float32")).to(device)
+    (y * g).sum().backward()
+    out = {"y": y, "dx": tx.grad, **{"d" + k: t.grad for k, t in tp.items()}}
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def conv_error(got, want):
+    return max(float((got[k] - w).abs().max()) / max(1.0, float(
+        w.abs().max())) for k, w in want.items())
+
+
+def kernel_launches():
+    """Launches of every hand-written kernel since the counters' reset."""
+    from veles_tpu_torch.telemetry import counters
+    return int(sum(v for k, v in counters.counters.snapshot().items()
+                   if "launches" in k))
+
+
+def phase_conv_units(card):
+    """Each conv-family unit, forward and backward, on the card against
+    the port on the CPU; the TF32 control; relaunch bits."""
+    import torch
+    from veles_tpu_torch.telemetry import counters
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN TF32 is on: the f32 policy was undone")
+    counters.counters.reset()
+    worst, same_bits_again = {}, {}
+    cases = conv_cases()
+    for i, (name, u, x_shape, p_shapes) in enumerate(cases):
+        x, params = conv_inputs(name, x_shape, p_shapes, seed=100 + i)
+        want = unit_outputs(u, x, params, "cpu", 100 + i)
+        got = unit_outputs(u, x, params, "cuda", 100 + i)
+        again = unit_outputs(u, x, params, "cuda", 100 + i)
+        worst[name] = conv_error(got, want)
+        same_bits_again[name] = all(torch.equal(got[k], again[k])
+                                    for k in got)
+        if i == 0:
+            control = (u, x, params, want)
+    u, x, params, want = control
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_err = conv_error(unit_outputs(u, x, params, "cuda", 100), want)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    launches = kernel_launches()
+    emit("conv_units", card=card, cases=len(worst), limit=TOL_CONV,
+         worst_rel_err=worst, tf32_control_rel_err=tf32_err,
+         tf32_control_case=cases[0][0],
+         relaunch_bit_identical=same_bits_again,
+         hand_written_kernel_launches=launches)
+    bad = {k: v for k, v in worst.items() if not v <= TOL_CONV}
+    if bad:
+        raise AssertionError("conv units off the CPU's: %s" % bad)
+    if not tf32_err > TOL_CONV:
+        raise AssertionError("the TF32 control (%g) does not exceed the "
+                             "limit: the test cannot tell a TF32 leak"
+                             % tf32_err)
+    if launches:
+        raise AssertionError("the conv units launched %d hand-written "
+                             "kernels" % launches)
+
+
+def ae_workflow(amp, device=None):
+    """The bench AE from AE_SEED, two epochs, initialised on ``device``
+    (default: the card); ``amp``: the reference bench's mixed precision
+    with a bf16 dataset."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models import imagenet_ae
+    root.common.engine.mixed_precision = amp
+    root.common.engine.dataset_dtype = "bfloat16" if amp else None
+    prng.seed_all(AE_SEED)
+    wf = imagenet_ae.build_bench_workflow()
+    wf.decision.max_epochs = 2          # the bench config never stops
+    wf.initialize(device=device)
+    return wf
+
+
+def train_steps(wf, n):
+    """The workflow's own train step over its first ``n`` train
+    minibatches (the train rows in order), from its params, leaving them
+    as they were: yields each step's loss and ``opt_state`` (for SGD, the
+    step's delta)."""
+    import torch
+    ts = wf.train_step
+    dataset, targets = ts._dataset()
+    mb = wf.loader.max_minibatch_size
+    start = wf.loader.class_lengths[0] + wf.loader.class_lengths[1]
+    mask = torch.ones(mb, dtype=torch.float32, device=ts.device)
+    params, opt = ts.params, ts.opt_state
+    for k in range(n):
+        idx = torch.arange(start + k * mb, start + (k + 1) * mb,
+                           dtype=torch.int32, device=ts.device)
+        params, opt, _, loss = ts._train_step(
+            params, opt, ts._zero_accum(), dataset, targets, idx, mask, 1.0)
+        yield loss, opt
+
+
+def first_train_steps(wf, n=2):
+    """The loss and the SGD delta of each of the first ``n`` train steps,
+    on the host."""
+    losses, deltas = [], []
+    for loss, opt in train_steps(wf, n):
+        losses.append(float(loss))
+        deltas.append({u: {k: t.cpu() for k, t in p.items()}
+                       for u, p in opt.items()})
+    return losses, deltas
+
+
+def conv_flops_per_sample(wf):
+    """Forward FLOPs of one sample: 2 · MACs of each conv (at every
+    output position) and deconv (at every input position)."""
+    from veles_tpu_torch.nn.conv import Conv
+    from veles_tpu_torch.nn.deconv import Deconv
+    total = 0
+    for f in wf.forwards:
+        if isinstance(f, (Conv, Deconv)):
+            ky, kx, c_in, c_out = f.param_arrays()["weights"].shape
+            _, h, w, _ = (f.output if isinstance(f, Conv) else f.input).shape
+            total += 2 * h * w * ky * kx * c_in * c_out
+    return total
+
+
+def stamp_epochs(wf):
+    """Host-clock stamps at each epoch's end (after the device drains)."""
+    import torch
+    stamps = []
+    finish = wf.decision._finish_epoch
+
+    def stamped():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        finish()
+    wf.decision._finish_epoch = stamped
+    return stamps
+
+
+def one_more_epoch(wf):
+    """Lift the stop and run one more epoch."""
+    wf.decision.complete <<= False
+    wf.decision.max_epochs = wf.decision.epoch_number + 1
+    wf.run()
+
+
+def phase_train_ae(card):
+    """The bench AE two epochs in float32 and two under the bench's
+    mixed precision; the float32 run's first steps against the CPU."""
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.telemetry import counters
+    records = {}
+    try:
+        for amp in (False, True):
+            wf = ae_workflow(amp)
+            name = "amp_bf16_data" if amp else "f32"
+            rec = {}
+            if not amp:
+                host = ae_workflow(False, device="cpu")
+                cpu_loss, cpu_d = first_train_steps(host)
+                del host
+                card_loss, card_d = first_train_steps(wf)
+                rec["step_loss_cpu"] = cpu_loss
+                rec["step_loss_card"] = card_loss
+                rec["step_loss_rel_diff"] = max(
+                    abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss))
+                rec["step_update_rel_diff"] = max(
+                    float((c[n][k] - h[n][k]).abs().max())
+                    / float(h[n][k].abs().max())
+                    for c, h in zip(card_d, cpu_d) for n in h for k in h[n])
+            fwd = conv_flops_per_sample(wf)
+            lengths = wf.loader.class_lengths
+            epoch_flops = (lengths[2] * 3 + lengths[1]) * fwd
+            stamps = stamp_epochs(wf)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters.counters.reset()
+            t0 = time.perf_counter()
+            wf.run()
+            epoch_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+            rec["hand_written_kernel_launches"] = kernel_launches()
+            rec["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated())
+            prof = profiled(lambda: one_more_epoch(wf))
+            d = wf.decision
+            steady = epoch_s[-1]
+            tflops = epoch_flops / steady / 1e12
+            rec.update(
+                epoch_ms=[t * 1e3 for t in epoch_s],
+                rmse={"train": d.epoch_metrics[2],
+                      "validation": d.epoch_metrics[1]},
+                train_samples_per_s=lengths[2] / steady,
+                model_tflops_per_s=tflops,
+                share_of_bf16_peak=tflops / PEAK_TFLOPS["bf16"],
+                share_of_f32_peak=tflops / PEAK_TFLOPS["f32"],
+                fwd_gflop_per_sample=fwd / 1e9,
+                epoch_tflop=epoch_flops / 1e12,
+                master_dtypes=sorted({str(t.dtype) for p in
+                                      wf.train_step.params.values()
+                                      for t in p.values()}),
+                dataset_dtype=str(wf.loader.original_data.mem.dtype),
+                profiled_epoch=prof)
+            records[name] = rec
+    finally:
+        root.common.engine.mixed_precision = False
+        root.common.engine.dataset_dtype = None
+    emit("train_ae", card=card, model="imagenet-ae-bench 128x128 "
+         "conv5x5x64-pool-conv3x3x128-pool-conv3x3x128-depool-deconv3x3x64-"
+         "depool-deconv5x5x3", mb=64, epochs=2,
+         rows={"train": lengths[2], "validation": lengths[1]},
+         peaks_tflops=PEAK_TFLOPS, **records)
+    f32 = records["f32"]
+    if not f32["step_loss_rel_diff"] <= TOL_AE_STEP_REL \
+            or not f32["step_update_rel_diff"] <= TOL_AE_STEP_REL:
+        raise AssertionError("the first AE train steps on the card differ "
+                             "from the CPU's: loss %g, updates %g relative"
+                             % (f32["step_loss_rel_diff"],
+                                f32["step_update_rel_diff"]))
+    if abs(f32["fwd_gflop_per_sample"] - 1.8245) > 5e-5:
+        raise AssertionError("counted %r GFLOP a sample, want 1.8245"
+                             % f32["fwd_gflop_per_sample"])
+    for name, rec in records.items():
+        valid = rec["rmse"]["validation"]
+        if not all(math.isfinite(x) for x in valid + rec["rmse"]["train"]):
+            raise AssertionError("%s: non-finite rmse" % name)
+        if not valid[1] < valid[0]:
+            raise AssertionError("%s: validation rmse did not fall: %s"
+                                 % (name, valid))
+        if rec["hand_written_kernel_launches"]:
+            raise AssertionError("%s: the AE launched hand-written kernels"
+                                 % name)
+        if rec["master_dtypes"] != ["torch.float32"]:
+            raise AssertionError("%s: masters %s" % (name,
+                                                     rec["master_dtypes"]))
+    if records["amp_bf16_data"]["dataset_dtype"] != "torch.bfloat16":
+        raise AssertionError("the AMP run's dataset is not bf16")
+
+
+def phase_train_cifar(card):
+    """CIFAR-10 caffe quick, one epoch on the card, then a profiled
+    window of train steps."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import cifar
+    from veles_tpu_torch.telemetry import counters
+    prng.seed_all(SEED)
+    wf = cifar.build_workflow(epochs=1)
+    wf.initialize()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.counters.reset()
+    t0 = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak = int(torch.cuda.max_memory_allocated())
+    # a window of the train segment: a whole epoch's trace (~117k
+    # launches) takes the profiler about a minute to read back
+    def window():
+        for _ in train_steps(wf, CIFAR_STEPS):
+            pass
+    prof = profiled(window)
+    d = wf.decision
+    lengths = wf.loader.class_lengths
+    emit("train_cifar", card=card, model="cifar10-caffe-quick",
+         mb=wf.loader.max_minibatch_size,
+         rows={"train": lengths[2], "validation": lengths[1]},
+         valid_err=d.epoch_metrics[1], train_err=d.epoch_metrics[2],
+         train_loss=d.epoch_losses[2], epoch_ms=wall * 1e3,
+         train_samples_per_s=lengths[2] / wall, peak_memory_bytes=peak,
+         fused_fc_engaged=wf.train_step._fused_fc is not None,
+         hand_written_kernel_launches=launches,
+         profiled_train_steps=CIFAR_STEPS, profiled=prof)
+    errs = d.epoch_metrics[1] + d.epoch_metrics[2]
+    if not all(math.isfinite(x) and 0 <= x <= 1 for x in errs) \
+            or not all(math.isfinite(x) for x in d.epoch_losses[2]):
+        raise AssertionError("CIFAR: non-finite metrics %s" % errs)
+    if launches:
+        raise AssertionError("CIFAR launched %d hand-written kernels"
+                             % launches)
+
+
 def host_ms(fn):
     """Host-clock time of ``fn()`` ending in a device synchronise."""
     import torch
@@ -1830,6 +2219,9 @@ def main():
     worst_amp, share_amp = phase_kernels_amp(fa)
     timing_amp = phase_timing_amp(fa, card)
     launches_amp = phase_train_lm_amp(card, lm_f32)
+    phase_conv_units(card)
+    phase_train_ae(card)
+    phase_train_cifar(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]

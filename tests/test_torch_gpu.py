@@ -2,9 +2,10 @@
 flash-attention forward and backward kernels and the fused-FC SGD kernel
 against their plain torch versions, their builds for ``sm_90a``, the
 serving path (the window plane and the continuous engine) and LM
-training through the flash kernels, and the MNIST
-training workflow through the fused-FC kernel. Each skips without a
-card (decided inside the fixture, never at import).
+training through the flash kernels, the MNIST
+training workflow through the fused-FC kernel, and the conv-family units
+(cuDNN: no hand-written kernel) against the port on the CPU. Each skips
+without a card (decided inside the fixture, never at import).
 
 This file imports torch and the port only — the card's machine has no
 JAX, and ``tests/conftest.py`` imports it — so run it there with
@@ -25,7 +26,12 @@ float32 one within 1e-3 of it; the mean error within 4e-6 of it, which
 the plain versions on float32 copies miss wherever the instance rounds
 p or ds; remat is bit-identical to no remat through the kernels, and
 accumulating 2 chunks follows the direct step within rtol 2e-3 / atol
-2e-4 (tests/test_train_e2e.py's tolerances)."""
+2e-4 (tests/test_train_e2e.py's tolerances). The conv-family units,
+forward and the gradients of sum(y · g), on the card against the same
+unit on the CPU in float32: max abs error <= 1e-4 · max(1, max|cpu|)
+(cuDNN with TF32 off sums float32 products in another order); a control
+runs the same conv with ``cudnn.allow_tf32`` forced on and must land
+above that limit, so that the test can tell a TF32 leak."""
 import json
 import urllib.request
 
@@ -33,6 +39,8 @@ import numpy
 import pytest
 import torch
 
+from chip_smoke import (TOL_CONV, conv_cases, conv_error, conv_inputs,
+                        unit_outputs)
 from veles_tpu_torch.config import root
 from veles_tpu_torch.convert import params_from_jax, random_params
 from veles_tpu_torch.error import VelesError
@@ -790,3 +798,42 @@ def test_training_workflow_runs_the_kernel(cuda):
         numpy.testing.assert_allclose(f.weights.map_read(),
                                       g.weights.map_read(), rtol=2e-4,
                                       atol=2e-5)
+
+
+# -- the conv family on cuDNN ------------------------------------------------
+# the cases and their comparison are chip_smoke.py's conv_units phase's
+
+
+CONV_NAMES = [
+    "conv_3x3_64", "conv_tanh_stride_asym", "conv_relu_rgb_stem",
+    "conv_sigmoid_no_bias", "deconv_3x3_128_64", "deconv_s2_asym_bias",
+    "max_pool_3_2_ceil", "max_pool_ties", "avg_pool_2_ceil",
+    "avg_pool_k_below_s", "depool_2", "activation_tanh", "activation_relu",
+    "activation_str", "activation_sigmoid", "activation_log",
+    "activation_mul"]
+
+
+@pytest.mark.parametrize("name", CONV_NAMES)
+def test_conv_family_on_the_card_matches_cpu(cuda, name):
+    case = {c[0]: c for c in conv_cases()}[name]
+    _, u, x_shape, p_shapes = case
+    assert not torch.backends.cudnn.allow_tf32
+    x, params = conv_inputs(name, x_shape, p_shapes, seed=21)
+    want = unit_outputs(u, x, params, "cpu", 21)
+    got = unit_outputs(u, x, params, cuda, 21)
+    assert sorted(got) == sorted(want)
+    assert conv_error(got, want) <= TOL_CONV, name
+
+
+def test_conv_tf32_control_lands_above_the_limit(cuda):
+    """The same conv with cuDNN's TF32 forced on: about 2^-11 of the
+    largest output apart, above the 1e-4 the float32 route holds."""
+    _, u, x_shape, p_shapes = conv_cases()[0]
+    x, params = conv_inputs("conv", x_shape, p_shapes, seed=21)
+    want = unit_outputs(u, x, params, "cpu", 21)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = unit_outputs(u, x, params, cuda, 21)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert conv_error(got, want) > TOL_CONV

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import pickle
 import struct
 from typing import Optional, Tuple
 
@@ -82,6 +83,48 @@ def load_mnist(flat: bool = True) -> Arrays:
     return tx, ty.astype(numpy.int32), vx, vy.astype(numpy.int32)
 
 
+class _ArrayUnpickler(pickle.Unpickler):
+    """Unpickles plain containers and numpy arrays only: the CIFAR-10
+    batches are pickles, read from a directory the program does not
+    own, so no other global may be loaded from them."""
+
+    ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
+               ("numpy.core.multiarray", "_reconstruct"),
+               ("numpy._core.multiarray", "_reconstruct")}
+
+    def find_class(self, module, name):
+        if (module, name) not in self.ALLOWED:
+            raise pickle.UnpicklingError("refusing %s.%s in a dataset "
+                                         "pickle" % (module, name))
+        return super().find_class(module, name)
+
+
+def load_cifar10(n_train: int = 50000, n_test: int = 10000) -> Arrays:
+    """(train_x, train_y, test_x, test_y); x float32 NHWC (N, 32, 32, 3)
+    in [0, 1]. The real pickled batches (``cifar-10-batches-py``) when a
+    dataset directory holds them, all 50,000 + 10,000 rows; otherwise the
+    synthetic surrogate of ``n_train`` + ``n_test`` rows. Nothing is
+    downloaded."""
+    d = _find("cifar-10-batches-py")
+    if d is None:
+        return _synthetic_images((32, 32, 3), 10, n_train, n_test,
+                                 flat=False, key="cifar10")
+
+    def batch(name):
+        with open(os.path.join(d, name), "rb") as f:
+            b = _ArrayUnpickler(f, encoding="bytes").load()
+        return numpy.asarray(b[b"data"]), b[b"labels"]
+
+    def fmt(x):
+        return (x.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+                .astype(numpy.float32) / 255.0)
+    train = [batch("data_batch_%d" % i) for i in range(1, 6)]
+    tx = numpy.concatenate([x for x, _ in train])
+    ty = numpy.asarray([y for _, ys in train for y in ys], dtype=numpy.int32)
+    vx, vy = batch("test_batch")
+    return fmt(tx), ty, fmt(vx), numpy.asarray(vy, dtype=numpy.int32)
+
+
 def load_synthetic(sample_shape, n_classes, n_train, n_test,
                    flat=False, key="synth") -> Arrays:
     """The class-template surrogate generator the real loaders fall
@@ -125,3 +168,7 @@ def _synthetic_images(sample_shape, n_classes, n_train, n_test, flat,
 def mnist_is_real() -> bool:
     return _find("mnist.npz", "train-images-idx3-ubyte.gz",
                  "train-images-idx3-ubyte") is not None
+
+
+def cifar10_is_real() -> bool:
+    return _find("cifar-10-batches-py") is not None

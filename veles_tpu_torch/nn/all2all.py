@@ -22,6 +22,7 @@ from ..config import root
 from ..memory import Array
 from .. import prng
 from ..ops.precision import dot_f32, promote_operands
+from .activation import scaled_tanh
 from .nn_units import ForwardBase, GradientDescentBase, matches
 
 
@@ -85,7 +86,7 @@ class All2AllTanh(All2All):
     A, B = 1.7159, 0.6666
 
     def activation(self, a):
-        return self.A * torch.tanh(self.B * a)
+        return scaled_tanh(a, self.A, self.B)
 
 
 class All2AllSoftmax(All2All):

@@ -2,9 +2,10 @@
 conditions (counterpart of ``veles_tpu/nn/decision.py``).
 
 Runs on the host between device steps. At each epoch boundary it turns
-the drained per-set metrics into the epoch metric, tracks the best
-validation result, and raises ``complete`` at ``max_epochs`` or after
-``fail_iterations`` epochs without improvement.
+the drained per-set metrics into the epoch metric (the error rate, or
+the rmse of an MSE evaluator), tracks the best validation result, and
+raises ``complete`` at ``max_epochs`` or after ``fail_iterations``
+epochs without improvement.
 """
 
 from __future__ import annotations
@@ -132,3 +133,20 @@ class DecisionGD(DecisionBase):
         if not n:
             return None
         return acc.get("n_err", 0.0) / n
+
+
+class DecisionMSE(DecisionBase):
+    """Regression decision: metric = root mean squared error."""
+
+    MAPPING = "decision_mse"
+    hide_from_registry = False
+
+    def metric_name(self) -> str:
+        return "rmse"
+
+    def epoch_metric(self, set_idx: int) -> Optional[float]:
+        acc = self._accum[set_idx]
+        n = acc.get("n_samples", 0)
+        if not n:
+            return None
+        return (acc.get("sum_sq", 0.0) / n) ** 0.5

@@ -1,11 +1,15 @@
 """Evaluator units: loss and quality metrics (counterpart of
-``veles_tpu/nn/evaluator.py``; the softmax and the per-token softmax
-evaluators).
+``veles_tpu/nn/evaluator.py``; the softmax, the per-token softmax and
+the MSE evaluators).
 
 ``loss(logits, labels, mask)`` is the mean cross-entropy over the mask's
 real rows (fused log-softmax); ``metrics_fn`` counts errors with argmax
 ties going to the lowest class index, as ``jnp.argmax`` and
-``torch.argmax`` both do. Padded rows (mask 0) contribute nothing.
+``torch.argmax`` both do. The MSE evaluator's loss is each sample's mean
+squared error over its features, in float32, averaged over the real
+rows; its metrics sum that per-sample mean (``sum_sq``). Padded rows
+(mask 0) contribute nothing. ``metric_keys`` names what the train step
+accumulates for an evaluator.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from ..units import Unit
 
 class EvaluatorBase(Unit):
     hide_from_registry = True
+    #: the device accumulators of ``sum_loss`` and ``metrics_fn``'s keys
+    metric_keys = ("n_samples", "sum_loss", "n_err")
 
     def __init__(self, workflow, **kwargs):
         super().__init__(workflow, **kwargs)
@@ -94,3 +100,27 @@ class EvaluatorSoftmaxSeq(EvaluatorBase):
         # n_samples counts tokens: the per-token mean loss times the
         # token count accumulates to sum_loss / n_samples = NLL / token
         return mask.sum() * out.shape[1]
+
+
+class EvaluatorMSE(EvaluatorBase):
+    """Mean squared error (the autoencoders' evaluator); the decision
+    reports its rmse."""
+
+    MAPPING = "evaluator_mse"
+    hide_from_registry = False
+    metric_keys = ("n_samples", "sum_loss", "sum_sq")
+
+    @staticmethod
+    def _per_sample(y, target):
+        d = torch.square(y.float() - target.float())
+        return d.reshape(y.shape[0], -1).mean(dim=1)
+
+    def loss(self, y, target, mask):
+        """The per-feature mean, so the gradient's scale does not grow
+        with the output's size."""
+        return ((self._per_sample(y, target) * mask).sum()
+                / torch.clamp(mask.sum(), min=1))
+
+    def metrics_fn(self, y, target, mask):
+        return {"sum_sq": (self._per_sample(y, target) * mask).sum(),
+                "n_samples": mask.sum()}

@@ -9,11 +9,15 @@ list and a loader, as the reference does::
                     └────────────── (not complete) ────────────────────┘
                                     (complete) → EndPoint
 
-Its forward units are the All2All units (``nn/all2all.py``) and the
-transformer LM units (``nn/transformer.py``), named as the reference
-names them; the per-minibatch compute is the TrainStep. Losses:
-``"softmax"`` (labels, ``EvaluatorSoftmax``) and ``"softmax_seq"``
-(per-token targets, ``EvaluatorSoftmaxSeq``, the language models).
+Its forward units are the All2All units (``nn/all2all.py``), the conv
+family (``nn/conv.py``, ``deconv.py``, ``pooling.py``, ``depooling.py``,
+``activation.py``) and the transformer LM units (``nn/transformer.py``),
+named as the reference names them; the per-minibatch compute is the
+TrainStep. Losses: ``"softmax"`` (labels, ``EvaluatorSoftmax``),
+``"softmax_seq"`` (per-token targets, ``EvaluatorSoftmaxSeq``, the
+language models) and ``"mse"`` (``EvaluatorMSE`` and ``DecisionMSE``,
+the autoencoders; ``target_mode`` "input", "targets" or, by default,
+"auto").
 
 :func:`build_forwards` takes the same ``layers`` list of dicts that the
 reference's ``StandardWorkflow`` takes (``models/char_lm.py``
@@ -39,17 +43,19 @@ from ..config import root
 from ..error import VelesError
 from ..plumbing import Repeater
 from ..units import UnitRegistry
-from . import all2all  # noqa: F401 — registers the layer types
-from .decision import DecisionGD
-from .evaluator import EvaluatorSoftmax, EvaluatorSoftmaxSeq
+# the imports register the layer types
+from . import activation, all2all, conv, deconv, depooling, pooling  # noqa
+from .decision import DecisionGD, DecisionMSE
+from .evaluator import EvaluatorMSE, EvaluatorSoftmax, EvaluatorSoftmaxSeq
 from .lr_adjust import LearningRateAdjust
 from .nn_units import ForwardBase
 from .train_step import TrainStep
 from .transformer import (Embedding, LMHead, PositionalEmbedding,
                           TransformerBlock)
 
-#: ported loss functions: "softmax" on labels, "softmax_seq" per token
-LOSSES = ("softmax", "softmax_seq")
+#: ported loss functions: "softmax" on labels, "softmax_seq" per token,
+#: "mse" on targets or the input
+LOSSES = ("softmax", "softmax_seq", "mse")
 
 #: layer-dict keys that configure training only
 TRAINING_KEYS = frozenset((
@@ -133,9 +139,10 @@ def _unit_class(type_name: str) -> type:
 
 class StandardWorkflow(AcceleratedWorkflow):
     """Declarative training-graph builder: the reference's constructor,
-    for ``loss_function="softmax"`` and ``"softmax_seq"``.
-    ``initialize(device=None)`` runs on the card; pass ``device="cpu"``
-    to run on the host."""
+    for ``loss_function`` "softmax", "softmax_seq" and "mse" (whose
+    ``target_mode`` defaults to "auto"; the other losses ignore it, as
+    the reference's do). ``initialize(device=None)`` runs on the card;
+    pass ``device="cpu"`` to run on the host."""
 
     hide_from_registry = True
 
@@ -144,9 +151,10 @@ class StandardWorkflow(AcceleratedWorkflow):
                  decision_config: Optional[Dict[str, Any]] = None,
                  lr_schedule=None, snapshotter_unit=None,
                  steps_per_dispatch: int = 16,
-                 epochs_per_dispatch: int = 1, remat: bool = False,
-                 grad_accumulation: int = 1, **kwargs):
-        for key in ("target_mode", "pipeline_microbatches",
+                 epochs_per_dispatch: int = 1, target_mode: str = None,
+                 remat: bool = False, grad_accumulation: int = 1,
+                 **kwargs):
+        for key in ("pipeline_microbatches",
                     "evaluator_config", "mcdnnic_topology",
                     "mcdnnic_parameters"):
             if kwargs.pop(key, None) not in (None, False, 1, {}):
@@ -157,6 +165,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         if loss_function not in LOSSES:
             raise VelesError("loss_function %r is not ported yet (%s)"
                              % (loss_function, ", ".join(LOSSES)))
+        self._target_mode = target_mode
         self._steps_per_dispatch = steps_per_dispatch
         self._epochs_per_dispatch = epochs_per_dispatch
         self._remat = remat
@@ -195,12 +204,18 @@ class StandardWorkflow(AcceleratedWorkflow):
             n_classes = self.forwards[-1].neurons_number
         if self.loss_function == "softmax":
             self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes)
+            self.decision = DecisionGD(self, **decision_config)
             target_mode = "labels"
-        else:
+        elif self.loss_function == "softmax_seq":
             # language modelling: per-token CE on (B, T) int targets
             self.evaluator = EvaluatorSoftmaxSeq(self)
+            self.decision = DecisionGD(self, **decision_config)
             target_mode = "targets"
-        self.decision = DecisionGD(self, **decision_config)
+        else:
+            self.evaluator = EvaluatorMSE(self)
+            self.decision = DecisionMSE(self, **decision_config)
+            # the loader has not loaded yet: TrainStep resolves "auto"
+            target_mode = self._target_mode or "auto"
         self.train_step = TrainStep(
             self, forwards=self.forwards, evaluator=self.evaluator,
             loader=self.loader, target_mode=target_mode,

@@ -5,9 +5,11 @@ It owns the canonical device-side parameter tree ``params``
 (``{unit: {param: tensor}}``) and the optimiser state ``opt_state`` (per
 unit, its GD rule's state: the SGD delta recurrence of the parameters'
 layout, or Adam's ``{"m", "v", "t"}``) and runs what the loader serves.
-The targets are the rows' labels (``target_mode="labels"``) or the
+The targets are the rows' labels (``target_mode="labels"``), the
 loader's row-aligned targets (``"targets"``: a language model's next
-tokens):
+tokens) or the minibatch itself (``"input"``: an autoencoder's, in the
+dataset's dtype, before any mixed-precision cast); ``"auto"`` resolves
+at initialize to ``"targets"`` if the loader has them, else ``"input"``:
 
 - the general path: per minibatch, an autograd forward and the loss,
   then ``_apply_updates`` — each unit's GD rule, gated so that an
@@ -68,8 +70,9 @@ from .nn_units import MATCHING, ForwardBase, GradientDescentBase
 
 Tree = Dict[str, Dict[str, Any]]
 
-#: ported target modes: gather the labels, or the loader's targets
-TARGET_MODES = ("labels", "targets")
+#: ported target modes: gather the labels or the loader's targets,
+#: reconstruct the input, or pick targets/input by what the loader has
+TARGET_MODES = ("labels", "targets", "input", "auto")
 
 
 def _f32(x) -> float:
@@ -170,6 +173,11 @@ class TrainStep(AcceleratedUnit):
             root.common.engine.get("mixed_precision", False))
         self._bf16_acts = bool(
             root.common.engine.get("bf16_activations", False))
+        if self.target_mode == "auto":
+            # resolvable only now: the loader's load_data has run
+            has_t = getattr(self.loader, "original_targets", None)
+            self.target_mode = ("targets" if has_t is not None and has_t
+                                else "input")
         if self._bf16_acts and not self.mixed_precision:
             # as the reference: bf16 activation storage only makes sense
             # under AMP, where the params and the batch are bf16 already
@@ -302,7 +310,7 @@ class TrainStep(AcceleratedUnit):
 
     def _zero_accum(self) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros((), dtype=torch.float32, device=self.device)
-                for k in ("n_samples", "sum_loss", "n_err")}
+                for k in self.evaluator.metric_keys}
 
     def _metrics(self, out, tgt, mask, loss, accum):
         metrics = self.evaluator.metrics_fn(out, tgt, mask)
@@ -338,8 +346,9 @@ class TrainStep(AcceleratedUnit):
                     indices, mask, lr_scale):
         """One minibatch: autograd forward + loss, the GD updates, the
         metrics. ``targets`` is the array the rows' targets are gathered
-        from (``_dataset``). With ``grad_accumulation`` G > 1 the
-        minibatch runs as G chunks in order, and the update takes the
+        from (``_dataset``; None: the minibatch is its own target). With
+        ``grad_accumulation`` G > 1 the minibatch runs as G chunks in
+        order, and the update takes the
         sum of their float32 gradients weighted by each chunk's valid
         rows over the minibatch's valid rows — the whole minibatch's
         gradient up to the order of the sums (each chunk's loss is its
@@ -348,7 +357,7 @@ class TrainStep(AcceleratedUnit):
         (params, opt_state, accum, loss)."""
         idx = indices.long()
         batch = dataset[idx]
-        tgt = targets[idx]
+        tgt = batch if targets is None else targets[idx]
         if self.mixed_precision:
             batch = amp_cast(batch)
         ga = self.grad_accumulation
@@ -411,8 +420,8 @@ class TrainStep(AcceleratedUnit):
     @torch.no_grad()
     def _eval_step(self, params, accum, dataset, targets, indices, mask):
         idx = indices.long()
-        tgt = targets[idx]
         batch = dataset[idx]
+        tgt = batch if targets is None else targets[idx]
         if self.mixed_precision:
             batch, params = amp_cast(batch), amp_cast(params)
         out = self._forward(params, batch)
@@ -430,9 +439,12 @@ class TrainStep(AcceleratedUnit):
     def _dataset(self):
         """The device dataset and the device array the targets are
         gathered from: the labels, or under ``target_mode="targets"`` the
-        loader's row-aligned targets (a dataset may have no labels)."""
+        loader's row-aligned targets (a dataset may have no labels);
+        under ``"input"`` None, the minibatch being its own target."""
         loader = self.loader
         dataset = loader.original_data.device_view(self.device)
+        if self.target_mode == "input":
+            return dataset, None
         if self.target_mode == "targets":
             src = getattr(loader, "original_targets", None)
         else:

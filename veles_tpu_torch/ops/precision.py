@@ -13,9 +13,14 @@ float32, as the reference's ``preferred_element_type`` states. The port
 has no ``compute_dtype`` knob yet: where the reference's default
 ``compute_dtype="bfloat16"`` takes one bf16 pass over float32 operands
 on its TPU, every float32 product here is a full float32 product.
+The convolutions (``nn/conv.py``, ``nn/deconv.py``) run through cuDNN
+under the same policy: a float32 conv is a full float32 conv, a bf16
+one accumulates in float32 and rounds its result to bf16 once.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -62,3 +67,17 @@ def amp_cast(tree):
     if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
         return tree.to(torch.bfloat16)
     return tree
+
+
+@functools.lru_cache(maxsize=None)
+def _weak(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as ``jnp`` takes a Python scalar
+    beside an array of that dtype (weak typing). torch multiplies a bf16
+    tensor by an unrounded float32 scalar; by this rounded one, the
+    product of two bf16 values is exact in float32 and rounds once, as
+    the reference's does."""
+    return _weak(float(value), dtype)
