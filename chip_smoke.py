@@ -176,7 +176,38 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              epoch ms; then 20 train steps under torch.profiler: the
              device's idle share and top kernels.
              Phases 16–18 launch no hand-written kernel (the launch
-             counters stay 0): the conv path is cuDNN's.
+             counters stay 0): the conv path is cuDNN's;
+19. recurrent_units — LSTM, RNN and SSM block training units (BASELINE
+             #5's LSTM, the bench-width LSTM and SSM block, odd widths),
+             forward and the gradients of sum(y · g), on the card against
+             the port on the CPU: worst error <= 1e-4 · max(1, max|cpu|);
+             the scan equals the loop of the step body bit for bit on the
+             card; and whether a product row's bits change with the row
+             count on the card (the reason the O(1)-state lane runs every
+             product at one row count);
+20. train_genre — BASELINE #5 (``models/genre_recognition``: LSTM 64
+             over T 64 × 24 features, softmax 6, mb 60, lr 0.05, 1,800 /
+             360 rows): the first two train steps on the card against the
+             CPU from the same weights (loss and each update within 1e-4
+             relative), then 5 epochs with the validation error falling;
+             epoch ms, train samples/s, peak memory, and 4 train steps
+             under torch.profiler (launches a step, idle share);
+21. serve_recurrent — the char LM's ``arch="lstm"`` and ``"ssm"`` at
+             the bench LM's width (dim 512, 6 blocks, random weights from
+             numpy seed 0) behind ``GenerationAPI``'s default engine,
+             which must land on the O(1)-state lane (the reference's
+             defaults: 8 slots, max_context 640, chunks of 16,
+             decode_block 1): 16 requests at once (prompts of 60, 120,
+             250 and 512 tokens, half sampled, n_new 16/32/48), all
+             answered 200 by the lane; 4 greedy and 4 sampled answers
+             equal to ``generate_recurrent`` on the card; the state pool's
+             bytes equal after a 4- and a 44-token decode, no pages; a
+             slot's state against the paged transformer twin's KV rows at
+             the same geometry (the reference's 4x bar); tokens/s, TTFT,
+             the median decode tick; a profiled admission (launches a
+             prefill token) and 10 profiled decode ticks with 8 rows live
+             (launches a tick, idle share). Phases 19–21 launch no
+             hand-written kernel.
 
 Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
@@ -2111,6 +2142,417 @@ def phase_train_cifar(card):
                              % launches)
 
 
+#: recurrent units on the card vs the port on the CPU, float32 (max abs
+#: error over max(1, max|cpu|): cuBLAS sums in another order)
+TOL_RECURRENT = 1e-4
+#: (name, layer type, unit config, input shape (B, T, D)): BASELINE #5's
+#: LSTM, the bench-width LSTM and SSM block of ``serve_recurrent``, and
+#: small odd shapes
+RECURRENT_CASES = [
+    ("lstm_genre", "lstm", {"hidden_size": 64}, (60, 64, 24)),
+    ("lstm_bench_seq", "lstm", {"hidden_size": 512,
+                                "return_sequences": True}, (8, 16, 512)),
+    ("lstm_odd_seq", "lstm", {"hidden_size": 33, "return_sequences": True,
+                              "forget_bias": 0.5}, (3, 13, 7)),
+    ("rnn_seq", "rnn", {"hidden_size": 64, "return_sequences": True},
+     (4, 17, 32)),
+    ("rnn_last", "rnn", {"hidden_size": 48}, (5, 9, 24)),
+    ("ssm_bench", "ssm_block", {"n_heads": 4}, (8, 16, 512)),
+    ("ssm_small", "ssm_block", {"n_heads": 2}, (3, 9, 8)),
+]
+#: BASELINE #5's first train steps, card vs CPU from the same weights
+#: (relative), and its epochs on the card
+TOL_GENRE_STEP_REL = 1e-4
+GENRE_EPOCHS = 5
+GENRE_SEED = 55
+GENRE_PROFILED_STEPS = 4
+#: the reference's serving defaults (``root.common.serving``), which
+#: GenerationAPI takes when given none
+RECURRENT_ENGINE = dict(max_slots=8, max_context=640, page_size=16,
+                        decode_block=1)
+RECURRENT_LENGTHS = (60, 120, 250, 512)
+RECURRENT_N_NEW = (16, 32, 48)
+RECURRENT_TICKS = 10
+#: the reference's equal-HBM bar (bench.py O1_HBM_MULTIPLIER): a slot's
+#: state must undercut the paged transformer's per-slot KV rows by this
+#: factor at the same geometry
+O1_HBM_MULTIPLIER = 4.0
+
+
+def recurrent_case(kind, cfg, shape, seed):
+    """A training unit of ``kind`` on an input of ``shape``, its input and
+    parameters from a numpy seed (weights at 1/sqrt(fan_in), biases
+    small and non-zero, ``a_log`` the reference's decay spread)."""
+    import numpy
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn import rnn, ssm
+    cls = {"lstm": rnn.LSTM, "rnn": rnn.RNN, "ssm_block": ssm.SSMBlock}[kind]
+    rng = numpy.random.RandomState(seed)
+    x = rng.randn(*shape).astype("float32")
+    u = cls(None, name="u", **cfg)
+    u.input = Array(x, name="x")
+    d = shape[-1]
+    if kind == "ssm_block":
+        params = {k: rng.randn(d, d) / numpy.sqrt(d)
+                  for k in ("wq", "wk", "wv", "wg", "wo")}
+        params["a_log"] = ssm.decay_logits(cfg["n_heads"], 0.6, 0.95)
+    else:
+        h = cfg["hidden_size"]
+        g = (4 if kind == "lstm" else 1) * h
+        params = {"weights": rng.randn(d + h, g) / numpy.sqrt(d + h),
+                  "bias": rng.randn(g) * 0.1}
+    return u, x, {k: v.astype("float32") for k, v in params.items()}
+
+
+def scan_step_equal(u, x, params, device):
+    """Whether the unit's scan equals a loop of its step body bit for bit
+    on ``device`` (outputs and final state)."""
+    import torch
+    tp = {k: torch.from_numpy(v).to(device) for k, v in params.items()}
+    tx = torch.from_numpy(x).to(device)
+    with torch.no_grad():
+        st0 = u.init_state(x.shape[0], device=device)
+        ys, st_scan = u.scan_state(tp, tx, st0)
+        st, loop = st0, []
+        for t in range(x.shape[1]):
+            y, st = u.step_state(tp, tx[:, t].contiguous(), st)
+            loop.append(y)
+    return bool(torch.equal(ys, torch.stack(loop, dim=1))
+                and all(torch.equal(st_scan[k], st[k]) for k in st))
+
+
+def row_count_bits():
+    """Whether a product's first row has the same bits at every row count
+    on the card: the bench-width LSTM's input product (M, 512) @ (512,
+    2048) and the SSM read (M·4 heads of (1, 128) @ (128, 128)), at M 1,
+    2, 3 and 16 against M 8 (the recurrent lane's rows)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((16, 512), generator=g, device="cuda")
+    w = torch.randn((512, 2048), generator=g, device="cuda")
+    q = torch.randn((16, 4, 128), generator=g, device="cuda")
+    s = torch.randn((16, 4, 128, 128), generator=g, device="cuda")
+    out = {}
+    for name, fn in (("lstm_gates", lambda m: (x[:m] @ w)[0]),
+                     ("ssm_read", lambda m: torch.einsum(
+                         "bhd,bhde->bhe", q[:m], s[:m])[0])):
+        ref = fn(8)
+        out[name] = {str(m): bool(torch.equal(fn(m), ref))
+                     for m in (1, 2, 3, 16)}
+    return out
+
+
+def phase_recurrent_units(card):
+    """LSTM, RNN and SSM block units, forward and the gradients of
+    sum(y · g), on the card against the port on the CPU; scan ↔ step
+    bit identity on the card; whether a product row's bits depend on
+    the row count there."""
+    from veles_tpu_torch.telemetry import counters
+    t0 = time.perf_counter()
+    counters.counters.reset()
+    worst, identical = {}, {}
+    for i, (name, kind, cfg, shape) in enumerate(RECURRENT_CASES):
+        u, x, params = recurrent_case(kind, cfg, shape, seed=300 + i)
+        want = unit_outputs(u, x, params, "cpu", 300 + i)
+        got = unit_outputs(u, x, params, "cuda", 300 + i)
+        worst[name] = conv_error(got, want)
+        identical[name] = scan_step_equal(u, x, params, "cuda")
+    launches = kernel_launches()
+    rows = row_count_bits()
+    emit("recurrent_units", card=card, cases=len(worst),
+         limit=TOL_RECURRENT, worst_rel_err=worst,
+         scan_equals_step=identical, row_bits_equal_to_m8=rows,
+         hand_written_kernel_launches=launches,
+         phase_s=time.perf_counter() - t0)
+    bad = {k: v for k, v in worst.items() if not v <= TOL_RECURRENT}
+    if bad:
+        raise AssertionError("recurrent units off the CPU's: %s" % bad)
+    if not all(identical.values()):
+        raise AssertionError("scan differs from the step loop on the "
+                             "card: %s" % identical)
+    if launches:
+        raise AssertionError("the recurrent units launched %d hand-written "
+                             "kernels" % launches)
+
+
+def genre_workflow(device=None):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import genre_recognition
+    prng.seed_all(GENRE_SEED)
+    wf = genre_recognition.build_workflow(epochs=GENRE_EPOCHS)
+    wf.initialize(device=device)
+    return wf
+
+
+def phase_train_genre(card):
+    """BASELINE #5 (LSTM 64 over T 64 × 24, mb 60, lr 0.05, 1,800 / 360
+    rows) on the card: its first two train steps against the CPU from
+    the same weights, then GENRE_EPOCHS epochs, then a profiled window
+    of train steps."""
+    import torch
+    from veles_tpu_torch.telemetry import counters
+    t_phase = time.perf_counter()
+    host = genre_workflow("cpu")
+    cpu_loss, cpu_d = first_train_steps(host)
+    del host
+    wf = genre_workflow()
+    card_loss, card_d = first_train_steps(wf)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss))
+    update_rel = max(float((c[n][k] - h[n][k]).abs().max())
+                     / float(h[n][k].abs().max())
+                     for c, h in zip(card_d, cpu_d) for n in h for k in h[n])
+    stamps = stamp_epochs(wf)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.counters.reset()
+    t0 = time.perf_counter()
+    wf.run()
+    epoch_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+    launches = kernel_launches()
+    peak = int(torch.cuda.max_memory_allocated())
+
+    def window():
+        for _ in train_steps(wf, GENRE_PROFILED_STEPS):
+            pass
+    prof = profiled(window)
+    d = wf.decision
+    lengths = wf.loader.class_lengths
+    steady = epoch_s[-1]
+    emit("train_genre", card=card, model="genre-lstm lstm64-softmax6",
+         seq_len=64, features=24, mb=wf.loader.max_minibatch_size,
+         rows={"train": lengths[2], "validation": lengths[1]},
+         step_loss_cpu=cpu_loss, step_loss_card=card_loss,
+         step_loss_rel_diff=loss_rel, step_update_rel_diff=update_rel,
+         epochs=d.epoch_number, epoch_ms=[t * 1e3 for t in epoch_s],
+         valid_err=d.epoch_metrics[1], train_err=d.epoch_metrics[2],
+         train_loss=d.epoch_losses[2],
+         train_samples_per_s=lengths[2] / steady, peak_memory_bytes=peak,
+         hand_written_kernel_launches=launches,
+         profiled_train_steps=GENRE_PROFILED_STEPS,
+         launches_per_train_step=(
+             None if prof["kernel_launches"] is None
+             else prof["kernel_launches"] / GENRE_PROFILED_STEPS),
+         profiled=prof, phase_s=time.perf_counter() - t_phase)
+    if not loss_rel <= TOL_GENRE_STEP_REL \
+            or not update_rel <= TOL_GENRE_STEP_REL:
+        raise AssertionError("genre's first train steps on the card differ "
+                             "from the CPU's: loss %g, updates %g relative"
+                             % (loss_rel, update_rel))
+    valid = d.epoch_metrics[1]
+    if d.epoch_number != GENRE_EPOCHS or not all(
+            math.isfinite(x) for x in valid + d.epoch_losses[2]):
+        raise AssertionError("genre: %d epochs, metrics %s"
+                             % (d.epoch_number, valid))
+    if not valid[-1] < valid[0]:
+        raise AssertionError("genre: validation error did not fall: %s"
+                             % valid)
+    if launches:
+        raise AssertionError("genre launched %d hand-written kernels"
+                             % launches)
+
+
+def recurrent_lm(arch):
+    """The char LM of ``arch`` at the bench LM's width (dim 512, 6
+    blocks) through ``char_lm.build_workflow``, on the card, weights from
+    numpy seed 0 in the reference's layout."""
+    from veles_tpu_torch.convert import params_from_jax, random_params
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.nn.standard_workflow import build_forwards
+    layers = char_lm.build_workflow(arch=arch, dim=512,
+                                    n_blocks=6).layers_config
+    model = build_forwards(layers)
+    return params_from_jax(model, random_params(model, seed=0))
+
+
+def recurrent_load(vocab):
+    import numpy
+    rng = numpy.random.RandomState(4)
+    reqs = []
+    for length in RECURRENT_LENGTHS:
+        for j in range(4):
+            req = {"prompt": [int(x) for x in rng.randint(0, vocab, length)],
+                   "n_new": RECURRENT_N_NEW[len(reqs) % 3],
+                   "seed": 2000 + len(reqs)}
+            if j >= 2:
+                req.update(mode="sample", temperature=0.8)
+            reqs.append(req)
+    return reqs
+
+
+def paged_kv_bytes_per_slot():
+    """The paged transformer twin's KV rows a slot holds at the lane's
+    geometry: the bench LM behind a ContinuousEngine of the same
+    max_slots, max_context and page size (its pool built, not run)."""
+    from veles_tpu_torch.serving import ContinuousEngine
+    eng = ContinuousEngine(bench_lm(), max_slots=RECURRENT_ENGINE[
+        "max_slots"], max_context=RECURRENT_ENGINE["max_context"],
+        page_size=RECURRENT_ENGINE["page_size"], name="paged_twin")
+    eng._ensure_pool()
+    return sum(t.numel() * t.element_size() for pair in eng._caches
+               for t in pair) // eng.max_slots
+
+
+def phase_serve_recurrent(card):
+    """The LSTM LM and the SSM LM at the bench LM's width behind
+    GenerationAPI's default engine, which must land on the O(1)-state
+    lane: 16 requests at once, pooled against solo, the state pool's
+    bytes flat, slots at equal memory against the paged transformer,
+    then a profiled admission and RECURRENT_TICKS decode ticks."""
+    import torch
+    from veles_tpu_torch.restful_api import GenerationAPI
+    from veles_tpu_torch.serving import (RecurrentEngine,
+                                         generate_recurrent, make_request)
+    from veles_tpu_torch.telemetry import counters
+    t_phase = time.perf_counter()
+    kv_per_slot = paged_kv_bytes_per_slot()
+    records = {}
+    for arch in ("lstm", "ssm"):
+        model = recurrent_lm(arch)
+        requests = recurrent_load(model.layers["embedding0"].vocab_size)
+        # CUDA / cuBLAS warm-up outside the measured run
+        generate_recurrent(model, requests[0]["prompt"][:20], 2)
+        api = GenerationAPI(model, port=0).initialize()
+        engine = api._engine
+        try:
+            if not isinstance(engine, RecurrentEngine):
+                raise AssertionError("%s: the default engine is %r, not the "
+                                     "O(1)-state lane" % (arch, engine))
+            counters.counters.reset()
+            torch.cuda.reset_peak_memory_stats()
+            results, wall = post_all(
+                "http://127.0.0.1:%d/generate" % api.port, requests)
+            torch.cuda.synchronize()
+            snap = counters.counters.snapshot()
+            peak = int(torch.cuda.max_memory_allocated())
+            stats = engine.stats()
+        finally:
+            api.stop()
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200 \
+                    or res[1].get("engine") != "recurrent":
+                raise AssertionError("%s request %d: %r" % (arch, i, res))
+        checked = {"greedy": [], "sample": []}
+        for req, res in zip(requests, results):
+            mode = req.get("mode", "greedy")
+            if len(checked[mode]) == 4:
+                continue
+            solo = generate_recurrent(
+                model, req["prompt"], req["n_new"],
+                temperature=req.get("temperature", 0.0), seed=req["seed"],
+                mode=mode)
+            checked[mode].append(solo == res[1]["tokens"])
+        # the state pool before and after an 11x longer decode
+        eng = RecurrentEngine(model, name="flat", **RECURRENT_ENGINE).start()
+        try:
+            eng.serve([make_request(requests[0]["prompt"], 4)])
+            short_bytes = eng.stats()["kv_pool_bytes"]
+            eng.serve([make_request(requests[0]["prompt"], 44)])
+            long_stats = eng.stats()
+        finally:
+            eng.stop()
+        breakdown = recurrent_breakdown(model, requests)
+        tokens = sum(len(r[1]["tokens"]) for r in results)
+        lat = [r[2] for r in results]
+        ttft = list(engine.ttft_ms)
+        state_per_slot = engine.state_bytes_per_slot()
+        rec = dict(
+            tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+            request_ms_p50=pct(lat, 50), request_ms_max=max(lat),
+            ttft_ms_p50=pct(ttft, 50), ttft_ms_max=max(ttft),
+            decode_tick_ms_p50=pct(engine.decode_ms, 50),
+            decode_ticks=snap.get("veles_serving_decode_dispatches_total",
+                                  0),
+            chunk_dispatches=snap.get(
+                "veles_serving_prefill_dispatches_total", 0),
+            admitted=engine.admitted, retired=engine.retired,
+            peak_slots=engine.peak_slots, stats=stats,
+            pooled_equals_solo=checked,
+            pool_bytes_short=short_bytes,
+            pool_bytes_long=long_stats["kv_pool_bytes"],
+            pages_total=long_stats["pages_total"],
+            state_bytes_per_slot=state_per_slot,
+            paged_kv_bytes_per_slot=kv_per_slot,
+            hbm_multiplier=kv_per_slot / state_per_slot,
+            hand_written_kernel_launches=int(sum(
+                v for k, v in snap.items() if "launches" in k)),
+            peak_memory_bytes=peak, **breakdown)
+        records[arch] = rec
+        if not engine.admitted == engine.retired == len(requests):
+            raise AssertionError("%s: admitted %d, retired %d of %d"
+                                 % (arch, engine.admitted, engine.retired,
+                                    len(requests)))
+        if not all(checked["greedy"] + checked["sample"]) \
+                or len(checked["greedy"] + checked["sample"]) != 8:
+            raise AssertionError("%s: pooled tokens differ from the solo "
+                                 "decode on the card: %s" % (arch, checked))
+        if not short_bytes == long_stats["kv_pool_bytes"] > 0 \
+                or long_stats["pages_total"]:
+            raise AssertionError("%s: state pool %d bytes at 4 tokens, %d at "
+                                 "44, %d pages" % (
+                                     arch, short_bytes,
+                                     long_stats["kv_pool_bytes"],
+                                     long_stats["pages_total"]))
+        if rec["hbm_multiplier"] < O1_HBM_MULTIPLIER:
+            raise AssertionError("%s: equal-memory multiplier %.2f under "
+                                 "%.0f" % (arch, rec["hbm_multiplier"],
+                                           O1_HBM_MULTIPLIER))
+        if rec["hand_written_kernel_launches"]:
+            raise AssertionError("%s: the lane launched hand-written "
+                                 "kernels" % arch)
+    emit("serve_recurrent", card=card, engine=RECURRENT_ENGINE,
+         requests=len(requests), prompt_lengths=list(RECURRENT_LENGTHS),
+         n_new=list(RECURRENT_N_NEW), width={"dim": 512, "blocks": 6},
+         hbm_bar=O1_HBM_MULTIPLIER, phase_s=time.perf_counter() - t_phase,
+         **records)
+
+
+def recurrent_breakdown(model, requests):
+    """torch.profiler over one admission (a 64-token prompt: launches a
+    prefill token) and over RECURRENT_TICKS decode ticks while all the
+    slots are live: launches a tick, tick ms, the device's idle share."""
+    import torch
+    from veles_tpu_torch.serving import RecurrentEngine, make_request
+    from veles_tpu_torch.serving.scheduler import Ticket
+    slots = RECURRENT_ENGINE["max_slots"]
+    long = [r for r in requests if len(r["prompt"]) >= 64]
+    engine = RecurrentEngine(model, name="profiled", **RECURRENT_ENGINE)
+    try:
+        with torch.inference_mode():
+            engine.submit(make_request(long[0]["prompt"][:64], 1),
+                          Ticket())
+            prefill = profiled(engine._tick)
+            for req in long[:slots]:
+                engine.submit(make_request(
+                    req["prompt"][:16], RECURRENT_TICKS + 8,
+                    temperature=req.get("temperature", 0.0),
+                    seed=req["seed"]), Ticket())
+            engine._tick()            # the admissions and one step
+            live = engine.scheduler.busy_count()
+            if live != slots:
+                raise AssertionError("%d rows live, not %d" % (live, slots))
+
+            def ticks():
+                for _ in range(RECURRENT_TICKS):
+                    engine._tick()
+            decode = profiled(ticks)
+    finally:
+        engine.stop()
+    n = RECURRENT_TICKS
+    return dict(
+        prefill_launches_per_token=(
+            None if prefill["kernel_launches"] is None
+            else prefill["kernel_launches"] / 64),
+        prefill_ms_per_token=prefill["profiled_wall_ms"] / 64,
+        prefill_idle_share=prefill["device_idle_share"],
+        decode_live_rows=live, decode_ticks_profiled=n,
+        decode_tick_ms=decode["profiled_wall_ms"] / n,
+        decode_launches_per_tick=(
+            None if decode["kernel_launches"] is None
+            else decode["kernel_launches"] / n),
+        decode_idle_share=decode["device_idle_share"],
+        decode_top_kernels=decode["top_kernels"][:6])
+
+
 def host_ms(fn):
     """Host-clock time of ``fn()`` ending in a device synchronise."""
     import torch
@@ -2222,6 +2664,9 @@ def main():
     phase_conv_units(card)
     phase_train_ae(card)
     phase_train_cifar(card)
+    phase_recurrent_units(card)
+    phase_train_genre(card)
+    phase_serve_recurrent(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]

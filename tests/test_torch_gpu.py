@@ -3,9 +3,12 @@ flash-attention forward and backward kernels and the fused-FC SGD kernel
 against their plain torch versions, their builds for ``sm_90a``, the
 serving path (the window plane and the continuous engine) and LM
 training through the flash kernels, the MNIST
-training workflow through the fused-FC kernel, and the conv-family units
-(cuDNN: no hand-written kernel) against the port on the CPU. Each skips
-without a card (decided inside the fixture, never at import).
+training workflow through the fused-FC kernel, the conv-family units
+(cuDNN: no hand-written kernel) against the port on the CPU, and the
+recurrent family (cuBLAS products: scan equal to the step loop bit for
+bit, the sequence forward within 1e-4 · max(1, max|cpu|) of the CPU's,
+and the O(1)-state lane's pooled tokens equal to its solo decode). Each
+skips without a card (decided inside the fixture, never at import).
 
 This file imports torch and the port only — the card's machine has no
 JAX, and ``tests/conftest.py`` imports it — so run it there with
@@ -837,3 +840,82 @@ def test_conv_tf32_control_lands_above_the_limit(cuda):
     finally:
         torch.backends.cudnn.allow_tf32 = False
     assert conv_error(got, want) > TOL_CONV
+
+
+# -- the recurrent family (no hand-written kernel: cuBLAS products) ----------
+
+RECURRENT = {
+    "lstm": [{"type": "lstm", "hidden_size": 64, "return_sequences": True,
+              "name": "r0"},
+             {"type": "lstm", "hidden_size": 64, "return_sequences": True,
+              "name": "r1"}],
+    "rnn": [{"type": "rnn", "hidden_size": 64, "return_sequences": True,
+             "name": "r0"}],
+    "ssm": [{"type": "ssm_block", "n_heads": 4, "name": "r0"},
+            {"type": "ssm_block", "n_heads": 4, "name": "r1"}],
+}
+
+
+def _recurrent_lm(family, device):
+    """A char-LM-shaped recurrent stack (vocab 64, dim 64) with random
+    weights from a numpy seed, the embedding scaled up so that the
+    tokens vary."""
+    stack = build_forwards(
+        [{"type": "embedding", "vocab_size": 64, "dim": 64}]
+        + RECURRENT[family] + [{"type": "lm_head", "vocab_size": 64}],
+        device=device)
+    tree = random_params(stack, seed=8)
+    tree["embedding0"]["table"] *= 50
+    return params_from_jax(stack, tree)
+
+
+@pytest.mark.parametrize("family", sorted(RECURRENT))
+def test_recurrent_scan_equals_step_on_the_card(cuda, family):
+    """On the card the scan is the step body's loop bit for bit, and the
+    sequence forward agrees with the CPU's within 1e-4 · max(1,
+    max|cpu|)."""
+    card, host = _recurrent_lm(family, cuda), _recurrent_lm(family, "cpu")
+    x = torch.from_numpy(numpy.random.RandomState(2).randn(
+        5, 33, 64).astype("float32"))
+    with torch.no_grad():
+        for layer, cpu_layer in zip(list(card)[1:-1], list(host)[1:-1]):
+            p = layer.params()
+            xc = x.to(cuda)
+            st0 = layer.init_state(5, device=cuda)
+            ys, st_scan = layer.scan_state(p, xc, st0)
+            st, loop = st0, []
+            for t in range(x.shape[1]):
+                y, st = layer.step_state(p, xc[:, t].contiguous(), st)
+                loop.append(y)
+            assert torch.equal(ys, torch.stack(loop, dim=1))
+            for k in st:
+                assert torch.equal(st_scan[k], st[k]), k
+            want = cpu_layer(x)
+            err = float((ys.cpu() - want).abs().max())
+            assert err <= 1e-4 * max(1.0, float(want.abs().max()))
+            x = want
+
+
+@pytest.mark.parametrize("family", ["lstm", "ssm"])
+def test_recurrent_pool_matches_solo_on_the_card(cuda, family):
+    """The O(1)-state lane on the card: pooled greedy and sampled rows
+    (4 slots, chunks of 8, one pool tile) equal the solo decode."""
+    from veles_tpu_torch.serving import (RecurrentEngine,
+                                         generate_recurrent)
+    model = _recurrent_lm(family, cuda)
+    reqs = _engine_requests(13, 8)
+    engine = RecurrentEngine(model, max_slots=4, max_context=160,
+                             page_size=8, name="gpu_o1").start()
+    try:
+        out = engine.serve(reqs)
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    for req, toks in zip(reqs, out):
+        assert toks == generate_recurrent(
+            model, req["prompt"], req["n_new"],
+            temperature=req["temperature"], seed=req["seed"],
+            mode="sample" if req["temperature"] > 0 else "greedy")
+    assert stats["admitted"] == stats["retired"] == len(reqs)
+    assert stats["pages_total"] == 0
+    assert len({tuple(t) for t in out}) > 1

@@ -375,7 +375,7 @@ def test_main_runs_and_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(VelesError, match="not ported"):
         char_lm.main(["--text", "corpus.txt", "--device", "cpu"])
     with pytest.raises(VelesError, match="not ported"):
-        char_lm.build_workflow(arch="lstm")
+        char_lm.build_workflow(arch="lstm", text_file="corpus.txt")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(VelesError, match="CUDA"):
         char_lm.main(["--epochs", "1"])

@@ -179,6 +179,6 @@ def test_build_forwards_names_and_layout(stacks):
             assert tuple(ref[layer.name][pname].shape) == shape
     with pytest.raises(VelesError, match="not ported"):
         build_forwards([{"type": "embedding", "vocab_size": 4, "dim": 8},
-                        {"type": "lstm", "hidden_size": 8}], device="cpu")
+                        {"type": "moe_ffn", "n_experts": 2}], device="cpu")
     with pytest.raises(VelesError, match="seq_len"):
         build_forwards(POSEMB, device="cpu")

@@ -103,7 +103,8 @@ def _default_root() -> Config:
         },
         "serving": {
             # the reference's defaults. "continuous" = the paged
-            # slot-pool engine (serving/engine.py); "window" = the
+            # slot-pool engine (serving/engine.py); "recurrent" = the
+            # O(1)-state slot pool (serving/recurrent.py); "window" = the
             # shape-keyed coalescing worker, which also takes every
             # request the pool cannot hold. Not ported yet: the
             # reference's spec_gamma, beam_width, qos, prefix_cache,
@@ -117,6 +118,14 @@ def _default_root() -> Config:
             "page_size": 16,
             # None = the dense-equivalent max_slots x pages_per_slot
             "pages": None,
+            # the O(1)-state lane (serving/recurrent.py, which
+            # "continuous" falls back to for Embedding → LSTM/RNN/SSM →
+            # LMHead stacks; "recurrent" pins it): its state-checkpoint
+            # prefix cache, off by default as in the reference, and the
+            # cache's soft block budget (None = unbounded). The cache
+            # is not ported yet: turning it on raises
+            "state_cache": False,
+            "state_cache_blocks": None,
         },
     })
     # models/mnist.py defaults (the reference's optimisable ranges

@@ -128,13 +128,18 @@ def random_params(forwards, seed: int = 0) -> ParamTree:
     """A parameter tree for ``forwards`` in the reference's layout, drawn
     from ``numpy.random.RandomState(seed)`` with the reference's
     initialisers: normal tables at stddev 0.02, weight matrices at
-    1/sqrt(fan_in), norm gains 1 and biases 0."""
+    1/sqrt(fan_in), norm gains 1, biases 0, and a layer's
+    ``deterministic_params()`` (the SSM block's decay logits ``a_log``)
+    as the layer gives them, drawing nothing."""
     rng = numpy.random.RandomState(seed)
     tree: ParamTree = {}
     for name, layer in _parameterised(forwards).items():
         out = {}
+        fixed = getattr(layer, "deterministic_params", dict)()
         for pname, shape in layer.param_shapes().items():
-            if pname == "table":
+            if pname in fixed:
+                w = numpy.asarray(fixed[pname])
+            elif pname == "table":
                 w = rng.normal(0.0, 0.02, shape)
             elif pname.endswith("_g"):
                 w = numpy.ones(shape)

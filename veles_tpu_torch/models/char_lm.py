@@ -1,14 +1,18 @@
 """Character language model (counterpart of ``models/char_lm.py``):
-embedding → RoPE transformer stack → LM head, trained with
+embedding → a stack of RoPE transformer blocks, return-sequences LSTMs
+or SSM blocks (``arch``) → LM head, trained with
 ``loss_function="softmax_seq"`` (per-token cross-entropy on shifted
 targets) and adam. The corpus comes from the reference's small
 deterministic grammar; ``build_bench_workflow`` is the reference's
 throughput-bench LM (6 blocks, d_model 512, T 512) on random tokens.
 
-    python -m veles_tpu_torch.models.char_lm --epochs 10 [--device cpu]
+    python -m veles_tpu_torch.models.char_lm --epochs 10 [--arch lstm]
+        [--device cpu]
 
 runs on the card unless ``--device cpu`` is given; the attention's
 forward and backward go through the hand-written flash kernels there.
+A recurrent ``arch`` is served by ``serving/recurrent.py``'s O(1)-state
+slot pool (``generate`` runs its solo decode).
 """
 
 import argparse
@@ -19,6 +23,7 @@ import numpy
 from ..error import VelesError
 from ..loader import FullBatchLoaderMSE
 from ..nn import sampling
+from ..nn.ssm import RecurrentCell
 from ..nn.standard_workflow import StandardWorkflow, forwards_of
 
 SEQ_LEN = 32
@@ -61,23 +66,32 @@ def build_workflow(epochs=10, minibatch_size=64, lr=0.003, n_blocks=2,
                    dim=32, n_train=1536, n_valid=256, text_file=None,
                    seq_len=SEQ_LEN, arch="transformer"):
     """The reference's char-LM workflow on the generated grammar.
-    ``text_file`` (TextFileLoader) and the "lstm"/"ssm" ``arch``es are
-    not ported yet."""
+    ``arch``: "transformer" (RoPE blocks), "lstm" (stacked
+    return-sequences LSTMs) or "ssm" (gated linear-attention SSD
+    blocks), as the reference builds them. ``text_file``
+    (TextFileLoader) is not ported yet."""
     if text_file:
         raise VelesError("training on a text file (TextFileLoader) is not "
                          "ported yet")
     if arch not in ("transformer", "lstm", "ssm"):
         raise ValueError("arch must be 'transformer', 'lstm' or "
                          "'ssm', got %r" % (arch,))
-    if arch != "transformer":
-        raise VelesError("arch %r is not ported yet (transformer only)"
-                         % (arch,))
     loader = CharLMLoader(None, n_train=n_train, n_valid=n_valid,
                           minibatch_size=minibatch_size, name="chars")
-    body = [{"type": "transformer_block", "n_heads": 4,
-             "ffn_hidden": 2 * dim, "causal": True, "rope": True,
-             "solver": "adam", "learning_rate": lr,
-             "name": "blk%d" % i} for i in range(n_blocks)]
+    if arch == "lstm":
+        body = [{"type": "lstm", "hidden_size": dim,
+                 "return_sequences": True, "solver": "adam",
+                 "learning_rate": lr, "name": "lstm%d" % i}
+                for i in range(n_blocks)]
+    elif arch == "ssm":
+        body = [{"type": "ssm_block", "n_heads": 4, "solver": "adam",
+                 "learning_rate": lr, "name": "ssm%d" % i}
+                for i in range(n_blocks)]
+    else:
+        body = [{"type": "transformer_block", "n_heads": 4,
+                 "ffn_hidden": 2 * dim, "causal": True, "rope": True,
+                 "solver": "adam", "learning_rate": lr,
+                 "name": "blk%d" % i} for i in range(n_blocks)]
     layers = ([{"type": "embedding", "vocab_size": VOCAB, "dim": dim,
                 "solver": "adam", "learning_rate": lr}]
               + body
@@ -140,11 +154,18 @@ def build_bench_workflow(seq_len=512, dim=512, n_blocks=6,
 
 
 def generate(wf, prompt, n_new, temperature=1.0, seed=0):
-    """Sample continuations from the trained workflow through the
-    KV-cached sampler (``nn/sampling.generate``) over its current
-    parameters."""
-    return sampling.generate(forwards_of(wf), prompt, n_new,
-                             temperature=temperature, seed=seed)
+    """Sample continuations from the trained workflow over its current
+    parameters: a transformer stack through the KV-cached sampler
+    (``nn/sampling.generate``), a recurrent one through the O(1)-state
+    lane's solo decode (``serving.generate_recurrent``)."""
+    stack = forwards_of(wf)
+    if any(isinstance(layer, RecurrentCell) for layer in stack):
+        from ..serving import generate_recurrent
+        return generate_recurrent(
+            stack, prompt, n_new, temperature=temperature, seed=seed,
+            mode="sample" if temperature > 0 else "greedy")
+    return sampling.generate(stack, prompt, n_new, temperature=temperature,
+                             seed=seed)
 
 
 def main(argv=None):
@@ -153,6 +174,8 @@ def main(argv=None):
     p.add_argument("--mb", type=int, default=64)
     p.add_argument("--lr", type=float, default=0.003)
     p.add_argument("--blocks", type=int, default=2)
+    p.add_argument("--arch", default="transformer",
+                   choices=("transformer", "lstm", "ssm"))
     p.add_argument("--sample", type=int, default=48,
                    help="tokens to sample after training (0 = skip)")
     p.add_argument("--text", default=None, metavar="FILE",
@@ -162,7 +185,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     wf = build_workflow(args.epochs, args.mb, args.lr, args.blocks,
-                        text_file=args.text)
+                        text_file=args.text, arch=args.arch)
     wf.initialize(device=args.device)
     t0 = time.time()
     wf.run()

@@ -53,6 +53,9 @@ class ForwardBase(AcceleratedUnit):
     PARAMETERIZED = False
     #: parameter attribute names
     PARAM_NAMES = ("weights", "bias")
+    #: whether the unit follows the reference's bf16 promotions under
+    #: ``engine.mixed_precision`` (TrainStep refuses the ones that do not)
+    MIXED_PRECISION = True
 
     #: layer-config keys routed to the paired GD unit
     GD_KEYS = ("learning_rate", "learning_rate_bias", "weights_decay",

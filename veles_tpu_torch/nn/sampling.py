@@ -147,6 +147,12 @@ def _block_step_rows(block, x_t, pool_k, pool_v, tables, positions,
                    valid[:, None, None, None, :])
 
 
+def params_of(layers) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{layer name: {param: tensor}}`` of ``layers``: the tree the
+    recurrent lane's step bodies index by the reference's names."""
+    return {layer.name: layer.params() for layer in layers}
+
+
 def _embed_ids(stem, ids):
     """Embedding-table gather for int token ids of any shape; ids clamp
     to the table (the reference's ``mode="clip"``)."""

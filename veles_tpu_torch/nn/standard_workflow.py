@@ -11,8 +11,9 @@ list and a loader, as the reference does::
 
 Its forward units are the All2All units (``nn/all2all.py``), the conv
 family (``nn/conv.py``, ``deconv.py``, ``pooling.py``, ``depooling.py``,
-``activation.py``) and the transformer LM units (``nn/transformer.py``),
-named as the reference names them; the per-minibatch compute is the
+``activation.py``), the transformer LM units (``nn/transformer.py``) and
+the recurrent units (``nn/rnn.py``'s LSTM and RNN, ``nn/ssm.py``'s SSM
+block), named as the reference names them; the per-minibatch compute is the
 TrainStep. Losses: ``"softmax"`` (labels, ``EvaluatorSoftmax``),
 ``"softmax_seq"`` (per-token targets, ``EvaluatorSoftmaxSeq``, the
 language models) and ``"mse"`` (``EvaluatorMSE`` and ``DecisionMSE``,
@@ -45,6 +46,7 @@ from ..plumbing import Repeater
 from ..units import UnitRegistry
 # the imports register the layer types
 from . import activation, all2all, conv, deconv, depooling, pooling  # noqa
+from . import rnn, ssm  # noqa
 from .decision import DecisionGD, DecisionMSE
 from .evaluator import EvaluatorMSE, EvaluatorSoftmax, EvaluatorSoftmaxSeq
 from .lr_adjust import LearningRateAdjust
@@ -119,6 +121,12 @@ def build_forwards(layers: List[dict], seq_len: Optional[int] = None,
             layer = TransformerBlock(dim, **kw)
         elif kind == "lm_head":
             layer = LMHead(dim, **kw)
+        elif kind in ("lstm", "rnn"):
+            cls = rnn.LSTMLayer if kind == "lstm" else rnn.RNNLayer
+            layer = cls(dim, **kw)
+            dim = layer.hidden_size
+        elif kind == "ssm_block":
+            layer = ssm.SSMBlockLayer(dim, **kw)
         else:
             raise VelesError("layer type %r is not ported yet" % (kind,))
         if name in out:

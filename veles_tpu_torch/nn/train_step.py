@@ -171,6 +171,11 @@ class TrainStep(AcceleratedUnit):
             raise VelesError("engine.fused_epilogue is not ported yet")
         self.mixed_precision = bool(
             root.common.engine.get("mixed_precision", False))
+        if self.mixed_precision:
+            held = [f.name for f in self.forwards if not f.MIXED_PRECISION]
+            if held:
+                raise VelesError("engine.mixed_precision is not ported for "
+                                 "%s (float32 only)" % ", ".join(held))
         self._bf16_acts = bool(
             root.common.engine.get("bf16_activations", False))
         if self.target_mode == "auto":

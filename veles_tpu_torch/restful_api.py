@@ -9,13 +9,20 @@ answered). ``GET /healthz`` answers while the service runs; ``GET
 /stats`` is the engine's occupancy as JSON and
 ``GET /metrics`` the counters and serving gauges as plain text.
 
-Two decode planes, as in the reference:
+Three decode planes, as in the reference:
 
 - the **continuous-batching engine** (``serving/engine.py``, the
   default ``engine="continuous"``): a paged KV slot pool, bucketed
   prefill, one batched decode step for every live row. A stack that is
-  not a generation stack falls back to the window plane with a warning;
-  knob geometry that cannot work raises ValueError;
+  not a transformer generation stack tries the O(1)-state lane next,
+  then falls back to the window plane with a warning; knob geometry
+  that cannot work raises ValueError;
+- the **O(1)-state lane** (``serving/recurrent.py``; pinned with
+  ``engine="recurrent"``, which degrades to the window plane on a
+  stack that is not recurrent): a fixed per-slot state pool for
+  ``Embedding`` → LSTM/RNN/SSM → ``LMHead`` stacks. ``/stats`` and
+  ``/metrics`` then report its state pool (``slot_kind`` "state",
+  ``pages_total`` 0, no page gauges);
 - the **window plane**, which takes every request the pool cannot hold
   (a prompt longer than the largest bucket, a window past
   ``max_context``, too cold a temperature): a worker thread coalesces
@@ -42,11 +49,11 @@ from .config import root
 from .error import VelesError
 from .logger import Logger
 from .nn import sampling
-from .serving import ContinuousEngine
+from .serving import ContinuousEngine, RecurrentEngine
 from .serving.scheduler import Ticket, shed_expired, split_expired
 from .telemetry.counters import METRICS_CONTENT_TYPE, metrics_text
 
-ENGINES = ("continuous", "window")
+ENGINES = ("continuous", "recurrent", "window")
 
 
 class GenerationAPI(Logger):
@@ -99,7 +106,8 @@ class GenerationAPI(Logger):
         self.decode_block = int(knob(decode_block, "decode_block", 1))
         self.page_size = page_size
         self.pages = pages
-        self._engine: Optional[ContinuousEngine] = None
+        #: the ContinuousEngine or RecurrentEngine; None = the window plane
+        self._engine = None
         self._service: Optional[HTTPService] = None
         self._queue: list = []
         self._cv = threading.Condition()
@@ -328,37 +336,63 @@ class GenerationAPI(Logger):
                 "veles_serving_slots_busy": st["slots_busy"],
                 "veles_serving_peak_slots": st["peak_slots"],
                 "veles_serving_queue_depth": st["queue_depth"],
-                "veles_serving_pages_total": st["pages_total"],
-                "veles_serving_pages_in_use": st["pages_in_use"],
-                "veles_serving_page_size": st["page_size"],
-                "veles_serving_page_fragmentation":
-                    st["page_fragmentation"],
                 "veles_serving_kv_pool_bytes": st["kv_pool_bytes"]})
+            if st.get("slot_kind", "paged") == "state":
+                # the O(1)-state pool: no page rows, its per-slot state
+                gauges.update({
+                    "veles_o1_state_bytes_per_slot":
+                        st["state_bytes_per_slot"],
+                    "veles_o1_state_cache_blocks":
+                        st["state_cache_blocks"],
+                    "veles_o1_state_cache_bytes": st["state_cache_bytes"],
+                    "veles_o1_checkpoint_interval": st["page_size"]})
+            else:
+                gauges.update({
+                    "veles_serving_pages_total": st["pages_total"],
+                    "veles_serving_pages_in_use": st["pages_in_use"],
+                    "veles_serving_page_size": st["page_size"],
+                    "veles_serving_page_fragmentation":
+                        st["page_fragmentation"]})
         return gauges
 
-    def _build_engine(self) -> Optional[ContinuousEngine]:
-        """The continuous engine, or None (with a warning) when the
-        model is not a generation stack. Knob geometry that cannot work
-        raises ValueError: an operator who asked for the slot pool must
-        not silently get the window plane instead."""
+    def _build_engine(self):
+        """The slot-pool engine ``engine_kind`` asks for, or None (with a
+        warning) when the model cannot ride it. "continuous" tries the
+        paged engine, then the O(1)-state lane; "recurrent" the lane
+        only. Knob geometry that cannot work raises ValueError: an
+        operator who asked for a slot pool must not silently get the
+        window plane instead."""
+        if self.engine_kind == "continuous":
+            try:
+                return ContinuousEngine(
+                    self.model, max_slots=self.max_slots,
+                    buckets=self.buckets, max_context=self.max_context,
+                    decode_block=self.decode_block,
+                    page_size=self.page_size, pages=self.pages,
+                    device=self.device, name=self.name).start()
+            except VelesError as e:
+                paged_said = e
         try:
-            return ContinuousEngine(
+            engine = RecurrentEngine(
                 self.model, max_slots=self.max_slots,
-                buckets=self.buckets, max_context=self.max_context,
+                max_context=self.max_context,
                 decode_block=self.decode_block, page_size=self.page_size,
-                pages=self.pages, device=self.device,
-                name=self.name).start()
+                device=self.device, name=self.name).start()
         except VelesError as e:
-            self.warning("%s: continuous batching unavailable (%s); "
-                         "serving via the window worker", self.name, e)
+            self.warning("%s: slot-pool serving unavailable (%s); serving "
+                         "via the window worker", self.name, e)
             return None
+        if self.engine_kind == "continuous":
+            self.info("%s: recurrent stack (paged pool said: %s); serving "
+                      "via the O(1)-state slot pool", self.name, paged_said)
+        return engine
 
     def initialize(self) -> "GenerationAPI":
         """Start the engine, the worker and the HTTP service
         (idempotent)."""
         if self._service is not None:
             return self
-        if self.engine_kind == "continuous" and self._engine is None:
+        if self.engine_kind != "window" and self._engine is None:
             self._engine = self._build_engine()
         self._closing = False
         self._worker = threading.Thread(target=self._worker_loop,
@@ -371,8 +405,8 @@ class GenerationAPI(Logger):
         self._service.start_serving()
         self.info("%s: generation API on http://127.0.0.1:%d%s (%s, "
                   "engine=%s)", self.name, self.port, self.path,
-                  self.device,
-                  "continuous" if self._engine is not None else "window")
+                  self.device, type(self._engine).__name__
+                  if self._engine is not None else "window")
         return self
 
     def stop(self) -> None:

@@ -1,7 +1,8 @@
 """The port's serving plane (counterpart of ``veles_tpu/serving/``):
 request tickets and the slot scheduler (``scheduler.py``), the paged KV
-pool's allocator (``pages.py``) and the continuous-batching engine
-(``engine.py``)."""
+pool's allocator (``pages.py``), the continuous-batching engine
+(``engine.py``) and the O(1)-state lane for recurrent stacks
+(``recurrent.py``)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,18 @@ def engines() -> Dict[str, "ContinuousEngine"]:
         return dict(_engines)
 
 
+#: the counters of the O(1)-state lane's state-checkpoint prefix cache,
+#: the reference's names (registered in telemetry/counters.py); they
+#: stay 0 until that cache is ported
+O1_COUNTERS = (
+    "veles_o1_state_checkpoints_total",
+    "veles_o1_state_restores_total",
+    "veles_o1_state_restored_tokens_total",
+    "veles_o1_state_rescans_total",
+    "veles_o1_state_evictions_total",
+)
+
+
 def parse_buckets(spec) -> tuple:
     """Prefill bucket lengths from config/CLI: a sequence of ints or a
     comma-separated string ("16,32,64"); sorted, deduplicated."""
@@ -47,3 +60,5 @@ def parse_buckets(spec) -> tuple:
 
 
 from .engine import ContinuousEngine, make_request  # noqa: E402,F401
+from .recurrent import (RecurrentEngine, generate_recurrent,  # noqa: E402,F401
+                        split_recurrent_stack)

@@ -57,6 +57,26 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_shed_requests_total":
         "Requests answered 503 + Retry-After (expired in the queue, or "
         "shed by the serving pool)",
+    # the O(1)-state lane's state-checkpoint prefix cache
+    # (serving.O1_COUNTERS, the reference's names and HELP strings); 0
+    # until that cache is ported
+    "veles_o1_state_checkpoints_total":
+        "Recurrent state snapshots cached at page_size-token block "
+        "boundaries after a prefill scan (the state lane's prefix-"
+        "cache writes)",
+    "veles_o1_state_restores_total":
+        "Admissions that adopted a cached state checkpoint copy-on-"
+        "write and scanned only the unmatched prompt suffix",
+    "veles_o1_state_restored_tokens_total":
+        "Prompt tokens skipped by adopting state checkpoints instead "
+        "of re-scanning them (the restore savings, summed)",
+    "veles_o1_state_rescans_total":
+        "State restores degraded to a full re-scan from zeros "
+        "(injected serve.state_restore checkpoint loss; answers stay "
+        "correct, only the scan work is repaid)",
+    "veles_o1_state_evictions_total":
+        "State-cache checkpoint blocks dropped by LRU leaf eviction "
+        "(the soft max_blocks budget)",
 }
 
 # each flash kernel's launches also by its (q/k, v) dtype instance
