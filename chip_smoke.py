@@ -207,11 +207,42 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              the median decode tick; a profiled admission (launches a
              prefill token) and 10 profiled decode ticks with 8 rows live
              (launches a tick, idle share). Phases 19–21 launch no
-             hand-written kernel.
+             hand-written kernel;
+22. snapshot — MNIST-784 (BASELINE #1: hidden 100, mb 100, 60k/10k
+             surrogate rows, seed 1234) at 2 epochs a dispatch through
+             the fused-FC kernel: 4 epochs straight, and 2 epochs with a
+             gz ``Snapshotter`` whose ``_current`` file a fresh workflow
+             ``resume``s and runs on to 4. Final weights, biases and
+             both momenta bit-identical, per-epoch validation errors
+             equal, the kernel launched in every epoch of both runs
+             (4, then 2 + 2); the general path (cuBLAS) the same way
+             within rtol 1e-5 / atol 1e-6, its bits reported; the file
+             read on the host with ``load_snapshot`` equal to the card's
+             tensors bit for bit. Records export ms, file bytes and
+             resume ms;
+23. baseline2 — BASELINE #2's units on the CIFAR-10 surrogate's 50,000
+             training rows (32×32×3, float32 on the card):
+             ``compute_mean_rdisp`` on the host, ``MeanDispNormalizer``
+             on the card against its ``numpy_run`` within rtol 1e-5 /
+             atol 1e-6 with |y| <= 1 + 1e-5, its ms beside the bound of
+             the 1.23 GB it must move (0.367 ms at 3.35 TB/s); then
+             ``InputJoiner`` of the normalised rows and their one-hot
+             labels on the card, exact against numpy;
+24. train_zoo — kanji (576 → 256 → 576 tanh, adam, MSE on targets) and
+             video_ae (256 → 96 → 24 → 96 → 256 tanh, adam, MSE on the
+             input) at the reference's sizes: the first two adam steps
+             on the card against the CPU, each from the state the CPU's
+             started from (loss and the moments m and v within 1e-4
+             relative; the weight update's difference reported: adam's
+             normalised step turns a gradient that is rounding noise
+             into a full-size step),
+             then 3 epochs with the validation rmse falling; epoch ms.
+             Phases 23–24 launch no hand-written kernel.
 
 Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
-launches in the AMP epochs) and,
+launches in the AMP epochs; the fused-FC kernel's launches in ``train``
+and, under ``launches_by_path``, in ``snapshot`` too) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and the run exits non-zero without the last line; without a card
 it exits 1 at once.
@@ -576,14 +607,17 @@ def phase_kernels_fused_fc(ff):
     return worst
 
 
-def mnist_workflow(fused, epochs=8, per_dispatch=4, seed=SEED):
-    """The MNIST-784 workflow on the card from ``seed``, initialised."""
+def mnist_workflow(fused, epochs=8, per_dispatch=4, seed=SEED,
+                   snapshot_dir=None):
+    """The MNIST-784 workflow on the card from ``seed``, initialised;
+    with a gz ``Snapshotter`` writing to ``snapshot_dir`` if given."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.config import root
     from veles_tpu_torch.models import mnist
     root.common.engine.fused_fc_scan = bool(fused)
     prng.seed_all(seed)
     wf = mnist.build_workflow(epochs=epochs, minibatch_size=100,
+                              snapshot_dir=snapshot_dir,
                               epochs_per_dispatch=per_dispatch)
     wf.initialize()                     # default device: the card
     return wf
@@ -2553,6 +2587,336 @@ def recurrent_breakdown(model, requests):
         decode_top_kernels=decode["top_kernels"][:6])
 
 
+#: snapshot: the general path's resumed run vs its straight run on
+#: cuBLAS (the reference's limits, tests/test_snapshot.py:224-225)
+TOL_SNAP_RTOL, TOL_SNAP_ATOL = 1e-5, 1e-6
+SNAP_EPOCHS, SNAP_PER_DISPATCH = 4, 2
+#: baseline2: MeanDispNormalizer on the card vs its numpy_run
+#: (tests/test_aux_units.py:29)
+TOL_NORM_RTOL, TOL_NORM_ATOL = 1e-5, 1e-6
+#: published HBM3 rate of one H100 SXM (bytes/s)
+PEAK_BYTES_PER_S = 3.35e12
+#: train_zoo: the first two adam steps, card vs CPU (relative)
+TOL_ZOO_STEP_REL = 1e-4
+ZOO_EPOCHS = 3
+ZOO_SEED = 31
+
+
+def mnist_trees(wf):
+    """The train step's params and momenta on the host, flat by path."""
+    out = {}
+    for attr in ("params", "opt_state"):
+        for name, p in getattr(wf.train_step, attr).items():
+            for k, t in p.items():
+                out["%s/%s/%s" % (attr, name, k)] = t.detach().cpu()
+    return out
+
+
+def snapshot_pair(fused, directory):
+    """MNIST straight for SNAP_EPOCHS, and the same split at half way by
+    a snapshot: the first half writes it, a fresh workflow resumes its
+    ``_current`` file and runs on. Returns both runs' records."""
+    import torch
+    from veles_tpu_torch.snapshotter import Snapshotter, load_snapshot, \
+        resume
+    from veles_tpu_torch.telemetry import counters
+    name = "veles_fused_fc_launches_total"
+    counters.counters.reset()
+    straight = mnist_workflow(fused, SNAP_EPOCHS, SNAP_PER_DISPATCH)
+    counters.counters.reset()
+    straight.run()
+    launches_a = counters.get(name)
+    first = mnist_workflow(fused, SNAP_EPOCHS // 2, SNAP_PER_DISPATCH,
+                           snapshot_dir=directory)
+    counters.counters.reset()
+    first.run()
+    launches_b1 = counters.get(name)
+    cur = os.path.join(directory, "mnist_current.pickle.gz")
+    # the file on the host against the card's tensors, bit for bit
+    state = load_snapshot(cur)
+    saved = {("params", n, k): v for n, p in state["__units__"].items()
+             if n in first.train_step.params for k, v in p.items()}
+    saved.update({("opt_state", n, k): v for n, p in state["__units__"][
+        "TrainStep"]["opt_state"].items() for k, v in p.items()})
+    file_equal = all(numpy_equal(v, getattr(first.train_step, attr)[n][k])
+                     for (attr, n, k), v in saved.items()) \
+        and len(saved) == 8
+    # one more export of the same state, timed, and its file's size
+    probe = Snapshotter(first, prefix="probe", directory=directory)
+    export_ms = host_ms(probe.export)
+    file_bytes = os.path.getsize(probe.destination)
+    resumed = mnist_workflow(fused, SNAP_EPOCHS, SNAP_PER_DISPATCH)
+    resume_ms = host_ms(lambda: resume(resumed, cur))
+    resumed.decision.complete <<= False
+    counters.counters.reset()
+    resumed.run()
+    launches_b2 = counters.get(name)
+    a, b = mnist_trees(straight), mnist_trees(resumed)
+    return dict(
+        straight=straight, resumed=resumed,
+        launches={"straight": launches_a, "first_half": launches_b1,
+                  "resumed_half": launches_b2},
+        active=bool(straight.train_step._fused_fc_active
+                    and first.train_step._fused_fc_active
+                    and resumed.train_step._fused_fc_active),
+        bit_identical=all(torch.equal(a[k], b[k]) for k in a),
+        max_abs_diff=max(float((a[k] - b[k]).abs().max()) for k in a),
+        close=all(torch.allclose(b[k], a[k], rtol=TOL_SNAP_RTOL,
+                                 atol=TOL_SNAP_ATOL) for k in a),
+        valid_straight=list(straight.decision.epoch_metrics[1]),
+        valid_resumed=list(resumed.decision.epoch_metrics[1]),
+        file_equals_card=file_equal, export_ms=export_ms,
+        file_bytes=file_bytes, resume_ms=resume_ms,
+        resumed_at=int(state["__units__"]["DecisionGD"]["epoch_number"]))
+
+
+def numpy_equal(host, tensor):
+    import numpy
+    return numpy.array_equal(host, tensor.detach().cpu().numpy())
+
+
+def phase_snapshot(card):
+    """MNIST-784 (BASELINE #1) through the fused-FC kernel, snapshotted
+    and resumed between two epoch blocks: the resumed run equals the
+    straight one bit for bit, and the kernel trained every epoch of
+    both; then the general path the same way, within the reference's
+    resume limits. Returns the fused run's kernel launches."""
+    import shutil
+    directory = os.path.join(REPO, "build", "smoke_snapshots")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        runs = {fused: snapshot_pair(fused, os.path.join(
+            directory, "fused" if fused else "general"))
+            for fused in (True, False)}
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    f, g = runs[True], runs[False]
+    emit("snapshot", card=card, model="mnist-784 784-100-10", mb=100,
+         epochs=SNAP_EPOCHS, epochs_per_dispatch=SNAP_PER_DISPATCH,
+         resumed_at_epoch=f["resumed_at"],
+         fused_fc_active=f["active"], fused_fc_launches=f["launches"],
+         fused_bit_identical=f["bit_identical"],
+         fused_max_abs_diff=f["max_abs_diff"],
+         fused_valid_straight=f["valid_straight"],
+         fused_valid_resumed=f["valid_resumed"],
+         fused_file_equals_card=f["file_equals_card"],
+         general_launches=g["launches"],
+         general_bit_identical=g["bit_identical"],
+         general_max_abs_diff=g["max_abs_diff"],
+         general_within_limits=g["close"],
+         general_valid_straight=g["valid_straight"],
+         general_valid_resumed=g["valid_resumed"],
+         general_file_equals_card=g["file_equals_card"],
+         export_ms=f["export_ms"], file_bytes=f["file_bytes"],
+         resume_ms=f["resume_ms"], general_export_ms=g["export_ms"],
+         general_resume_ms=g["resume_ms"])
+    half = SNAP_EPOCHS // 2
+    if not f["active"] or f["launches"] != {
+            "straight": SNAP_EPOCHS, "first_half": half,
+            "resumed_half": SNAP_EPOCHS - half}:
+        raise AssertionError("snapshot: the fused-FC kernel did not train "
+                             "every epoch: %s" % f["launches"])
+    if any(g["launches"].values()):
+        raise AssertionError("snapshot: the general path launched the "
+                             "fused kernel: %s" % g["launches"])
+    if f["resumed_at"] != half:
+        raise AssertionError("snapshot: resumed at epoch %d" % f["resumed_at"])
+    if not f["bit_identical"] or f["valid_straight"] != f["valid_resumed"]:
+        raise AssertionError("snapshot: the resumed fused run differs from "
+                             "the straight one (max %g; errors %s vs %s)"
+                             % (f["max_abs_diff"], f["valid_resumed"],
+                                f["valid_straight"]))
+    if not g["close"] or len(g["valid_resumed"]) != SNAP_EPOCHS:
+        raise AssertionError("snapshot: the resumed general run differs "
+                             "from the straight one by %g"
+                             % g["max_abs_diff"])
+    if not (f["file_equals_card"] and g["file_equals_card"]):
+        raise AssertionError("snapshot: the file read on the host differs "
+                             "from the card's tensors")
+    return f["launches"]["straight"] + f["launches"]["first_half"] \
+        + f["launches"]["resumed_half"]
+
+
+def phase_baseline2(card):
+    """BASELINE #2's units on the CIFAR-10 surrogate's 50,000 training
+    rows (32×32×3, float32 on the card): compute_mean_rdisp on the host,
+    MeanDispNormalizer on the card against its numpy_run (its ms beside
+    the bound of the bytes it must move), then InputJoiner of two card
+    arrays — the normalised rows and their one-hot labels — against
+    numpy's concatenation."""
+    import numpy
+    import torch
+    from veles_tpu_torch import InputJoiner, MeanDispNormalizer, datasets
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.telemetry import counters
+    from veles_tpu_torch.workflow import Workflow
+    t_phase = time.perf_counter()
+    counters.counters.reset()
+    tx, ty = datasets.load_cifar10()[:2]
+    t0 = time.perf_counter()
+    mean, rdisp = MeanDispNormalizer.compute_mean_rdisp(tx)
+    stats_ms = (time.perf_counter() - t0) * 1e3
+    wf = Workflow(name="baseline2")
+    unit = MeanDispNormalizer(wf)
+    unit.input = Array(tx)
+    unit.mean, unit.rdisp = Array(mean), Array(rdisp)
+    unit.initialize(device="cuda")
+    unit.run()
+    card_y = unit.output.devmem
+    ms = cuda_time_ms(unit.run, 20)
+    y = card_y.cpu().numpy()
+    unit.numpy_run()
+    oracle = unit.output.map_read()
+    err = float(numpy.abs(y - oracle).max())
+    close = bool(numpy.allclose(y, oracle, rtol=TOL_NORM_RTOL,
+                                atol=TOL_NORM_ATOL))
+    y_max = float(numpy.abs(y).max())
+    # each input read once, the output written once
+    nbytes = 2 * tx.nbytes + mean.nbytes + rdisp.nbytes
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    labels = torch.nn.functional.one_hot(
+        torch.from_numpy(ty).long().cuda(), 10).float()
+    joiner = InputJoiner(wf, inputs=[Array(tx), Array(numpy.zeros(
+        (len(ty), 10), numpy.float32))])
+    joiner.initialize(device="cuda")
+    joiner.inputs[0].assign_devmem(card_y)
+    joiner.inputs[1].assign_devmem(labels)
+    joiner.run()
+    joined = joiner.output.devmem
+    want = numpy.concatenate([y.reshape(len(y), -1), labels.cpu().numpy()],
+                             axis=1)
+    join_exact = bool(numpy.array_equal(joined.cpu().numpy(), want))
+    join_ms = cuda_time_ms(joiner.run, 20)
+    launches = kernel_launches()
+    emit("baseline2", card=card, rows=int(len(tx)),
+         sample_shape=list(tx.shape[1:]), stats_ms_host=stats_ms,
+         normalizer_ms=ms, normalizer_bytes=nbytes,
+         normalizer_bound_ms=bound_ms, normalizer_bound_by="bytes",
+         normalizer_share_of_bound=bound_ms / ms, max_abs_err=err,
+         within_limits=close, max_abs_y=y_max,
+         joiner_shape=list(joined.shape), joiner_exact=join_exact,
+         joiner_ms=join_ms, hand_written_kernel_launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    if not close or y_max > 1.0 + 1e-5:
+        raise AssertionError("MeanDispNormalizer on the card vs numpy_run: "
+                             "max err %g, max |y| %g" % (err, y_max))
+    if not join_exact or tuple(joined.shape) != (len(ty), 3082):
+        raise AssertionError("InputJoiner on the card is not exact")
+    if launches:
+        raise AssertionError("baseline2 launched %d hand-written kernels"
+                             % launches)
+
+
+def zoo_workflow(name, device=None):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import kanji, video_ae
+    prng.seed_all(ZOO_SEED)
+    wf = {"kanji": kanji, "video_ae": video_ae}[name].build_workflow(
+        epochs=ZOO_EPOCHS)
+    wf.initialize(device=device)
+    return wf
+
+
+def tree_to(tree, device):
+    """Nested dicts and tuples of tensors, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def adam_first_steps(wf, starts=None, n=2):
+    """The first ``n`` train steps of the workflow's own step (the train
+    rows in order), leaving its params as they were: step k from
+    ``starts[k]`` (a host (params, opt_state) pair) if given, else from
+    the previous step's result. Returns, per step, (loss, {(unit, "m" |
+    "v" | "update", param): host tensor}, the host state it started
+    from) — adam's moments and the step's weight update."""
+    import torch
+    ts = wf.train_step
+    dataset, targets = ts._dataset()
+    mb = wf.loader.max_minibatch_size
+    start = wf.loader.class_lengths[0] + wf.loader.class_lengths[1]
+    mask = torch.ones(mb, dtype=torch.float32, device=ts.device)
+    params, opt = ts.params, ts.opt_state
+    out = []
+    for k in range(n):
+        if starts is not None:
+            params, opt = tree_to(starts[k], ts.device)
+        before = (tree_to(params, "cpu"), tree_to(opt, "cpu"))
+        idx = torch.arange(start + k * mb, start + (k + 1) * mb,
+                           dtype=torch.int32, device=ts.device)
+        new, opt, _, loss = ts._train_step(
+            params, opt, ts._zero_accum(), dataset, targets, idx, mask, 1.0)
+        leaves = {(u, m, key): t.cpu() for u, st in opt.items()
+                  for m in ("m", "v") for key, t in st[m].items()}
+        leaves.update({(u, "update", key): (new[u][key] - t).cpu()
+                       for u, p in params.items() for key, t in p.items()})
+        out.append((float(loss), leaves, before))
+        params = new
+    return out
+
+
+def phase_train_zoo(card):
+    """kanji (576 → 256 → 576 tanh, adam, MSE on targets) and video_ae
+    (256 → 96 → 24 → 96 → 256 tanh, adam, MSE on the input) at the
+    reference's sizes: the first two adam steps on the card against the
+    CPU from the same weights, then ZOO_EPOCHS epochs with the
+    validation rmse falling and no hand-written kernel launched."""
+    import torch
+    from veles_tpu_torch.telemetry import counters
+    for name in ("kanji", "video_ae"):
+        t_phase = time.perf_counter()
+        host = adam_first_steps(zoo_workflow(name, "cpu"))
+        wf = zoo_workflow(name)
+        # each step on the card from the state the CPU's step started
+        # from: an earlier step's rounding, which adam's normalised step
+        # can blow up to ±lr at an element, does not reach the next
+        mine = adam_first_steps(wf, starts=[h[2] for h in host])
+        loss_rel = max(abs(a[0] - b[0]) / abs(b[0])
+                       for a, b in zip(mine, host))
+        rel = {}
+        for (_, got, _), (_, want, _) in zip(mine, host):
+            for key, w in want.items():
+                d = float((got[key] - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-30)
+                rel[key[1]] = max(rel.get(key[1], 0.0), d)
+        stamps = stamp_epochs(wf)
+        torch.cuda.synchronize()
+        counters.counters.reset()
+        t0 = time.perf_counter()
+        wf.run()
+        epoch_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+        launches = kernel_launches()
+        d = wf.decision
+        lengths = wf.loader.class_lengths
+        valid = d.epoch_metrics[1]
+        emit("train_zoo", card=card, model=name,
+             widths=[f.weights.shape[0] for f in wf.forwards]
+             + [wf.forwards[-1].weights.shape[1]],
+             mb=wf.loader.max_minibatch_size,
+             rows={"train": lengths[2], "validation": lengths[1]},
+             target_mode=wf.train_step.target_mode,
+             step_loss_rel_diff=loss_rel, step_m_rel_diff=rel["m"],
+             step_v_rel_diff=rel["v"], step_update_rel_diff=rel["update"],
+             epochs=d.epoch_number, epoch_ms=[t * 1e3 for t in epoch_s],
+             valid_rmse=valid, train_rmse=d.epoch_metrics[2],
+             train_samples_per_s=lengths[2] / epoch_s[-1],
+             hand_written_kernel_launches=launches,
+             phase_s=time.perf_counter() - t_phase)
+        if not max(loss_rel, rel["m"], rel["v"]) <= TOL_ZOO_STEP_REL:
+            raise AssertionError("%s: the first adam steps on the card "
+                                 "differ from the CPU's: loss %g, m %g, v %g"
+                                 % (name, loss_rel, rel["m"], rel["v"]))
+        if d.epoch_number != ZOO_EPOCHS or not all(
+                math.isfinite(x) for x in valid) or not valid[-1] < valid[0]:
+            raise AssertionError("%s: validation rmse %s" % (name, valid))
+        if launches:
+            raise AssertionError("%s launched %d hand-written kernels"
+                                 % (name, launches))
+
+
 def host_ms(fn):
     """Host-clock time of ``fn()`` ending in a device synchronise."""
     import torch
@@ -2667,6 +3031,9 @@ def main():
     phase_recurrent_units(card)
     phase_train_genre(card)
     phase_serve_recurrent(card)
+    launches_snap = phase_snapshot(card)
+    phase_baseline2(card)
+    phase_train_zoo(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -2733,7 +3100,9 @@ def main():
         "bound_ms": timing_ffc["bound_tc_ms"],
         "bound_by": timing_ffc["bound_by"], "library_ms": None,
         "general_path_ms": timing_ffc["general_path_ms"],
-        "us_per_step": timing_ffc["us_per_step"], "ok": True},
+        "us_per_step": timing_ffc["us_per_step"],
+        "launches_by_path": {"train": launches_ffc,
+                             "snapshot": launches_snap}, "ok": True},
         bwd_entry("dkv", 248), bwd_entry("dq", 309)] + [
         amp_entry(inst, kern) for inst in AMP_INSTANCES
         for kern in ("fwd", "dkv", "dq")]}), flush=True)

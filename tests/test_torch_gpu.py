@@ -7,7 +7,11 @@ training workflow through the fused-FC kernel, the conv-family units
 (cuDNN: no hand-written kernel) against the port on the CPU, and the
 recurrent family (cuBLAS products: scan equal to the step loop bit for
 bit, the sequence forward within 1e-4 · max(1, max|cpu|) of the CPU's,
-and the O(1)-state lane's pooled tokens equal to its solo decode). Each
+and the O(1)-state lane's pooled tokens equal to its solo decode), and
+the snapshot plane (2 + 2 epochs across a snapshot equal to 4 straight
+ones on the card bit for bit, through the fused-FC kernel and the
+general path; a card snapshot restored on the CPU bit for bit) with
+BASELINE #2's MeanDispNormalizer on the card against its numpy_run. Each
 skips without a card (decided inside the fixture, never at import).
 
 This file imports torch and the port only — the card's machine has no
@@ -919,3 +923,115 @@ def test_recurrent_pool_matches_solo_on_the_card(cuda, family):
     assert stats["admitted"] == stats["retired"] == len(reqs)
     assert stats["pages_total"] == 0
     assert len({tuple(t) for t in out}) > 1
+
+
+# -- snapshots and BASELINE #2 on the card ------------------------------------
+
+
+def _tiny_snapshot_workflow(directory, epochs, fused, device=None):
+    """tests/test_snapshot.py's TinyLoader chain (240 × 8, 3 classes, mb
+    20, exp_decay(0.9)) in epoch blocks of 2, with a Snapshotter writing
+    to ``directory`` if given; initialised on ``device`` (the card)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.nn.lr_adjust import exp_decay
+    from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+    from veles_tpu_torch.snapshotter import Snapshotter
+
+    class Tiny(FullBatchLoader):
+        hide_from_registry = True
+
+        def load_data(self):
+            rng = numpy.random.RandomState(5)
+            self.create_originals(rng.rand(240, 8).astype(numpy.float32),
+                                  rng.randint(0, 3, 240).astype(
+                                      numpy.int32))
+            self.class_lengths = [0, 40, 200]
+
+    root.common.engine.fused_fc_scan = fused
+    prng.seed_all(1234)
+    snap = (Snapshotter(None, prefix="tiny", directory=str(directory))
+            if directory else None)
+    wf = StandardWorkflow(
+        name="snap-gpu",
+        layers=[{"type": "all2all_tanh", "output_sample_shape": 8},
+                {"type": "softmax", "output_sample_shape": 3}],
+        loader_unit=Tiny(None, minibatch_size=20, name="tiny"),
+        decision_config=dict(max_epochs=epochs, fail_iterations=99),
+        snapshotter_unit=snap, lr_schedule=exp_decay(0.9),
+        epochs_per_dispatch=2)
+    wf.initialize(device=device)
+    return wf
+
+
+def _step_tensors(wf):
+    ts = wf.train_step
+    return {(attr, n, k): t for attr in ("params", "opt_state")
+            for n, p in getattr(ts, attr).items() for k, t in p.items()}
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_snapshot_resume_on_the_card_is_bit_equal(cuda, tmp_path, fused):
+    """2 + 2 epochs across a snapshot between two epoch blocks equal 4
+    straight epochs on the card, bit for bit: through the fused-FC
+    kernel (a launch an epoch) and through the general path."""
+    from veles_tpu_torch.snapshotter import resume
+    try:
+        counters.counters.reset()
+        straight = _tiny_snapshot_workflow(None, 4, fused)
+        straight.run()
+        launches = counters.get(FFC_LAUNCHES)
+        _tiny_snapshot_workflow(tmp_path, 2, fused).run()
+        resumed = _tiny_snapshot_workflow(None, 4, fused)
+        resume(resumed, str(tmp_path / "tiny_current.pickle.gz"))
+        resumed.decision.complete <<= False
+        resumed.run()
+    finally:
+        root.common.engine.fused_fc_scan = False
+    assert counters.get(FFC_LAUNCHES) == (8 if fused else 0)
+    assert launches == (4 if fused else 0)
+    assert resumed.train_step._fused_fc_active is fused
+    a, b = _step_tensors(straight), _step_tensors(resumed)
+    assert sorted(a) == sorted(b)
+    for key, t in a.items():
+        assert b[key].device.type == "cuda"
+        assert torch.equal(b[key], t), key
+    assert resumed.decision.epoch_metrics == straight.decision.epoch_metrics
+
+
+def test_card_snapshot_resumes_on_the_cpu(cuda, tmp_path):
+    """A snapshot taken on the card restores on the CPU bit for bit, and
+    the CPU run goes on from it."""
+    from veles_tpu_torch.snapshotter import resume
+    card = _tiny_snapshot_workflow(tmp_path, 2, False)
+    card.run()
+    host = _tiny_snapshot_workflow(None, 4, False, device="cpu")
+    resume(host, str(tmp_path / "tiny_current.pickle.gz"))
+    a, b = _step_tensors(card), _step_tensors(host)
+    for key, t in a.items():
+        assert b[key].device.type == "cpu"
+        assert torch.equal(b[key], t.cpu()), key
+    host.decision.complete <<= False
+    host.run()
+    assert host.decision.epoch_number == 4
+    assert all(numpy.isfinite(host.decision.epoch_metrics[1]))
+
+
+def test_mean_disp_normalizer_on_the_card(cuda):
+    from veles_tpu_torch import MeanDispNormalizer
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.workflow import Workflow
+    rng = numpy.random.RandomState(0)
+    data = (rng.rand(500, 16, 16, 3) * 255).astype(numpy.float32)
+    mean, rdisp = MeanDispNormalizer.compute_mean_rdisp(data)
+    u = MeanDispNormalizer(Workflow(name="t"))
+    u.input = Array(data)
+    u.mean, u.rdisp = Array(mean), Array(rdisp)
+    u.initialize(device=cuda)
+    u.run()
+    assert u.output.devmem.device.type == "cuda"
+    y = u.output.map_read().copy()
+    u.numpy_run()
+    numpy.testing.assert_allclose(y, u.output.map_read(), rtol=1e-5,
+                                  atol=1e-6)
+    assert abs(y).max() <= 1.0 + 1e-5

@@ -51,6 +51,16 @@ def test_port_imports_no_jax(path):
         assert top not in ("jax", "jaxlib", "veles_tpu"), (path, mod)
 
 
+def test_import_scan_covers_every_subpackage():
+    """The scan walks the whole package: the snapshot plane's
+    subpackages too."""
+    for sub in ("resilience", "scripts", "nn", "ops", "serving", "loader",
+                "models", "telemetry"):
+        assert any(p.startswith(os.path.join("veles_tpu_torch", sub, ""))
+                   for p in PORT_FILES), sub
+    assert os.path.join("veles_tpu_torch", "snapshotter.py") in PORT_FILES
+
+
 @pytest.mark.parametrize("name", [None, "auto", "cuda", "cuda:0"])
 def test_device_for_raises_without_a_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

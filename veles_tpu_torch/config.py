@@ -74,6 +74,8 @@ def _default_root() -> Config:
         "dirs": {
             # first place datasets.load_mnist looks for the real files
             "datasets": os.path.expanduser("~/.veles_tpu/datasets"),
+            # where a Snapshotter given no directory writes
+            "snapshots": os.path.expanduser("~/.veles_tpu/snapshots"),
         },
         "engine": {
             # the whole-epoch fused-FC SGD kernel for eligible
@@ -100,6 +102,18 @@ def _default_root() -> Config:
         },
         "resilience": {
             "max_queue": 256,         # GenerationAPI queue bound
+            # fault-injection spec (point:action[:k=v,...];...); the
+            # VELES_FAULTS environment variable overrides it
+            "faults": "",
+            # default RetryPolicy knobs (exponential backoff + jitter)
+            "retry": {"max_attempts": 4, "base_delay": 0.5,
+                      "max_delay": 30.0},
+            "keep_last": 0,           # snapshot retention; 0 = keep all
+        },
+        # the reference's non-blocking snapshots: not ported (the
+        # Snapshotter refuses True)
+        "overlap": {
+            "async_snapshots": False,
         },
         "serving": {
             # the reference's defaults. "continuous" = the paged

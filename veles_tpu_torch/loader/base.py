@@ -287,6 +287,37 @@ class Loader(Unit):
         self.plan_length = self.plan_rows_for(TRAIN)
         self.minibatch_size = mb
 
+    # -- snapshots (the reference's schema) ---------------------------------
+    def state_dict(self):
+        return {
+            "epoch_number": self.epoch_number,
+            "global_offset": self._global_offset,
+            "class_lengths": list(self.class_lengths),
+            "shuffled_indices": (None if self._shuffled_indices is None
+                                 else numpy.array(self._shuffled_indices)),
+            "samples_served": self.samples_served,
+            "flags": {"epoch_ended": bool(self.epoch_ended),
+                      "last_minibatch": bool(self.last_minibatch),
+                      "train_ended": bool(self.train_ended),
+                      "test_ended": bool(self.test_ended)},
+        }
+
+    def load_state_dict(self, sd) -> None:
+        """The served position; the next epoch's shuffle continues from
+        the restored index order and the restored ``prng`` stream."""
+        self.epoch_number = sd["epoch_number"]
+        self._global_offset = sd["global_offset"]
+        if "class_lengths" in sd:
+            self.class_lengths = list(sd["class_lengths"])
+        if sd["shuffled_indices"] is not None:
+            self._shuffled_indices = numpy.array(sd["shuffled_indices"])
+        self.samples_served = sd["samples_served"]
+        flags = sd["flags"]
+        self.epoch_ended <<= flags["epoch_ended"]
+        self.last_minibatch <<= flags["last_minibatch"]
+        self.train_ended <<= flags["train_ended"]
+        self.test_ended <<= flags["test_ended"]
+
     def get_metric_values(self) -> Dict[str, object]:
         return {"epochs_served": self.epoch_number,
                 "samples_served": self.samples_served}

@@ -7,7 +7,10 @@ synthetic surrogate of the same shape (``datasets.load_mnist``).
     python -m veles_tpu_torch.models.mnist --epochs 8 \\
         --epochs-per-dispatch 4 --fused-fc [--device cpu]
 
-runs on the card unless ``--device cpu`` is given.
+runs on the card unless ``--device cpu`` is given. With
+``--snapshot-dir D`` it writes snapshots to ``D`` (``D/mnist_current.
+pickle.gz`` is the newest); ``--resume D/mnist_current.pickle.gz``
+continues such a run up to ``--epochs``, from a file of either package.
 """
 
 import argparse
@@ -17,6 +20,7 @@ import numpy
 
 from .. import datasets
 from ..config import root
+from ..snapshotter import Snapshotter, resume
 from ..loader import FullBatchLoader
 from ..nn.lr_adjust import exp_decay
 from ..nn.standard_workflow import StandardWorkflow
@@ -35,12 +39,15 @@ class MnistLoader(FullBatchLoader):
 
 
 def build_workflow(epochs=10, minibatch_size=100, lr=None, hidden=None,
-                   epochs_per_dispatch=1):
+                   snapshot_dir=None, epochs_per_dispatch=1):
     """The reference's ``build_workflow``; ``lr``/``hidden`` left None
-    resolve from ``root.mnist``."""
+    resolve from ``root.mnist``; ``snapshot_dir`` adds a gz
+    ``Snapshotter`` with the prefix "mnist"."""
     lr = float(root.mnist.lr) if lr is None else lr
     hidden = int(root.mnist.hidden) if hidden is None else hidden
     loader = MnistLoader(None, minibatch_size=minibatch_size, name="mnist")
+    snap = (Snapshotter(None, prefix="mnist", directory=snapshot_dir)
+            if snapshot_dir else None)
     return StandardWorkflow(
         name="mnist-784",
         layers=[
@@ -53,6 +60,7 @@ def build_workflow(epochs=10, minibatch_size=100, lr=None, hidden=None,
         loss_function="softmax",
         decision_config=dict(max_epochs=epochs, fail_iterations=50),
         lr_schedule=exp_decay(0.98),
+        snapshotter_unit=snap,
         epochs_per_dispatch=epochs_per_dispatch,
     )
 
@@ -67,14 +75,23 @@ def main(argv=None):
                    help="train each epoch in the fused-FC kernel")
     p.add_argument("--device", default=None,
                    help="cuda[:N] (default: the card) or cpu")
+    p.add_argument("--snapshot-dir", default=None)
+    p.add_argument("--resume", default=None,
+                   help="snapshot file to resume from")
     args = p.parse_args(argv)
     if args.fused_fc and args.epochs_per_dispatch < 2:
         p.error("--fused-fc runs the kernel inside an epoch block: give "
                 "--epochs-per-dispatch 2 or more")
     root.common.engine.fused_fc_scan = bool(args.fused_fc)
     wf = build_workflow(args.epochs, args.mb, args.lr,
+                        snapshot_dir=args.snapshot_dir,
                         epochs_per_dispatch=args.epochs_per_dispatch)
     wf.initialize(device=args.device)
+    if args.resume:
+        resume(wf, args.resume)
+        wf.decision.complete <<= False
+        print("resumed from %s at epoch %d" %
+              (args.resume, wf.decision.epoch_number))
     t0 = time.time()
     wf.run()
     dt = time.time() - t0

@@ -107,6 +107,27 @@ class DecisionBase(Unit):
         for acc in self._accum.values():
             acc.clear()
 
+    # -- snapshots (the reference's schema) ---------------------------------
+    def state_dict(self):
+        return {
+            "epoch_number": self.epoch_number,
+            "best_metric": self.best_metric,
+            "best_epoch": self.best_epoch,
+            "epochs_since_best": self._epochs_since_best,
+            "epoch_metrics": {k: list(v)
+                              for k, v in self.epoch_metrics.items()},
+            "complete": bool(self.complete),
+        }
+
+    def load_state_dict(self, sd) -> None:
+        self.epoch_number = sd["epoch_number"]
+        self.best_metric = sd["best_metric"]
+        self.best_epoch = sd["best_epoch"]
+        self._epochs_since_best = sd["epochs_since_best"]
+        self.epoch_metrics = {k: list(v)
+                              for k, v in sd["epoch_metrics"].items()}
+        self.complete <<= sd["complete"]
+
     def get_metric_values(self) -> Dict[str, object]:
         return {
             "epochs": self.epoch_number,

@@ -112,6 +112,27 @@ class ForwardBase(AcceleratedUnit):
                     shape, dtype=root.common.engine.precision_type))
         return None
 
+    # -- snapshots (the reference's schema: {param: ndarray}) --------------
+    def state_dict(self) -> Dict[str, numpy.ndarray]:
+        return {k: numpy.array(v.map_read())
+                for k, v in self.param_arrays().items()}
+
+    def load_state_dict(self, sd: Dict[str, numpy.ndarray]) -> None:
+        """Rebind the host Arrays; a parameter whose shape differs from
+        this unit's raises before any is written."""
+        have = self.param_arrays()
+        for k, v in sd.items():
+            if k in have and tuple(numpy.shape(v)) != have[k].shape:
+                raise ValueError("%s.%s: shape %s, the unit's is %s" % (
+                    self.name, k, tuple(numpy.shape(v)), have[k].shape))
+        for k, v in sd.items():
+            arr = getattr(self, k, None)
+            if isinstance(arr, Array):
+                arr.reset(numpy.array(v))
+            else:
+                setattr(self, k, Array(numpy.array(v),
+                                       name="%s.%s" % (self.name, k)))
+
     def torch_run(self) -> None:
         """Standalone forward of ``input`` (inference graphs)."""
         params = {k: v.device_view(self.device)

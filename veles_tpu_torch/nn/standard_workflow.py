@@ -7,6 +7,7 @@ list and a loader, as the reference does::
     StartPoint → Repeater → Loader → TrainStep → [LRAdjust] → Decision ┐
                     ↑                                                  │
                     └────────────── (not complete) ────────────────────┘
+                      (improved or complete) → [Snapshotter] →
                                     (complete) → EndPoint
 
 Its forward units are the All2All units (``nn/all2all.py``), the conv
@@ -168,8 +169,6 @@ class StandardWorkflow(AcceleratedWorkflow):
             if kwargs.pop(key, None) not in (None, False, 1, {}):
                 raise VelesError("StandardWorkflow(%s=...) is not ported "
                                  "yet" % key)
-        if snapshotter_unit is not None:
-            raise VelesError("snapshots are not ported yet")
         if loss_function not in LOSSES:
             raise VelesError("loss_function %r is not ported yet (%s)"
                              % (loss_function, ", ".join(LOSSES)))
@@ -189,6 +188,8 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.repeater = Repeater(self)
         self._build_forwards()
         self._build_trainer(decision_config or {}, lr_schedule)
+        if snapshotter_unit is not None:
+            self._attach_snapshotter(snapshotter_unit)
         self._wire_loop()
 
     def _build_forwards(self) -> None:
@@ -242,6 +243,11 @@ class StandardWorkflow(AcceleratedWorkflow):
         else:
             self.lr_adjust = None
 
+    def _attach_snapshotter(self, snap) -> None:
+        snap.workflow = self
+        self.add_ref(snap)
+        self.snapshotter = snap
+
     def _wire_loop(self) -> None:
         self.repeater.link_from(self.start_point)
         self.loader.link_from(self.repeater)
@@ -253,7 +259,14 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.decision.link_from(tail)
         self.repeater.link_from(self.decision)
         self.repeater.gate_block = self.decision.complete
-        self.end_point.link_from(self.decision)
+        after = self.decision
+        snap = getattr(self, "snapshotter", None)
+        if snap is not None:
+            # a snapshot when the decision improved or completed
+            snap.link_from(self.decision)
+            snap.gate_skip = ~self.decision.complete & ~self.decision.improved
+            after = snap
+        self.end_point.link_from(after)
         self.end_point.gate_block = ~self.decision.complete
 
     def get_metric_values(self) -> Dict[str, Any]:

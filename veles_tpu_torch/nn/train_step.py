@@ -79,6 +79,34 @@ def _f32(x) -> float:
     return float(numpy.float32(x))
 
 
+def _host_tree(tree):
+    """A tensor tree as numpy arrays (what a snapshot holds)."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def _restored_like(saved, fresh, path: str):
+    """``saved`` (numpy leaves) as tensors laid out as ``fresh`` (the
+    solver's zero state on the device): each leaf in ``fresh``'s dtype
+    and device. A key ``fresh`` has and ``saved`` lacks keeps its zero
+    state; a key or a shape ``fresh`` has not raises."""
+    if isinstance(fresh, dict):
+        if not isinstance(saved, dict) or set(saved) - set(fresh):
+            raise ValueError("opt_state %s: keys %s, the solver's are %s"
+                             % (path, sorted(saved) if isinstance(
+                                 saved, dict) else type(saved).__name__,
+                                sorted(fresh)))
+        return {k: (_restored_like(saved[k], v, "%s/%s" % (path, k))
+                    if k in saved else v) for k, v in fresh.items()}
+    arr = numpy.asarray(saved)
+    if arr.shape != tuple(fresh.shape):
+        raise ValueError("opt_state %s: shape %s, the parameter's is %s"
+                         % (path, arr.shape, tuple(fresh.shape)))
+    return torch.from_numpy(numpy.array(arr)).to(device=fresh.device,
+                                                 dtype=fresh.dtype)
+
+
 def _tree_where(valid, new, old):
     """``new`` where ``valid``, else ``old``, leaf by leaf over nested
     dicts (an optimiser state may nest: Adam's m, v and t)."""
@@ -612,3 +640,40 @@ class TrainStep(AcceleratedUnit):
     def stop(self) -> None:
         if self.params:
             self.sync_params_to_arrays()
+
+    # -- snapshots (the reference's schema) ---------------------------------
+    def on_snapshot(self) -> None:
+        """Before a snapshot: the device params to the forwards' host
+        Arrays, which carry them into the file."""
+        if self.params:
+            self.sync_params_to_arrays()
+
+    def state_dict(self):
+        return {"opt_state": _host_tree(self.opt_state),
+                "lr_scale": float(self.lr_scale)}
+
+    def load_state_dict(self, sd) -> None:
+        """After the forwards restored their Arrays (``apply_state`` runs
+        in unit order): rebuild the device params from them, and the
+        optimiser state from ``sd`` on this step's device, so that the
+        next step — general or fused — starts from the restored tensors,
+        not from those it held before."""
+        self.params = {
+            f.name: {k: v.device_view(self.device)
+                     for k, v in f.param_arrays().items()}
+            for f in self.forwards if f.PARAMETERIZED}
+        saved = sd["opt_state"]
+        self.opt_state = {}
+        for name, p in self.params.items():
+            fresh = self._gd_for[name].init_state(p)
+            self.opt_state[name] = (fresh if name not in saved else
+                                    _restored_like(saved[name], fresh, name))
+        for f in self.forwards:
+            for arr in f.param_arrays().values():
+                arr.detach_devmem()
+        if "lr_scale" in sd:
+            # the first resumed step trains at the snapshot's rate; a
+            # linked LearningRateAdjust takes the write
+            self.lr_scale = float(sd["lr_scale"])
+        self._accum.clear()
+        self._block_metrics = None

@@ -8,11 +8,25 @@ port draws the reference's initial weights, synthetic data and shuffles
 bit for bit from the same seed. The device side is a
 ``torch.Generator`` on the workflow's device (:meth:`torch_generator`);
 it does not reproduce the reference's threefry bits.
+
+A stream pickles to the reference's state schema (``__getstate__``):
+``key``, ``_seed`` and the numpy side's ``RandomState.get_state()``
+tuple, plus ``_torch_states``, {device: ``torch.Generator.get_state()``
+as a numpy uint8 array}, the port's own key. The reference's dict loads
+here with its ``_counter`` and ``_jax_root`` (threefry's) ignored, and
+the port's loads into the reference, whose ``__setstate__`` keeps the
+extra key as a plain attribute. A generator's state comes back only on
+a device of its type: a CUDA generator's state only on a card, a CPU
+one's only on the CPU. A stream asked for its generator on a device
+whose state the snapshot does not hold (a card snapshot resumed on the
+CPU, or the reverse) reseeds that generator from the stream's seed, with
+a warning.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import threading
 from typing import Dict, Optional
 
@@ -21,6 +35,10 @@ import torch
 
 _lock = threading.Lock()
 _generators: Dict[str, "RandomGenerator"] = {}
+#: streams left out of snapshots (operational, not model state):
+#: restoring them would replay e.g. the fault-injection die rolls after
+#: every resume (the reference's ``_ephemeral``)
+_ephemeral: set = {"fault_injection"}
 
 
 class RandomGenerator:
@@ -36,6 +54,9 @@ class RandomGenerator:
         self._seed = int(seed) & 0xFFFFFFFF
         self.state = numpy.random.RandomState(self._seed)
         self._torch: Dict[str, torch.Generator] = {}
+        #: generator states restored from a snapshot, applied when the
+        #: stream's generator on that device is first asked for
+        self._torch_pending: Dict[str, numpy.ndarray] = {}
 
     @property
     def initial_seed(self) -> int:
@@ -43,13 +64,27 @@ class RandomGenerator:
 
     # -- device side --------------------------------------------------------
     def torch_generator(self, device) -> torch.Generator:
-        """The stream's ``torch.Generator`` on ``device``, seeded from the
-        stream's seed at first use."""
+        """The stream's ``torch.Generator`` on ``device`` ("cuda" is the
+        current card's), made at first use: in the state a restored
+        snapshot holds for that device, else seeded from the stream's
+        seed."""
         dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         gen = self._torch.get(str(dev))
         if gen is None:
             gen = self._torch[str(dev)] = torch.Generator(device=dev)
-            gen.manual_seed(self._seed)
+            saved = self._torch_pending.pop(str(dev), None)
+            if saved is not None:
+                gen.set_state(torch.from_numpy(saved.copy()))
+            else:
+                gen.manual_seed(self._seed)
+                if self._torch_pending:
+                    logging.getLogger("prng").warning(
+                        "stream %r: the snapshot holds its generator state "
+                        "for %s, not for %s; that generator reseeds from "
+                        "the stream's seed", self.key,
+                        ", ".join(sorted(self._torch_pending)), dev)
         return gen
 
     # -- host side ----------------------------------------------------------
@@ -72,6 +107,24 @@ class RandomGenerator:
         arr[...] = self.state.normal(0.0, scale,
                                      arr.shape).astype(arr.dtype)
 
+    # -- snapshots (the reference's state schema) ----------------------------
+    def __getstate__(self):
+        states = dict(self._torch_pending)
+        states.update({dev: gen.get_state().numpy().copy()
+                       for dev, gen in self._torch.items()})
+        return {"key": self.key, "_seed": self._seed,
+                "state": self.state.get_state(), "_torch_states": states}
+
+    def __setstate__(self, d):
+        self.key = d["key"]
+        self._seed = int(d["_seed"])
+        self.state = numpy.random.RandomState()
+        self.state.set_state(d["state"])
+        self._torch = {}
+        self._torch_pending = {
+            dev: numpy.asarray(st, dtype=numpy.uint8)
+            for dev, st in (d.get("_torch_states") or {}).items()}
+
 
 def _default_seed(key: str) -> int:
     from .config import root
@@ -80,9 +133,12 @@ def _default_seed(key: str) -> int:
     return (base ^ h) & 0xFFFFFFFF
 
 
-def get(key: str = "default") -> RandomGenerator:
-    """The process-wide stream named ``key`` (created at first use)."""
+def get(key: str = "default", ephemeral: bool = False) -> RandomGenerator:
+    """The process-wide stream named ``key`` (created at first use);
+    ``ephemeral`` leaves it out of snapshots."""
     with _lock:
+        if ephemeral:
+            _ephemeral.add(key)
         gen = _generators.get(key)
         if gen is None:
             gen = _generators[key] = RandomGenerator(key)

@@ -1,0 +1,394 @@
+"""Deterministic fault-injection plane (a copy of
+``veles_tpu/resilience/faults.py``, which imports no JAX: the same
+points, spec grammar, actions and counter, so one ``VELES_FAULTS`` spec
+arms both packages alike).
+
+The reference shipped chaos testing as a first-class flag
+(``--slave-death-probability``, veles/client.py:303-307: each slave
+rolls a die after every job and kills itself) because its recovery
+story — job re-serving, checkpoint restart — was only trusted once it
+was exercised. This build generalizes that one kill switch into a
+plane of **named injection points** that any spec can arm:
+
+    point:action[:key=value[,key=value...]][;next clause...]
+
+e.g. ``VELES_FAULTS="snapshot.write:crash:after=1,times=1;download:raise:p=0.5"``
+
+Actions:
+- ``raise``   — raise :class:`FaultInjected` at the point;
+- ``crash``   — ``os._exit(42)`` (the reference's slave-death exit code);
+- ``delay``   — sleep ``delay`` seconds (default 0.05) and continue;
+- ``corrupt`` — return the :class:`Fault` so the call site damages its
+  payload via :meth:`Fault.corrupt` (only points that write/read bytes
+  honor it; others treat it as a no-op).
+
+Params: ``p`` (fire probability, default 1 — the die is rolled on the
+PRNG-seeded ``faults`` stream, so a seeded run injects the same faults
+every time), ``after`` (skip the first N hits), ``times`` (fire at
+most N times), ``delay`` (seconds, for action=delay), ``window=T0:T1``
+(armed only between the T0-th and T1-th trigger: the clause skips the
+first T0 hits and disarms after the T1-th — a timed chaos STORM as a
+plain spec, e.g. ``serve.page_alloc:raise:window=50:80`` fails page
+allocations 51..80 and then heals; the loadgen harness arms its storms
+this way).
+
+The spec comes from the ``VELES_FAULTS`` env var (wins) or
+``root.common.resilience.faults``. With neither set, every
+:func:`fire` is a no-op and the fault counters stay at zero — asserted
+by ``python bench.py gate``'s resilience section. Every fired fault
+increments ``veles_faults_injected_total``.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from ..config import root
+from ..error import VelesError
+from ..logger import Logger
+from ..telemetry.counters import inc
+
+
+class FaultInjected(VelesError):
+    """Raised by an armed injection point (action=raise)."""
+
+
+#: exit code of action=crash — the reference's fault-injection death
+#: code (veles/client.py:438-442), kept so recovery tests recognize it
+CRASH_EXIT_CODE = 42
+
+ACTIONS = ("raise", "crash", "delay", "corrupt")
+
+#: name → description of every registered injection point
+#: (``veles_tpu faults list`` prints this table)
+POINTS: Dict[str, str] = {}
+
+
+def register_point(name: str, description: str) -> None:
+    """Declare an injection point so specs can reference it (typos in a
+    spec fail at parse, not silently never fire)."""
+    POINTS[name] = description
+
+
+def list_points() -> Dict[str, str]:
+    return dict(POINTS)
+
+
+# every point the reference registers, so that one spec parses in both
+# packages; the port fires snapshot.write and snapshot.load
+for _name, _desc in (
+    ("snapshot.write", "Snapshotter.export, before the state file is "
+                       "committed (corrupt: damage the written bytes)"),
+    ("snapshot.load", "load_snapshot, before a snapshot file is read"),
+    ("loader.batch", "Loader.run, before a minibatch is served"),
+    ("dispatch", "the launcher-armed train-step dispatch"),
+    ("download", "Downloader fetch, before each HTTP attempt"),
+    ("serve.request", "REST/generation request intake (raise is shed "
+                      "as 503 + Retry-After, never a crash)"),
+    ("serve.decode_step", "continuous-batching engine, before each "
+                          "pooled decode step (raise sheds the "
+                          "in-flight rows 503 + Retry-After; the "
+                          "slot pool stays consistent)"),
+    ("serve.page_alloc", "paged KV-cache allocator, at every page "
+                         "allocation (raise = simulated exhaustion: "
+                         "admission sheds the head request, decode-"
+                         "time growth sheds the growing row — 503 + "
+                         "Retry-After either way; the page ledger "
+                         "stays consistent)"),
+    ("distributed.init", "initialize_multihost, inside the retried "
+                         "coordinator join"),
+    # elastic training plane (resilience/elastic.py): chaos for the
+    # generation lifecycle — a raised host_loss simulates a preempted
+    # peer (the survivor declares a new generation), a crash IS the
+    # preemption (the respawn Supervisor rebuilds the job); an armed
+    # generation_barrier exercises the survivor-barrier failure path
+    ("distributed.host_loss", "elastic host-loss probe, per armed "
+                              "train-step dispatch (raise = a peer "
+                              "was preempted -> new generation; "
+                              "crash = this host IS preempted)"),
+    ("distributed.generation_barrier", "elastic survivor barrier, "
+                                       "before the generation's "
+                                       "collective agreement (raise "
+                                       "counts a barrier timeout and "
+                                       "ends the generation)"),
+    # overlap subsystem (veles_tpu/overlap/): chaos for the async
+    # side-plane — crash/delay a lane worker or the prefetch producer
+    # and prove drain barriers + checkpoint-lane ordering survive
+    ("sideplane.task", "side-plane lane worker, before each offloaded "
+                       "task executes (overlap/executor.py)"),
+    ("prefetch.batch", "prefetch producer, before each staged batch "
+                       "(overlap/prefetch.py)"),
+    # model-health observability (telemetry/recorder.py): chaos for
+    # the crash black box itself — raise/crash while dumping, or
+    # corrupt the written blackbox-*.jsonl bytes
+    ("recorder.dump", "FlightRecorder.dump, before the black-box "
+                      "file is written (corrupt: damage the dump "
+                      "bytes)"),
+    # quantization subsystem (veles_tpu/quant/): chaos for the AOT/
+    # int8 serving plane — a failed artifact load or calibration must
+    # degrade to live-jit / float serving, never crash the API
+    ("artifact.load", "serving engine, before an AOT serve-artifact "
+                      "is deserialized (raise falls back to live jit "
+                      "with a counted warning)"),
+    ("quant.calibrate", "weight quantization scale calibration "
+                        "(quantize_params/quantize_state), before "
+                        "the amax scan"),
+    # serving fleet (serving/router.py + restful_api.GenerationAPI):
+    # chaos for the multi-replica topology — the router must open the
+    # breaker, fail the request over to a survivor, and answer it
+    # exactly once while the Supervisor plane respawns the hole
+    ("router.replica_request", "fleet router, before each proxied "
+                               "replica attempt (raise = the attempt "
+                               "fails like a dead replica: counted, "
+                               "the breaker advances, the request "
+                               "fails over to another replica)"),
+    ("serve.replica_death", "serving replica death mid-decode: fired "
+                            "in the GenerationAPI request path after "
+                            "admission AND per engine decode tick "
+                            "(raise = this replica tears down its "
+                            "HTTP front and aborts in-flight work "
+                            "with a dying-gasp 503 carrying each "
+                            "ticket's resume progress; crash = the "
+                            "replica process actually exits %d)"
+                            % CRASH_EXIT_CODE),
+    # lossless request plane (serving/journal.py + token-level resume):
+    # chaos for the durability story — a corrupted journal record must
+    # be quarantined with a counted warning at replay (never refuse to
+    # start), and a failed progress snapshot mid-drain must degrade
+    # that one ticket to a plain 503 (no resume), never block the drain
+    ("router.journal", "durable request journal, at every record "
+                       "append and every replay read (corrupt: "
+                       "damage the record bytes — replay salvages "
+                       "the torn entry with a counted warning; "
+                       "raise at append: the admission is shed "
+                       "rather than accepted un-journaled)"),
+    ("serve.prefix_match", "prefix-cache radix walk at admission "
+                           "(raise = injected index loss, corrupt = "
+                           "injected index rot: both degrade to a "
+                           "shorter/empty match and a full prefill — "
+                           "token equality is the match authority, "
+                           "so answers are never wrong)"),
+    ("serve.prefill_chunk", "chunked prefill, before each chunk "
+                            "dispatch (raise = that admission is "
+                            "shed 503 + Retry-After with a resume "
+                            "payload while co-tenant decodes keep "
+                            "running)"),
+    ("serve.handoff", "drain-by-handoff progress snapshot, per "
+                      "in-flight ticket at a draining replica "
+                      "(raise = that ticket's handoff degrades to a "
+                      "plain 503 shed without resume progress; the "
+                      "drain itself always completes)"),
+    # O(1)-state serving lane (serving/recurrent.py): chaos for the
+    # state-checkpoint prefix cache — a lost/rotten checkpoint must
+    # cost a re-scan, never a wrong state
+    ("serve.state_restore", "O(1)-state checkpoint lookup at "
+                            "admission (raise = injected checkpoint "
+                            "loss: degrades to a full re-scan from "
+                            "zeros, counted; corrupt = injected "
+                            "index rot: degrades to a shorter/empty "
+                            "match — token equality is the match "
+                            "authority, so adopted state is never "
+                            "wrong)"),
+    ("serve.state_checkpoint", "O(1)-state block-boundary snapshot "
+                               "insert after prefill (raise = the "
+                               "scanned prompt is NOT cached with a "
+                               "counted warning — the request is "
+                               "already answered from live state, so "
+                               "only future same-prefix admissions "
+                               "pay a re-scan)"),
+    ("linalg.block_op", "blocked linear-algebra block dispatch "
+                        "(linalg/blocked.py k-panel dots, potrf/trsm "
+                        "panels, SUMMA launches; raise = abort the "
+                        "solve, corrupt = flip bytes in the "
+                        "dispatched block — verify_residual's "
+                        "trusted dense check must then FAIL the "
+                        "solve loudly, never return a silently-"
+                        "wrong x)"),
+):
+    register_point(_name, _desc)
+
+
+class Fault:
+    """One armed clause of a fault spec."""
+
+    def __init__(self, point: str, action: str, p: float = 1.0,
+                 after: int = 0, times: Optional[int] = None,
+                 delay: float = 0.05,
+                 window: Optional[Tuple[int, int]] = None) -> None:
+        if point not in POINTS:
+            raise VelesError(
+                "unknown fault injection point %r (registered: %s)"
+                % (point, ", ".join(sorted(POINTS))))
+        if action not in ACTIONS:
+            raise VelesError("unknown fault action %r (one of %s)"
+                             % (action, "/".join(ACTIONS)))
+        if not 0.0 <= p <= 1.0:
+            raise VelesError("fault probability p=%r outside [0, 1]" % p)
+        if window is not None:
+            lo, hi = int(window[0]), int(window[1])
+            if lo < 0 or hi <= lo:
+                raise VelesError(
+                    "fault window=%d:%d needs 0 <= T0 < T1" % (lo, hi))
+            window = (lo, hi)
+        self.point = point
+        self.action = action
+        self.p = float(p)
+        self.after = int(after)
+        self.times = None if times is None else int(times)
+        self.delay = float(delay)
+        self.window = window
+        self.hits = 0
+        self.fired = 0
+
+    def consider(self) -> bool:
+        """Roll this clause once; True when it fires now."""
+        self.hits += 1
+        if self.hits <= self.after:
+            return False
+        if self.window is not None and not (
+                self.window[0] < self.hits <= self.window[1]):
+            # a timed storm: armed only between the T0-th and T1-th
+            # trigger, then the point heals
+            return False
+        if self.times is not None and self.fired >= self.times:
+            return False
+        if self.p < 1.0:
+            from .. import prng
+            if prng.get("faults", ephemeral=True).rand() >= self.p:
+                return False
+        self.fired += 1
+        return True
+
+    @staticmethod
+    def corrupt(data: bytes) -> bytes:
+        """Deterministically damage a payload: flip the middle byte —
+        enough to break any checksum/codec without changing length."""
+        if not data:
+            return b"\x00"
+        i = len(data) // 2
+        return data[:i] + bytes([data[i] ^ 0xFF]) + data[i + 1:]
+
+    def __repr__(self) -> str:
+        win = ("" if self.window is None
+               else " window=%d:%d" % self.window)
+        return ("<Fault %s:%s p=%g after=%d times=%s%s fired=%d/%d>"
+                % (self.point, self.action, self.p, self.after,
+                   self.times, win, self.fired, self.hits))
+
+
+def parse_spec(text: str) -> List[Fault]:
+    """Parse a fault spec string into armed clauses (see module doc for
+    the grammar). Empty/whitespace text parses to no faults."""
+    faults: List[Fault] = []
+    for clause in filter(None, (c.strip() for c in (text or "").split(";"))):
+        # maxsplit=2: the param field may itself contain ":"
+        # (window=T0:T1) — only the first two colons structure the
+        # clause
+        parts = clause.split(":", 2)
+        if len(parts) < 2:
+            raise VelesError(
+                "fault clause %r is not point:action[:k=v,...]" % clause)
+        kwargs: Dict[str, object] = {}
+        if len(parts) > 2 and parts[2].strip():
+            for kv in parts[2].split(","):
+                key, sep, val = kv.partition("=")
+                key = key.strip()
+                if not sep or key not in ("p", "after", "times",
+                                          "delay", "window"):
+                    raise VelesError(
+                        "fault param %r in %r is not one of "
+                        "p/after/times/delay/window=value"
+                        % (kv, clause))
+                try:
+                    if key == "window":
+                        lo, sep2, hi = val.partition(":")
+                        if not sep2:
+                            raise ValueError("want window=T0:T1")
+                        kwargs[key] = (int(lo), int(hi))
+                    else:
+                        kwargs[key] = (float(val)
+                                       if key in ("p", "delay")
+                                       else int(val))
+                except ValueError as e:
+                    raise VelesError("bad fault param %r: %s" % (kv, e))
+        faults.append(Fault(parts[0].strip(), parts[1].strip(), **kwargs))
+    return faults
+
+
+class FaultPlane(Logger):
+    """The process-global injection plane: resolves the active spec
+    (env > config), keeps per-clause counters, and runs every armed
+    clause when an instrumented call site hits :meth:`fire`."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._lock = threading.Lock()
+        self._spec_text: Optional[str] = None
+        self._faults: Dict[str, List[Fault]] = {}
+
+    def current_spec(self) -> str:
+        """The spec string that would be active right now."""
+        env = os.environ.get("VELES_FAULTS")
+        if env is not None:
+            return env
+        return str(root.common.resilience.get("faults", "") or "")
+
+    def configure(self, spec: Optional[str] = None) -> None:
+        """(Re)arm from ``spec`` (or the env/config resolution). Clause
+        counters reset — tests and chaos harnesses call this directly."""
+        text = self.current_spec() if spec is None else spec
+        with self._lock:
+            self._spec_text = text
+            self._faults = {}
+            for fault in parse_spec(text):
+                self._faults.setdefault(fault.point, []).append(fault)
+
+    def _refresh(self) -> None:
+        # env/config may change between fires (tests monkeypatch
+        # VELES_FAULTS); a changed spec re-arms, an unchanged one is a
+        # string compare
+        if self.current_spec() != self._spec_text:
+            self.configure()
+
+    def active(self) -> bool:
+        self._refresh()
+        return bool(self._faults)
+
+    def fire(self, point: str, **ctx) -> Optional[Fault]:
+        """Run the injection point. Raises/exits/sleeps per the armed
+        clauses; returns the :class:`Fault` when an armed clause says
+        ``corrupt`` (the call site applies :meth:`Fault.corrupt`), else
+        None. With no spec set this is a dict miss — cheap enough for
+        per-batch call sites."""
+        self._refresh()
+        clauses = self._faults.get(point)
+        if not clauses:
+            return None
+        corrupting = None
+        for fault in clauses:
+            with self._lock:
+                fires = fault.consider()
+            if not fires:
+                continue
+            inc("veles_faults_injected_total")
+            self.warning("fault injected at %s: %s (hit %d)%s", point,
+                         fault.action, fault.hits,
+                         (" %s" % (ctx,)) if ctx else "")
+            if fault.action == "raise":
+                raise FaultInjected("injected fault at %s" % point)
+            if fault.action == "crash":
+                os._exit(CRASH_EXIT_CODE)
+            if fault.action == "delay":
+                time.sleep(fault.delay)
+            elif fault.action == "corrupt":
+                corrupting = fault
+        return corrupting
+
+
+#: THE process-global plane every instrumented call site uses
+plane = FaultPlane()
+fire = plane.fire
+

@@ -57,6 +57,17 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_shed_requests_total":
         "Requests answered 503 + Retry-After (expired in the queue, or "
         "shed by the serving pool)",
+    # the resilience plane (resilience/), the reference's names and
+    # HELP strings
+    "veles_faults_injected_total":
+        "Faults fired by the deterministic injection plane",
+    "veles_retries_total":
+        "Operations retried by a RetryPolicy (backoff performed)",
+    "veles_snapshots_quarantined_total":
+        "Corrupt snapshots renamed *.corrupt during chain restore",
+    "veles_manifest_cursor_defaults_total":
+        "Snapshot manifests read without an {epoch, step, world_size} "
+        "cursor (pre-elastic manifests; defaulted, never a crash)",
     # the O(1)-state lane's state-checkpoint prefix cache
     # (serving.O1_COUNTERS, the reference's names and HELP strings); 0
     # until that cache is ported

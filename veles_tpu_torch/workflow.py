@@ -10,6 +10,8 @@ that cover a whole minibatch plan or epoch block.
 from __future__ import annotations
 
 import collections
+import hashlib
+import inspect
 import time
 from typing import Any, Dict, List, Optional
 
@@ -34,6 +36,8 @@ class Workflow(Unit):
         self._run_time = 0.0
         #: safety valve: raise after this many scheduler steps
         self._max_steps = max_steps
+        #: set by ``snapshotter.resume``/``restore_latest``
+        self.restored_from_snapshot = False
 
     # -- container protocol -------------------------------------------------
     def add_ref(self, unit: Unit) -> None:
@@ -139,3 +143,13 @@ class Workflow(Unit):
             if callable(getter):
                 results.update(getter())
         return results
+
+    def checksum(self) -> str:
+        """sha256 of the workflow class's source (the reference's
+        snapshot identity; the unit names when the source is not
+        available)."""
+        try:
+            src = inspect.getsource(type(self))
+        except (OSError, TypeError):
+            src = repr(sorted(u.name for u in self._units))
+        return hashlib.sha256(src.encode()).hexdigest()
