@@ -237,7 +237,35 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              normalised step turns a gradient that is rounding noise
              into a full-size step),
              then 3 epochs with the validation rmse falling; epoch ms.
-             Phases 23–24 launch no hand-written kernel.
+             Phases 23–24 launch no hand-written kernel;
+25. telemetry — the telemetry plane on the ported paths
+             (``veles_tpu_torch/telemetry``). Serving: the bench LM behind
+             the default continuous engine (``serve_continuous``'s
+             geometry and its 24 requests), once with spans off and once
+             with spans on under ``devtime.measure`` (a torch.profiler
+             capture): greedy tokens and the flash launch counter equal
+             off and on; ``source`` "profiler", device time > 0,
+             ``serving.prefill`` and ``serving.decode_step`` each with
+             device time > 0, 24 ``serving.prefill`` spans, 24
+             ``request`` spans each retired, flash-forward kernel events
+             in the capture = the launch counter's delta (6 x 24), the
+             live ``/metrics`` page's ttft and e2e histogram counts 24
+             each, the spans' Chrome trace valid; tokens/s of the three
+             runs and the idle share reported. Training: MNIST-784 through the
+             fused-FC kernel, one 4-epoch block under ``devtime.measure``:
+             fused-FC kernel events = the launch counter's delta (4), the
+             ``train_step.epoch_block`` span's device time >= the
+             kernel's. Cost: the analytic costs the flash kernel noted
+             over the serving load (``telemetry/cost.py`` collectors)
+             total the sum of ``ops/flash_attention.analytic_cost`` over
+             the 24 prefills' 6 launches each; their FLOP/s over the
+             kernel's device time and over the load's wall time, and the
+             share of the float32 and TF32 peaks from ``cost.py``.
+
+``profiled`` (the breakdown phases' profiler window) reads the capture
+through ``telemetry.devtime.measure``: ``device_busy_ms`` is the union
+of each stream's kernel, memcpy and memset intervals, summed over the
+streams, so overlapping kernels count once.
 
 Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
@@ -293,8 +321,6 @@ TOL_AE_STEP_REL = 1e-4
 AE_SEED = 99
 #: train steps of CIFAR's profiled window
 CIFAR_STEPS = 20
-#: published dense peaks of one H100 SXM at 700 W (TFLOP/s)
-PEAK_TFLOPS = {"bf16": 989.0, "f32": 67.0}
 
 BENCH_LAYERS = (
     [{"type": "embedding", "vocab_size": 256, "dim": 512}]
@@ -2044,7 +2070,10 @@ def phase_train_ae(card):
     mixed precision; the float32 run's first steps against the CPU."""
     import torch
     from veles_tpu_torch.config import root
-    from veles_tpu_torch.telemetry import counters
+    from veles_tpu_torch.telemetry import cost, counters
+    # the card's published dense peaks (telemetry/cost.py), TFLOP/s
+    peaks = {"bf16": cost.peak_flops("bfloat16", "H100") / 1e12,
+             "f32": cost.peak_flops("float32", "H100") / 1e12}
     records = {}
     try:
         for amp in (False, True):
@@ -2086,8 +2115,8 @@ def phase_train_ae(card):
                       "validation": d.epoch_metrics[1]},
                 train_samples_per_s=lengths[2] / steady,
                 model_tflops_per_s=tflops,
-                share_of_bf16_peak=tflops / PEAK_TFLOPS["bf16"],
-                share_of_f32_peak=tflops / PEAK_TFLOPS["f32"],
+                share_of_bf16_peak=tflops / peaks["bf16"],
+                share_of_f32_peak=tflops / peaks["f32"],
                 fwd_gflop_per_sample=fwd / 1e9,
                 epoch_tflop=epoch_flops / 1e12,
                 master_dtypes=sorted({str(t.dtype) for p in
@@ -2103,7 +2132,7 @@ def phase_train_ae(card):
          "conv5x5x64-pool-conv3x3x128-pool-conv3x3x128-depool-deconv3x3x64-"
          "depool-deconv5x5x3", mb=64, epochs=2,
          rows={"train": lengths[2], "validation": lengths[1]},
-         peaks_tflops=PEAK_TFLOPS, **records)
+         peaks_tflops=peaks, **records)
     f32 = records["f32"]
     if not f32["step_loss_rel_diff"] <= TOL_AE_STEP_REL \
             or not f32["step_update_rel_diff"] <= TOL_AE_STEP_REL:
@@ -2594,8 +2623,6 @@ SNAP_EPOCHS, SNAP_PER_DISPATCH = 4, 2
 #: baseline2: MeanDispNormalizer on the card vs its numpy_run
 #: (tests/test_aux_units.py:29)
 TOL_NORM_RTOL, TOL_NORM_ATOL = 1e-5, 1e-6
-#: published HBM3 rate of one H100 SXM (bytes/s)
-PEAK_BYTES_PER_S = 3.35e12
 #: train_zoo: the first two adam steps, card vs CPU (relative)
 TOL_ZOO_STEP_REL = 1e-4
 ZOO_EPOCHS = 3
@@ -2748,6 +2775,7 @@ def phase_baseline2(card):
     import torch
     from veles_tpu_torch import InputJoiner, MeanDispNormalizer, datasets
     from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.telemetry import cost
     from veles_tpu_torch.telemetry import counters
     from veles_tpu_torch.workflow import Workflow
     t_phase = time.perf_counter()
@@ -2773,7 +2801,7 @@ def phase_baseline2(card):
     y_max = float(numpy.abs(y).max())
     # each input read once, the output written once
     nbytes = 2 * tx.nbytes + mean.nbytes + rdisp.nbytes
-    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = nbytes / cost.hbm_bandwidth("H100") * 1e3
     labels = torch.nn.functional.one_hot(
         torch.from_numpy(ty).long().cuda(), 10).float()
     joiner = InputJoiner(wf, inputs=[Array(tx), Array(numpy.zeros(
@@ -2928,29 +2956,204 @@ def host_ms(fn):
 
 
 def profiled(fn, match=()):
-    """Host wall ms of ``fn()`` under torch.profiler, and the device's
-    busy ms, idle share, kernel launches and top kernels by device time
-    (null when the profiler sees no device time); ``matched_ms`` sums the
-    device ms of every kernel whose name holds each of ``match``."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_ms = host_ms(fn)
-    kernels = [(getattr(e, "self_device_time_total", 0) / 1e3, e.key,
-                e.count) for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and "CUDA" in str(e.device_type)]
-    busy_ms = sum(k[0] for k in kernels)
-    kernels.sort(reverse=True)
+    """Host wall ms of ``fn()`` (synchronised on both sides) under
+    torch.profiler, read through ``telemetry.devtime.measure``: the
+    device's busy ms (each stream's kernel, memcpy and memset intervals
+    unioned, summed over the streams), its idle share, the device events
+    (kernel launches, copies and fills) and the top kernels by device
+    time; ``matched_ms`` sums the device ms of every kernel whose name
+    holds each of ``match``. A capture with no device event raises."""
+    from veles_tpu_torch.telemetry import devtime
+    rec = devtime.measure(fn, span_records=[])
+    kernels = sorted(((r["device_time_s"] * 1e3, name, r["events"])
+                      for name, r in rec["by_kernel"].items()),
+                     reverse=True)
     return dict(
-        profiled_wall_ms=wall_ms,
-        device_busy_ms=busy_ms if kernels else None,
-        device_idle_share=(1 - busy_ms / wall_ms) if kernels else None,
-        kernel_launches=sum(k[2] for k in kernels) if kernels else None,
+        profiled_wall_ms=rec["wall_time_s"] * 1e3,
+        device_busy_ms=rec["device_time_s"] * 1e3,
+        device_idle_share=rec["idle_share"],
+        kernel_launches=sum(k[2] for k in kernels),
         top_kernels=[{"name": k[1][:80], "ms": k[0], "calls": k[2]}
                      for k in kernels[:12]],
         matched_ms={m: sum(k[0] for k in kernels if m in k[1])
                     for m in match})
+
+
+def kernel_events(rec, name):
+    """(events, device s) of the kernels holding ``name`` in a
+    ``devtime.measure`` record."""
+    rows = [r for k, r in rec["by_kernel"].items() if name in k]
+    return (sum(r["events"] for r in rows),
+            sum(r["device_time_s"] for r in rows))
+
+
+def phase_telemetry(card):
+    """The telemetry plane on the serving and training paths: spans off
+    vs on, a devtime capture of each, the flash kernel's noted costs."""
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.restful_api import GenerationAPI
+    from veles_tpu_torch.telemetry import chrome_trace, cost, devtime
+    from veles_tpu_torch.telemetry import counters
+    from veles_tpu_torch.telemetry.spans import recorder
+
+    model = bench_lm()
+    requests = continuous_load()
+    n_blocks = sum(1 for c in BENCH_LAYERS
+                   if c["type"] == "transformer_block")
+    heads = BENCH_LAYERS[1]["n_heads"]
+    head_dim = BENCH_LAYERS[0]["dim"] // heads
+    greedy = [i for i, r in enumerate(requests) if "mode" not in r]
+    runs = {}
+    prev = root.common.trace.spans
+    try:
+        # off, on, off: an order effect shows as the two off runs apart
+        for spans in (False, True, None):
+            root.common.trace.spans = bool(spans)
+            api = GenerationAPI(model, port=0, **CONT_ENGINE).initialize()
+            url = "http://127.0.0.1:%d" % api.port
+            out = {}
+            try:
+                counters.counters.reset()
+                counters.histograms.reset()
+                if spans:
+                    cursor = recorder.cursor()
+                    with cost.collecting_kernel_costs() as notes:
+                        rec = devtime.measure(lambda: out.update(
+                            zip(("results", "wall"),
+                                post_all(url + "/generate", requests))))
+                    with urllib.request.urlopen(url + "/metrics",
+                                                timeout=60) as r:
+                        page = r.read().decode()
+                    records, _ = recorder.records_since(cursor)
+                else:
+                    out["results"], out["wall"] = post_all(
+                        url + "/generate", requests)
+                torch.cuda.synchronize()
+                snap = counters.counters.snapshot()
+                buckets = [api._engine.scheduler.bucket_for(
+                    len(r["prompt"])) for r in requests]
+            finally:
+                api.stop()
+            for i, res in enumerate(out["results"]):
+                if res is None or res[0] != 200 \
+                        or res[1].get("engine") != "continuous":
+                    raise AssertionError("spans %s: request %d: %r"
+                                         % (spans, i, res))
+            out.update(snap=snap, tokens=sum(len(r[1]["tokens"])
+                                             for r in out["results"]))
+            runs[spans] = out
+    finally:
+        root.common.trace.spans = prev
+    on = runs[True]
+    order = [runs[False], on, runs[None]]
+    launches = [run["snap"].get(fa.FWD_LAUNCHES, 0) for run in order]
+    n = len(requests)
+    if launches != [n_blocks * n] * 3:
+        raise AssertionError("flash launches off/on/off %r, want %d each"
+                             % (launches, n_blocks * n))
+    for run in (runs[False], runs[None]):
+        for i in greedy:
+            if run["results"][i][1]["tokens"] \
+                    != on["results"][i][1]["tokens"]:
+                raise AssertionError("greedy request %d: tokens differ "
+                                     "with spans on" % i)
+    sampled_equal = all(runs[False]["results"][i][1]["tokens"]
+                        == on["results"][i][1]["tokens"]
+                        for i in range(n) if i not in greedy)
+    if rec["source"] != "profiler" or not rec["device_time_s"] > 0:
+        raise AssertionError("devtime record %r" % {
+            k: rec.get(k) for k in ("source", "device_time_s")})
+    per_span = rec.get("spans", {})
+    for name in ("serving.prefill", "serving.decode_step"):
+        if not per_span.get(name, {}).get("device_time_s", 0) > 0:
+            raise AssertionError("no device time under %s: %r"
+                                 % (name, per_span.get(name)))
+    if per_span["serving.prefill"]["spans"] != n:
+        raise AssertionError("%d serving.prefill spans, want %d"
+                             % (per_span["serving.prefill"]["spans"], n))
+    req_spans = [r for r in records if r["name"] == "request"]
+    if len(req_spans) != n or any(r["outcome"] != "retired"
+                                  for r in req_spans):
+        raise AssertionError("request spans %r" % [
+            r.get("outcome") for r in req_spans])
+    flash_events, flash_s = kernel_events(rec, "flash_fwd_kernel")
+    if flash_events != launches[1]:
+        raise AssertionError("%d flash-forward kernel events in the "
+                             "capture, %d launches counted"
+                             % (flash_events, launches[1]))
+    metric = {}
+    for line in page.splitlines():
+        for name in ("veles_serving_ttft_seconds_count",
+                     "veles_serving_e2e_seconds_count"):
+            if line.startswith(name + " "):
+                metric[name] = float(line.split()[1])
+    if metric != {"veles_serving_ttft_seconds_count": n,
+                  "veles_serving_e2e_seconds_count": n}:
+        raise AssertionError("/metrics histogram counts %r" % metric)
+    trace_errors = chrome_trace.validate(
+        {"traceEvents": chrome_trace.to_trace_events(records)})
+    if trace_errors:
+        raise AssertionError("chrome trace: %r" % trace_errors[:3])
+    # the analytic costs the kernel noted at its launches
+    model_cost = cost.CostModel(peak_flops=cost.peak_flops("float32"))
+    for note in notes:
+        model_cost.record("flash_attention_fwd", note)
+    total = model_cost.total()
+    want = n_blocks * sum(fa.analytic_cost(1, b, heads, head_dim, True)[0]
+                          for b in buckets)
+    if len(notes) != launches[1] or total.flops != want:
+        raise AssertionError("noted %d costs, %.6g FLOPs; want %d, %.6g"
+                             % (len(notes), total.flops, launches[1],
+                                want))
+    report = model_cost.report({"flash_attention_fwd": flash_s})
+    row = report["flash_attention_fwd"]
+    emit("telemetry", card=card, path="serve_continuous", requests=n,
+         tokens=on["tokens"],
+         tokens_per_s_off_on_off=[run["tokens"] / run["wall"]
+                                  for run in order],
+         greedy_tokens_equal=True, sampled_tokens_equal=sampled_equal,
+         flash_launches=launches, source=rec["source"],
+         clock=rec["clock"], device_time_s=rec["device_time_s"],
+         wall_time_s=rec["wall_time_s"], idle_share=rec["idle_share"],
+         by_stream=rec["by_stream"],
+         spans={k: v for k, v in per_span.items()
+                if k.startswith("serving.") or k == "request"},
+         span_records=len(records), flash_kernel_events=flash_events,
+         flash_device_s=flash_s, metrics_counts=metric,
+         noted_flops=total.flops, noted_bytes=total.bytes_accessed,
+         flash_tflops_per_s=row["tflops_per_sec"],
+         share_of_f32_peak=row["mfu"],
+         share_of_tf32_peak=total.flops / flash_s
+         / cost.peak_flops("tf32"),
+         flash_flops_per_wall_s=total.flops / rec["wall_time_s"],
+         peak_entries=[cost.peak_flops_entry("float32"),
+                       cost.peak_flops_entry("tf32")])
+
+    # training: one fused-FC epoch block under the capture
+    wf = mnist_workflow(True, epochs=4, per_dispatch=4)
+    counters.counters.reset()
+    train = devtime.measure(wf.run)
+    ffc_launches = counters.get("veles_fused_fc_launches_total")
+    ffc_events, ffc_s = kernel_events(train, "fused_fc_sgd_kernel")
+    block = train.get("spans", {}).get("train_step.epoch_block", {})
+    if train["source"] != "profiler" or ffc_launches != 4 \
+            or ffc_events != ffc_launches:
+        raise AssertionError("fused-FC events %d, launches %d (%s)"
+                             % (ffc_events, ffc_launches,
+                                train["source"]))
+    if not block.get("device_time_s", 0) >= ffc_s > 0:
+        raise AssertionError("train_step.epoch_block device time %r < "
+                             "the fused-FC kernel's %.6f s"
+                             % (block, ffc_s))
+    emit("telemetry", card=card, path="train", epochs=4,
+         fused_fc_launches=ffc_launches, fused_fc_kernel_events=ffc_events,
+         fused_fc_device_s=ffc_s, epoch_block=block,
+         device_time_s=train["device_time_s"],
+         wall_time_s=train["wall_time_s"], idle_share=train["idle_share"],
+         clock=train["clock"])
+    return launches[1], ffc_launches
 
 
 def phase_breakdown(card, model, prompts):
@@ -3034,6 +3237,7 @@ def main():
     launches_snap = phase_snapshot(card)
     phase_baseline2(card)
     phase_train_zoo(card)
+    launches_tel, launches_tel_ffc = phase_telemetry(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -3088,7 +3292,8 @@ def main():
                              "serve_continuous": launches_cont,
                              "train_lm": launches_lm["fwd"],
                              "train_lm_amp": launches_amp[("f32_f32",
-                                                           "fwd")]},
+                                                           "fwd")],
+                             "telemetry": launches_tel},
         "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",
         "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",
@@ -3102,7 +3307,8 @@ def main():
         "general_path_ms": timing_ffc["general_path_ms"],
         "us_per_step": timing_ffc["us_per_step"],
         "launches_by_path": {"train": launches_ffc,
-                             "snapshot": launches_snap}, "ok": True},
+                             "snapshot": launches_snap,
+                             "telemetry": launches_tel_ffc}, "ok": True},
         bwd_entry("dkv", 248), bwd_entry("dq", 309)] + [
         amp_entry(inst, kern) for inst in AMP_INSTANCES
         for kern in ("fwd", "dkv", "dq")]}), flush=True)

@@ -1035,3 +1035,41 @@ def test_mean_disp_normalizer_on_the_card(cuda):
     numpy.testing.assert_allclose(y, u.output.map_read(), rtol=1e-5,
                                   atol=1e-6)
     assert abs(y).max() <= 1.0 + 1e-5
+
+
+def test_devtime_measure_attributes_flash_to_its_span(cuda):
+    """``devtime.measure`` on the card: a torch.profiler capture
+    (``source == "profiler"``, the clocks met at the anchor) whose one
+    flash-forward kernel event lands in the span around its launch."""
+    from veles_tpu_torch.telemetry import devtime
+    from veles_tpu_torch.telemetry.spans import span
+    q, k, v = qkv(cuda, 1, 512, 8, 8, 64, seed=5)
+    fa.flash_attention_fwd(q, k, v, causal=True)      # build and warm
+    torch.cuda.synchronize()
+
+    def fn():
+        with span("test.flash_fwd"):
+            fa.flash_attention_fwd(q, k, v, causal=True)
+            # the kernel runs inside the span's window only if the span
+            # waits for it (spans themselves never synchronise)
+            torch.cuda.synchronize()
+
+    rec = devtime.measure(fn, device=cuda)
+    assert rec["source"] == "profiler" and rec["clock"] == "anchor"
+    assert rec["device_time_s"] > 0
+    assert 0 <= rec["idle_share"] < 1
+    flash = [r for name, r in rec["by_kernel"].items()
+             if "flash_fwd_kernel" in name]
+    assert sum(r["events"] for r in flash) == 1
+    mine = rec["spans"]["test.flash_fwd"]
+    assert mine["spans"] == 1 and mine["events"] >= 1
+    assert mine["device_time_s"] >= sum(r["device_time_s"] for r in flash)
+
+
+def test_devtime_capture_without_device_work_raises(cuda):
+    """No fallback hides the device: a capture with no device event is
+    an error on the card, not a host-time record."""
+    from veles_tpu_torch.telemetry import devtime
+    torch.cuda.synchronize()
+    with pytest.raises(VelesError, match="no device event"):
+        devtime.measure(lambda: None, sync=lambda: None, device=cuda)

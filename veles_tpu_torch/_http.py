@@ -1,5 +1,6 @@
 """Stdlib-HTTP scaffolding (trimmed counterpart of ``veles_tpu/_http.py``):
-the JSON reply/request helpers and the daemon-thread serve/shutdown
+the JSON and bytes reply helpers, the request parser, the
+``GET /trace/spans`` pull and the daemon-thread serve/shutdown
 lifecycle."""
 
 from __future__ import annotations
@@ -12,14 +13,42 @@ from typing import Any, Dict, Optional
 
 def json_reply(handler, code: int, payload: Any,
                headers: Optional[Dict[str, str]] = None) -> None:
-    data = json.dumps(payload).encode()
+    bytes_reply(handler, code, json.dumps(payload).encode(),
+                "application/json", headers=headers)
+
+
+def bytes_reply(handler, code: int, data: bytes, ctype: str,
+                headers: Optional[Dict[str, str]] = None) -> None:
     handler.send_response(code)
-    handler.send_header("Content-Type", "application/json")
+    handler.send_header("Content-Type", ctype)
     handler.send_header("Content-Length", str(len(data)))
     for name, value in (headers or {}).items():
         handler.send_header(name, value)
     handler.end_headers()
     handler.wfile.write(data)
+
+
+def handle_trace_spans(handler, path: str, name: str = "") -> bool:
+    """Serve ``GET /trace/spans[?since=CURSOR]``, the span-ring pull:
+    a JSONL body (a header line, then one line per span appended after
+    the cursor) so a torn read salvages per record. Returns True when
+    the path was this one."""
+    if path.split("?", 1)[0] != "/trace/spans":
+        return False
+    since = 0
+    if "?" in path:
+        from urllib.parse import parse_qs
+        try:
+            since = int(parse_qs(path.split("?", 1)[1]
+                                 ).get("since", ["0"])[0])
+        except (TypeError, ValueError):
+            json_reply(handler, 400,
+                       {"error": "since must be an integer cursor"})
+            return True
+    from .telemetry.spans import pull_payload
+    bytes_reply(handler, 200, pull_payload(since, name=name).encode(),
+                "application/x-ndjson")
+    return True
 
 
 def read_json_object(handler) -> Dict[str, Any]:

@@ -110,6 +110,26 @@ def _default_root() -> Config:
                       "max_delay": 30.0},
             "keep_last": 0,           # snapshot retention; 0 = keep all
         },
+        # telemetry spans (telemetry/spans.py): THE switch, honored
+        # centrally by the recorder, so it covers Unit.run,
+        # workflow.run/initialize, the train step, the decoders and the
+        # serving engines; the ring's capacity (the GET /trace/spans
+        # pull window) and the JSONL sink's rotation size (0 = never);
+        # ``requests`` gates the per-request lifecycle spans and flight
+        # events (serving/scheduler.py) — the SLO histograms count
+        # either way. The reference's defaults
+        "trace": {"spans": True, "span_ring": 65536,
+                  "rotate_bytes": 64 << 20, "requests": True},
+        "telemetry": {
+            # the flight recorder (telemetry/recorder.py): a bounded
+            # ring of span closes, alarm-counter increments and request
+            # events; autodump writes blackbox-<ts>_<pid>.jsonl on an
+            # unhandled Workflow.run exception or SIGTERM; any single
+            # counter increment of at least counter_threshold is also
+            # recorded (0 = alarm counters only)
+            "recorder": {"enabled": True, "capacity": 4096,
+                         "autodump": False, "counter_threshold": 0},
+        },
         # the reference's non-blocking snapshots: not ported (the
         # Snapshotter refuses True)
         "overlap": {

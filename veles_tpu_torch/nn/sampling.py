@@ -28,6 +28,7 @@ import torch
 
 from ..error import VelesError
 from ..telemetry.counters import inc
+from ..telemetry.spans import span
 from .transformer import (Embedding, LMHead, PositionalEmbedding,
                           TransformerBlock, _rotate, block_apply, block_ffn,
                           block_norm, block_qkv, rope_angles)
@@ -290,7 +291,8 @@ def generate(forwards, prompt, n_new: int, temperature: float = 1.0,
         return [[] for _ in range(bsz)] if batched else []
     device = forwards.device
     gens = _row_generators(seed, bsz, device) if temperature > 0 else None
-    with torch.inference_mode():
+    with torch.inference_mode(), span("decode.cached", batch=bsz,
+                                      n_new=n_new):
         ids = torch.as_tensor(prompt, device=device)
         x, caches = _prefill_blocks(blocks, _embed_prompt(
             stem, pos_emb, ids), t_max)

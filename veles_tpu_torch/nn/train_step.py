@@ -27,7 +27,9 @@ at initialize to ``"targets"`` if the loader has them, else ``"input"``:
   the general path, as in the reference.
 
 Metrics accumulate on the device and reach the host once per drain
-(``drain_epoch_blocks``).
+(``drain_epoch_blocks``). An epoch block runs inside a
+``train_step.epoch_block`` span; :meth:`TrainStep.cost_report` is the
+FLOPs and bytes of what the step dispatched (telemetry/cost.py).
 
 The reference's memory and precision knobs:
 
@@ -64,6 +66,8 @@ from ..config import root
 from ..error import Bug, VelesError
 from ..loader.base import TEST, TRAIN, VALID
 from ..ops.precision import amp_cast
+from ..telemetry import cost as _cost
+from ..telemetry.spans import span
 from .all2all import All2AllSoftmax, All2AllTanh
 from .evaluator import EvaluatorSoftmax
 from .nn_units import MATCHING, ForwardBase, GradientDescentBase
@@ -171,6 +175,11 @@ class TrainStep(AcceleratedUnit):
         self._eval_plan_dev: Dict[Any, Any] = {}
         self._gd_for: Dict[str, GradientDescentBase] = {}
         self.last_loss = None
+        #: what the last dispatch under each cost key ran: [(class,
+        #: steps)] per epoch, and the epochs (cost_report)
+        self._dispatched: Dict[str, Dict[str, Any]] = {}
+        #: {(class, minibatch size): Cost of one step} (cost_report)
+        self._step_costs: Dict[Any, Any] = {}
         self.demand("evaluator", "loader")
 
     def _ensure_gds(self) -> None:
@@ -513,7 +522,6 @@ class TrainStep(AcceleratedUnit):
         return [_f32(self.lr_scale)] * h
 
     def _run_epoch_block(self) -> None:
-        from ..ops.fused_fc import fused_fc_sgd_epoch
         loader = self.loader
         dataset, targets = self._dataset()
         h = loader.block_length or loader.block_epochs
@@ -526,6 +534,19 @@ class TrainStep(AcceleratedUnit):
             and all(float(m.map_read()[:h].min()) >= 1.0
                     for cls, (_, m) in loader.block_plans.items()
                     if cls == TRAIN))
+        key = "epoch_block_fused" if self._fused_fc_active else "epoch_block"
+        self._dispatched = {key: {"epochs": h, "plans": [
+            (cls, int(idx.shape[1])) for cls, (idx, _m) in plans.items()]}}
+        with span("train_step.epoch_block", unit=self.name, epochs=h,
+                  fused_fc=bool(self._fused_fc_active)):
+            self.params, self.opt_state, self._block_metrics = \
+                self._epoch_block(dataset, targets, plans, scales, h)
+
+    def _epoch_block(self, dataset, targets, plans, scales, h):
+        """The epochs of one block: each epoch's evaluation plans, then
+        its train plan (the fused kernel when active); returns the new
+        params, optimiser state and per-epoch device metrics."""
+        from ..ops.fused_fc import fused_fc_sgd_epoch
         p, o = self.params, self.opt_state
         stacked = []
         for e in range(h):
@@ -569,8 +590,7 @@ class TrainStep(AcceleratedUnit):
                         p, o, self._zero_accum(), dataset, targets, idx[e],
                         mask[e], scales[e])
             stacked.append(outs)
-        self.params, self.opt_state = p, o
-        self._block_metrics = stacked
+        return p, o, stacked
 
     def torch_run(self) -> None:
         loader = self.loader
@@ -591,6 +611,8 @@ class TrainStep(AcceleratedUnit):
             # the reference's scan computes them and discards the result
             indices = indices[:loader.plan_length]
             mask = mask[:loader.plan_length]
+        self._dispatched["train" if cls == TRAIN else "eval"] = {
+            "epochs": 1, "plans": [(cls, int(indices.shape[0]))]}
         if cls == TRAIN:
             self.params, self.opt_state, self._accum[cls], self.last_loss \
                 = self._train_plan(self.params, self.opt_state, accum,
@@ -599,6 +621,69 @@ class TrainStep(AcceleratedUnit):
         else:
             self._accum[cls] = self._eval_plan(self.params, accum, dataset,
                                                targets, indices, mask)
+
+    # -- cost (telemetry/cost.py) -------------------------------------------
+    def _step_cost(self, cls: int):
+        """The cost of ONE minibatch step of class ``cls`` (a train step
+        for TRAIN, else an evaluation step) at the loader's minibatch
+        size, counted once per (class, size) and cached: the step runs
+        once on the unit's device, on the first rows of the dataset,
+        under ``telemetry.cost.cost_of_fn`` (the products' FLOPs and
+        the operators' bytes), plus the analytic costs the hand-written
+        kernels note at their launches. The params and optimiser state
+        are not changed."""
+        mb = int(self.loader.max_minibatch_size)
+        key = (cls, mb)
+        if key not in self._step_costs:
+            dataset, targets = self._dataset()
+            idx = torch.arange(mb, device=self.device) % dataset.shape[0]
+            mask = torch.ones(mb, dtype=torch.float32, device=self.device)
+            if cls == TRAIN:
+                fn = lambda: self._train_step(  # noqa: E731
+                    self.params, self.opt_state, self._zero_accum(),
+                    dataset, targets, idx, mask, _f32(self.lr_scale))
+            else:
+                fn = lambda: self._eval_step(  # noqa: E731
+                    self.params, self._zero_accum(), dataset, targets,
+                    idx, mask)
+            with _cost.collecting_kernel_costs() as notes:
+                cost = _cost.cost_of_fn(fn)
+            for note in notes:
+                cost = cost + note
+            self._step_costs[key] = cost
+        return self._step_costs[key]
+
+    def cost_report(self):
+        """The cost of the last dispatch under each key ("epoch_block_
+        fused", "epoch_block", "train", "eval", as the reference keys
+        its programs): every plan step at its class's :meth:`_step_cost`,
+        and on the fused path each epoch's train plan at the fused-FC
+        kernel's analytic cost (``ops.fused_fc.analytic_cost``) instead.
+        Returns ``{"key", "cost", "costs"}`` (the primary key and its
+        cost, and every key's) or None before the first dispatch. On
+        demand only: the first call per plan shape runs one step."""
+        from ..ops import fused_fc as ff
+        costs = {}
+        for key in ("epoch_block_fused", "epoch_block", "train", "eval"):
+            info = self._dispatched.get(key)
+            if info is None:
+                continue
+            cost = _cost.Cost(source="flop_counter")
+            for cls, steps in info["plans"]:
+                if cls == TRAIN and key == "epoch_block_fused":
+                    names = self._fused_fc["names"]
+                    shapes = [tuple(self.params[n]["weights"].shape)
+                              for n in names]
+                    epoch = _cost.Cost(*ff.analytic_cost(
+                        shapes, self.loader.max_minibatch_size, steps))
+                else:
+                    epoch = self._step_cost(cls).scaled(steps)
+                cost = cost + epoch.scaled(info["epochs"])
+            costs[key] = cost
+        if not costs:
+            return None
+        primary = next(iter(costs))
+        return {"key": primary, "cost": costs[primary], "costs": costs}
 
     # -- epoch drain (the Decision pulls these) ------------------------------
     @staticmethod

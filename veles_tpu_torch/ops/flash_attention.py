@@ -57,6 +57,7 @@ import torch
 
 from ..config import root
 from ..error import VelesError
+from ..telemetry import cost as _cost
 from ..telemetry.counters import inc
 
 NEG_INF = -1e30
@@ -191,13 +192,13 @@ def backward_work(b: int, t: int, h: int, d: int, causal: bool = False,
             "dq": (6.0 * d * pairs, float(inputs + io * h * 4))}
 
 
-#: published dense peaks of one H100 SXM (NVIDIA data sheet): float32
-#: FMA on the CUDA cores, TF32 and bf16 on the tensor cores, HBM3
-#: bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
+#: published dense peaks of one H100 SXM, read from the one table
+#: (telemetry/cost.py): float32 FMA on the CUDA cores, TF32 and bf16 on
+#: the tensor cores, HBM3 bandwidth
+PEAK_F32_FLOPS = _cost.peak_flops("float32", "H100")
+PEAK_TF32_FLOPS = _cost.peak_flops("tf32", "H100")
+PEAK_BF16_FLOPS = _cost.peak_flops("bfloat16", "H100")
+PEAK_HBM_BYTES = _cost.hbm_bandwidth("H100")
 
 
 def _bounds(flops: float, nbytes: float, inst: str = "f32_f32",
@@ -537,6 +538,18 @@ def _count(total: str, inst: str) -> None:
     inc(launch_counter(total, inst))
 
 
+def _note_cost(q, k, v, causal: bool, window: int, scale: float = 1.0):
+    """Publish a launch's analytic cost (:func:`analytic_cost` at the
+    call's shape and operand widths, ``scale`` × the forward's) to the
+    active kernel-cost collectors (telemetry/cost.py): the kernel is
+    opaque to the FLOP counter, as the Pallas call is to XLA."""
+    b, t, h, d = q.shape
+    flops, nbytes = analytic_cost(b, t, h, d, causal, window, k.shape[2],
+                                  q.element_size(),
+                                  v_bytes=v.element_size())
+    _cost.note_kernel_cost(_cost.Cost(flops, nbytes).scaled(scale))
+
+
 def _strides(*xs):
     return (ctypes.c_longlong * (3 * len(xs)))(
         *(s for x in xs for s in x.stride()[:3]))
@@ -561,6 +574,7 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
         raise RuntimeError("flash_attention_fwd kernel launch failed: "
                            "CUDA error %d" % err)
     _count(FWD_LAUNCHES, inst)
+    _note_cost(q, k, v, causal, window)
     return o, lse.view(b, h, t)
 
 
@@ -625,9 +639,12 @@ def launch_bwd_dq(q, k, v, do, lse, delta, causal: bool, window: int,
 def _launch_bwd(q, k, v, do, lse, delta, causal: bool, window: int,
                 scale: float):
     """The dK/dV kernel, then the dQ kernel, on the current stream;
-    returns f32 (dq, dk, dv)."""
+    returns f32 (dq, dk, dv). The pair notes the reference's backward
+    model: 2.5× the forward's analytic cost (a recompute and four
+    gradient products)."""
     dk, dv = launch_bwd_dkv(q, k, v, do, lse, delta, causal, window, scale)
     dq = launch_bwd_dq(q, k, v, do, lse, delta, causal, window, scale)
+    _note_cost(q, k, v, causal, window, 2.5)
     return dq, dk, dv
 
 

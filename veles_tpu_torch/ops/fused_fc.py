@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..telemetry import cost as _cost
 from ..telemetry.counters import inc
 
 _SOURCE = "fused_fc_sgd"
@@ -98,12 +99,10 @@ def epoch_bounds(layer_shapes: Sequence, mb: int, steps: int,
     the products in 3xTF32 on the tensor cores (a third of the TF32
     rate), each at least the bytes over the memory rate; and the 3xTF32
     and float32 ceilings of the ``cluster`` SMs one launch runs on."""
-    from .flash_attention import (PEAK_F32_FLOPS, PEAK_HBM_BYTES,
-                                  PEAK_TF32_FLOPS)
     flops, nbytes = epoch_work(layer_shapes, mb, steps)
-    t_f32 = flops / PEAK_F32_FLOPS * 1e3
-    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_f32 = flops / _cost.peak_flops("float32", "H100") * 1e3
+    t_tc = 3 * flops / _cost.peak_flops("tf32", "H100") * 1e3
+    t_bytes = nbytes / _cost.hbm_bandwidth("H100") * 1e3
     return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(t_f32, t_bytes), "bound_tc_ms": max(t_tc, t_bytes),
             "bound_by": "operations" if t_tc >= t_bytes else "bytes",
@@ -331,6 +330,10 @@ def _launch(weights, biases, vel_w, vel_b, dataset, labels, plan, lr,
                            "layout, cluster %d): CUDA error %d"
                            % (layout, cluster, err))
     inc("veles_fused_fc_launches_total")
+    # the kernel is opaque to the FLOP counter: publish the epoch's
+    # analytic cost to the active collectors (telemetry/cost.py)
+    _cost.note_kernel_cost(_cost.Cost(*analytic_cost(shapes, mb,
+                                                     args.steps)))
     f32 = acc.float()
     return (outs[:n], outs[n:2 * n], outs[2 * n:3 * n], outs[3 * n:],
             f32[0], f32[1])

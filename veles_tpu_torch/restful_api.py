@@ -5,9 +5,12 @@ POST ``/generate`` with ``{"prompt": [ids], "n_new": N}`` (+ optional
 ``mode``: ``greedy`` | ``sample``, ``temperature``, ``seed``,
 ``eos_id``, ``request_id``) → ``{"tokens": [...], "batched_with": k,
 "request_id": ...}`` (+ ``"engine": "continuous"`` when the slot pool
-answered). ``GET /healthz`` answers while the service runs; ``GET
-/stats`` is the engine's occupancy as JSON and
-``GET /metrics`` the counters and serving gauges as plain text.
+answered); a ``trace_id`` and a 1-based ``attempt`` tag the request's
+spans. ``GET /healthz`` answers while the service runs; ``GET
+/stats`` is the engine's occupancy as JSON, ``GET /metrics`` the
+counters, the serving SLO histograms with their p50/p90/p99 and the
+serving gauges as plain text, and ``GET /trace/spans[?since=CURSOR]``
+the span ring as JSONL.
 
 Three decode planes, as in the reference:
 
@@ -43,7 +46,8 @@ import time
 from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Optional
 
-from ._http import HTTPService, json_reply, read_json_object
+from ._http import (HTTPService, bytes_reply, handle_trace_spans,
+                    json_reply, read_json_object)
 from .backends import device_for
 from .config import root
 from .error import VelesError
@@ -145,15 +149,21 @@ class GenerationAPI(Logger):
         if eos_id is not None and (isinstance(eos_id, bool)
                                    or not isinstance(eos_id, int)):
             raise ValueError("'eos_id' must be an int token id")
-        request_id = body.get("request_id")
-        if request_id is not None and (
-                not isinstance(request_id, str)
-                or not 1 <= len(request_id) <= 200):
-            raise ValueError("'request_id' must be a non-empty string "
-                             "of at most 200 chars")
+        ids = {}
+        for key in ("request_id", "trace_id"):
+            ids[key] = body.get(key)
+            if ids[key] is not None and (
+                    not isinstance(ids[key], str)
+                    or not 1 <= len(ids[key]) <= 200):
+                raise ValueError("'%s' must be a non-empty string of at "
+                                 "most 200 chars" % key)
+        attempt = body.get("attempt", 1)
+        if isinstance(attempt, bool) or not isinstance(attempt, int) \
+                or attempt < 1:
+            raise ValueError("'attempt' must be an int >= 1")
         return {"prompt": [int(t) for t in prompt], "n_new": n_new,
                 "mode": mode, "temperature": temperature, "seed": seed,
-                "eos_id": eos_id, "request_id": request_id}
+                "eos_id": eos_id, "attempt": attempt, **ids}
 
     @staticmethod
     def _batch_key(req):
@@ -212,6 +222,9 @@ class GenerationAPI(Logger):
                 pending, self._queue = self._queue, []
             pending, expired = split_expired(pending)
             shed_expired(expired)
+            # queue exit is the window plane's admission boundary
+            for _req, ticket in pending:
+                ticket.mark_admitted()
             groups: Dict[Any, list] = {}
             for req, ticket in pending:
                 groups.setdefault(self._batch_key(req),
@@ -232,6 +245,9 @@ class GenerationAPI(Logger):
                 api.debug("http: " + fmt, *args)
 
             def do_GET(self):
+                if handle_trace_spans(self, self.path,
+                                      name="serve.%s" % api.name):
+                    return
                 engine = api._engine       # stop() may null it mid-GET
                 if self.path == "/healthz":
                     json_reply(self, 200, {
@@ -249,12 +265,9 @@ class GenerationAPI(Logger):
                         stats["continuous"] = engine.stats()
                     json_reply(self, 200, stats)
                 elif self.path == "/metrics":
-                    data = metrics_text(api._metrics_gauges()).encode()
-                    self.send_response(200)
-                    self.send_header("Content-Type", METRICS_CONTENT_TYPE)
-                    self.send_header("Content-Length", str(len(data)))
-                    self.end_headers()
-                    self.wfile.write(data)
+                    bytes_reply(self, 200,
+                                metrics_text(api._metrics_gauges()).encode(),
+                                METRICS_CONTENT_TYPE)
                 else:
                     self.send_error(404)
 
@@ -273,7 +286,9 @@ class GenerationAPI(Logger):
                     json_reply(self, 400, {"error": "bad request: %s" % e})
                     return
                 ticket = Ticket(deadline=time.time() + api.request_timeout,
-                                request_id=req["request_id"])
+                                request_id=req["request_id"],
+                                mode=req["mode"], trace_id=req["trace_id"],
+                                attempt=req["attempt"])
                 engine = api._engine
                 if engine is not None and engine.accepts(req) is None:
                     # the slot pool: admitted at the next step boundary

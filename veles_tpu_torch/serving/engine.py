@@ -55,6 +55,7 @@ from ..nn.sampling import (_block_step_rows, _draw, _embed_prompt,
                            _row_generators, split_stack)
 from ..ops.flash_attention import choose_flash
 from ..telemetry.counters import inc
+from ..telemetry.spans import span
 from .pages import PagePool, pages_for
 from .scheduler import SlotScheduler, Ticket, shed_expired
 
@@ -288,7 +289,7 @@ class ContinuousEngine(Logger):
               ) -> List[List[int]]:
         """Synchronous convenience (tests, benchmarks): submit every
         request, wait, return each token list; raises on any error."""
-        tickets = [Ticket() for _ in reqs]
+        tickets = [Ticket(mode=req.get("mode", "greedy")) for req in reqs]
         for req, ticket in zip(reqs, tickets):
             if not self.submit(req, ticket):
                 raise VelesError("serving queue full")
@@ -415,25 +416,30 @@ class ContinuousEngine(Logger):
         ids[0, :t_p] = torch.as_tensor(slot.req["prompt"],
                                        dtype=torch.int64)
         ids = ids.to(self.device)
-        # pad rows land in the pages too: the causal mask hides them
-        # from every real query, and each decode step writes position
-        # p before any read can reach it
-        x = _embed_prompt(stack["stem"], stack["pos_emb"], ids)
-        x, caches = _prefill_blocks(stack["blocks"], x, bucket)
-        pages = torch.as_tensor(
-            slot.pages[:pages_for(bucket, self.page_size)],
-            dtype=torch.int64, device=self.device)
-        for (ck, cv), (kp, vp) in zip(caches, self._caches):
-            self._scatter_prompt(kp, ck[0], pages)
-            self._scatter_prompt(vp, cv[0], pages)
-        logits = _head_logits(stack["head"], x[:, t_p - 1])     # (1, V)
-        if slot.temperature > 0:
-            gen = _row_generators(slot.req.get("seed", 0), 1,
-                                  self.device)[0]
-            self._gens[slot.idx] = gen
-            first = int(_draw(logits[0], slot.temperature, gen)[0])
-        else:
-            first = int(torch.argmax(logits[0]))
+        ticket = slot.ticket
+        with span("serving.prefill", bucket=bucket, slot=slot.idx,
+                  t_p=t_p, mode=slot.req.get("mode", "greedy"),
+                  request_id=ticket.request_id, trace_id=ticket.trace_id,
+                  attempt=ticket.attempt):
+            # pad rows land in the pages too: the causal mask hides them
+            # from every real query, and each decode step writes position
+            # p before any read can reach it
+            x = _embed_prompt(stack["stem"], stack["pos_emb"], ids)
+            x, caches = _prefill_blocks(stack["blocks"], x, bucket)
+            pages = torch.as_tensor(
+                slot.pages[:pages_for(bucket, self.page_size)],
+                dtype=torch.int64, device=self.device)
+            for (ck, cv), (kp, vp) in zip(caches, self._caches):
+                self._scatter_prompt(kp, ck[0], pages)
+                self._scatter_prompt(vp, cv[0], pages)
+            logits = _head_logits(stack["head"], x[:, t_p - 1])  # (1, V)
+            if slot.temperature > 0:
+                gen = _row_generators(slot.req.get("seed", 0), 1,
+                                      self.device)[0]
+                self._gens[slot.idx] = gen
+                first = int(_draw(logits[0], slot.temperature, gen)[0])
+            else:
+                first = int(torch.argmax(logits[0]))
         inc("veles_serving_prefill_dispatches_total")
         inc("veles_decode_dispatches_total")
         self.prefills_by_bucket[bucket] = \
@@ -503,21 +509,24 @@ class ContinuousEngine(Logger):
         tok = torch.as_tensor(self._tok, device=self.device)
         pos = self._pos.copy()
         out = []
-        for _ in range(self.decode_block):
-            targets = self._row_targets(pos, mask)
-            x = _embed_rows(stack["stem"], stack["pos_emb"], tok, pos)
-            for blk, (kp, vp) in zip(stack["blocks"], self._caches):
-                x = _block_step_rows(blk, x, kp, vp, tables, pos,
-                                     targets)
-            logits = _head_logits(stack["head"], x[:, 0])       # (S, V)
-            nxt = torch.argmax(logits, dim=-1)
-            for slot in sampled:
-                nxt[slot.idx] = _draw(logits[slot.idx], slot.temperature,
-                                      self._gens[slot.idx])[0]
-            tok = torch.where(live, nxt, tok)
-            out.append(tok)
-            pos = pos + mask
-        toks = torch.stack(out).cpu().numpy()       # (decode_block, S)
+        with span("serving.decode_step", active=len(active),
+                  chunk=self.decode_block):
+            for _ in range(self.decode_block):
+                targets = self._row_targets(pos, mask)
+                x = _embed_rows(stack["stem"], stack["pos_emb"], tok, pos)
+                for blk, (kp, vp) in zip(stack["blocks"], self._caches):
+                    x = _block_step_rows(blk, x, kp, vp, tables, pos,
+                                         targets)
+                logits = _head_logits(stack["head"], x[:, 0])   # (S, V)
+                nxt = torch.argmax(logits, dim=-1)
+                for slot in sampled:
+                    nxt[slot.idx] = _draw(logits[slot.idx],
+                                          slot.temperature,
+                                          self._gens[slot.idx])[0]
+                tok = torch.where(live, nxt, tok)
+                out.append(tok)
+                pos = pos + mask
+            toks = torch.stack(out).cpu().numpy()   # (decode_block, S)
         self.decode_ms.append((time.perf_counter() - t0) * 1e3)
         inc("veles_serving_decode_dispatches_total")
         inc("veles_decode_dispatches_total")
@@ -555,10 +564,15 @@ class ContinuousEngine(Logger):
                   "batched_with": batched_with,
                   "engine": "continuous"}
         # count only a first-terminal answer, like every shed path
-        if slot.ticket.succeed(result):
-            inc("veles_serving_retired_total")
-            inc("veles_serving_tokens_total", len(slot.tokens))
-            self.retired += 1
+        slot.ticket.succeed(result, counted=lambda: self._count_retired(
+            len(slot.tokens)))
+
+    def _count_retired(self, n_tokens: int) -> None:
+        """A first-terminal answer's counting (``Ticket.succeed`` runs it
+        before the answer is visible)."""
+        inc("veles_serving_retired_total")
+        inc("veles_serving_tokens_total", n_tokens)
+        self.retired += 1
 
     def _abort_active(self, reason: str, code: int = 500,
                       retry_after: Optional[float] = None,

@@ -58,6 +58,7 @@ from ..nn.sampling import (_draw, _embed_ids, _head_logits,
 from ..nn.ssm import RecurrentCell, mask_keep
 from ..nn.transformer import Embedding, LMHead
 from ..telemetry.counters import inc
+from ..telemetry.spans import span
 from .engine import _STEP_MODES, _TEMP_EPS, _layers_of
 from .scheduler import SlotScheduler, Ticket, shed_expired
 
@@ -219,7 +220,7 @@ class RecurrentEngine(Logger):
               ) -> List[List[int]]:
         """Synchronous convenience (tests, benchmarks): submit every
         request, wait, return each token list; raises on any error."""
-        tickets = [Ticket() for _ in reqs]
+        tickets = [Ticket(mode=req.get("mode", "greedy")) for req in reqs]
         for req, ticket in zip(reqs, tickets):
             if not self.submit(req, ticket):
                 raise VelesError("serving queue full")
@@ -351,35 +352,40 @@ class RecurrentEngine(Logger):
         t_p, chunk = slot.t_p, self.page_size
         tile = self._tile(slot.idx)
         r = slot.idx - tile.start
-        for st in self._states:
-            for leaf in st.values():
-                leaf[slot.idx].zero_()
-        p0 = 0
-        while True:
-            n_real = min(chunk, t_p - p0)
-            ids = torch.zeros((LANE_ROWS, chunk), dtype=torch.int64)
-            ids[r, :n_real] = torch.as_tensor(prompt[p0:p0 + n_real])
-            length = torch.zeros(LANE_ROWS, dtype=torch.int64)
-            length[r] = n_real
-            x = self._scan_chunk(params, tile, ids.to(self.device),
-                                 length.to(self.device))
-            inc("veles_serving_prefill_dispatches_total")
-            inc("veles_decode_dispatches_total")
-            self.chunk_dispatches += 1
-            p0 += n_real
-            if p0 >= t_p:
-                break
-        # the tile's rows at their last real position, as a decode step
-        # holds them: the head's product runs at LANE_ROWS rows
-        logits = _head_logits(self.stack["head"],
-                              x[:, n_real - 1].contiguous())[r]
-        if slot.temperature > 0:
-            gen = _row_generators(slot.req.get("seed", 0), 1,
-                                  self.device)[0]
-            self._gens[slot.idx] = gen
-            first = int(_draw(logits, slot.temperature, gen)[0])
-        else:
-            first = int(torch.argmax(logits))
+        ticket = slot.ticket
+        with span("serving.prefill", bucket=chunk, slot=slot.idx,
+                  t_p=t_p, mode=slot.req.get("mode", "greedy"),
+                  request_id=ticket.request_id, trace_id=ticket.trace_id,
+                  attempt=ticket.attempt):
+            for st in self._states:
+                for leaf in st.values():
+                    leaf[slot.idx].zero_()
+            p0 = 0
+            while True:
+                n_real = min(chunk, t_p - p0)
+                ids = torch.zeros((LANE_ROWS, chunk), dtype=torch.int64)
+                ids[r, :n_real] = torch.as_tensor(prompt[p0:p0 + n_real])
+                length = torch.zeros(LANE_ROWS, dtype=torch.int64)
+                length[r] = n_real
+                x = self._scan_chunk(params, tile, ids.to(self.device),
+                                     length.to(self.device))
+                inc("veles_serving_prefill_dispatches_total")
+                inc("veles_decode_dispatches_total")
+                self.chunk_dispatches += 1
+                p0 += n_real
+                if p0 >= t_p:
+                    break
+            # the tile's rows at their last real position, as a decode
+            # step holds them: the head's product runs at LANE_ROWS rows
+            logits = _head_logits(self.stack["head"],
+                                  x[:, n_real - 1].contiguous())[r]
+            if slot.temperature > 0:
+                gen = _row_generators(slot.req.get("seed", 0), 1,
+                                      self.device)[0]
+                self._gens[slot.idx] = gen
+                first = int(_draw(logits, slot.temperature, gen)[0])
+            else:
+                first = int(torch.argmax(logits))
         inc("veles_serving_admitted_total")
         inc("veles_serving_queue_wait_seconds_total",
             max(0.0, (slot.ticket.admitted or time.time())
@@ -428,13 +434,16 @@ class RecurrentEngine(Logger):
                                 and tile.start <= s.idx < tile.stop]
                    for tile in tiles}
         out = []
-        for _ in range(self.decode_block):
-            tok = tok.clone()
-            for tile in tiles:
-                tok[tile] = self._step_tile(params, tile, tok[tile],
-                                            live[tile], sampled[tile.start])
-            out.append(tok)
-        toks = torch.stack(out).cpu().numpy()       # (decode_block, rows)
+        with span("serving.decode_step", active=len(active),
+                  chunk=self.decode_block):
+            for _ in range(self.decode_block):
+                tok = tok.clone()
+                for tile in tiles:
+                    tok[tile] = self._step_tile(params, tile, tok[tile],
+                                                live[tile],
+                                                sampled[tile.start])
+                out.append(tok)
+            toks = torch.stack(out).cpu().numpy()   # (decode_block, rows)
         self.decode_ms.append((time.perf_counter() - t0) * 1e3)
         inc("veles_serving_decode_dispatches_total")
         inc("veles_decode_dispatches_total")
@@ -464,10 +473,15 @@ class RecurrentEngine(Logger):
         self._retire_slot(slot)
         result = {"tokens": list(slot.tokens),
                   "batched_with": batched_with, "engine": "recurrent"}
-        if slot.ticket.succeed(result):
-            inc("veles_serving_retired_total")
-            inc("veles_serving_tokens_total", len(slot.tokens))
-            self.retired += 1
+        slot.ticket.succeed(result, counted=lambda: self._count_retired(
+            len(slot.tokens)))
+
+    def _count_retired(self, n_tokens: int) -> None:
+        """A first-terminal answer's counting (``Ticket.succeed`` runs it
+        before the answer is visible)."""
+        inc("veles_serving_retired_total")
+        inc("veles_serving_tokens_total", n_tokens)
+        self.retired += 1
 
     def _abort_active(self, reason: str, code: int = 500,
                       retry_after: Optional[float] = None,

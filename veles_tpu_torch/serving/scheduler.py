@@ -8,7 +8,9 @@ selection and deadlines. The engine calls
 request moves into a free slot the moment one opens AND the page pool
 can reserve its own worst case (``ceil(max(bucket, prompt + n_new) /
 page_size)`` pages, never ``max_context``); a ticket older than its
-deadline is answered 503 + Retry-After.
+deadline is answered 503 + Retry-After. Each ticket is its request's SLO
+record (:meth:`Ticket._account`): the four serving histograms, the
+request's lifecycle spans and its flight-recorder events.
 
 Not ported yet: QoS promotion, beam groups and the speculative and beam
 reservations (requests in those modes never reach the pool).
@@ -23,7 +25,7 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
-from ..telemetry.counters import inc
+from ..telemetry.counters import inc, observe
 from .pages import PagePool, pages_for
 
 _request_ids = itertools.count(1)
@@ -34,6 +36,18 @@ def new_request_id() -> str:
     return "req-%d-%d" % (os.getpid(), next(_request_ids))
 
 
+def request_tracing_enabled() -> bool:
+    """THE per-request tracing switch (``root.common.trace.requests``,
+    default on). Gates only the host-side span and flight emission at a
+    ticket's terminal — never device work, so launches and tokens are
+    the same on and off. The SLO histograms record regardless."""
+    try:
+        from ..config import root
+        return bool(root.common.trace.get("requests", True))
+    except Exception:        # noqa: BLE001 — config not importable
+        return True
+
+
 class Ticket:
     """One request's rendezvous between an HTTP handler thread and the
     serving worker. The worker fills ``result`` (or ``error`` + ``code``)
@@ -42,15 +56,25 @@ class Ticket:
     which the request must no longer be served from the queue.
     Host-side lifecycle stamps (``enqueued`` → ``admitted`` →
     ``prefill_done`` → ``first_token``) are taken at step boundaries.
-    :meth:`succeed`/:meth:`fail` are exactly-once: the first terminal
-    call wins and any later one returns False."""
+
+    The ticket is also the request's SLO record. :meth:`succeed`/
+    :meth:`fail` are exactly-once: the first terminal call records the
+    histograms (queue wait, TTFT, TPOT, end to end — telemetry/
+    counters.py HISTOGRAMS), emits the request's lifecycle spans tagged
+    with its ids and notes a terminal flight-recorder event; any later
+    call returns False, so a ticket swept twice never double-counts.
+    ``trace_id`` (default the request id) and ``attempt`` are the
+    reference's fleet correlation pair."""
 
     __slots__ = ("event", "result", "error", "code", "retry_after",
-                 "deadline", "request_id", "enqueued", "admitted",
-                 "prefill_done", "first_token", "_terminal_lock")
+                 "deadline", "request_id", "trace_id", "attempt", "mode",
+                 "enqueued", "admitted", "prefill_done", "first_token",
+                 "n_tokens", "outcome", "_terminal_lock")
 
     def __init__(self, deadline: Optional[float] = None,
-                 request_id: Optional[str] = None) -> None:
+                 request_id: Optional[str] = None, mode: str = "greedy",
+                 trace_id: Optional[str] = None,
+                 attempt: int = 1) -> None:
         self._terminal_lock = threading.Lock()
         self.event = threading.Event()
         self.result = None
@@ -59,16 +83,31 @@ class Ticket:
         self.retry_after: Optional[float] = None
         self.deadline = deadline
         self.request_id = request_id or new_request_id()
+        self.trace_id = trace_id or self.request_id
+        self.attempt = max(1, int(attempt or 1))
+        self.mode = str(mode)
         self.enqueued = time.time()
         self.admitted: Optional[float] = None
         self.prefill_done: Optional[float] = None
         self.first_token: Optional[float] = None
+        self.n_tokens = 0
+        self.outcome: Optional[str] = None
 
     # -- lifecycle stamps (host-side, step boundaries only) ------------------
     def mark_admitted(self) -> None:
-        """Stamp queue exit; the first stamp wins."""
-        if self.admitted is None:
-            self.admitted = time.time()
+        """Stamp queue exit (slot admission, or the window plane's batch
+        pop); the first stamp wins."""
+        if self.admitted is not None:
+            return
+        self.admitted = time.time()
+        if request_tracing_enabled():
+            try:
+                from ..telemetry.recorder import flight
+                flight.note("request", request_id=self.request_id,
+                            trace_id=self.trace_id, attempt=self.attempt,
+                            phase="admitted", mode=self.mode)
+            except Exception:       # noqa: BLE001 — observers only
+                pass
 
     def mark_prefill_done(self) -> None:
         if self.prefill_done is None:
@@ -79,28 +118,94 @@ class Ticket:
             self.first_token = time.time()
 
     def fail(self, error: str, code: int = 500,
-             retry_after: Optional[float] = None) -> bool:
-        """Answer with an error; True only on the first terminal call."""
+             retry_after: Optional[float] = None,
+             outcome: Optional[str] = None) -> bool:
+        """Answer with an error; True only on the first terminal call
+        (callers count sheds on that True). ``outcome`` (default "shed"
+        for a 503, else "error") tags the accounting."""
         with self._terminal_lock:
             if self.event.is_set():
                 return False
             self.error = error
             self.code = code
             self.retry_after = retry_after
+            self._account(outcome or ("shed" if code == 503 else "error"))
             self.event.set()
         return True
 
-    def succeed(self, result) -> bool:
+    def succeed(self, result, counted=None) -> bool:
         """Answer with a result; True only on the first terminal call.
-        Dict results are stamped with the ``request_id``."""
+        Dict results are stamped with the ``request_id``. ``counted``
+        (the engine's own retirement counting) runs on the first
+        terminal call before the answer is visible, so a caller woken by
+        the answer reads counters that already hold it."""
         with self._terminal_lock:
             if self.event.is_set():
                 return False
             if isinstance(result, dict):
                 result.setdefault("request_id", self.request_id)
+                self.n_tokens = len(result.get("tokens") or ())
             self.result = result
+            self._account("retired")
+            if counted is not None:
+                counted()
             self.event.set()
         return True
+
+    def _account(self, outcome: str) -> None:
+        """Terminal SLO accounting, the reference's: the histograms
+        always, the lifecycle spans (``request.queue``,
+        ``request.prefill``, ``request.decode``, ``request``) and the
+        terminal flight event under :func:`request_tracing_enabled`.
+        Runs inside the terminal lock, before ``event.set()``: answered
+        implies accounted. Never raises: a broken observer must not lose
+        the request's answer."""
+        now = time.time()
+        self.outcome = outcome
+        try:
+            if self.admitted is not None:
+                observe("veles_serving_queue_wait_seconds",
+                        max(0.0, self.admitted - self.enqueued))
+            elif outcome in ("expired", "shed"):
+                # died in the queue: its whole life WAS queue wait
+                observe("veles_serving_queue_wait_seconds",
+                        max(0.0, now - self.enqueued))
+            if self.first_token is not None:
+                observe("veles_serving_ttft_seconds",
+                        max(0.0, self.first_token - self.enqueued))
+                if outcome == "retired" and self.n_tokens > 1:
+                    observe("veles_serving_tpot_seconds",
+                            max(0.0, now - self.first_token)
+                            / (self.n_tokens - 1))
+            if outcome == "retired":
+                observe("veles_serving_e2e_seconds",
+                        max(0.0, now - self.enqueued))
+            if not request_tracing_enabled():
+                return
+            from ..telemetry.recorder import flight
+            from ..telemetry.spans import emit
+            tags = {"request_id": self.request_id,
+                    "trace_id": self.trace_id, "attempt": self.attempt}
+            if self.admitted is not None:
+                emit("request.queue", self.enqueued,
+                     self.admitted - self.enqueued, **tags)
+                if self.prefill_done is not None:
+                    emit("request.prefill", self.admitted,
+                         self.prefill_done - self.admitted, **tags)
+            if self.first_token is not None:
+                emit("request.decode", self.first_token,
+                     now - self.first_token, tokens=self.n_tokens,
+                     **tags)
+            emit("request", self.enqueued, now - self.enqueued,
+                 outcome=outcome, mode=self.mode, tokens=self.n_tokens,
+                 **tags)
+            flight.note("request", request_id=self.request_id,
+                        trace_id=self.trace_id, attempt=self.attempt,
+                        phase="done", outcome=outcome, mode=self.mode,
+                        tokens=self.n_tokens,
+                        dur=round(now - self.enqueued, 6))
+        except Exception:       # noqa: BLE001 — observability only
+            pass
 
     def error_payload(self) -> Dict:
         """The failure response body: the error plus this request's id
@@ -132,7 +237,7 @@ def shed_expired(tickets: List[Ticket]) -> None:
     a queue past its useful life."""
     for ticket in tickets:
         if ticket.fail("request expired in serving queue", code=503,
-                       retry_after=1.0):
+                       retry_after=1.0, outcome="expired"):
             inc("veles_serving_expired_total")
             inc("veles_shed_requests_total")
 

@@ -1,23 +1,35 @@
-"""Monotonic counters (minimal counterpart of
+"""Monotonic counters and fixed-bucket histograms (counterpart of
 ``veles_tpu/telemetry/counters.py``).
 
-A flat, thread-safe name → value registry. Only registered names can be
-incremented, so a typo fails loudly instead of counting into a series
-nobody reads. :func:`metrics_text` renders the registry and a caller's
-gauges as the plain-text exposition page behind ``GET /metrics``.
+A flat, thread-safe name → value registry of counters that count events
+the framework itself causes (kernel launches, decode dispatches, served
+tokens, spans), so a check on them is exact whatever the clock does, and
+its latency twin: fixed-bucket histograms of the serving SLOs. Only
+registered names can be incremented or observed, so a typo fails loudly
+instead of counting into a series nobody reads. :func:`metrics_text`
+renders both registries, each histogram's bucket-derived p50/p90/p99
+and a caller's gauges as the plain-text exposition page behind
+``GET /metrics``; for the names both packages describe the page is the
+reference's, byte for byte.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
-#: every counter this package increments, with what one unit means
+#: every counter this package increments, with what one unit means (the
+#: /metrics HELP lines; the reference's wording where it has the name)
 DESCRIPTIONS: Dict[str, str] = {
+    "veles_unit_runs_total":
+        "Unit.run invocations through the workflow scheduler",
+    "veles_decode_tokens_total":
+        "Tokens emitted by the generation stack",
     "veles_decode_dispatches_total":
-        "host-driven decode programs: one prefill plus one per "
-        "further decode step",
-    "veles_decode_tokens_total": "tokens decoded (rows x n_new)",
+        "Device dispatches spent producing those tokens",
+    "veles_spans_total":
+        "Telemetry spans recorded",
     "veles_flash_attention_launches_total":
         "launches of the hand-written flash-attention forward kernel",
     "veles_flash_attention_bwd_dkv_launches_total":
@@ -55,8 +67,7 @@ DESCRIPTIONS: Dict[str, str] = {
         "Page allocations refused by an exhausted pool (admission "
         "waits; decode-time growth sheds 503 + Retry-After)",
     "veles_shed_requests_total":
-        "Requests answered 503 + Retry-After (expired in the queue, or "
-        "shed by the serving pool)",
+        "Serving requests shed with 503 + Retry-After",
     # the resilience plane (resilience/), the reference's names and
     # HELP strings
     "veles_faults_injected_total":
@@ -68,6 +79,32 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_manifest_cursor_defaults_total":
         "Snapshot manifests read without an {epoch, step, world_size} "
         "cursor (pre-elastic manifests; defaulted, never a crash)",
+    # the device-time measurement plane (telemetry/devtime.py)
+    "veles_devtime_captures_total":
+        "Profiler trace captures that yielded device-stream "
+        "self-time",
+    "veles_devtime_fallbacks_total":
+        "Device-time measurements served by the host-sync wall-clock "
+        "fallback (profiler unavailable or no device streams)",
+    "veles_bench_legacy_sections_total":
+        "Gate sections compared on wall-clock because a legacy bench "
+        "document carries no device_time_s fields",
+    # the flight recorder (telemetry/recorder.py)
+    "veles_blackbox_dumps_total":
+        "Flight-recorder black-box dumps written",
+    # the /metrics renderer below
+    "veles_metrics_name_collisions_total":
+        "Caller-supplied /metrics gauges dropped because their name "
+        "shadowed an already-rendered counter/histogram series "
+        "(duplicate names are invalid Prometheus exposition)",
+    # the span ring's pull path and JSONL sink (telemetry/spans.py)
+    "veles_trace_rotations_total":
+        "JSONL --trace-file rotations (the sink grew past "
+        "root.common.trace.rotate_bytes; the previous segment is "
+        "kept as <path>.1, older ones dropped)",
+    "veles_trace_span_pulls_total":
+        "Span-ring pulls served over GET /trace/spans (router + "
+        "serving APIs; the fleet trace assembler's read path)",
     # the O(1)-state lane's state-checkpoint prefix cache
     # (serving.O1_COUNTERS, the reference's names and HELP strings); 0
     # until that cache is ported
@@ -102,8 +139,183 @@ for _name, _kernel in (("launches", "forward"),
                 "launches of the hand-written flash-attention %s kernel "
                 "with q/k in %s and v in %s" % (_kernel, _qk, _v))
 
+#: every histogram this package observes: HELP string and FIXED bucket
+#: upper bounds (seconds), the reference's. Fixed buckets keep fleet
+#: aggregation exact: summing the same bounds across N /metrics
+#: endpoints is lossless.
+HISTOGRAMS = {
+    # request-plane serving SLOs (serving/scheduler.py Ticket
+    # accounting)
+    "veles_serving_queue_wait_seconds": {
+        "help": "Seconds a serving request waited in the queue "
+                "before admission (deadline-shed/expired requests "
+                "record their full wait)",
+        "buckets": (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                    0.5, 1.0, 2.5, 5.0, 10.0, 30.0),
+    },
+    "veles_serving_ttft_seconds": {
+        "help": "Time to first token: request enqueue to the first "
+                "generated token (prefill output), per request",
+        "buckets": (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                    0.5, 1.0, 2.5, 5.0, 10.0, 30.0),
+    },
+    "veles_serving_tpot_seconds": {
+        "help": "Time per output token after the first (decode "
+                "steady-state), per retired request",
+        "buckets": (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                    0.05, 0.1, 0.25, 0.5, 1.0),
+    },
+    "veles_serving_e2e_seconds": {
+        "help": "End-to-end serving latency: request enqueue to the "
+                "answered ticket, per retired request",
+        "buckets": (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                    5.0, 10.0, 30.0, 60.0, 120.0),
+    },
+}
+
+#: the bucket-derived quantiles metrics_text exposes as gauges
+QUANTILE_GAUGES = ((0.5, "p50"), (0.9, "p90"), (0.99, "p99"))
+
 #: Content-Type of every /metrics reply
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4"
+
+
+def describe_counter(name: str) -> str:
+    return DESCRIPTIONS[name]
+
+
+def describe_histogram(name: str) -> str:
+    return HISTOGRAMS[name]["help"]
+
+
+def histogram_buckets(name: str) -> Tuple[float, ...]:
+    if name not in HISTOGRAMS:
+        raise KeyError("unregistered histogram %r" % (name,))
+    return tuple(HISTOGRAMS[name]["buckets"])
+
+
+def histogram_quantile(bounds, counts, q: float) -> Optional[float]:
+    """Prometheus ``histogram_quantile`` from fixed buckets:
+    ``counts[i]`` is the NON-cumulative count of bucket ``bounds[i]``
+    (``counts[-1]`` the +Inf overflow). Linear interpolation inside the
+    winning bucket; a rank in the overflow bucket reports the largest
+    finite bound (the histogram cannot see past it). None when the
+    histogram is empty."""
+    total = sum(counts)
+    if total <= 0:
+        return None
+    rank = q * total
+    cum = 0.0
+    for i, cnt in enumerate(counts):
+        prev = cum
+        cum += cnt
+        if cum >= rank and cnt > 0:
+            if i >= len(bounds):            # +Inf overflow bucket
+                return float(bounds[-1]) if bounds else None
+            lower = float(bounds[i - 1]) if i > 0 else 0.0
+            upper = float(bounds[i])
+            return lower + (upper - lower) * (rank - prev) / cnt
+    return float(bounds[-1]) if bounds else None
+
+
+class HistogramRegistry:
+    """Thread-safe fixed-bucket histograms: name → (bucket counts, sum).
+    Entries appear on first :meth:`observe`, so an idle process renders
+    no histogram rows at all."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        #: name -> per-bucket counts, len(bounds) + 1 (+Inf overflow)
+        self._counts: Dict[str, List[int]] = {}
+        self._sums: Dict[str, float] = {}
+        self._bounds: Dict[str, Tuple[float, ...]] = {}
+
+    def observe(self, name: str, value: float) -> None:
+        """Record one sample into ``name``'s fixed buckets."""
+        value = float(value)
+        with self._lock:
+            counts = self._counts.get(name)
+            if counts is None:
+                bounds = histogram_buckets(name)
+                self._bounds[name] = bounds
+                counts = self._counts[name] = [0] * (len(bounds) + 1)
+                self._sums[name] = 0.0
+            counts[bisect.bisect_left(self._bounds[name], value)] += 1
+            self._sums[name] += value
+
+    def count(self, name: str) -> int:
+        with self._lock:
+            return sum(self._counts.get(name, ()))
+
+    def sum(self, name: str) -> float:
+        with self._lock:
+            return self._sums.get(name, 0.0)
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """{name: {bounds, counts, sum, count}} at one instant."""
+        with self._lock:
+            return {name: {"bounds": self._bounds[name],
+                           "counts": tuple(counts),
+                           "sum": self._sums[name],
+                           "count": sum(counts)}
+                    for name, counts in self._counts.items()}
+
+    def quantile(self, name: str, q: float) -> Optional[float]:
+        """Bucket-interpolated quantile; None when no samples."""
+        with self._lock:
+            counts = self._counts.get(name)
+            if counts is None:
+                return None
+            bounds, counts = self._bounds[name], tuple(counts)
+        return histogram_quantile(bounds, counts, q)
+
+    def reset(self) -> None:
+        """Drop every histogram (a measurement window's start)."""
+        with self._lock:
+            self._counts.clear()
+            self._sums.clear()
+            self._bounds.clear()
+
+    def prometheus_text(self, snap: Optional[Dict] = None) -> str:
+        """Histogram exposition: cumulative ``_bucket{le=}`` series plus
+        ``_sum``/``_count`` per recorded histogram."""
+        snap = self.snapshot() if snap is None else snap
+        lines = []
+        for name in sorted(snap):
+            h = snap[name]
+            lines.append("# HELP %s %s" % (name, describe_histogram(name)))
+            lines.append("# TYPE %s histogram" % name)
+            cum = 0
+            for bound, cnt in zip(h["bounds"], h["counts"]):
+                cum += cnt
+                lines.append('%s_bucket{le="%s"} %d'
+                             % (name, format(float(bound), "g"), cum))
+            lines.append('%s_bucket{le="+Inf"} %d' % (name, h["count"]))
+            s = float(h["sum"])
+            lines.append("%s_sum %s" % (name, int(s) if s.is_integer()
+                                        else round(s, 9)))
+            lines.append("%s_count %d" % (name, h["count"]))
+        return "\n".join(lines) + "\n" if lines else ""
+
+
+#: the process-wide histogram registry
+histograms = HistogramRegistry()
+
+
+def observe(name: str, value: float) -> None:
+    histograms.observe(name, value)
+
+
+#: increment observers (the flight recorder's, telemetry/recorder.py):
+#: called as ``hook(name, value, new_total)`` after the registry lock is
+#: released, exceptions swallowed — an observer can never deadlock or
+#: take an instrumented call site down
+_inc_hooks = []
+
+
+def add_inc_hook(fn) -> None:
+    if fn not in _inc_hooks:
+        _inc_hooks.append(fn)
 
 
 class CounterRegistry:
@@ -120,6 +332,11 @@ class CounterRegistry:
         with self._lock:
             new = self._values.get(name, 0) + value
             self._values[name] = new
+        for hook in _inc_hooks:
+            try:
+                hook(name, value, new)
+            except Exception:       # noqa: BLE001 — observers only
+                pass
         return new
 
     def get(self, name: str) -> float:
@@ -131,12 +348,14 @@ class CounterRegistry:
         with self._lock:
             return dict(self._values)
 
-    def delta(self, before: Dict[str, float]) -> Dict[str, float]:
-        """Per-counter growth since a :meth:`snapshot`; counters that
-        did not grow are omitted."""
+    def delta(self, before: Dict[str, float],
+              names: Optional[tuple] = None) -> Dict[str, float]:
+        """Per-counter growth since a :meth:`snapshot` (over ``names``
+        only, when given); counters that did not grow are omitted."""
+        now = self.snapshot()
         out = {}
-        for k, v in self.snapshot().items():
-            d = v - before.get(k, 0)
+        for k in (names if names is not None else now.keys()):
+            d = now.get(k, 0) - before.get(k, 0)
             if d:
                 out[k] = d
         return out
@@ -146,27 +365,79 @@ class CounterRegistry:
         with self._lock:
             self._values.clear()
 
-
-def _number(value) -> str:
-    # integral values print without a trailing .0
-    val = float(value)
-    return str(int(val)) if val.is_integer() else repr(val)
-
-
-def metrics_text(gauges: Optional[Dict[str, float]] = None) -> str:
-    """The /metrics page in the plain-text exposition format: every
-    counter of the registry (one snapshot), then the caller's gauges."""
-    lines = []
-    for name, val in sorted(counters.snapshot().items()):
-        lines += ["# HELP %s %s" % (name, DESCRIPTIONS[name]),
-                  "# TYPE %s counter" % name,
-                  "%s %s" % (name, _number(val))]
-    for name, val in sorted((gauges or {}).items()):
-        lines += ["# TYPE %s gauge" % name, "%s %s" % (name, _number(val))]
-    return "\n".join(lines) + "\n"
+    def prometheus_text(self) -> str:
+        """The counters in the exposition format, from one snapshot."""
+        lines = []
+        for name, val in sorted(self.snapshot().items()):
+            lines += ["# HELP %s %s" % (name, describe_counter(name)),
+                      "# TYPE %s counter" % name,
+                      "%s %s" % (name, int(val) if float(val).is_integer()
+                                 else val)]
+        return "\n".join(lines) + "\n"
 
 
 #: the process-wide registry
 counters = CounterRegistry()
-inc = counters.inc
-get = counters.get
+
+
+def gauge_text(name: str, value, help_text: Optional[str] = None) -> str:
+    """One gauge in the exposition format."""
+    lines = []
+    if help_text:
+        lines.append("# HELP %s %s" % (name, help_text))
+    lines.append("# TYPE %s gauge" % name)
+    val = float(value)
+    lines.append("%s %s" % (name, int(val) if val.is_integer() else val))
+    return "\n".join(lines) + "\n"
+
+
+def metrics_text(gauges: Optional[dict] = None) -> str:
+    """The /metrics page: the counters, the histograms with their
+    bucket-estimated p50/p90/p99 gauges, then the caller's gauges
+    (name → value, or (value, help)) in the caller's order. A caller
+    gauge whose name shadows a series already on the page is dropped
+    and counted (``veles_metrics_name_collisions_total``): duplicate
+    names are invalid exposition. The collision counter itself shows on
+    the next scrape, the counter section being snapshotted already."""
+    text = counters.prometheus_text()
+    taken = set(counters.snapshot())
+    hsnap = histograms.snapshot()
+    text += histograms.prometheus_text(hsnap)
+    for name in sorted(hsnap):
+        taken.update((name, name + "_bucket", name + "_sum",
+                      name + "_count"))
+        h = hsnap[name]
+        if not h["count"]:
+            continue
+        for q, label in QUANTILE_GAUGES:
+            value = histogram_quantile(h["bounds"], h["counts"], q)
+            gname = "%s_%s" % (name, label)
+            text += gauge_text(gname, round(value, 9),
+                               "Bucket-estimated %s of %s" % (label, name))
+            taken.add(gname)
+    for name, val in (gauges or {}).items():
+        if name in taken:
+            counters.inc("veles_metrics_name_collisions_total")
+            continue
+        help_text = None
+        if isinstance(val, tuple):
+            val, help_text = val
+        text += gauge_text(name, val, help_text)
+        taken.add(name)
+    return text
+
+
+def inc(name: str, value: float = 1) -> float:
+    return counters.inc(name, value)
+
+
+def get(name: str) -> float:
+    return counters.get(name)
+
+
+def snapshot() -> Dict[str, float]:
+    return counters.snapshot()
+
+
+def prometheus_text() -> str:
+    return counters.prometheus_text()

@@ -23,6 +23,8 @@ from typing import Any, Dict, Iterable, List, Optional, Set
 from .error import BadUnitLink, Bug
 from .logger import Logger
 from .mutable import Bool, LinkableAttribute
+from .telemetry.counters import inc
+from .telemetry.spans import span
 
 
 class UnitRegistry(type):
@@ -155,7 +157,11 @@ class Unit(Logger, metaclass=UnitRegistry):
             return ()
         if not bool(self.gate_skip):
             t0 = time.time()
-            self.run()
+            inc("veles_unit_runs_total")
+            # the root.common.trace.spans switch is honored centrally by
+            # the recorder
+            with span("unit.run", unit=self.name, cls=type(self).__name__):
+                self.run()
             self.timers["run"] += time.time() - t0
             self.run_count += 1
         return tuple(sorted(self.links_to, key=lambda u: u.name))

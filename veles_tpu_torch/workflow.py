@@ -18,6 +18,8 @@ from typing import Any, Dict, List, Optional
 from .error import Bug
 from .mutable import Bool
 from .plumbing import EndPoint, StartPoint
+from .telemetry.recorder import flight
+from .telemetry.spans import recorder, span
 from .units import Unit
 
 
@@ -86,17 +88,18 @@ class Workflow(Unit):
     def initialize(self, **kwargs) -> Optional[bool]:
         """Initialise units in dependency order; a unit returning True is
         re-queued until the pending set stops shrinking."""
-        pending = self.units_in_dependency_order()
-        while pending:
-            again: List[Unit] = []
-            for u in pending:
-                if u.initialize(**kwargs):
-                    again.append(u)
-            if len(again) == len(pending):
-                missing = {u.name: u.verify_demands() for u in again}
-                raise Bug("initialization deadlock; unsatisfied demands: "
-                          "%s" % missing)
-            pending = again
+        with span("workflow.initialize", workflow=self.name):
+            pending = self.units_in_dependency_order()
+            while pending:
+                again: List[Unit] = []
+                for u in pending:
+                    if u.initialize(**kwargs):
+                        again.append(u)
+                if len(again) == len(pending):
+                    missing = {u.name: u.verify_demands() for u in again}
+                    raise Bug("initialization deadlock; unsatisfied "
+                              "demands: %s" % missing)
+                pending = again
         self._initialized = True
         return None
 
@@ -109,6 +112,7 @@ class Workflow(Unit):
         for u in self._units:
             u._reset_fired()
         t0 = time.time()
+        frame = recorder.begin("workflow.run", workflow=self.name)
         queue = collections.deque([self.start_point])
         steps = 0
         try:
@@ -123,8 +127,17 @@ class Workflow(Unit):
                 if self._max_steps is not None and steps > self._max_steps:
                     raise Bug("workflow %s exceeded max_steps=%d" %
                               (self.name, self._max_steps))
+        except Exception as exc:
+            # the crash black box: a no-op unless
+            # root.common.telemetry.recorder.autodump is armed, and it
+            # never raises, so the original exception propagates
+            flight.crash_dump("workflow.run %s: %s: %s" % (
+                self.name, type(exc).__name__, exc))
+            raise
         finally:
             self._run_time += time.time() - t0
+            frame.attrs["steps"] = steps
+            recorder.end(frame)
 
     def on_workflow_finished(self) -> None:
         """Called by the EndPoint: stop the loop, then every unit."""
