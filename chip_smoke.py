@@ -295,6 +295,46 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              12 ``serving.prefill`` spans), ``blackbox inspect`` of the
              dump its SIGTERM wrote, and ``--backend auto --dry-run`` of a
              tiny model, which logs the cuda device.
+27. znicz_units — the rest of Znicz's layer set on the card against
+             the port on the CPU, TF32 off: LRN at n 5 and 3 over odd
+             channel counts and the cutter (forward and the gradients of
+             sum(y · g)), channel split and merge (exact), ``som_step``
+             (16×16 neurons over 784 features; winners equal),
+             ``cd1_step`` (784 → 256, mb 64) with given uniforms, and
+             adagrad, rmsprop, adadelta and the clipping knobs on an
+             update, each within 1e-4 · max(1, max|cpu|); dropout (eval
+             the identity; one seed one mask; 10^6 elements keep 0.7
+             within 0.002, each kept one x/keep) and stochastic pooling
+             (eval max pooling; one seed one pick; every pick a finite
+             element of its window);
+28. train_alexnet — ``models/alexnet.build_workflow`` at 224 px
+             (five convs through ``mcdnnic_topology``; adam lr 0.001, mb
+             64, 1,600 / 320 rows): every layer at its own shapes on the
+             card against the CPU (8 rows, <= 1e-4 · max(1, max|cpu|));
+             conv2's weight gradient against float64 through cuDNN
+             (default, deterministic, benchmark) and the port's path;
+             the first two train steps against the CPU from the same
+             weights and rows: the loss within 1e-4 relative, the first
+             step's gradients of the layers above the last max pooling
+             (‖card − cpu‖ / ‖cpu‖ <= 1e-4), and every layer's gradient
+             no further from the card's float64 one than twice the
+             CPU's float32 one; adam's updates reported (a max
+             pooling's near-ties pick other elements under other
+             rounding, and adam's normalised step turns a
+             rounding-noise gradient into ±lr); two epochs with finite
+             metrics and the train loss falling; epoch ms, train
+             samples/s, TFLOP/s of the counted work
+             (``FlopCounterMode``) and its share of the float32 peak,
+             peak memory, the last tanh layer's saturated share, 4
+             profiled train steps; then one STL-10 epoch at 96 px;
+29. train_unsupervised — DemoKohonen (8 epochs, mb 100, 600 rows) on
+             the card: its quantisation errors beside the CPU's, the
+             final one below 0.25 and below the first epoch's; an RBM
+             784 → 256 on MNIST's rows (``models/rbm_mnist.py``, mb 64):
+             its first 5 CD-1 steps against the CPU's from the same
+             uniforms (params and error within 1e-4 relative), then
+             200 steps with the error falling; ms a step of each.
+             Phases 27–29 launch no hand-written kernel.
 
 ``profiled`` (the breakdown phases' profiler window) reads the capture
 through ``telemetry.devtime.measure``: ``device_busy_ms`` is the union
@@ -3607,6 +3647,612 @@ def phase_cli(card, lm_losses):
             "dq": lm_launches[fa.DQ_LAUNCHES], "fused_fc": ffc_cli}
 
 
+#: the Znicz units on the card vs the port on the CPU, float32 (max abs
+#: error over max(1, max|cpu|): cuDNN and cuBLAS sum in another order)
+TOL_ZNICZ = 1e-4
+#: dropout's kept share of 10^6 elements against keep
+TOL_KEEP_SHARE = 0.002
+ALEX_SEED = 41
+ALEX_EPOCHS = 2
+TOL_ALEX_STEP_REL = 1e-4
+#: a card gradient's distance to float64 over the CPU's float32 one
+ALEX_GRAD_GRADE = 2.0
+ALEX_PROFILED_STEPS = 4
+UNSUP_SEED = 1234
+RBM_STEPS = 200
+TOL_RBM_STEP_REL = 1e-4
+
+
+def cached_loads(module, name):
+    """Patch ``module.name`` (a dataset loader) with a cache of its
+    results for the phase, so a card and a CPU workflow load the same
+    rows once; returns the undo."""
+    import functools
+    real = getattr(module, name)
+    setattr(module, name, functools.lru_cache(maxsize=2)(real))
+    return lambda: setattr(module, name, real)
+
+
+def znicz_unit_cases():
+    """(name, unit, input shape) of the Znicz units with a gradient:
+    LRN at n 5 and 3 over odd channel counts, the cutter."""
+    from veles_tpu_torch.nn import cutter, normalization
+
+    def lrn(n):
+        return normalization.LRNormalizerForward(None, name="u", n=n,
+                                                 alpha=1e-4, beta=0.75, k=2.0)
+    return [("lrn_n5_c95", lrn(5), (16, 27, 27, 95)),
+            ("lrn_n3_c33", lrn(3), (16, 13, 13, 33)),
+            ("lrn_n5_c3", lrn(5), (8, 55, 55, 3)),
+            ("cutter_asym", cutter.Cutter(None, name="u",
+                                          padding=(2, 1, 3, 0)),
+             (8, 32, 31, 16))]
+
+
+def solver_updates(device, solver, kw, seed):
+    """One update of an All2All GD unit's ``solver`` with the knobs
+    ``kw`` from a state two steps old, on ``device``: the new params and
+    state, flattened to {path: CPU tensor}."""
+    import numpy
+    import torch
+    from veles_tpu_torch.nn import all2all
+    from veles_tpu_torch.workflow import Workflow
+    rng = numpy.random.RandomState(seed)
+    gd = all2all.GradientDescent(Workflow(name="s"), solver=solver,
+                                 learning_rate=0.01, **kw)
+    params = {"weights": torch.from_numpy(rng.randn(784, 100).astype(
+        "float32") * 0.05).to(device),
+        "bias": torch.from_numpy(rng.randn(100).astype("float32")).to(device)}
+    state = gd.init_state(params)
+    out = {}
+    for step in range(3):
+        grads = {k: torch.from_numpy(rng.randn(*v.shape).astype("float32")
+                                     * (1 + step)).to(device)
+                 for k, v in params.items()}
+        params, state = gd.update(params, grads, state, 0.9)
+
+    def flat(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                flat(v, prefix + "/" + k)
+        else:
+            out[prefix] = tree.float().cpu()
+    flat({"params": params, "state": state}, "")
+    return out
+
+
+def phase_znicz_units(card):
+    """The rest of the Znicz layer set on the card against the port on
+    the CPU: LRN and the cutter (forward and the gradients of sum(y·g)),
+    channel split and merge, ``som_step``, ``cd1_step`` with given
+    uniforms, each new solver and clipping knob on an update; dropout
+    and stochastic pooling by their semantics (evaluation exact,
+    seed determinism, dropout's kept share and scale, picks inside
+    their windows). No hand-written kernel launches."""
+    import numpy
+    import torch
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn import channel_split, dropout, kohonen, pooling
+    from veles_tpu_torch.nn import rbm
+    from veles_tpu_torch.telemetry import counters
+    from veles_tpu_torch.workflow import Workflow
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 policy was undone")
+    t0 = time.perf_counter()
+    counters.counters.reset()
+    worst = {}
+    for i, (name, u, shape) in enumerate(znicz_unit_cases()):
+        x = numpy.random.RandomState(500 + i).randn(*shape).astype(
+            "float32") * 3
+        want = unit_outputs(u, x, {}, "cpu", 500 + i)
+        worst[name] = conv_error(unit_outputs(u, x, {}, "cuda", 500 + i),
+                                 want)
+    # channel split and merge through the units' own runs
+    x = numpy.random.RandomState(510).rand(16, 27, 27, 96).astype("float32")
+    split_merge = {}
+    for dev in ("cpu", "cuda"):
+        wf = Workflow(name="split")
+        sp = channel_split.ChannelSplitter(wf, sizes=(17, 31, 48))
+        sp.input = Array(x)
+        sp.initialize(device=dev)
+        sp.run()
+        mg = channel_split.ChannelMerger(wf, inputs=sp.outputs)
+        mg.initialize(device=dev)
+        mg.run()
+        split_merge[dev] = [o.map_read() for o in sp.outputs] + [
+            mg.output.map_read()]
+    split_exact = all(numpy.array_equal(a, b) for a, b in zip(
+        split_merge["cpu"], split_merge["cuda"])) and numpy.array_equal(
+        split_merge["cuda"][-1], x)
+    # som_step: 16×16 neurons over 784 features, 100 samples
+    rng = numpy.random.RandomState(520)
+    w0 = rng.rand(256, 784).astype("float32")
+    xs = rng.rand(100, 784).astype("float32")
+    grid = kohonen._grid_coords(16, 16)
+    som = {}
+    for dev in ("cpu", "cuda"):
+        w, win, q = kohonen.som_step(
+            torch.from_numpy(w0).to(dev), torch.from_numpy(grid).to(dev),
+            torch.from_numpy(xs).to(dev), 0.3, 2.5)
+        som[dev] = {"w": w.cpu(), "q": q.reshape(1).cpu(),
+                    "winners": win.cpu()}
+    worst["som_step"] = conv_error(
+        {k: som["cuda"][k] for k in ("w", "q")},
+        {k: som["cpu"][k] for k in ("w", "q")})
+    som_winners_equal = bool(torch.equal(som["cuda"]["winners"],
+                                          som["cpu"]["winners"]))
+    # cd1_step with given uniforms: 784 → 256, mb 64
+    p0 = {"weights": rng.randn(784, 256).astype("float32") * 0.01,
+          "vbias": rng.randn(784).astype("float32") * 0.01,
+          "hbias": rng.randn(256).astype("float32") * 0.01}
+    v0 = rng.rand(64, 784).astype("float32")
+    uni = rng.rand(64, 256).astype("float32")
+    cd = {}
+    for dev in ("cpu", "cuda"):
+        new, err = rbm.cd1_step(
+            {k: torch.from_numpy(v).to(dev) for k, v in p0.items()},
+            torch.from_numpy(v0).to(dev), torch.from_numpy(uni).to(dev),
+            0.1)
+        cd[dev] = {k: v.cpu() for k, v in dict(new, err=err.reshape(1))
+                   .items()}
+    worst["cd1_step"] = conv_error(cd["cuda"], cd["cpu"])
+    solvers = [("adagrad", {}), ("rmsprop", {}), ("adadelta", {}),
+               ("sgd", {"gradient_clip": 0.5, "gradient_moment": 0.9}),
+               ("adam", {"gradient_clip_norm": 1.0}),
+               ("adadelta", {"gradient_clip": 0.2,
+                             "gradient_clip_norm": 5.0})]
+    for i, (solver, kw) in enumerate(solvers):
+        name = "_".join([solver] + [k.replace("gradient_", "")
+                                    for k in sorted(kw) if "clip" in k])
+        worst[name] = conv_error(
+            solver_updates("cuda", solver, kw, 530 + i),
+            solver_updates("cpu", solver, kw, 530 + i))
+    # dropout: evaluation, seeds, kept share and scale
+    keep = 0.7
+    drop = dropout.DropoutForward(None, dropout_ratio=1 - keep)
+    xd = torch.rand((1000, 1000), device="cuda") + 0.5
+
+    def dgen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+    yd = drop.apply({}, xd, train=True, generator=dgen(3))
+    kept = yd != 0
+    dropout_rec = dict(
+        eval_identity=bool(torch.equal(drop.apply({}, xd), xd)),
+        same_seed_same_mask=bool(torch.equal(
+            yd, drop.apply({}, xd, train=True, generator=dgen(3)))),
+        other_seed_other_mask=not bool(torch.equal(
+            yd, drop.apply({}, xd, train=True, generator=dgen(4)))),
+        kept_share=float(kept.float().mean()), keep=keep,
+        kept_equal_x_over_keep=bool(torch.equal(yd[kept], xd[kept] / keep)))
+    # stochastic pooling: evaluation, seeds, picks inside their windows
+    xs4 = torch.from_numpy(numpy.random.RandomState(540).randn(
+        8, 27, 27, 32).astype("float32")).to("cuda")
+    sp = pooling.StochasticPooling(None, kx=3, ky=3, sliding=(2, 2))
+    ys = sp.apply({}, xs4, train=True, generator=dgen(5))
+    wins = sp._padded(xs4, float("-inf")).unfold(2, 3, 2).unfold(3, 3, 2)
+    wins = wins.reshape(wins.shape[:4] + (9,)).permute(0, 2, 3, 4, 1)
+    stochastic_rec = dict(
+        eval_equals_max_pooling=bool(torch.equal(
+            sp.apply({}, xs4), pooling.MaxPooling(
+                None, kx=3, ky=3, sliding=(2, 2)).apply({}, xs4))),
+        same_seed_same_picks=bool(torch.equal(ys, sp.apply(
+            {}, xs4, train=True, generator=dgen(5)))),
+        picks_in_window=bool((wins == ys[:, :, :, None, :]).any(
+            dim=3).all()),
+        picks_finite=bool(torch.isfinite(ys).all()))
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    emit("znicz_units", card=card, limit=TOL_ZNICZ, worst_rel_err=worst,
+         som_winners_equal=som_winners_equal,
+         split_merge_exact=split_exact, dropout=dropout_rec,
+         stochastic_pooling=stochastic_rec,
+         hand_written_kernel_launches=launches,
+         phase_s=time.perf_counter() - t0)
+    bad = {k: v for k, v in worst.items() if not v <= TOL_ZNICZ}
+    if bad:
+        raise AssertionError("Znicz units off the CPU's: %s" % bad)
+    if not (split_exact and som_winners_equal):
+        raise AssertionError("split/merge exact %s, SOM winners equal %s"
+                             % (split_exact, som_winners_equal))
+    if not all(v for k, v in dropout_rec.items()
+               if isinstance(v, bool)) or not abs(
+                   dropout_rec["kept_share"] - keep) <= TOL_KEEP_SHARE:
+        raise AssertionError("dropout: %s" % dropout_rec)
+    if not all(stochastic_rec.values()):
+        raise AssertionError("stochastic pooling: %s" % stochastic_rec)
+    if launches:
+        raise AssertionError("the Znicz units launched %d hand-written "
+                             "kernels" % launches)
+
+
+def alexnet_workflow(device=None, image_size=224):
+    """The reference's AlexNet at ``image_size`` with its defaults (mb 64,
+    1,600 / 320 rows, adam lr 0.001), ALEX_EPOCHS epochs from
+    ALEX_SEED, initialised on ``device`` (default: the card)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import alexnet
+    prng.seed_all(ALEX_SEED)
+    wf = alexnet.build_workflow(epochs=ALEX_EPOCHS, image_size=image_size)
+    wf.initialize(device=device)
+    return wf
+
+
+def norm_rel(got, want):
+    """‖got − want‖₂ / ‖want‖₂."""
+    return float((got.double() - want.double()).norm()
+                 / max(float(want.double().norm()), 1e-30))
+
+
+def counted_flops(wf):
+    """(forward FLOPs of one sample, FLOPs of one train step at the
+    loader's minibatch) of the workflow's own step, counted by
+    ``torch.utils.flop_counter.FlopCounterMode`` on the card; the
+    step's result is dropped."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    ts = wf.train_step
+    dataset, targets = ts._dataset()
+    mb = wf.loader.max_minibatch_size
+    idx = torch.arange(mb, dtype=torch.int32, device=ts.device)
+    mask = torch.ones(mb, dtype=torch.float32, device=ts.device)
+    with FlopCounterMode(display=False) as fwd:
+        with torch.no_grad():
+            ts._forward(ts.params, dataset[idx[:1].long()])
+    with FlopCounterMode(display=False) as step:
+        ts._train_step(ts.params, ts.opt_state, ts._zero_accum(), dataset,
+                       targets, idx, mask, 1.0, step=0)
+    return fwd.get_total_flops(), step.get_total_flops()
+
+
+def fc_saturation(wf):
+    """The share of the last tanh layer's outputs within 1 % of its
+    bound ±A (1.7159) on the first 64 validation rows (the reference's
+    defaults saturate it at 224 px: adam's first ±lr step moves each of
+    its 512 pre-activations by up to lr · Σ|x| over 73,728 inputs)."""
+    import torch
+    ts = wf.train_step
+    dataset, _ = ts._dataset()
+    x = dataset[:64]
+    with torch.no_grad():
+        for f in wf.forwards[:-1]:
+            x = f.apply(ts.params.get(f.name, {}), x)
+    return float((x.abs() > 0.99 * wf.forwards[-2].A).float().mean())
+
+
+def alexnet_layer_parity(wf, rows=8):
+    """Each layer of the workflow at its own 224 px shapes, on ``rows``
+    samples of random input and its initial parameters: forward and the
+    gradients of sum(y · g) on the card against the CPU, max abs error
+    over max(1, max|cpu|) per layer (identical inputs: no upstream
+    rounding reaches a layer, nor a max pooling's choice of element)."""
+    import numpy
+    ts = wf.train_step
+    shape = (rows,) + tuple(wf.loader.original_data.shape[1:])
+    worst = {}
+    for i, f in enumerate(wf.forwards):
+        x = numpy.random.RandomState(600 + i).randn(*shape).astype(
+            "float32")
+        params = {k: v.cpu().numpy() for k, v in ts.params.get(
+            f.name, {}).items()}
+        want = unit_outputs(f, x, params, "cpu", 600 + i)
+        worst[f.name] = conv_error(unit_outputs(f, x, params, "cuda",
+                                                600 + i), want)
+        shape = tuple(want["y"].shape)
+    return worst
+
+
+#: AlexNet's conv2 at 224 px: (rows, H, W, C_in) and (ky, kx, C_in, C_out)
+CONV2_SHAPES = ((8, 109, 109, 48), (5, 5, 48, 128))
+
+
+def conv_wgrad_record():
+    """AlexNet's conv2 weight gradient on the card against the float64
+    one (max abs error over max|f64|): cuDNN's under its default,
+    deterministic and benchmark flags, and the port's path (cuDNN off
+    for the weight gradient, ``nn/conv._CardConv2d``); and the ms of a
+    64-row forward and backward through each."""
+    import numpy
+    import torch
+    import torch.nn.functional as F
+    from veles_tpu_torch.nn.conv import _CardConv2d
+    (b, h, w, c), (ky, kx, _, o) = CONV2_SHAPES
+    rng = numpy.random.RandomState(700)
+    x = torch.from_numpy(rng.randn(b, c, h, w)).cuda().contiguous(
+        memory_format=torch.channels_last)
+    wt = torch.from_numpy(rng.randn(o, c, ky, kx) / numpy.sqrt(ky * kx * c)
+                          ).cuda()
+    gy = torch.from_numpy(rng.randn(b, o, h - ky + 1, w - kx + 1)).cuda()
+    want = torch.nn.grad.conv2d_weight(x, wt.shape, gy)
+    xb = x.float().repeat(8, 1, 1, 1).contiguous(
+        memory_format=torch.channels_last)
+    gyb = gy.float().repeat(8, 1, 1, 1)
+
+    def grad(fn, xx, g):
+        ww = wt.float().requires_grad_(True)
+        fn(xx, ww).backward(g)
+        return ww.grad
+
+    def library(a, ww):
+        return F.conv2d(a, ww)
+
+    def port(a, ww):
+        return _CardConv2d.apply(a, ww, (1, 1), (0, 0))
+    rec = {}
+    for name, fn, flags in (
+            ("cudnn", library, {}),
+            ("cudnn_deterministic", library, {"deterministic": True}),
+            ("cudnn_benchmark", library, {"benchmark": True}),
+            ("port", port, {})):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False,
+                                        **flags):
+            got = grad(fn, x.float(), gy.float())
+            rec[name] = dict(
+                max_rel_err=float((got.double() - want).abs().max()
+                                  / want.abs().max()),
+                ms_mb64=cuda_time_ms(lambda: grad(fn, xb, gyb), 5))
+    return rec
+
+
+def first_step_grads(wf, dtype):
+    """The gradients of the workflow's first train minibatch at its
+    initial parameters in ``dtype`` on its device, as float64 CPU
+    tensors."""
+    import torch
+    ts = wf.train_step
+    dataset, targets = ts._dataset()
+    mb = wf.loader.max_minibatch_size
+    start = wf.loader.class_lengths[0] + wf.loader.class_lengths[1]
+    idx = torch.arange(start, start + mb, device=ts.device)
+    params = {n: {k: v.to(dtype) for k, v in p.items()}
+              for n, p in ts.params.items()}
+    _, _, grads = ts._grads(params, dataset[idx].to(dtype), targets[idx],
+                            torch.ones(mb, dtype=dtype, device=ts.device))
+    return {(n, k): v.double().cpu()
+            for n, g in grads.items() for k, v in g.items()}
+
+
+def phase_train_alexnet(card):
+    """AlexNet at 224 px through ``mcdnnic_topology`` (five convs): the
+    first two adam steps on the card against the CPU, ALEX_EPOCHS epochs
+    with the validation error finite and not rising, the counted work's
+    TFLOP/s, peak memory, 4 profiled train steps; then one epoch of the
+    STL-10 workflow at 96 px."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import alexnet, cifar
+    from veles_tpu_torch.nn.conv import Conv
+    from veles_tpu_torch.telemetry import cost, counters
+    t_phase = time.perf_counter()
+    undo = cached_loads(alexnet, "load_synthetic")
+    try:
+        host = adam_first_steps(alexnet_workflow("cpu"))
+        wf = alexnet_workflow()
+        mine = adam_first_steps(wf, starts=[h[2] for h in host])
+    finally:
+        undo()
+    layer_parity = alexnet_layer_parity(wf)
+    wgrad = conv_wgrad_record()
+    # the float32 gradient's own spread: the card in float32 and in
+    # float64 against the CPU in float32 (adam's first m is (1 − β1)·g)
+    beta1 = wf.train_step._gd_for[wf.forwards[0].name].beta1
+    grads_cpu = {(u, k): v.double() / (1 - beta1)
+                 for (u, m, k), v in host[0][1].items() if m == "m"}
+    grads_card = first_step_grads(wf, torch.float32)
+    grads_f64 = first_step_grads(wf, torch.float64)
+    below_pool = set()
+    for f in wf.forwards:
+        if f.MAPPING == "max_pooling":
+            below_pool = {g.name for g in wf.forwards[:wf.forwards.index(f)]}
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mine, host))
+    update, grad_spread = {}, {}
+    for (_, got, _), (_, want, _) in zip(mine, host):
+        for key, w in want.items():
+            if key[1] != "update":
+                continue
+            name = "%s.%s" % (key[0], key[2])
+            rel = (norm_rel(got[key], w), float(
+                (got[key] - w).abs().max() / w.abs().max()))
+            old = update.get(name, (0.0, 0.0))
+            update[name] = (max(old[0], rel[0]), max(old[1], rel[1]))
+    for key, w in grads_cpu.items():
+        grad_spread["%s.%s" % key] = dict(
+            card_vs_cpu=norm_rel(grads_card[key], w),
+            card_f64_vs_card=norm_rel(grads_card[key], grads_f64[key]),
+            cpu_vs_card_f64=norm_rel(w, grads_f64[key]))
+    # held: the gradients of the layers above the last max pooling
+    # against the CPU's, and every layer's against float64 no further
+    # than twice the CPU's float32 one
+    held = {k: v["card_vs_cpu"] for k, v in grad_spread.items()
+            if k.split(".")[0] not in below_pool}
+    grade = {k: v["card_f64_vs_card"] / max(v["cpu_vs_card_f64"], 1e-12)
+             for k, v in grad_spread.items()}
+    del host
+    fwd_flops, step_flops = counted_flops(wf)
+    lengths = wf.loader.class_lengths
+    mb = wf.loader.max_minibatch_size
+    epoch_flops = (lengths[2] // mb * step_flops
+                   + lengths[2] % mb * step_flops / mb
+                   + lengths[1] * fwd_flops)
+    peak_f32 = cost.peak_flops("float32", "H100")
+    stamps = stamp_epochs(wf)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.counters.reset()
+    t0 = time.perf_counter()
+    wf.run()
+    epoch_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+    launches = kernel_launches()
+    peak = int(torch.cuda.max_memory_allocated())
+    d = wf.decision
+    valid = d.epoch_metrics[1]
+
+    def window():
+        for _ in train_steps(wf, ALEX_PROFILED_STEPS):
+            pass
+    prof = profiled(window)
+    convs = [f for f in wf.forwards if isinstance(f, Conv)]
+    saturated = fc_saturation(wf)
+    steady = epoch_s[-1]
+    tflops = epoch_flops / steady / 1e12
+    rec = dict(
+        model="alexnet " + alexnet.topology(wf.loader.image_size),
+        convs=len(convs),
+        mb=mb, rows={"train": lengths[2], "validation": lengths[1]},
+        solver=wf.train_step._gd_for[convs[0].name].solver,
+        step_loss_rel_diff=loss_rel,
+        first_grad_rel_diff_above_pooling=held,
+        first_grad_f64_err_card_over_cpu=grade,
+        step_update_norm_and_max_rel_diff=update,
+        first_grad_norm_rel=grad_spread, layer_parity=layer_parity,
+        conv2_wgrad=wgrad,
+        below_a_max_pooling=sorted(below_pool),
+        fwd_gflop_per_sample=fwd_flops / 1e9,
+        train_step_gflop=step_flops / 1e9, epoch_tflop=epoch_flops / 1e12,
+        epoch_ms=[t * 1e3 for t in epoch_s], valid_err=valid,
+        valid_loss=d.epoch_losses[1], train_err=d.epoch_metrics[2],
+        train_loss=d.epoch_losses[2], fc_saturated_share=saturated,
+        train_samples_per_s=lengths[2] / steady, model_tflops_per_s=tflops,
+        share_of_f32_peak=tflops / (peak_f32 / 1e12),
+        peak_memory_bytes=peak, hand_written_kernel_launches=launches,
+        profiled_train_steps=ALEX_PROFILED_STEPS,
+        launches_per_step=prof["kernel_launches"] / ALEX_PROFILED_STEPS,
+        profiled=prof)
+    del wf
+    torch.cuda.empty_cache()
+    # the conv family's STL-10 workflow, one epoch at 96 px
+    prng.seed_all(ALEX_SEED)
+    stl = cifar.build_stl10_workflow(epochs=1)
+    stl.initialize()
+    counters.counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stl.run()
+    torch.cuda.synchronize()
+    stl_s = time.perf_counter() - t0
+    stl_launches = kernel_launches()
+    sl = stl.loader.class_lengths
+    rec["stl10"] = dict(image_size=96, mb=stl.loader.max_minibatch_size,
+                        rows={"train": sl[2], "validation": sl[1]},
+                        epoch_ms=stl_s * 1e3,
+                        train_samples_per_s=sl[2] / stl_s,
+                        valid_err=stl.decision.epoch_metrics[1],
+                        hand_written_kernel_launches=stl_launches)
+    emit("train_alexnet", card=card, phase_s=time.perf_counter() - t_phase,
+         **rec)
+    if not max([loss_rel] + list(held.values())) <= TOL_ALEX_STEP_REL:
+        raise AssertionError("the first AlexNet steps on the card differ "
+                             "from the CPU's: loss %g, gradients %s relative"
+                             % (loss_rel, held))
+    bad = {k: v for k, v in grade.items() if not v <= ALEX_GRAD_GRADE}
+    if bad:
+        raise AssertionError("AlexNet gradients on the card further from "
+                             "float64 than the CPU's float32: %s" % bad)
+    bad = {k: v for k, v in layer_parity.items() if not v <= TOL_ZNICZ}
+    if bad:
+        raise AssertionError("AlexNet layers off the CPU's: %s" % bad)
+    if len(convs) != 5 or d.epoch_number != ALEX_EPOCHS:
+        raise AssertionError("AlexNet: %d convs, %d epochs"
+                             % (len(convs), d.epoch_number))
+    losses = d.epoch_losses[2]
+    if not all(math.isfinite(x) for x in valid + d.epoch_losses[1]
+               + losses) or not losses[-1] < losses[0]:
+        raise AssertionError("AlexNet: validation error %s, train loss %s"
+                             % (valid, losses))
+    if not all(math.isfinite(x) for x in stl.decision.epoch_metrics[1]):
+        raise AssertionError("STL-10: %s" % stl.decision.epoch_metrics)
+    if launches or stl_launches:
+        raise AssertionError("AlexNet / STL-10 launched %d / %d "
+                             "hand-written kernels" % (launches,
+                                                       stl_launches))
+
+
+def phase_train_unsupervised(card):
+    """DemoKohonen at the reference's CI anchor and an RBM 784 → 256 on
+    MNIST's surrogate rows, on the card: the SOM's final quantisation
+    error below 0.25 and below its first epoch's; the RBM's first 5
+    CD-1 steps against the CPU's from the same uniforms, its
+    reconstruction error falling over RBM_STEPS steps; ms a step."""
+    import torch
+    from veles_tpu_torch import datasets, prng
+    from veles_tpu_torch.models import kohonen_demo, rbm_mnist
+    from veles_tpu_torch.telemetry import counters
+    t_phase = time.perf_counter()
+    counters.counters.reset()
+    qerr = {}
+    for dev in ("cpu", "cuda"):
+        prng.seed_all(UNSUP_SEED)
+        som = kohonen_demo.build_workflow(epochs=8, minibatch_size=100,
+                                          n_train=600)
+        som.initialize(device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        som.run()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            som_ms = (time.perf_counter() - t0) * 1e3 / som.trainer.time
+        qerr[dev] = som.gather_results()["qerr_history"]
+    som_rel = max(abs(a - b) / b for a, b in zip(qerr["cuda"], qerr["cpu"]))
+    undo = cached_loads(datasets, "load_mnist")
+    try:
+        steps = {}
+        for dev in ("cpu", "cuda"):
+            prng.seed_all(UNSUP_SEED)
+            wf = rbm_mnist.build_workflow(n_train=RBM_STEPS * 64)
+            wf.initialize(device=dev)
+            out = []
+            for _ in range(5):
+                wf.loader.run()
+                wf.trainer.run()
+                out.append(dict({k: a.map_read().copy() for k, a in
+                                 wf.trainer.param_arrays().items()},
+                                err=wf.trainer.reconstruction_error))
+            steps[dev] = out
+        rbm_rel = max(
+            max(abs(g["err"] - w["err"]) / w["err"],
+                max(float(abs(g[k] - w[k]).max() / abs(w[k]).max())
+                    for k in ("weights", "vbias", "hbias")))
+            for g, w in zip(steps["cuda"], steps["cpu"]))
+        prng.seed_all(UNSUP_SEED)
+        rb = rbm_mnist.build_workflow(n_train=RBM_STEPS * 64 // 4)
+        rb.initialize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rb.run()
+        torch.cuda.synchronize()
+        rbm_ms = (time.perf_counter() - t0) * 1e3 / rb.trainer.steps
+    finally:
+        undo()
+    res = rb.gather_results()
+    launches = kernel_launches()
+    emit("train_unsupervised", card=card,
+         kohonen=dict(shape=[6, 6], epochs=len(qerr["cuda"]), mb=100,
+                      rows=600, qerr_history=qerr["cuda"],
+                      qerr_history_cpu=qerr["cpu"], rel_diff_vs_cpu=som_rel,
+                      ms_per_step=som_ms),
+         rbm=dict(visible=784, hidden=rb.trainer.n_hidden,
+                  mb=rb.loader.max_minibatch_size, steps=rb.trainer.steps,
+                  first_error=res["first_error"],
+                  error_history=res["error_history"],
+                  first5_rel_diff_vs_cpu=rbm_rel, ms_per_step=rbm_ms),
+         hand_written_kernel_launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    q = qerr["cuda"]
+    if not (len(q) == 8 and q[-1] < 0.25 and q[-1] < q[0]):
+        raise AssertionError("DemoKohonen on the card: qerr %s" % q)
+    if not rbm_rel <= TOL_RBM_STEP_REL:
+        raise AssertionError("the RBM's first steps on the card differ from "
+                             "the CPU's by %g" % rbm_rel)
+    if rb.trainer.steps != RBM_STEPS or not (
+            res["final_error"] < res["first_error"]):
+        raise AssertionError("RBM: %d steps, error %s → %s" % (
+            rb.trainer.steps, res["first_error"], res["final_error"]))
+    if launches:
+        raise AssertionError("the unsupervised phase launched %d "
+                             "hand-written kernels" % launches)
+
+
 def phase_breakdown(card, model, prompts):
     """Where one batched greedy decode spends its time: prefill (the
     n_new=1 call) vs the per-step decode, and the device's busy share
@@ -3693,6 +4339,9 @@ def main():
     launches_tel, launches_tel_ffc = phase_telemetry(card)
     del lm_wf
     launches_cli = phase_cli(card, lm_losses)
+    phase_znicz_units(card)
+    phase_train_alexnet(card)
+    phase_train_unsupervised(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]

@@ -335,3 +335,30 @@ def test_bf16_scaled_tanh_rounds_its_constants_as_the_reference(kind):
     pre = torch.from_numpy(rng.randn(4096).astype(numpy.float32)).bfloat16()
     assert not torch.equal(port_u.activation(pre),
                            1.7159 * torch.tanh(0.6666 * pre))
+
+
+def test_card_conv_path_matches_autograd():
+    """The conv the card runs for float32 (cuDNN's forward and input
+    gradient, the weight gradient outside cuDNN) computes F.conv2d's
+    function and gradients: on the CPU float64 gradcheck, and float32
+    within 1e-6 · max(1, max|ref|) of autograd through ``F.conv2d``."""
+    from veles_tpu_torch.nn.conv import _CardConv2d
+    rng = numpy.random.RandomState(9)
+    x64 = torch.from_numpy(rng.randn(3, 5, 11, 9)).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    w64 = torch.from_numpy(rng.randn(7, 5, 3, 2)).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda a, b: _CardConv2d.apply(a, b, (2, 1), (1, 0)), (x64, w64))
+    g = torch.from_numpy(rng.randn(3, 7, 6, 8).astype(numpy.float32))
+    outs = []
+    for fn in (lambda a, b: _CardConv2d.apply(a, b, (2, 1), (1, 0)),
+               lambda a, b: torch.nn.functional.conv2d(
+                   a, b, stride=(2, 1), padding=(1, 0))):
+        x = x64.detach().float().requires_grad_(True)
+        w = w64.detach().float().requires_grad_(True)
+        y = fn(x, w)
+        (y * g).sum().backward()
+        outs.append((y.detach(), x.grad, w.grad))
+    for got, want in zip(*outs):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-6 * scale

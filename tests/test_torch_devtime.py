@@ -205,3 +205,19 @@ def test_measure_on_a_cuda_device_never_falls_back(monkeypatch):
         with pytest.raises(VelesError, match="CUDA"):
             port.measure(lambda: None, device=device)
     assert counters.counters.delta(before) == {}
+
+
+def test_span_time_of_an_inner_event_is_its_dur_at_a_large_clock():
+    """A kernel wholly inside its span counts its ``dur``: at a trace
+    clock of ~1.76e15 µs a float64 ``ts + dur`` keeps ~0.1 µs, which
+    once put the span's time below the kernel's on the card."""
+    ts = 1760000000000000.3
+    events = [{"ph": "M", "name": "process_name", "pid": 1,
+               "args": {"name": "GPU 0"}},
+              {"ph": "X", "cat": "kernel", "name": "k", "pid": 1,
+               "tid": 7, "ts": ts, "dur": 52.286}]
+    span = [{"name": "s", "ts": 100.0, "dur": 1e-3}]
+    got = port.attribute_spans(events, span, offset_us=ts - 100e6 - 10.0)
+    assert got["s"]["device_time_s"] >= port._by_kernel(
+        events)["k"]["device_time_s"]
+    assert got["s"]["device_time_s"] == pytest.approx(52.286e-6, abs=1e-15)

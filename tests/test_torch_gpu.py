@@ -1152,3 +1152,160 @@ def test_cli_mnist_runs_the_fused_fc_kernel(cuda, tmp_path):
     assert state.keys() == direct.keys() and len(state) == 8
     assert all(torch.equal(state[k], direct[k]) for k in state)
     assert data["err_history"]["validation"] == wf.decision.epoch_metrics[1]
+
+
+# -- the rest of the Znicz layer set (no hand-written kernel) -------------
+
+ZNICZ_NAMES = ["lrn_n5_c95", "lrn_n3_c33", "lrn_n5_c3", "cutter_asym"]
+
+
+@pytest.mark.parametrize("name", ZNICZ_NAMES)
+def test_znicz_units_on_the_card_match_cpu(cuda, name):
+    """LRN and the cutter, forward and the gradients of sum(y · g), on
+    the card within 1e-4 · max(1, max|cpu|) of the CPU's."""
+    from chip_smoke import TOL_ZNICZ, znicz_unit_cases
+    i, (_, u, shape) = next((i, c) for i, c in enumerate(znicz_unit_cases())
+                            if c[0] == name)
+    x = numpy.random.RandomState(500 + i).randn(*shape).astype(
+        "float32") * 3
+    want = unit_outputs(u, x, {}, "cpu", 500 + i)
+    assert conv_error(unit_outputs(u, x, {}, cuda, 500 + i),
+                      want) <= TOL_ZNICZ
+
+
+@pytest.mark.parametrize("solver,kw", [
+    ("adagrad", {}), ("rmsprop", {}), ("adadelta", {}),
+    ("sgd", {"gradient_clip": 0.5}), ("adam", {"gradient_clip_norm": 1.0})])
+def test_solvers_on_the_card_match_cpu(cuda, solver, kw):
+    from chip_smoke import TOL_ZNICZ, solver_updates
+    assert conv_error(solver_updates(cuda, solver, kw, 7),
+                      solver_updates("cpu", solver, kw, 7)) <= TOL_ZNICZ
+
+
+def test_random_units_on_the_card(cuda):
+    """Dropout keeps 0.7 of 10^6 elements within 0.002, each kept one
+    x/keep, a seed gives its mask twice; stochastic pooling in
+    evaluation is max pooling, and its training picks lie in their
+    windows."""
+    from veles_tpu_torch.nn import dropout, pooling
+    drop = dropout.DropoutForward(None, dropout_ratio=0.3)
+    x = torch.rand((1000, 1000), device=cuda) + 0.5
+    gen = [torch.Generator(device=cuda).manual_seed(2) for _ in range(2)]
+    y = drop.apply({}, x, train=True, generator=gen[0])
+    assert torch.equal(y, drop.apply({}, x, train=True, generator=gen[1]))
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - 0.7) <= 0.002
+    assert torch.equal(y[kept], x[kept] / 0.7)
+    assert drop.apply({}, x) is x
+    sp = pooling.StochasticPooling(None, kx=2, ky=2)
+    xs = torch.randn((4, 9, 11, 8), device=cuda)
+    assert torch.equal(sp.apply({}, xs), pooling.MaxPooling(
+        None, kx=2, ky=2).apply({}, xs))
+    ys = sp.apply({}, xs, train=True,
+                  generator=torch.Generator(device=cuda).manual_seed(1))
+    wins = sp._padded(xs, float("-inf")).unfold(2, 2, 2).unfold(3, 2, 2)
+    wins = wins.reshape(wins.shape[:4] + (4,)).permute(0, 2, 3, 4, 1)
+    assert bool((wins == ys[:, :, :, None, :]).any(dim=3).all())
+    assert bool(torch.isfinite(ys).all())
+
+
+def test_som_and_cd1_steps_on_the_card_match_cpu(cuda):
+    from chip_smoke import TOL_ZNICZ
+    from veles_tpu_torch.nn import kohonen, rbm
+    rng = numpy.random.RandomState(3)
+    w0 = rng.rand(64, 50).astype("float32")
+    x = rng.rand(40, 50).astype("float32")
+    grid = kohonen._grid_coords(8, 8)
+    out = {}
+    for dev in ("cpu", cuda):
+        w, win, q = kohonen.som_step(*(torch.from_numpy(a).to(dev)
+                                       for a in (w0, grid, x)), 0.3, 2.0)
+        out[str(dev)] = ({"w": w.cpu(), "q": q.reshape(1).cpu()},
+                         win.cpu())
+    assert conv_error(out[str(cuda)][0], out["cpu"][0]) <= TOL_ZNICZ
+    assert torch.equal(out[str(cuda)][1], out["cpu"][1])
+    p = {"weights": rng.randn(50, 16).astype("float32") * 0.1,
+         "vbias": numpy.zeros(50, "float32"),
+         "hbias": numpy.zeros(16, "float32")}
+    u = rng.rand(40, 16).astype("float32")
+    res = {}
+    for dev in ("cpu", cuda):
+        new, err = rbm.cd1_step({k: torch.from_numpy(v).to(dev)
+                                 for k, v in p.items()},
+                                torch.from_numpy(x).to(dev),
+                                torch.from_numpy(u).to(dev), 0.1)
+        res[str(dev)] = {k: v.cpu() for k, v in
+                         dict(new, err=err.reshape(1)).items()}
+    assert conv_error(res[str(cuda)], res["cpu"]) <= TOL_ZNICZ
+
+
+def test_small_alexnet_trains_on_the_card(cuda):
+    """The CI AlexNet (32 px) through ``mcdnnic_topology`` with adam on
+    the card: finite metrics, the loss falling, no hand-written kernel
+    launched."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import alexnet
+    prng.seed_all(5)
+    wf = alexnet.build_workflow(epochs=2, n_train=640, n_valid=128)
+    wf.initialize()
+    assert wf.train_step.device.type == "cuda"
+    counters.counters.reset()
+    wf.run()
+    losses = wf.decision.epoch_losses[2]
+    assert all(numpy.isfinite(losses)) and losses[1] < losses[0]
+    assert not any(v for k, v in counters.counters.snapshot().items()
+                   if "launches" in k)
+
+
+def test_kohonen_demo_on_the_card(cuda):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import kohonen_demo
+    prng.seed_all(1234)
+    wf = kohonen_demo.build_workflow(epochs=8, minibatch_size=100,
+                                     n_train=600)
+    wf.initialize()
+    wf.run()
+    res = wf.gather_results()
+    assert wf.trainer.weights.devmem.device.type == "cuda"
+    assert res["final_qerr"] < 0.25
+    assert res["qerr_history"][-1] < res["qerr_history"][0]
+
+
+def test_masked_chain_never_launches_the_fused_kernel(cuda):
+    """A [tanh, softmax] MNIST chain with a ZeroFiller mask and
+    ``fused_fc_scan`` on trains on the general path: the kernel's launch
+    counter stays 0 and the mask holds."""
+    from veles_tpu_torch.models import mnist
+    from veles_tpu_torch.nn.zerofill import ZeroFiller
+    root.common.engine.fused_fc_scan = True
+    try:
+        wf = mnist.build_workflow(epochs=2, epochs_per_dispatch=2)
+        wf.initialize()
+        assert wf.train_step._fused_fc is not None
+        ZeroFiller(wf, target=wf.forwards[0], grouping=2).initialize()
+        assert wf.train_step._fused_fc is None
+        before = counters.get(FFC_LAUNCHES)
+        wf.run()
+        assert counters.get(FFC_LAUNCHES) == before
+    finally:
+        root.common.engine.fused_fc_scan = False
+    w = wf.train_step.params["all2all_tanh0"]["weights"].cpu().numpy()
+    assert (w[:392, 50:] == 0).all() and (w[392:, :50] == 0).all()
+
+
+def test_conv_weight_gradient_is_float32_grade(cuda):
+    """AlexNet's 5×5 conv of 48 → 128 channels over 109×109: the port's
+    float32 weight gradient on the card within 1e-4 of the float64 one
+    (max abs error over max|f64|), where cuDNN's lies ~1e-2 off."""
+    from veles_tpu_torch.nn.conv import conv2d
+    rng = numpy.random.RandomState(700)
+    x = torch.from_numpy(rng.randn(4, 48, 109, 109)).to(cuda).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.randn(128, 48, 5, 5) / numpy.sqrt(1200)).to(
+        cuda)
+    gy = torch.from_numpy(rng.randn(4, 128, 105, 105)).to(cuda)
+    want = torch.nn.grad.conv2d_weight(x, w.shape, gy)
+    wf = w.float().requires_grad_(True)
+    conv2d(x.float(), wf, (1, 1), (0, 0)).backward(gy.float())
+    assert float((wf.grad.double() - want).abs().max()
+                 / want.abs().max()) <= 1e-4

@@ -138,6 +138,8 @@ def _default_root() -> Config:
             "datasets": os.path.expanduser("~/.veles_tpu/datasets"),
             # where a Snapshotter given no directory writes
             "snapshots": os.path.expanduser("~/.veles_tpu/snapshots"),
+            # where an ImageSaver given no directory writes
+            "cache": os.path.expanduser("~/.veles_tpu/cache"),
         },
         "engine": {
             # the whole-epoch fused-FC SGD kernel for eligible

@@ -11,6 +11,12 @@ Adam's ``{"m", "v", "t"}`` — so a run resumes on the identical
 trajectory), checking every name and shape first.
 :func:`random_params` makes a tree of that layout from a numpy seed, for
 runs that need weights but no trained model.
+
+Both also take the units that train outside a ``TrainStep`` — the
+Kohonen map (``weights``) and the RBM (``weights``, ``vbias``,
+``hbias``) — as an iterable of units or as the workflow holding them
+(DemoKohonen's); such a unit's parameters are its host Arrays, rebound
+to the loaded values.
 """
 
 from __future__ import annotations
@@ -21,14 +27,18 @@ import numpy
 import torch
 
 from .error import VelesError
+from .memory import Array
 
 ParamTree = Dict[str, Dict[str, numpy.ndarray]]
 Shapes = Dict[str, Dict[str, Tuple[int, ...]]]
 
 
 def _parameterised(forwards):
+    """{name: layer} of the layers or units with parameters; a unit
+    without ``param_shapes`` (a loader, a decision) is passed over."""
     return {layer.name: layer for layer in forwards
-            if layer.param_shapes()}
+            if callable(getattr(layer, "param_shapes", None))
+            and layer.param_shapes()}
 
 
 def _stage(shapes: Shapes, tree: ParamTree, what: str
@@ -96,7 +106,14 @@ def params_from_jax(target, params: ParamTree,
                         params, "parameter tree")
         with torch.no_grad():
             for name, pname, arr in staged:
-                getattr(layers[name], pname).copy_(torch.from_numpy(arr))
+                have = getattr(layers[name], pname, None)
+                if isinstance(have, torch.Tensor):
+                    have.copy_(torch.from_numpy(arr))
+                elif isinstance(have, Array) and have:
+                    have.reset(arr)
+                else:
+                    setattr(layers[name], pname, Array(
+                        arr, name="%s.%s" % (name, pname)))
         return target
     if not step.params:
         raise VelesError("initialize() the workflow before loading "
@@ -127,10 +144,11 @@ def params_from_jax(target, params: ParamTree,
 def random_params(forwards, seed: int = 0) -> ParamTree:
     """A parameter tree for ``forwards`` in the reference's layout, drawn
     from ``numpy.random.RandomState(seed)`` with the reference's
-    initialisers: normal tables at stddev 0.02, weight matrices at
-    1/sqrt(fan_in), norm gains 1, biases 0, and a layer's
-    ``deterministic_params()`` (the SSM block's decay logits ``a_log``)
-    as the layer gives them, drawing nothing."""
+    initialisers: normal tables at stddev 0.02, weight matrices at the
+    unit's ``weights_stddev`` where it has one (the Kohonen map's 0.05,
+    the RBM's 0.01), else 1/sqrt(fan_in), norm gains 1, biases 0, and a
+    layer's ``deterministic_params()`` (the SSM block's decay logits
+    ``a_log``) as the layer gives them, drawing nothing."""
     rng = numpy.random.RandomState(seed)
     tree: ParamTree = {}
     for name, layer in _parameterised(forwards).items():
@@ -146,7 +164,10 @@ def random_params(forwards, seed: int = 0) -> ParamTree:
             elif len(shape) == 1:
                 w = numpy.zeros(shape)
             else:
-                w = rng.normal(0.0, 1.0 / numpy.sqrt(shape[0]), shape)
+                stddev = (getattr(layer, "weights_stddev", None)
+                          if pname == "weights" else None)
+                w = rng.normal(0.0, stddev or 1.0 / numpy.sqrt(shape[0]),
+                               shape)
             out[pname] = w.astype(numpy.float32)
         tree[name] = out
     return tree

@@ -2,7 +2,10 @@
 ``models/cifar.py``): the caffe cifar10_quick stack the reference
 shipped, 50,000 train / 10,000 validation NHWC images less the train
 mean (the synthetic surrogate without the real batches), mb 100, lr
-0.001 with ``step_exp(0.5, 20)``.
+0.001 with ``step_exp(0.5, 20)``. :func:`build_stl10_workflow` is the
+same stack at the STL-10 geometry (96×96×3, 10 classes, mb 50, 5,000
+train / 800 validation rows of the class-template surrogate: real STL-10
+is not in the repo).
 
     python -m veles_tpu_torch.models.cifar --epochs 30 [--device cpu]
 
@@ -16,6 +19,7 @@ import time
 import numpy
 
 from .. import datasets
+from ..datasets import load_synthetic
 from ..error import VelesError
 from ..loader import FullBatchLoader
 from ..nn.lr_adjust import step_exp
@@ -67,6 +71,42 @@ def build_workflow(epochs=30, minibatch_size=100, lr=0.001, data_par=1):
     loader = CifarLoader(None, minibatch_size=minibatch_size, name="cifar")
     return StandardWorkflow(
         name="cifar-conv", layers=caffe_quick_layers(lr),
+        loader_unit=loader, loss_function="softmax",
+        decision_config=dict(max_epochs=epochs, fail_iterations=100),
+        lr_schedule=step_exp(0.5, 20))
+
+
+class Stl10Loader(FullBatchLoader):
+    """STL-10 geometry (96×96×3, 10 classes), mean-subtracted; the
+    class-template surrogate, as the reference's."""
+
+    hide_from_registry = True
+
+    def __init__(self, workflow, image_size=96, n_train=5000,
+                 n_valid=800, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.image_size = image_size
+        self.n_train, self.n_valid = n_train, n_valid
+
+    def load_data(self):
+        tx, ty, vx, vy = load_synthetic(
+            (self.image_size, self.image_size, 3), 10, self.n_train,
+            self.n_valid, flat=False, key="stl10")
+        mean = tx.mean(axis=0)
+        self.create_originals(numpy.concatenate([vx, tx]) - mean,
+                              numpy.concatenate([vy, ty]))
+        self.class_lengths = [0, self.n_valid, self.n_train]
+
+
+def build_stl10_workflow(epochs=30, minibatch_size=50, lr=0.001,
+                         image_size=96, n_train=5000, n_valid=800):
+    """The caffe-quick stack at the STL-10 geometry (the reference
+    trained the same workflow shape on CIFAR-10 and STL-10)."""
+    loader = Stl10Loader(None, image_size=image_size, n_train=n_train,
+                         n_valid=n_valid, minibatch_size=minibatch_size,
+                         name="stl10")
+    return StandardWorkflow(
+        name="stl10-conv", layers=caffe_quick_layers(lr),
         loader_unit=loader, loss_function="softmax",
         decision_config=dict(max_epochs=epochs, fail_iterations=100),
         lr_schedule=step_exp(0.5, 20))

@@ -16,6 +16,15 @@ and rounds once; the bias is added after that rounding, then the
 activation. ``engine.conv_lane_pad`` pads the reference's channels to its
 TPU's lane width with zeros, which changes no number; the port takes the
 knob and does nothing with it.
+
+On the card a float32 conv's weight gradient does not come from cuDNN:
+for some shapes (AlexNet's 5×5 conv of 48 → 128 channels over 109×109,
+whatever cuDNN's deterministic and benchmark flags say) its float32
+weight gradient lies ~1e-2 of its largest element from the float64 one.
+:class:`_CardConv2d` takes it as one batched product of the output
+gradient with the input's im2col columns (``F.unfold``, cuBLAS in
+float32), which is float32-grade (``chip_smoke.py`` ``train_alexnet``
+measures both). The forward and the input gradient stay cuDNN's.
 """
 
 from __future__ import annotations
@@ -34,6 +43,48 @@ from .activation import scaled_tanh, strict_relu
 from .nn_units import ForwardBase, GradientDescentBase, matches
 
 
+def conv2d_weight_gemm(x: torch.Tensor, w_shape, gy: torch.Tensor,
+                       stride, padding) -> torch.Tensor:
+    """The weight gradient of ``F.conv2d(x, w, stride, padding)`` for
+    the output gradient ``gy``: Σ_b gy_b · cols_bᵀ over the im2col
+    columns of each sample, one batched product."""
+    o, c, kh, kw = w_shape
+    cols = F.unfold(x, (kh, kw), padding=padding, stride=stride)
+    g = gy.reshape(gy.shape[0], o, -1)
+    return torch.bmm(g, cols.transpose(1, 2)).sum(0).reshape(w_shape)
+
+
+class _CardConv2d(torch.autograd.Function):
+    """``F.conv2d`` whose weight gradient is :func:`conv2d_weight_gemm`;
+    its forward and input gradient are cuDNN's."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding)
+        return F.conv2d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding = ctx.conf
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, w, gy, stride, padding)
+        if ctx.needs_input_grad[1]:
+            gw = conv2d_weight_gemm(x, w.shape, gy, stride, padding)
+        return gx, gw, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding
+           ) -> torch.Tensor:
+    """``F.conv2d`` (NCHW, OIHW), through :class:`_CardConv2d` for a
+    float32 conv on the card."""
+    if x.is_cuda and x.dtype == torch.float32:
+        return _CardConv2d.apply(x, w, stride, padding)
+    return F.conv2d(x, w, stride=stride, padding=padding)
+
+
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, sliding: Sequence[int],
                 padding: Sequence[int]) -> torch.Tensor:
     """(B, H, W, C) ⋆ HWIO weights → (B, H', W', O): the reference's
@@ -47,7 +98,7 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, sliding: Sequence[int],
     else:
         xc = F.pad(xc, (left, right, top, bottom))
         pad = (0, 0)
-    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=(sy, sx), padding=pad)
+    y = conv2d(xc, w.permute(3, 2, 0, 1), (sy, sx), pad)
     return y.permute(0, 2, 3, 1)
 
 

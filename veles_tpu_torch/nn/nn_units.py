@@ -25,9 +25,8 @@ from .. import prng
 #: forward class → gd class
 MATCHING: Dict[type, type] = {}
 
-#: every solver name the reference accepts, and those ported
+#: every solver name the reference accepts
 SOLVERS = ("sgd", "adam", "adamw", "adagrad", "rmsprop", "adadelta")
-PORTED_SOLVERS = ("sgd", "adam", "adamw")
 
 
 def _f32(a, b) -> float:
@@ -56,6 +55,10 @@ class ForwardBase(AcceleratedUnit):
     #: whether the unit follows the reference's bf16 promotions under
     #: ``engine.mixed_precision`` (TrainStep refuses the ones that do not)
     MIXED_PRECISION = True
+    #: units that draw random numbers in training (dropout, stochastic
+    #: pooling): TrainStep calls their ``apply(params, x, train=...,
+    #: generator=...)`` with the layer's own ``torch.Generator``
+    NEEDS_RNG = False
 
     #: layer-config keys routed to the paired GD unit
     GD_KEYS = ("learning_rate", "learning_rate_bias", "weights_decay",
@@ -143,12 +146,17 @@ class ForwardBase(AcceleratedUnit):
 
 
 class GradientDescentBase(AcceleratedUnit):
-    """Base of gradient-descent units: the Znicz SGD rule
-    ``delta = lr·(g + wd·p) + mu·delta_prev; p -= delta``, and Adam
-    (``solver="adam"``: coupled decay, ``g + wd·p`` through the moments;
-    ``"adamw"``: decoupled, ``p -= lr·wd·p`` beside the step), with the
-    bias on its own learning rate and decay. The other solvers, gradient
-    clipping and the standalone backward are not ported yet."""
+    """Base of gradient-descent units: the reference's six solvers, each
+    op for op in f32 with the bias on its own learning rate and decay —
+    Znicz SGD ``delta = lr·(g + wd·p) + mu·delta_prev; p -= delta``; Adam
+    (``"adam"``: coupled decay, ``g + wd·p`` through the moments;
+    ``"adamw"``: decoupled, ``p -= lr·wd·p`` beside the step); AdaGrad,
+    RMSProp and AdaDelta (Zeiler 2012, ``learning_rate`` scaling the
+    step) on ``g + wd·p`` with their accumulators ``{"a"}`` or ``{"a",
+    "d"}``. ``gradient_clip_norm`` scales the layer's gradients by
+    min(1, clip / their joint float32 L2 norm) first; ``gradient_clip``
+    then clips each element to ±clip. The standalone backward is not
+    ported."""
 
     hide_from_registry = True
 
@@ -170,27 +178,28 @@ class GradientDescentBase(AcceleratedUnit):
         self.beta1 = kwargs.get("beta1", 0.9)
         self.beta2 = kwargs.get("beta2", 0.999)
         self.epsilon = kwargs.get("epsilon", 1e-8)
+        #: rmsprop/adadelta accumulator decay
+        self.rho = kwargs.get("rho", 0.95)
         if self.solver not in SOLVERS:
             raise Bug("unknown solver %r (%s)"
                       % (self.solver, " | ".join(SOLVERS)))
 
-    def _check_ported(self) -> None:
-        if self.solver not in PORTED_SOLVERS:
-            raise VelesError("solver %r is not ported yet (%s only)"
-                             % (self.solver, ", ".join(PORTED_SOLVERS)))
-        if self.gradient_clip or self.gradient_clip_norm:
-            raise VelesError("gradient clipping is not ported yet")
-
     def init_state(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        """Zeros like the parameters: the SGD delta recurrence, or the
-        Adam moments ``{"m", "v"}`` and the int32 step count ``"t"``."""
-        self._check_ported()
+        """Zeros like the parameters, under the reference's keys: the
+        SGD delta recurrence (the params' own tree), Adam's moments
+        ``{"m", "v"}`` and int32 step count ``"t"``, AdaGrad's and
+        RMSProp's ``{"a"}``, AdaDelta's ``{"a", "d"}``."""
+        def zeros():
+            return {k: torch.zeros_like(p) for k, p in params.items()}
         if self.solver in ("adam", "adamw"):
             device = next(iter(params.values())).device
-            return {"m": {k: torch.zeros_like(p) for k, p in params.items()},
-                    "v": {k: torch.zeros_like(p) for k, p in params.items()},
+            return {"m": zeros(), "v": zeros(),
                     "t": torch.zeros((), dtype=torch.int32, device=device)}
-        return {k: torch.zeros_like(p) for k, p in params.items()}
+        if self.solver in ("adagrad", "rmsprop"):
+            return {"a": zeros()}
+        if self.solver == "adadelta":
+            return {"a": zeros(), "d": zeros()}
+        return zeros()
 
     def knobs(self, k: str, lr_scale: Any) -> Tuple[float, float]:
         """(lr, wd) of parameter ``k``: the bias on its own learning rate
@@ -202,14 +211,33 @@ class GradientDescentBase(AcceleratedUnit):
                    else self.weight_decay)
         return _f32(base, lr_scale), wd
 
+    def clipped(self, grads: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """The gradients after the clipping knobs, in the reference's
+        order: the joint-norm scale over the layer (its squares summed
+        in float32, leaf by leaf in sorted key order), then the
+        elementwise clip."""
+        if self.gradient_clip_norm:
+            sq = sum(torch.sum(torch.square(grads[k].float()))
+                     for k in sorted(grads))
+            factor = torch.clamp(self.gradient_clip_norm / torch.clamp(
+                torch.sqrt(sq), min=1e-12), max=1.0)
+            grads = {k: (g * factor).to(g.dtype) for k, g in grads.items()}
+        if self.gradient_clip:
+            c = float(self.gradient_clip)
+            grads = {k: torch.clamp(g, -c, c) for k, g in grads.items()}
+        return grads
+
     def update(self, params: Dict[str, torch.Tensor],
                grads: Dict[str, torch.Tensor], state: Any,
                lr_scale: Any = 1.0) -> Tuple[Dict[str, torch.Tensor], Any]:
         """One step of the unit's solver; ``lr_scale`` is the schedule's
         factor (an f32 scalar). Returns (new params, new state)."""
-        self._check_ported()
+        grads = self.clipped(grads)
         if self.solver in ("adam", "adamw"):
             return self._adam(params, grads, state, lr_scale)
+        if self.solver in ("adagrad", "rmsprop", "adadelta"):
+            return self._accumulating(params, grads, state, lr_scale)
         new_params, new_state = {}, {}
         for k, p in params.items():
             lr, wd = self.knobs(k, lr_scale)
@@ -243,6 +271,30 @@ class GradientDescentBase(AcceleratedUnit):
             new_params[k] = p - step
             new_m[k], new_v[k] = m, v
         return new_params, {"m": new_m, "v": new_v, "t": t}
+
+    def _accumulating(self, params, grads, state, lr_scale):
+        """AdaGrad, RMSProp and AdaDelta as the reference computes them,
+        each on ``g + wd·p``."""
+        rho, eps = self.rho, self.epsilon
+        new_a, new_d, new_params = {}, {}, {}
+        for k, p in params.items():
+            lr, wd = self.knobs(k, lr_scale)
+            g = grads[k] + wd * p
+            if self.solver == "adagrad":
+                a = state["a"][k] + g * g
+            else:
+                a = rho * state["a"][k] + (1 - rho) * g * g
+            if self.solver == "adadelta":
+                d = state["d"][k]
+                delta = (torch.sqrt(d + eps) / torch.sqrt(a + eps)) * g
+                new_params[k] = p - lr * delta
+                new_d[k] = rho * d + (1 - rho) * delta * delta
+            else:
+                new_params[k] = p - lr * g / (torch.sqrt(a) + eps)
+            new_a[k] = a
+        if self.solver == "adadelta":
+            return new_params, {"a": new_a, "d": new_d}
+        return new_params, {"a": new_a}
 
     def initialize(self, device=None, **kwargs):
         if self.forward is None:

@@ -1,5 +1,6 @@
 """Pooling units and their GD units (counterpart of
-``veles_tpu/nn/pooling.py``; layer types "max_pooling", "avg_pooling").
+``veles_tpu/nn/pooling.py``; layer types "max_pooling", "avg_pooling",
+"stochastic_pooling").
 
 The reference pools in ceil mode: a partial window at the right or
 bottom edge counts, and an input smaller than the window gives one
@@ -11,9 +12,16 @@ with no padding of torch's own. Avg divides by the edge-clipped window
 size, a count map; max sends a window's gradient to its first maximum in
 scan order, as the reference's ``reduce_window`` VJP does. A window that
 lies wholly in the padding (possible when kx < sx) is −inf (max) or
-0/0 (avg), as the reference's. Stochastic pooling draws from
-``jax.random.gumbel``, which the port cannot match bit for bit: it is
-not ported yet.
+0/0 (avg), as the reference's.
+
+Stochastic pooling is max pooling in evaluation. In training it picks
+one element of each window by Gumbel-argmax over the window's values —
+element i with probability ∝ exp(x_i), a padded −inf position never —
+drawing from the layer's ``torch.Generator``; the reference draws with
+``jax.random.gumbel``, whose bits the port cannot reproduce. Its
+gradient reaches the picked element only (autograd through the
+gather), and it pairs with the max-pooling GD unit, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -104,6 +112,28 @@ class AvgPooling(Pooling):
                               **self._window())
         return summed.permute(0, 2, 3, 1) / self.counts(h, w, x.dtype,
                                                         x.device)
+
+
+class StochasticPooling(MaxPooling):
+    MAPPING = "stochastic_pooling"
+    hide_from_registry = False
+    NEEDS_RNG = True
+
+    def apply(self, params, x, train=False, generator=None):
+        if not train or generator is None:
+            return super().apply(params, x)
+        sx, sy = self.sliding
+        # (B, C, OH, OW, ky·kx) windows of the −inf-padded NCHW view
+        wins = self._padded(x, float("-inf")).unfold(2, self.ky, sy) \
+            .unfold(3, self.kx, sx)
+        wins = wins.reshape(wins.shape[:4] + (self.ky * self.kx,))
+        logits = torch.where(torch.isfinite(wins), wins, -1e30)
+        u = torch.rand(wins.shape, generator=generator, device=x.device,
+                       dtype=torch.float32).clamp_(
+            min=torch.finfo(torch.float32).tiny)
+        gumbel = (-torch.log(-torch.log(u))).to(wins.dtype)
+        choice = torch.argmax(logits + gumbel, dim=-1, keepdim=True)
+        return torch.gather(wins, -1, choice)[..., 0].permute(0, 2, 3, 1)
 
 
 @matches(MaxPooling)

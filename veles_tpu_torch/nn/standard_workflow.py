@@ -12,10 +12,13 @@ list and a loader, as the reference does::
 
 Its forward units are the All2All units (``nn/all2all.py``), the conv
 family (``nn/conv.py``, ``deconv.py``, ``pooling.py``, ``depooling.py``,
-``activation.py``), the transformer LM units (``nn/transformer.py``) and
-the recurrent units (``nn/rnn.py``'s LSTM and RNN, ``nn/ssm.py``'s SSM
-block), named as the reference names them; the per-minibatch compute is the
-TrainStep. Losses: ``"softmax"`` (labels, ``EvaluatorSoftmax``),
+``activation.py``, ``normalization.py``, ``dropout.py``, ``cutter.py``,
+``channel_split.py``), the transformer LM units (``nn/transformer.py``)
+and the recurrent units (``nn/rnn.py``'s LSTM and RNN, ``nn/ssm.py``'s
+SSM block), named as the reference names them; the per-minibatch compute
+is the TrainStep. A net may be given as the reference's
+``mcdnnic_topology`` string instead of ``layers`` (:func:`parse_mcdnnic`),
+with ``mcdnnic_parameters`` merged into every layer. Losses: ``"softmax"`` (labels, ``EvaluatorSoftmax``),
 ``"softmax_seq"`` (per-token targets, ``EvaluatorSoftmaxSeq``, the
 language models) and ``"mse"`` (``EvaluatorMSE`` and ``DecisionMSE``,
 the autoencoders; ``target_mode`` "input", "targets" or, by default,
@@ -34,6 +37,7 @@ trained parameters.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -47,7 +51,8 @@ from ..plumbing import Repeater
 from ..units import UnitRegistry
 # the imports register the layer types
 from . import activation, all2all, conv, deconv, depooling, pooling  # noqa
-from . import rnn, ssm  # noqa
+from . import channel_split, cutter, dropout, normalization  # noqa
+from . import kohonen, rbm, rnn, ssm, zerofill  # noqa
 from .decision import DecisionGD, DecisionMSE
 from .evaluator import EvaluatorMSE, EvaluatorSoftmax, EvaluatorSoftmaxSeq
 from .lr_adjust import LearningRateAdjust
@@ -65,6 +70,44 @@ TRAINING_KEYS = frozenset((
     "solver", "learning_rate", "learning_rate_bias", "weights_decay",
     "weights_decay_bias", "gradient_moment", "gradient_moment_bias",
     "l1_vs_l2", "weights_stddev", "bias_stddev", "stddev"))
+
+
+def parse_mcdnnic(topology: str,
+                  common: Optional[Dict[str, Any]] = None
+                  ) -> List[Dict[str, Any]]:
+    """The reference's ``mcdnnic_topology`` shorthand → a ``layers``
+    list (e.g. ``"3x32x32-16C5-MP2-64N-10N"``): the first dash-token is
+    the input geometry (informational), ``<n>C<k>`` a conv_tanh layer of
+    n k×k kernels, ``MP<k>`` k×k max pooling, ``<n>N`` an all2all_tanh
+    layer of n; the last N becomes the softmax head. ``common`` (e.g.
+    the learning rate and the solver) is merged into every layer."""
+    common = dict(common or {})
+    tokens = topology.split("-")
+    if len(tokens) < 2:
+        raise VelesError("mcdnnic topology needs input+layers: %r"
+                         % topology)
+    layers: List[Dict[str, Any]] = []
+    for tok in tokens[1:]:
+        m = re.fullmatch(r"(\d+)C(\d+)", tok)
+        if m:
+            layers.append(dict(common, type="conv_tanh",
+                               n_kernels=int(m.group(1)),
+                               kx=int(m.group(2)), ky=int(m.group(2))))
+            continue
+        m = re.fullmatch(r"MP(\d+)", tok)
+        if m:
+            layers.append(dict(common, type="max_pooling",
+                               kx=int(m.group(1)), ky=int(m.group(1))))
+            continue
+        m = re.fullmatch(r"(\d+)N", tok)
+        if m:
+            layers.append(dict(common, type="all2all_tanh",
+                               output_sample_shape=int(m.group(1))))
+            continue
+        raise VelesError("bad mcdnnic token %r in %r" % (tok, topology))
+    if layers and layers[-1]["type"] == "all2all_tanh":
+        layers[-1]["type"] = "softmax"
+    return layers
 
 
 class Forwards(nn.Module):
@@ -150,8 +193,9 @@ class StandardWorkflow(AcceleratedWorkflow):
     """Declarative training-graph builder: the reference's constructor,
     for ``loss_function`` "softmax", "softmax_seq" and "mse" (whose
     ``target_mode`` defaults to "auto"; the other losses ignore it, as
-    the reference's do). ``initialize(device=None)`` runs on the card;
-    pass ``device="cpu"`` to run on the host."""
+    the reference's do), from ``layers`` or from ``mcdnnic_topology``
+    (not both). ``initialize(device=None)`` runs on the card; pass
+    ``device="cpu"`` to run on the host."""
 
     hide_from_registry = True
 
@@ -162,10 +206,10 @@ class StandardWorkflow(AcceleratedWorkflow):
                  steps_per_dispatch: int = 16,
                  epochs_per_dispatch: int = 1, target_mode: str = None,
                  remat: bool = False, grad_accumulation: int = 1,
+                 mcdnnic_topology: str = None,
+                 mcdnnic_parameters: Optional[Dict[str, Any]] = None,
                  **kwargs):
-        for key in ("pipeline_microbatches",
-                    "evaluator_config", "mcdnnic_topology",
-                    "mcdnnic_parameters"):
+        for key in ("pipeline_microbatches", "evaluator_config"):
             if kwargs.pop(key, None) not in (None, False, 1, {}):
                 raise VelesError("StandardWorkflow(%s=...) is not ported "
                                  "yet" % key)
@@ -178,6 +222,11 @@ class StandardWorkflow(AcceleratedWorkflow):
         self._remat = remat
         self._grad_accumulation = grad_accumulation
         super().__init__(workflow, **kwargs)
+        if mcdnnic_topology:
+            if layers:
+                raise VelesError("pass layers OR mcdnnic_topology, "
+                                 "not both")
+            layers = parse_mcdnnic(mcdnnic_topology, mcdnnic_parameters)
         self.layers_config = list(layers)
         self.loss_function = loss_function
         self.loader = loader_unit

@@ -51,11 +51,28 @@ The reference's memory and precision knobs:
 
 None of them reaches the fused-FC kernel, which refuses each with the
 reference's reason.
+
+Random units (``NEEDS_RNG``: dropout, stochastic pooling) draw from a
+``torch.Generator`` of their own on the step's device, seeded from the
+step's stream (``prng.get(self.name)``), the train step's number, the
+accumulation chunk and the layer's index; the generator is made anew
+each time the forward runs, so a recomputation under ``remat`` redraws
+the same mask (``torch.utils.checkpoint`` restores the global RNG, not
+an explicit generator). The reference folds its threefry key with the
+same numbers, whose bits the port cannot reproduce. In evaluation they
+draw nothing.
+
+``param_masks`` (:meth:`TrainStep.register_param_mask`, ZeroFiller's
+sparsity contract): each mask multiplies its parameter after every
+optimiser update, inside a plan as between plans; a registered mask
+takes the chain off the fused-FC kernel, which has no mask.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import hashlib
+import struct
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy
 import torch
@@ -66,6 +83,7 @@ from ..config import root
 from ..error import Bug, VelesError
 from ..loader.base import TEST, TRAIN, VALID
 from ..ops.precision import amp_cast
+from .. import prng
 from ..telemetry import cost as _cost
 from ..telemetry.spans import span
 from .all2all import All2AllSoftmax, All2AllTanh
@@ -182,6 +200,14 @@ class TrainStep(AcceleratedUnit):
         self._dispatched: Dict[str, Dict[str, Any]] = {}
         #: {(class, minibatch size): Cost of one step} (cost_report)
         self._step_costs: Dict[Any, Any] = {}
+        #: {unit name: {param key: mask tensor}}, applied after every
+        #: optimiser update (register_param_mask)
+        self.param_masks: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._param_masks_np: Dict[Tuple[str, str], numpy.ndarray] = {}
+        #: the keyed stream the random units' generators seed from, and
+        #: the number of the next train step
+        self._rng = prng.get(self.name)
+        self.rng_step = 0
         self.demand("evaluator", "loader")
 
     @property
@@ -295,6 +321,8 @@ class TrainStep(AcceleratedUnit):
                           "softmax] chain")
         if not isinstance(self.evaluator, EvaluatorSoftmax):
             return reject("needs plain softmax-CE evaluator")
+        if self.param_masks:
+            return reject("sparsity masks not fused")
         if self.mixed_precision or self.remat \
                 or self.grad_accumulation > 1:
             return reject("amp/remat/grad-accumulation not fused")
@@ -349,20 +377,62 @@ class TrainStep(AcceleratedUnit):
                       "kernel runs only inside an epoch block — the "
                       "general path trains every epoch")
 
+    def register_param_mask(self, unit_name: str, key: str, mask) -> None:
+        """Install (or refresh) a mask that multiplies ``params[unit_name]
+        [key]`` after every optimiser update, enforced on the current
+        parameter at once; re-registering an equal mask is a no-op
+        (checked on the host). The chain leaves the fused-FC kernel,
+        which has no mask, with the reference's reason."""
+        m_np = numpy.asarray(mask)
+        cur = self._param_masks_np.get((unit_name, key))
+        if cur is not None and numpy.array_equal(cur, m_np):
+            return
+        self._param_masks_np[(unit_name, key)] = m_np
+        m = torch.from_numpy(numpy.array(m_np)).to(self.device)
+        self.param_masks.setdefault(unit_name, {})[key] = m
+        if self._fused_fc is not None:
+            self._fused_fc = None
+            self.info("fused_fc_scan disengaged: sparsity masks not fused")
+        if self.params.get(unit_name) and key in self.params[unit_name]:
+            p = dict(self.params[unit_name])
+            p[key] = p[key] * m.to(p[key].dtype)
+            self.params[unit_name] = p
+
+    def _layer_generator(self, key: Tuple[int, ...], index: int
+                         ) -> torch.Generator:
+        """The generator of the layer at ``index`` for the draw ``key``
+        (the stream's seed, the step's number, the chunk), on the step's
+        device; the same key and index give the same draws."""
+        digest = hashlib.sha256(struct.pack("<4q", *key, index)).digest()
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+        return gen
+
+    def _rng_key(self, step: int, chunk: int = 0) -> Tuple[int, ...]:
+        return (self._rng.initial_seed, step, chunk)
+
     # -- pure functions -------------------------------------------------------
-    def _forward(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, params: Tree, x: torch.Tensor, train: bool = False,
+                 rng: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
         """The forward chain; a softmax head yields logits for the fused
-        log-softmax cross-entropy. ``bf16_activations``: an interlayer
-        activation that left a unit float32 is stored bf16 (the head's
-        output feeds the evaluator as it is)."""
+        log-softmax cross-entropy. A ``NEEDS_RNG`` unit gets ``train``
+        and, in training, its layer's generator for the draw ``rng``.
+        ``bf16_activations``: an interlayer activation that left a unit
+        float32 is stored bf16 (the head's output feeds the evaluator as
+        it is)."""
         last = self.forwards[-1]
         use_logits = (isinstance(last, All2AllSoftmax)
                       and isinstance(self.evaluator, EvaluatorSoftmax))
-        for f in self.forwards:
+        for i, f in enumerate(self.forwards):
             p = params.get(f.name, {})
             if f is last and use_logits:
                 return f.logits(p, x)
-            x = f.apply(p, x)
+            if getattr(f, "NEEDS_RNG", False):
+                gen = (self._layer_generator(rng, i)
+                       if train and rng is not None else None)
+                x = f.apply(p, x, train=train, generator=gen)
+            else:
+                x = f.apply(p, x)
             if self._bf16_acts and f is not last \
                     and x.dtype == torch.float32:
                 x = x.to(torch.bfloat16)
@@ -378,23 +448,24 @@ class TrainStep(AcceleratedUnit):
                                                                     mask)
         return {k: accum[k] + metrics[k] for k in accum}
 
-    def _grads(self, params, batch, tgt, mask):
+    def _grads(self, params, batch, tgt, mask, rng=None):
         """Autograd forward + loss over ``batch`` (a minibatch, or one
-        accumulation chunk of it): (loss, out, grads), the grads in the
-        params' tree. Under mixed precision the forward runs on the bf16
-        view of the params (the batch is cast by the caller) and the
-        grads reach the float32 masters through the cast; under remat
-        the forward runs in one non-reentrant checkpoint."""
+        accumulation chunk of it) in training, the random units drawing
+        for ``rng``: (loss, out, grads), the grads in the params' tree.
+        Under mixed precision the forward runs on the bf16 view of the
+        params (the batch is cast by the caller) and the grads reach the
+        float32 masters through the cast; under remat the forward runs
+        in one non-reentrant checkpoint."""
         leaves = {n: {k: v.detach().requires_grad_(True)
                       for k, v in p.items()} for n, p in params.items()}
         with torch.enable_grad():
             p = amp_cast(leaves) if self.mixed_precision else leaves
             if self.remat:
                 out = torch.utils.checkpoint.checkpoint(
-                    self._forward, p, batch, use_reentrant=False,
+                    self._forward, p, batch, True, rng, use_reentrant=False,
                     preserve_rng_state=True)
             else:
-                out = self._forward(p, batch)
+                out = self._forward(p, batch, True, rng)
             loss = self.evaluator.loss(out, tgt, mask)
             flat = [t for p in leaves.values() for t in p.values()]
             grads_flat = torch.autograd.grad(loss, flat)
@@ -403,7 +474,7 @@ class TrainStep(AcceleratedUnit):
         return loss.detach(), out.detach(), grads
 
     def _train_step(self, params, opt_state, accum, dataset, targets,
-                    indices, mask, lr_scale):
+                    indices, mask, lr_scale, step=None):
         """One minibatch: autograd forward + loss, the GD updates, the
         metrics. ``targets`` is the array the rows' targets are gathered
         from (``_dataset``; None: the minibatch is its own target). With
@@ -413,8 +484,13 @@ class TrainStep(AcceleratedUnit):
         rows over the minibatch's valid rows — the whole minibatch's
         gradient up to the order of the sums (each chunk's loss is its
         valid rows' mean); the metrics accumulate chunk by chunk and
-        the loss returned is the weighted mean of the chunks'. Returns
-        (params, opt_state, accum, loss)."""
+        the loss returned is the weighted mean of the chunks'. The random
+        units draw for train step number ``step`` (default: the next,
+        ``rng_step``, which then advances). Returns (params, opt_state,
+        accum, loss)."""
+        if step is None:
+            step = self.rng_step
+            self.rng_step += 1
         idx = indices.long()
         batch = dataset[idx]
         tgt = batch if targets is None else targets[idx]
@@ -422,7 +498,8 @@ class TrainStep(AcceleratedUnit):
             batch = amp_cast(batch)
         ga = self.grad_accumulation
         if ga == 1:
-            loss, out, grads = self._grads(params, batch, tgt, mask)
+            loss, out, grads = self._grads(params, batch, tgt, mask,
+                                           self._rng_key(step))
             with torch.no_grad():
                 accum = self._metrics(out, tgt, mask, loss, accum)
         else:
@@ -432,7 +509,8 @@ class TrainStep(AcceleratedUnit):
             for c in range(ga):
                 part = slice(c * rows, (c + 1) * rows)
                 loss_c, out, g = self._grads(params, batch[part], tgt[part],
-                                             mask[part])
+                                             mask[part],
+                                             self._rng_key(step, c))
                 with torch.no_grad():
                     w = mask[part].sum().float()
                     g = {n: {k: v.float() * w for k, v in t.items()}
@@ -458,13 +536,18 @@ class TrainStep(AcceleratedUnit):
     def _apply_updates(self, params, grads, opt_state, lr_scale, valid):
         """Each unit's GD rule, kept only where ``valid``: an all-padded
         row leaves the params and every leaf of the state (Adam's step
-        count included) unchanged."""
+        count included) unchanged; then the registered masks."""
         new_params, new_opt = {}, {}
         for name, p in params.items():
             up_p, up_s = self._gd_for[name].update(p, grads[name],
                                                    opt_state[name], lr_scale)
             new_params[name] = _tree_where(valid, up_p, p)
             new_opt[name] = _tree_where(valid, up_s, opt_state[name])
+        for name, masks in self.param_masks.items():
+            if name in new_params:
+                for k, m in masks.items():
+                    new_params[name][k] = (new_params[name][k]
+                                           * m.to(new_params[name][k].dtype))
         return new_params, new_opt
 
     def _train_plan(self, params, opt_state, accum, dataset, targets,
@@ -662,7 +745,8 @@ class TrainStep(AcceleratedUnit):
             if cls == TRAIN:
                 fn = lambda: self._train_step(  # noqa: E731
                     self.params, self.opt_state, self._zero_accum(),
-                    dataset, targets, idx, mask, _f32(self.lr_scale))
+                    dataset, targets, idx, mask, _f32(self.lr_scale),
+                    step=self.rng_step)
             else:
                 fn = lambda: self._eval_step(  # noqa: E731
                     self.params, self._zero_accum(), dataset, targets,
@@ -755,8 +839,15 @@ class TrainStep(AcceleratedUnit):
             self.sync_params_to_arrays()
 
     def state_dict(self):
-        return {"opt_state": _host_tree(self.opt_state),
-                "lr_scale": float(self.lr_scale)}
+        """The reference's keys and, where a forward draws random
+        numbers, ``rng_step`` (the port's: the number of the next train
+        step, whose draws a resumed run continues from; the reference
+        reads no such key)."""
+        sd = {"opt_state": _host_tree(self.opt_state),
+              "lr_scale": float(self.lr_scale)}
+        if any(getattr(f, "NEEDS_RNG", False) for f in self.forwards):
+            sd["rng_step"] = int(self.rng_step)
+        return sd
 
     def load_state_dict(self, sd) -> None:
         """After the forwards restored their Arrays (``apply_state`` runs
@@ -781,5 +872,6 @@ class TrainStep(AcceleratedUnit):
             # the first resumed step trains at the snapshot's rate; a
             # linked LearningRateAdjust takes the write
             self.lr_scale = float(sd["lr_scale"])
+        self.rng_step = int(sd.get("rng_step", 0))
         self._accum.clear()
         self._block_metrics = None

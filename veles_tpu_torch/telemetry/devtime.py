@@ -255,17 +255,22 @@ def attribute_spans(events: Iterable[Dict[str, Any]],
     span window, not host-tree-exclusive time)."""
     span_records = [r for r in span_records
                     if "name" in r and "ts" in r]
-    devs = [(float(e.get("ts", 0.0)),
-             float(e.get("ts", 0.0)) + float(e.get("dur", 0.0)))
-            for e in device_events(events)]
+    # device times from the first event's start: at a trace clock of
+    # ~1e15 µs a float64 ts + dur keeps only ~0.1 µs, so an event wholly
+    # inside a span would count a rounded length, not its dur
+    evs = device_events(events)
+    base = min((float(e.get("ts", 0.0)) for e in evs), default=0.0)
+    devs = [(float(e.get("ts", 0.0)) - base,
+             float(e.get("ts", 0.0)) - base + float(e.get("dur", 0.0)))
+            for e in evs]
     if offset_us is None:
         if not devs or not span_records:
             return {}
-        offset_us = (min(s for s, _ in devs)
+        offset_us = (base
                      - min(float(r["ts"]) for r in span_records) * 1e6)
     out: Dict[str, Dict[str, float]] = {}
     for rec in span_records:
-        s0 = float(rec["ts"]) * 1e6 + offset_us
+        s0 = float(rec["ts"]) * 1e6 + offset_us - base
         s1 = s0 + float(rec.get("dur", 0.0)) * 1e6
         clipped = [(max(a, s0), min(b, s1)) for a, b in devs
                    if b > s0 and a < s1]
