@@ -335,6 +335,33 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              uniforms (params and error within 1e-4 relative), then
              200 steps with the error falling; ms a step of each.
              Phases 27–29 launch no hand-written kernel.
+30. serve_spec_beam — speculative and beam decoding and SSE streaming
+             (run after phase 7): the bench LM behind ``GenerationAPI``'s
+             default continuous engine (serve_continuous's slots,
+             buckets, context and pages; ``spec_gamma`` 4, ``beam_width``
+             4) with a 1-block draft of the bench width
+             (``char_lm.build_bench_workflow(n_blocks=1)``, random weights
+             from numpy seed 1). 16 requests posted at once, a seed each:
+             4 greedy speculative (prompts 60, 250, 900, 1800, n_new 48),
+             4 speculative sampled at 0.8, 2 beam requests of width 4
+             (prompts 120 and 480, n_new 32), 4 plain greedy or sampled
+             co-tenants and 2 ``stream: true`` requests (one plain greedy,
+             one greedy speculative). Checks: every answer the pool's;
+             every greedy speculative answer equal to the same engine's
+             plain greedy one; sampled speculative answers equal to the
+             port's solo ``generate_speculative`` under the same seed;
+             beam tokens equal to solo ``beam_generate``, scores within
+             1e-5; the streamed events' tokens equal the terminal answer
+             and the buffered one, the first event before the terminal
+             one; admitted = retired = 16; flash launches = 6 x target
+             prefills + 1 x draft prefills, every prefill at its bucket;
+             the page ledger empty. Then a second engine whose draft is
+             the target itself: acceptance exactly 1.0 and the plain
+             greedy tokens. Prints the mixed load's tokens/s, greedy
+             speculative against plain greedy tokens/s, acceptance,
+             rounds, TTFT, the median speculative round, beam step and
+             decode tick, and whether the bench LM's products give their
+             first 8 rows the same bits inside 32 rows.
 
 ``profiled`` (the breakdown phases' profiler window) reads the capture
 through ``telemetry.devtime.measure``: ``device_busy_ms`` is the union
@@ -345,7 +372,8 @@ Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
 launches in the AMP epochs; the fused-FC kernel's launches in ``train``
 and, under ``launches_by_path``, in ``snapshot``, ``telemetry`` and
-``cli`` too; the flash kernels' f32 entries count ``cli`` too) and,
+``cli`` too; the flash kernels' f32 entries count ``cli`` too, the
+forward's ``serve_spec_beam`` too) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and the run exits non-zero without the last line; without a card
 it exits 1 at once.
@@ -1926,6 +1954,358 @@ def phase_serve_continuous_breakdown(card, model, requests):
          launches_per_tick=(None if rec["kernel_launches"] is None
                             else rec["kernel_launches"] / CONT_TICKS),
          **rec)
+
+
+#: the serve_spec_beam phase's engine: serve_continuous's with the
+#: reference's speculation round and beam group widths
+SPEC_ENGINE = dict(CONT_ENGINE, spec_gamma=4, beam_width=4)
+SPEC_N_NEW = 48
+BEAM_N_NEW = 32
+#: the sampled speculative requests' temperature
+SPEC_TEMP = 0.8
+
+
+def spec_beam_load():
+    """serve_spec_beam's 16 requests, a seed each: 4 greedy speculative
+    (prompts 60, 250, 900, 1800), 4 speculative sampled at 0.8, 2 beam
+    requests of width 4 (prompts 120, 480), 4 plain co-tenants (2
+    greedy, 2 sampled) and 2 streamed (one plain greedy, one greedy
+    speculative)."""
+    import numpy
+    rng = numpy.random.RandomState(11)
+
+    def prompt(n):
+        return [int(x) for x in rng.randint(0, 256, n)]
+
+    reqs = []
+    for n in (60, 250, 900, 1800):
+        reqs.append({"prompt": prompt(n), "n_new": SPEC_N_NEW,
+                     "mode": "speculative", "seed": 2000 + len(reqs)})
+    for n in (120, 480, 900, 1800):
+        reqs.append({"prompt": prompt(n), "n_new": SPEC_N_NEW,
+                     "mode": "speculative", "temperature": SPEC_TEMP,
+                     "seed": 2000 + len(reqs)})
+    for n in (120, 480):
+        reqs.append({"prompt": prompt(n), "n_new": BEAM_N_NEW,
+                     "mode": "beam", "seed": 2000 + len(reqs)})
+    for n, mode in ((60, "greedy"), (250, "greedy"), (120, "sample"),
+                    (480, "sample")):
+        req = {"prompt": prompt(n), "n_new": 32, "mode": mode,
+               "seed": 2000 + len(reqs)}
+        if mode == "sample":
+            req["temperature"] = SPEC_TEMP
+        reqs.append(req)
+    reqs.append({"prompt": prompt(250), "n_new": 32, "stream": True,
+                 "seed": 2000 + len(reqs)})
+    reqs.append({"prompt": prompt(480), "n_new": SPEC_N_NEW,
+                 "mode": "speculative", "stream": True,
+                 "seed": 2000 + len(reqs)})
+    return reqs
+
+
+def post_stream(url, payload, timeout=600.0):
+    """POST a ``stream: true`` request and read its SSE events: (status,
+    events, seconds to the first event, seconds to the terminal one)."""
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    events, first = [], None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if "text/event-stream" not in r.headers.get("Content-Type", ""):
+            raise AssertionError("stream answered %s"
+                                 % r.headers.get("Content-Type"))
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                if first is None:
+                    first = time.perf_counter() - t0
+                events.append(json.loads(line[6:]))
+        return r.status, events, first, time.perf_counter() - t0
+
+
+def post_mixed(url, requests):
+    """POST every request at once, a streamed one through
+    :func:`post_stream`; (answers, wall s). A streamed answer is
+    (status, its terminal event, ms, its events, first s, last s)."""
+    results = [None] * len(requests)
+
+    def fire(i):
+        if requests[i].get("stream"):
+            code, events, first, last = post_stream(url, requests[i])
+            results[i] = (code, events[-1] if events else {}, last * 1e3,
+                          events, first, last)
+        else:
+            results[i] = post(url, requests[i])
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def spec_row_bits():
+    """Whether a product's first 8 rows have the same bits inside 32
+    rows as alone on the card, for each product of the bench LM's
+    decode: the verify pass multiplies 8 rows x 4 positions where the
+    decode step multiplies 8 rows."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, (k, n) in (("qkvo_512x512", (512, 512)),
+                         ("ffn_in_512x2048", (512, 2048)),
+                         ("ffn_out_2048x512", (2048, 512)),
+                         ("head_512x256", (512, 256))):
+        x = torch.randn((32, k), generator=g, device="cuda")
+        w = torch.randn((k, n), generator=g, device="cuda")
+        out[name] = bool(torch.equal((x @ w)[:8], x[:8] @ w))
+    return out
+
+
+def first_divergence(model, prompt, got, want):
+    """Where two greedy token lists part: the step, both tokens, and the
+    prefill logits of both at that step with their margin (the plain
+    prefill of prompt + the common prefix on the card)."""
+    from veles_tpu_torch.nn import sampling
+    step = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    logits = sampling.prompt_logits(model, list(prompt) + want[:step])
+    return {"step": step, "got": got[step], "want": want[step],
+            "logit_got": float(logits[got[step]]),
+            "logit_want": float(logits[want[step]]),
+            "margin": float(logits[want[step]] - logits[got[step]])}
+
+
+def phase_serve_spec_beam(card):
+    """Speculative and beam decoding and SSE streaming on the bench LM
+    behind GenerationAPI's default continuous engine, with a 1-block
+    draft; then a second engine whose draft is the target itself."""
+    import numpy
+    import torch
+    from veles_tpu_torch.convert import params_from_jax, random_params
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.nn.beam import beam_generate
+    from veles_tpu_torch.nn.speculative import generate_speculative
+    from veles_tpu_torch.nn.standard_workflow import build_forwards
+    from veles_tpu_torch.restful_api import GenerationAPI
+    from veles_tpu_torch.telemetry import counters
+
+    t_phase = time.perf_counter()
+    model = bench_lm()
+    draft = build_forwards(
+        char_lm.build_bench_workflow(n_blocks=1).layers_config)
+    draft = params_from_jax(draft, random_params(draft, seed=1))
+    n_blocks = sum(1 for c in BENCH_LAYERS
+                   if c["type"] == "transformer_block")
+    requests = spec_beam_load()
+    modes = [r.get("mode", "greedy") for r in requests]
+    greedy_spec = [i for i, r in enumerate(requests)
+                   if modes[i] == "speculative"
+                   and not r.get("temperature")]
+    sampled_spec = [i for i, r in enumerate(requests)
+                    if modes[i] == "speculative" and r.get("temperature")]
+    beams = [i for i, m in enumerate(modes) if m == "beam"]
+    streamed = [i for i, r in enumerate(requests) if r.get("stream")]
+    api = GenerationAPI(model, port=0, batch_window=0.5, draft=draft,
+                        **SPEC_ENGINE).initialize()
+    engine = api._engine
+    url = "http://127.0.0.1:%d/generate" % api.port
+    try:
+        if engine is None or engine.draft_stack is None:
+            raise AssertionError("no continuous engine with a draft")
+        # CUDA / cuBLAS warm-up of every mode, outside the measured runs
+        warm = requests[0]["prompt"][:40]
+        for mode, extra in (("greedy", {}), ("speculative", {}),
+                            ("speculative", {"temperature": 0.8}),
+                            ("beam", {})):
+            code, body, _ = post(url, dict({"prompt": warm, "n_new": 4,
+                                            "mode": mode}, **extra))
+            if code != 200:
+                raise AssertionError("warm-up %s: %r" % (mode, body))
+        torch.cuda.synchronize()
+        admitted0, retired0 = engine.admitted, engine.retired
+        engine.prefills_by_bucket.clear()
+        engine.draft_prefills_by_bucket.clear()
+        engine.ttft_ms.clear()
+        counters.counters.reset()
+        results, wall = post_mixed(url, requests)
+        torch.cuda.synchronize()
+        snap = counters.counters.snapshot()
+        n_admitted = engine.admitted - admitted0
+        n_retired = engine.retired - retired0
+        ttft = list(engine.ttft_ms)
+        by_bucket = dict(engine.prefills_by_bucket)
+        draft_by_bucket = dict(engine.draft_prefills_by_bucket)
+        # the same engine's buffered plain greedy answers to the greedy
+        # speculative prompts and the two streamed ones, then the greedy
+        # speculative requests alone: tokens/s of each
+        spec_prompts = greedy_spec + [streamed[1]]
+        plain_reqs = [{"prompt": requests[i]["prompt"],
+                       "n_new": requests[i]["n_new"]}
+                      for i in spec_prompts + [streamed[0]]]
+        plain, plain_wall = post_all(url, plain_reqs)
+        alone, alone_wall = post_all(url, [dict(requests[i], stream=False)
+                                           for i in greedy_spec])
+        stats = engine.stats()
+    finally:
+        api.stop()
+    for i, res in enumerate(results + plain + alone):
+        if res is None or res[0] != 200:
+            raise AssertionError("request %d failed: %r" % (i, res))
+    for i, res in enumerate(results):
+        if res[1].get("engine") != "continuous":
+            raise AssertionError("request %d (%s) was not served by the "
+                                 "pool: %r" % (i, modes[i], res[1]))
+    # greedy speculative == the same engine's plain greedy
+    plain_of = {i: plain[k][1]["tokens"]
+                for k, i in enumerate(spec_prompts + [streamed[0]])}
+    for i in spec_prompts:
+        got = results[i][1]["tokens"]
+        if got != plain_of[i]:
+            raise AssertionError(
+                "request %d: greedy speculative tokens differ from plain "
+                "greedy: %r" % (i, first_divergence(
+                    model, requests[i]["prompt"], got, plain_of[i])))
+    for k, i in enumerate(greedy_spec):
+        if alone[k][1]["tokens"] != plain_of[i]:
+            raise AssertionError("request %d alone differs" % i)
+    # sampled speculative == solo generate_speculative, one seed
+    for i in sampled_spec:
+        req = requests[i]
+        solo, _ = generate_speculative(
+            model, draft, req["prompt"], SPEC_N_NEW, gamma=4,
+            temperature=SPEC_TEMP, seed=req["seed"])
+        if results[i][1]["tokens"] != solo:
+            raise AssertionError("request %d: sampled speculative tokens "
+                                 "differ from solo" % i)
+    # beam == solo beam_generate
+    beam_err = 0.0
+    for i in beams:
+        solo, st = beam_generate(model, requests[i]["prompt"], BEAM_N_NEW,
+                                 beam=4)
+        if results[i][1]["tokens"] != solo:
+            raise AssertionError("request %d: beam tokens %r != solo %r"
+                                 % (i, results[i][1]["tokens"], solo))
+        beam_err = max(beam_err, float(numpy.abs(
+            numpy.asarray(results[i][1]["scores"])
+            - numpy.asarray(st["scores"])).max()))
+    if beam_err > 1e-5:
+        raise AssertionError("beam scores pooled vs solo differ by %g"
+                             % beam_err)
+    # SSE: the events' tokens are the terminal answer and the buffered
+    # one, the first event arrives before the terminal one
+    stream_rec = []
+    for i in streamed:
+        code, final, _, events, first, last = results[i]
+        toks = [t for ev in events if not ev.get("done")
+                for t in ev["tokens"]]
+        if not final.get("done") or toks != final["tokens"]:
+            raise AssertionError("request %d: streamed tokens %r != the "
+                                 "answer %r" % (i, toks, final))
+        if toks != plain_of[i]:
+            raise AssertionError("request %d: streamed tokens differ from "
+                                 "the buffered answer" % i)
+        if not (len(events) >= 2 and first < last):
+            raise AssertionError("request %d: %d events, first %.3f s, "
+                                 "last %.3f s" % (i, len(events), first,
+                                                  last))
+        stream_rec.append({"mode": modes[i],
+                           "events": len(events), "first_event_s": first,
+                           "terminal_s": last})
+    # admission and launches: one target prefill a request (a beam's
+    # lead only), one draft prefill a speculative request
+    n = len(requests)
+    if not n_admitted == n_retired == n:
+        raise AssertionError("admitted %d, retired %d, sent %d"
+                             % (n_admitted, n_retired, n))
+    want_t, want_d = {}, {}
+    for req, mode in zip(requests, modes):
+        b = engine.scheduler.bucket_for(len(req["prompt"]))
+        want_t[b] = want_t.get(b, 0) + 1
+        if mode == "speculative":
+            want_d[b] = want_d.get(b, 0) + 1
+    if by_bucket != want_t or draft_by_bucket != want_d:
+        raise AssertionError("prefills by bucket %r / draft %r, want %r "
+                             "/ %r" % (by_bucket, draft_by_bucket, want_t,
+                                       want_d))
+    t_prefills, d_prefills = sum(by_bucket.values()), sum(
+        draft_by_bucket.values())
+    launches = snap.get("veles_flash_attention_launches_total", 0)
+    if launches != n_blocks * t_prefills + 1 * d_prefills:
+        raise AssertionError("flash launches %d != %d x %d + %d"
+                             % (launches, n_blocks, t_prefills,
+                                d_prefills))
+    if engine.page_pool.ledger() or engine.page_pool.in_use():
+        raise AssertionError("pages left in use: %r"
+                             % engine.page_pool.ledger())
+
+    # the target as its own draft: every draft token verifies
+    self_api = GenerationAPI(model, port=0, batch_window=0.5, draft=model,
+                             name="self_draft", **SPEC_ENGINE).initialize()
+    self_engine = self_api._engine
+    try:
+        self_url = "http://127.0.0.1:%d/generate" % self_api.port
+        self_reqs = [dict(requests[i], stream=False)
+                     for i in greedy_spec[:2]]
+        self_res, self_wall = post_all(self_url, self_reqs)
+    finally:
+        self_api.stop()
+    for k, i in enumerate(greedy_spec[:2]):
+        code, body, _ = self_res[k]
+        if code != 200 or body.get("engine") != "continuous":
+            raise AssertionError("self-draft request %d: %r" % (i, body))
+        if body["acceptance"] != 1.0:
+            raise AssertionError("self-draft acceptance %r (rounds %r)"
+                                 % (body["acceptance"], body["rounds"]))
+        if body["tokens"] != plain_of[i]:
+            raise AssertionError(
+                "self-draft request %d differs from plain greedy: %r"
+                % (i, first_divergence(model, requests[i]["prompt"],
+                                       body["tokens"], plain_of[i])))
+    if self_engine.page_pool.ledger() or self_engine.page_pool.in_use():
+        raise AssertionError("self-draft pages left in use")
+
+    spec_tokens = sum(len(r[1]["tokens"]) for r in alone)
+    plain_tokens = sum(len(r[1]["tokens"]) for r in plain)
+    spec_stats = [results[i][1] for i in greedy_spec + sampled_spec]
+    emit("serve_spec_beam", card=card, engine=SPEC_ENGINE,
+         draft_blocks=1, requests=n,
+         modes={m: modes.count(m)
+                for m in ("greedy", "sample", "speculative", "beam")},
+         streamed=len(streamed), wall_s=wall,
+         tokens=sum(len(r[1]["tokens"]) for r in results),
+         tokens_per_s=sum(len(r[1]["tokens"]) for r in results) / wall,
+         spec_greedy_tokens_per_s=spec_tokens / alone_wall,
+         plain_greedy_tokens_per_s=plain_tokens / plain_wall,
+         spec_greedy_requests=len(alone), plain_greedy_requests=len(plain),
+         spec_greedy_wall_s=alone_wall, plain_greedy_wall_s=plain_wall,
+         acceptance=[s["acceptance"] for s in spec_stats],
+         rounds=[s["rounds"] for s in spec_stats],
+         self_draft_acceptance=[r[1]["acceptance"] for r in self_res],
+         self_draft_rounds=[r[1]["rounds"] for r in self_res],
+         self_draft_tokens_per_s=sum(len(r[1]["tokens"])
+                                     for r in self_res) / self_wall,
+         ttft_ms_p50=pct(ttft, 50), ttft_ms_max=max(ttft),
+         spec_round_ms_p50=pct(engine.spec_ms, 50),
+         beam_step_ms_p50=pct(engine.beam_ms, 50),
+         decode_tick_ms_p50=pct(engine.decode_ms, 50),
+         spec_rounds=snap.get("veles_serving_spec_rounds_total", 0),
+         beam_steps=snap.get("veles_serving_beam_steps_total", 0),
+         beam_score_max_abs_err=beam_err, stream=stream_rec,
+         prefills=t_prefills, draft_prefills=d_prefills,
+         prefills_by_bucket=by_bucket,
+         draft_prefills_by_bucket=draft_by_bucket,
+         flash_launches=launches, n_blocks=n_blocks,
+         peak_slots=engine.peak_slots, peak_pages=engine.peak_pages,
+         kv_pool_bytes=stats["kv_pool_bytes"],
+         row_bits_8_in_32=spec_row_bits(),
+         phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def conv_cases():
@@ -4316,6 +4696,7 @@ def main():
     timing_ffc = phase_timing_fused_fc(ff, card)
     launches = phase_serve(card)
     launches_cont = phase_serve_continuous(card)
+    launches_spec = phase_serve_spec_beam(card)
     launches_ffc = phase_train(card)
     phase_train_breakdown(card)
     worst_bwd = phase_kernels_bwd(fa)
@@ -4395,6 +4776,7 @@ def main():
         "library_ms": timing["library_ms"],
         "launches_by_path": {"serve": launches,
                              "serve_continuous": launches_cont,
+                             "serve_spec_beam": launches_spec,
                              "train_lm": launches_lm["fwd"],
                              "train_lm_amp": launches_amp[("f32_f32",
                                                            "fwd")],

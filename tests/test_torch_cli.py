@@ -52,6 +52,7 @@ from veles_tpu.genetics import config as ref_genetics
 from veles_tpu.loader import TEST, TRAIN, VALID
 from veles_tpu.loader import FullBatchLoader as RefFullBatchLoader
 from veles_tpu.nn import sampling as ref_sampling
+from veles_tpu.nn.beam import beam_generate as ref_beam_generate
 from veles_tpu_torch import cmdline, config, prng
 from veles_tpu_torch.__main__ import REFUSED_SUBCOMMANDS, main
 from veles_tpu_torch.config import root
@@ -405,12 +406,9 @@ REFUSED_FLAGS = [
     (["--prefetch-depth", "2"], "11"), (["--router-qos", "on"], "11"),
     (["--router-slo-ttft-ms", "5"], "11"), (["--tensormon"], "6"),
     (["--nan-policy", "warn"], "6"),
-    (["--serve-generate", "0", "--serve-draft", "d.py"], "4.2"),
-    (["--serve-spec-gamma", "2"], "4.2"), (["--serve-beam-width", "2"],
-                                           "4.2"),
     (["--serve-qos", "on"], "4.3"), (["--serve-drain-handoff", "on"], "4.3"),
     (["--quant-weights"], "4.4"), (["--quant-kv"], "4.4"),
-    (["--serve-artifact", "d"], "4.5"), (["--serve-stream", "on"], "4.1"),
+    (["--serve-artifact", "d"], "4.5"),
     (["--serve-prefix-cache", "on"], "4.1"),
     (["--serve-prefill-chunk", "8"], "4.1"), (["--serve-tp", "2"], "4.6"),
     (["--serve-state-cache", "on"], "7"),
@@ -445,6 +443,41 @@ def test_ported_off_values_are_accepted(tiny_model):
                 "--serve-prefix-cache", "off", "--serve-prefill-chunk", "0",
                 "--serve-tp", "1", "--serve-drain-handoff", "off",
                 "--dry-run") == 0
+
+
+#: the serving flags of speculative and beam decoding and streaming, each
+#: with the ``root.common.serving`` key and value it sets (None: the draft
+#: flags, which load a model under --serve-generate)
+SERVING_FLAGS = [
+    (["--serve-spec-gamma", "3"], "spec_gamma", 3),
+    (["--serve-beam-width", "2"], "beam_width", 2),
+    (["--serve-stream", "on"], "stream", True),
+    (["--serve-stream", "off"], "stream", False),
+    (["--serve-generate", "0", "--serve-draft", "d.py",
+      "--serve-draft-snapshot", "d.pickle.gz"], None, None),
+]
+
+
+@pytest.mark.parametrize("flags,key,value", SERVING_FLAGS,
+                         ids=[" ".join(f) for f, _, _ in SERVING_FLAGS])
+def test_serving_flag_is_accepted_and_reaches_root(tiny_model, flags, key,
+                                                    value):
+    """Each flag parses, is not refused, and sets its knob as the
+    reference's ``__main__`` does."""
+    assert _cpu(tiny_model, *flags, "--dry-run") == 0
+    if key is not None:
+        assert root.common.serving.get(key) == value
+
+
+def test_refused_serving_flags_still_name_their_items(tmp_path):
+    """Prefix sharing and chunked prefill stay refused with item 4.1."""
+    model = tmp_path / "never.py"
+    model.write_text("raise RuntimeError('imported')\n")
+    for flags in (["--serve-prefix-cache", "on"],
+                  ["--serve-prefill-chunk", "8"]):
+        with pytest.raises(VelesError, match=r"item 4\.1: prefix sharing "
+                           r"and chunked prefill\)"):
+            _cpu(str(model), *flags)
 
 
 # -- parity with the reference ---------------------------------------------
@@ -782,6 +815,69 @@ def test_cli_serves_reference_snapshot(tmp_path):
     assert len(dumps) == 1
     summary = recorder_inspect(str(dumps[0]))
     assert summary["reason"] == "SIGTERM" and summary["by_kind"]["request"]
+
+
+def _sse(port, payload):
+    """POST a streamed request; its SSE events."""
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/generate" % port,
+        data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert "text/event-stream" in r.headers["Content-Type"]
+        return [json.loads(line[6:]) for line in r.read().splitlines()
+                if line.startswith(b"data: ")]
+
+
+def test_cli_serves_speculative_beam_and_streams(tmp_path):
+    """``--serve-draft`` with ``--serve-draft-snapshot``: the reference's
+    tiny-LM snapshot is both the target and the draft, so every draft
+    token verifies (acceptance 1.0) and the speculative tokens are the
+    reference's greedy ones; a beam request of the pool's width 2 gives
+    the reference's ``beam_generate`` tokens; a streamed request's
+    events carry the buffered answer; ``/stats`` shows the knobs."""
+    ref_mod = import_file_as_module(_write_model(
+        tmp_path, "ref_lm.py", LM_MODEL, "veles_tpu"))
+    fresh_ref_prng()
+    wf = ref_mod.build_workflow(vt.Snapshotter(
+        None, prefix="lm", directory=str(tmp_path / "s"),
+        compression="gz"))
+    wf.initialize(device=vt.XLADevice(mesh_axes={"data": 1}))
+    wf.run()
+    p = [5, 0, 7, 7, 1, 2]
+    want = ref_sampling.generate(wf, p, 7, temperature=0)
+    want_beam, _ = ref_beam_generate(wf, p, 5, beam=2)
+    snap = str(tmp_path / "s" / "lm_current.pickle.gz")
+    model = _write_model(tmp_path, "lm_model.py", LM_MODEL,
+                         "veles_tpu_torch")
+    proc, port, _ = _serve([model, "--snapshot", snap, "--serve-draft",
+                            model, "--serve-draft-snapshot", snap,
+                            "--serve-spec-gamma", "3",
+                            "--serve-beam-width", "2",
+                            "--serve-stream", "on"])
+    try:
+        _, spec = _get(port, "/generate", {"prompt": p, "n_new": 7,
+                                           "mode": "speculative"})
+        _, beam = _get(port, "/generate", {"prompt": p, "n_new": 5,
+                                           "mode": "beam"})
+        events = _sse(port, {"prompt": p, "n_new": 7})
+        _, stats = _get(port, "/stats")
+        proc.send_signal(signal.SIGTERM)
+        stdout, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert spec["engine"] == "continuous" and spec["tokens"] == want
+    assert (spec["acceptance"], spec["rounds"]) == (1.0, 2)
+    assert beam["engine"] == "continuous"
+    assert beam["tokens"] == [int(t) for t in want_beam]
+    assert events[-1]["done"] and events[-1]["tokens"] == want
+    assert [t for ev in events[:-1] for t in ev["tokens"]] == want
+    assert stats["speculative_enabled"] is True
+    assert (stats["continuous"]["spec_gamma"],
+            stats["continuous"]["beam_width"]) == (3, 2)
+    assert proc.returncode == 0, stdout[-2000:]
 
 
 # -- subcommands --------------------------------------------------------------

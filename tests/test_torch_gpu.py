@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need the CUDA card: the hand-written
 flash-attention forward and backward kernels and the fused-FC SGD kernel
 against their plain torch versions, their builds for ``sm_90a``, the
-serving path (the window plane and the continuous engine) and LM
+serving path (the window plane and the continuous engine, with its
+speculative and beam rows) and LM
 training through the flash kernels, the MNIST
 training workflow through the fused-FC kernel, the conv-family units
 (cuDNN: no hand-written kernel) against the port on the CPU, and the
@@ -282,6 +283,78 @@ def test_engine_reuses_retired_pages_on_the_card(model):
             assert engine.serve(list(reversed(reqs))) == solo[::-1]
         assert engine.page_pool.ledger() == {}
         assert not engine._page_table.any()
+    finally:
+        engine.stop()
+
+
+def _draft(cuda, seed=6):
+    """A one-block draft of the ``model`` fixture's shape."""
+    d = build_forwards(LAYERS[:2] + LAYERS[-1:], device=cuda)
+    return params_from_jax(d, random_params(d, seed=seed))
+
+
+def _spec_engine(model, draft, name):
+    from veles_tpu_torch.serving import ContinuousEngine
+    return ContinuousEngine(model, max_slots=4, buckets=(32, 64, 128),
+                            max_context=160, spec_gamma=4, beam_width=2,
+                            draft=draft, name=name).start()
+
+
+def test_pooled_greedy_speculative_equals_plain_greedy_on_the_card(
+        model, cuda):
+    """Greedy speculative rows on the card (the draft over its own paged
+    pool, the target's verify in one multi-position pass) answer the
+    same engine's plain greedy tokens; each speculative admission
+    launches the flash forward once per draft block too."""
+    from veles_tpu_torch.serving import make_request
+    reqs = [dict(r, temperature=0.0) for r in _engine_requests(13, 6)]
+    engine = _spec_engine(model, _draft(cuda), "gpu_spec")
+    try:
+        plain = engine.serve(reqs)
+        before = counters.counters.snapshot()
+        spec = engine.serve_results([make_request(
+            r["prompt"], r["n_new"], mode="speculative") for r in reqs])
+        delta = counters.counters.delta(before)
+    finally:
+        engine.stop()
+    assert [r["tokens"] for r in spec] == plain
+    assert all(0.0 <= r["acceptance"] <= 1.0 for r in spec)
+    assert delta[LAUNCHES] == (2 + 1) * len(reqs)
+    assert engine.page_pool.ledger() == {}
+
+
+def test_self_draft_accepts_everything_on_the_card(model):
+    """The target as its own draft: every draft token verifies."""
+    from veles_tpu_torch.serving import make_request
+    reqs = [make_request(r["prompt"], 17, mode="speculative")
+            for r in _engine_requests(14, 3)]
+    engine = _spec_engine(model, model, "gpu_self")
+    try:
+        out = engine.serve_results(reqs)
+        plain = engine.serve([dict(r, mode="greedy") for r in reqs])
+    finally:
+        engine.stop()
+    assert [r["tokens"] for r in out] == plain
+    assert [(r["acceptance"], r["rounds"]) for r in out] == [(1.0, 4)] * 3
+
+
+def test_pooled_beam_equals_solo_on_the_card(model, cuda):
+    """A beam group of width 2 on the card (its sibling row a page copy
+    of the lead's prefill, the reorder by parent a page gather then
+    scatter) gives the solo search's tokens, scores within 1e-5."""
+    from veles_tpu_torch.nn.beam import beam_generate
+    from veles_tpu_torch.serving import make_request
+    engine = _spec_engine(model, None, "gpu_beam")
+    try:
+        for seed in (15, 16, 17):
+            p = _engine_requests(seed, 1)[0]["prompt"]
+            res = engine.serve_results([make_request(p, 20, mode="beam",
+                                                     beam=2)])[0]
+            solo, st = beam_generate(model, p, 20, beam=2)
+            assert res["tokens"] == solo
+            assert numpy.abs(numpy.asarray(res["scores"])
+                             - numpy.asarray(st["scores"])).max() <= 1e-5
+        assert engine.page_pool.ledger() == {}
     finally:
         engine.stop()
 

@@ -2,8 +2,8 @@
 HTTP on the CPU, on the window plane (``engine="window"``; the
 continuous engine is tests/test_torch_serving_engine.py): the window
 plane coalesces concurrent requests into one batched decode whose rows
-equal their solo decodes, eos trimming, the 400 answers for what is not
-ported, and the 503 for an expired deadline. The served tokens are also held against the JAX package's
+equal their solo decodes, eos trimming, the 400 answers for what the
+window plane refuses, and the 503 for an expired deadline. The served tokens are also held against the JAX package's
 sampler on the same weights."""
 import json
 import threading
@@ -146,10 +146,14 @@ def test_eos_trimming(served, model):
 
 @pytest.mark.parametrize("mode", ["speculative", "beam"])
 def test_unported_modes_answer_400(served, mode):
+    """The reference's 400s of the two modes: speculation on a server
+    with no draft, a beam wider than the head's vocabulary."""
     _, url = served
     code, body, _ = _post(url, {"prompt": [1, 2], "n_new": 2,
-                                "mode": mode})
-    assert code == 400 and "not ported yet" in body["error"]
+                                "mode": mode, "beam": 33})
+    assert code == 400
+    assert ("needs a draft model" if mode == "speculative"
+            else "exceeds the head's vocab size 32") in body["error"]
 
 
 @pytest.mark.parametrize("payload", [

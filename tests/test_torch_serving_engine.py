@@ -36,6 +36,7 @@ from veles_tpu_torch.config import root
 from veles_tpu_torch.convert import params_from_jax
 from veles_tpu_torch.error import VelesError
 from veles_tpu_torch.nn import sampling
+from veles_tpu_torch.nn.beam import beam_generate
 from veles_tpu_torch.nn.standard_workflow import build_forwards
 from veles_tpu_torch.restful_api import GenerationAPI
 from veles_tpu_torch.serving import (ContinuousEngine, make_request,
@@ -382,17 +383,18 @@ def test_unknown_mode_rejected_400_not_leaked(served):
 
 
 def test_accepts_sends_the_rest_to_the_window_plane(served):
-    """What the pool does not take, with the reference's reasons: modes
-    not ported to the pool, a window past max_context, a temperature
-    below the clamp; the port's choose_flash has no crossover, so no
-    prompt straddles one."""
+    """What the pool does not take, with the reference's reasons:
+    speculation without a draft, a beam wider than the pool, a window
+    past max_context, a temperature below the clamp; the port's
+    choose_flash has no crossover, so no prompt straddles one."""
     lm, port, engine = served
     p = _prompt(lm, 60, 6)
     assert engine.accepts(make_request(p, 4)) is None
     assert engine.accepts(make_request(p, 4, temperature=0.5)) is None
-    for mode in ("speculative", "beam"):
-        assert "window plane" in engine.accepts(
-            make_request(p, 4, mode=mode))
+    assert "window plane" in engine.accepts(
+        make_request(p, 4, mode="speculative"))
+    assert "exceeds the pool's 3 slots" in engine.accepts(
+        make_request(p, 4, mode="beam"))
     assert "max_context" in engine.accepts(make_request(p, 43))
     assert "bucket" in engine.accepts(make_request([1] * 17, 4))
     assert "resolution" in engine.accepts(
@@ -405,7 +407,7 @@ def test_unported_knobs_raise(stacks):
     """A knob of the reference's engine that is not ported raises; it
     is never silently ignored."""
     _, _, port = stacks
-    for knob in (dict(draft=port), dict(quant_kv=True),
+    for knob in (dict(quant_kv=True),
                  dict(prefix_cache=True), dict(prefill_chunk=8),
                  dict(artifact="x"), dict(tp=2)):
         with pytest.raises(ValueError, match="not ported yet"):
@@ -583,9 +585,11 @@ def test_http_oversized_request_falls_back_to_window(api_served):
     assert "engine" not in out                  # window worker answered
     assert out["tokens"] == sampling.generate(port, long_p, 5,
                                               temperature=0)
+    # a beam wider than the 3-slot pool: the window plane's search
     code, out, _ = _post(url, {"prompt": [1, 2], "n_new": 2,
                                "mode": "beam"})
-    assert code == 400 and "not ported yet" in out["error"]
+    assert code == 200 and "engine" not in out
+    assert out["tokens"] == beam_generate(port, [1, 2], 2, beam=4)[0]
 
 
 def test_http_metrics_and_stats_expose_occupancy(api_served):

@@ -63,9 +63,13 @@ def main(argv=None) -> int:
                        ("max_context", args.serve_max_context),
                        ("page_size", args.serve_page_size),
                        ("pages", args.serve_pages),
+                       ("spec_gamma", args.serve_spec_gamma),
+                       ("beam_width", args.serve_beam_width),
                        ("drain_grace", args.serve_drain_grace)):
         if value is not None:
             setattr(serving, key, value)
+    if args.serve_stream is not None:
+        serving.stream = args.serve_stream == "on"
     level = (logging.WARNING, logging.INFO,
              logging.DEBUG)[min(args.verbose, 2)]
     setup_logging(level=level, tracefile=args.trace_file)
@@ -182,7 +186,10 @@ def _serve(launcher: Launcher, workflow, args) -> None:
     """``--serve-generate PORT``: the workflow's generation stack behind
     ``GenerationAPI`` on the launcher's device until SIGINT (stop) or
     SIGTERM (drain, then stop). The stack is validated first, so a
-    model that cannot generate fails here and not at a request."""
+    model that cannot generate fails here and not at a request.
+    ``--serve-draft MODEL_PY`` builds that file's workflow on the same
+    device (resumed from ``--serve-draft-snapshot`` when given) as the
+    draft of ``mode=speculative``."""
     import signal
     import threading
     from .nn.sampling import split_stack
@@ -190,8 +197,19 @@ def _serve(launcher: Launcher, workflow, args) -> None:
     from .restful_api import GenerationAPI
     from .telemetry.recorder import flight
     split_stack(list(workflow.forwards))
+    draft = None
+    if args.serve_draft:
+        draft_wf = import_file_as_module(args.serve_draft,
+                                         "veles_draft").build_workflow()
+        draft_wf.initialize(device=launcher.device)
+        if args.serve_draft_snapshot:
+            from .snapshotter import resume
+            resume(draft_wf, args.serve_draft_snapshot)
+        split_stack(list(draft_wf.forwards))
+        draft = forwards_of(draft_wf)
     api = GenerationAPI(forwards_of(workflow), port=args.serve_generate,
-                        device=launcher.device, name="serve_generate")
+                        draft=draft, device=launcher.device,
+                        name="serve_generate")
     api.initialize()
     launcher.info("generation serving on http://127.0.0.1:%d/generate — "
                   "Ctrl-C stops, SIGTERM drains", api.port)

@@ -1,7 +1,7 @@
 """Stdlib-HTTP scaffolding (trimmed counterpart of ``veles_tpu/_http.py``):
-the JSON and bytes reply helpers, the request parser, the
-``GET /trace/spans`` pull and the daemon-thread serve/shutdown
-lifecycle."""
+the JSON and bytes reply helpers, the SSE framing of token streaming,
+the request parser, the ``GET /trace/spans`` pull and the daemon-thread
+serve/shutdown lifecycle."""
 
 from __future__ import annotations
 
@@ -26,6 +26,46 @@ def bytes_reply(handler, code: int, data: bytes, ctype: str,
         handler.send_header(name, value)
     handler.end_headers()
     handler.wfile.write(data)
+
+
+def sse_headers(handler) -> None:
+    """Commit a 200 ``text/event-stream`` response. An HTTP/1.1 client
+    gets it chunked (each event one chunk, :func:`sse_end` the last);
+    an HTTP/1.0 client gets the events until the connection closes.
+    The connection closes after the stream either way."""
+    handler._sse_chunked = handler.request_version == "HTTP/1.1"
+    if handler._sse_chunked:
+        # the status line carries the handler's protocol version
+        handler.protocol_version = "HTTP/1.1"
+    handler.send_response(200)
+    handler.send_header("Content-Type", "text/event-stream")
+    handler.send_header("Cache-Control", "no-store")
+    if handler._sse_chunked:
+        handler.send_header("Transfer-Encoding", "chunked")
+    handler.send_header("Connection", "close")
+    handler.end_headers()
+    handler.close_connection = True
+
+
+def _sse_write(handler, data: bytes) -> None:
+    if handler._sse_chunked:
+        data = b"%x\r\n%s\r\n" % (len(data), data)
+    handler.wfile.write(data)
+    handler.wfile.flush()
+
+
+def sse_event(handler, payload: Any) -> None:
+    """Write one ``data: <json>`` SSE event and flush. Write errors (the
+    client went away) propagate to the caller."""
+    _sse_write(handler, b"data: " + json.dumps(payload).encode()
+               + b"\n\n")
+
+
+def sse_end(handler) -> None:
+    """End a stream :func:`sse_headers` opened (the last chunk)."""
+    if handler._sse_chunked:
+        handler.wfile.write(b"0\r\n\r\n")
+        handler.wfile.flush()
 
 
 def handle_trace_spans(handler, path: str, name: str = "") -> bool:

@@ -16,8 +16,7 @@ from .error import VelesError
 
 #: the planes not ported yet and the ROADMAP Queue 1 item of each
 ITEMS = {
-    "4.1": "SSE streaming, prefix sharing and chunked prefill",
-    "4.2": "speculative and beam decoding",
+    "4.1": "prefix sharing and chunked prefill",
     "4.3": "QoS preemption and drain by handoff",
     "4.4": "int8 weights and KV",
     "4.5": "the serve artifact",
@@ -129,9 +128,12 @@ def make_parser() -> argparse.ArgumentParser:
                         "(root.common.serving.pages)")
     p.add_argument("--serve-spec-gamma", type=int, default=None,
                    metavar="G",
-                   help="speculation round length (not ported: 4.2)")
+                   help="draft tokens a speculation round proposes "
+                        "(root.common.serving.spec_gamma)")
     p.add_argument("--serve-beam-width", type=int, default=None,
-                   metavar="W", help="beam width (not ported: 4.2)")
+                   metavar="W", help="hypothesis slots of a pooled beam "
+                                     "request (root.common.serving."
+                                     "beam_width)")
     p.add_argument("--serve-prefix-cache", default=None,
                    choices=("on", "off"),
                    help="prefix-sharing KV cache (on: not ported, 4.1)")
@@ -148,7 +150,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "ported, item 7)")
     p.add_argument("--serve-stream", default=None,
                    choices=("on", "off"),
-                   help="SSE token streaming (on: not ported, 4.1)")
+                   help="SSE token streaming of stream=true requests "
+                        "(root.common.serving.stream; off answers them "
+                        "buffered)")
     p.add_argument("--serve-qos", default=None,
                    choices=("on", "off"),
                    help="QoS classes (on: not ported, 4.3)")
@@ -164,10 +168,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant-kv", action="store_true",
                    help="int8 KV pool (not ported: 4.4)")
     p.add_argument("--serve-draft", default=None, metavar="MODEL_PY",
-                   help="draft model for speculative decoding (not "
-                        "ported: 4.2)")
+                   help="draft model file (build_workflow()) for "
+                        "mode=speculative under --serve-generate")
     p.add_argument("--serve-draft-snapshot", default=None,
-                   help="snapshot of the --serve-draft model")
+                   help="snapshot the --serve-draft model resumes from")
     p.add_argument("--coordinator", default=None,
                    help="multi-process coordinator (not ported: 10)")
     p.add_argument("--num-processes", type=int, default=None)
@@ -241,17 +245,12 @@ def _refused(args):
          "11"),
         ("--tensormon", args.tensormon, "6"),
         ("--nan-policy", args.nan_policy, "6"),
-        ("--serve-draft", args.serve_draft, "4.2"),
-        ("--serve-draft-snapshot", args.serve_draft_snapshot, "4.2"),
-        ("--serve-spec-gamma", args.serve_spec_gamma is not None, "4.2"),
-        ("--serve-beam-width", args.serve_beam_width is not None, "4.2"),
         ("--serve-qos on", args.serve_qos in on, "4.3"),
         ("--serve-drain-handoff on", args.serve_drain_handoff in on,
          "4.3"),
         ("--quant-weights", args.quant_weights, "4.4"),
         ("--quant-kv", args.quant_kv, "4.4"),
         ("--serve-artifact", args.serve_artifact, "4.5"),
-        ("--serve-stream on", args.serve_stream in on, "4.1"),
         ("--serve-prefix-cache on", args.serve_prefix_cache in on, "4.1"),
         ("--serve-prefill-chunk", bool(args.serve_prefill_chunk), "4.1"),
         ("--serve-tp", (args.serve_tp or 1) > 1, "4.6"),

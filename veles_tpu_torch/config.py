@@ -212,8 +212,10 @@ def _default_root() -> Config:
             # slot-pool engine (serving/engine.py); "recurrent" = the
             # O(1)-state slot pool (serving/recurrent.py); "window" = the
             # shape-keyed coalescing worker, which also takes every
-            # request the pool cannot hold. Not ported yet: the
-            # reference's spec_gamma, beam_width, qos, prefix_cache,
+            # request the pool cannot hold. spec_gamma is the pool's
+            # speculation round width, beam_width its beam group width;
+            # stream = False answers "stream": true requests buffered.
+            # Not ported yet: the reference's qos, prefix_cache,
             # prefill_chunk, artifact and tp knobs (the engine raises
             # "not ported yet" for the ones it takes as arguments)
             "engine": "continuous",
@@ -224,6 +226,9 @@ def _default_root() -> Config:
             "page_size": 16,
             # None = the dense-equivalent max_slots x pages_per_slot
             "pages": None,
+            "spec_gamma": 4,
+            "beam_width": 4,
+            "stream": True,
             # the O(1)-state lane (serving/recurrent.py, which
             # "continuous" falls back to for Embedding → LSTM/RNN/SSM →
             # LMHead stacks; "recurrent" pins it): its state-checkpoint

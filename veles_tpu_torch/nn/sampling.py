@@ -89,22 +89,22 @@ def _visible(rows, pos, window):
 
 
 def _attend(block, p, x_t, q, cache_k, cache_v, valid):
-    """The one-token attention over a cache and the rest of the block:
-    q (B, 1, H, Dh) already rotated, caches (B, T, KV, Dh), ``valid``
-    broadcastable to the (B, KV, G, 1, T) scores. Scores and softmax in
-    f32; GQA reads the unrepeated cache through a (kv, group) view of
-    the query heads."""
-    b = x_t.shape[0]
+    """The attention of Q new positions over a cache and the rest of the
+    block: x_t (B, Q, D), q (B, Q, H, Dh) already rotated, caches
+    (B, T, KV, Dh), ``valid`` broadcastable to the (B, KV, G, Q, T)
+    scores. Scores and softmax in f32; GQA reads the unrepeated cache
+    through a (kv, group) view of the query heads."""
+    b, nq = x_t.shape[:2]
     h, kv = block.n_heads, block.n_kv_heads
     g, hd = h // kv, block.head_dim
-    q5 = q.reshape(b, 1, kv, g, hd).float()
+    q5 = q.reshape(b, nq, kv, g, hd).float()
     s = torch.einsum("bqkgd,btkd->bkgqt", q5,
                      cache_k.float()) / math.sqrt(hd)
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     w = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = w / w.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgqt,btkd->bqkgd", w,
-                     cache_v.float()).to(x_t.dtype).reshape(b, 1, h * hd)
+                     cache_v.float()).to(x_t.dtype).reshape(b, nq, h * hd)
     x_t = x_t + o @ p["wo"]
     return x_t + block_ffn(block, p, block_norm(block, p, x_t, "ln2"))
 

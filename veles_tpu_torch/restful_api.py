@@ -2,14 +2,25 @@
 ``veles_tpu/restful_api.py`` ``GenerationAPI``).
 
 POST ``/generate`` with ``{"prompt": [ids], "n_new": N}`` (+ optional
-``mode``: ``greedy`` | ``sample``, ``temperature``, ``seed``,
-``eos_id``, ``request_id``) → ``{"tokens": [...], "batched_with": k,
+``mode``: ``greedy`` | ``sample`` | ``speculative`` | ``beam``,
+``temperature``, ``seed``, ``gamma``, ``beam``, ``eos_id``, ``stream``,
+``request_id``) → ``{"tokens": [...], "batched_with": k,
 "request_id": ...}`` (+ ``"engine": "continuous"`` when the slot pool
-answered); a ``trace_id`` and a 1-based ``attempt`` tag the request's
-spans. ``GET /healthz`` and ``GET /readyz`` are the health plane's
-liveness and readiness probes (``resilience/health.py``: ``/readyz``
-says "draining" from :meth:`GenerationAPI.begin_drain` on); ``GET
-/stats`` is the engine's kind, device and occupancy as JSON, ``GET
+answered; ``rounds`` and ``acceptance`` for ``mode=speculative``, the
+ranked hypotheses' ``scores`` for ``mode=beam``); a ``trace_id`` and a
+1-based ``attempt`` tag the request's spans. ``mode=speculative`` needs
+a ``draft`` stack on the server; ``gamma`` and ``beam`` default to the
+engine's fixed ``spec_gamma`` and ``beam_width``. ``"stream": true``
+answers with HTTP/1.1 chunked server-sent events instead of one body:
+one ``data: {"tokens": [...], "i": k}`` event per step boundary (the
+window plane bursts its tokens once, before the terminal event), then
+``data: {..., "done": true}`` carrying the whole answer or the error;
+``root.common.serving.stream = False`` answers every request buffered.
+``GET /healthz`` and ``GET /readyz`` are the health plane's liveness and
+readiness probes (``resilience/health.py``: ``/readyz`` says
+"draining" from :meth:`GenerationAPI.begin_drain` on); ``GET /stats`` is
+the engine's kind, device, modes (``speculative_enabled``: a draft is
+configured) and occupancy as JSON, ``GET
 /metrics`` the counters, the serving SLO histograms with their
 p50/p90/p99 and the serving gauges as plain text, and ``GET
 /trace/spans[?since=CURSOR]`` the span ring as JSONL.
@@ -30,15 +41,17 @@ Three decode planes, as in the reference:
   ``pages_total`` 0, no page gauges);
 - the **window plane**, which takes every request the pool cannot hold
   (a prompt longer than the largest bucket, a window past
-  ``max_context``, too cold a temperature): a worker thread coalesces
-  the queue for ``batch_window`` seconds and runs the requests that
-  share a shape key (:meth:`GenerationAPI._batch_key`) as ONE batched
-  ``nn.sampling.generate`` call. Per-row generator streams keep every
-  row's tokens equal to its solo decode.
+  ``max_context``, too cold a temperature, a ``gamma`` or ``beam`` other
+  than the pool's): a worker thread coalesces the queue for
+  ``batch_window`` seconds and runs the requests that share a shape key
+  (:meth:`GenerationAPI._batch_key`) as ONE batched
+  ``nn.sampling.generate`` or ``nn.speculative.generate_speculative``
+  call, and each beam request as its own ``nn.beam.beam_generate``.
+  Per-row generator streams keep every row's tokens equal to its solo
+  decode; a sampled speculative request is never coalesced.
 
 A ticket past its ``request_timeout`` deadline is answered 503 +
-Retry-After when a plane dequeues it. Not ported yet, and answered 400
-"not ported yet": ``mode=speculative`` and ``mode=beam``.
+Retry-After when a plane dequeues it.
 
 :meth:`GenerationAPI.drain` (SIGTERM under ``--serve-generate``) stops
 admission, waits up to the grace for every in-flight request, then
@@ -49,18 +62,22 @@ the next step boundary instead; that is ROADMAP Queue 1 item 4.3, and
 
 from __future__ import annotations
 
+import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Optional
 
 from ._http import (HTTPService, bytes_reply, handle_trace_spans,
-                    json_reply, read_json_object)
+                    json_reply, read_json_object, sse_end, sse_event,
+                    sse_headers)
 from .backends import device_for
 from .config import root
 from .error import VelesError
 from .logger import Logger
+from .nn import beam as beam_mod
 from .nn import sampling
+from .nn.speculative import generate_speculative
 from .resilience import health
 from .serving import ContinuousEngine, RecurrentEngine
 from .serving.scheduler import Ticket, shed_expired, split_expired
@@ -75,14 +92,16 @@ class GenerationAPI(Logger):
     (``backends.device_for``); the model is moved there. ``engine``
     (default ``root.common.serving.engine``, "continuous") picks the
     decode plane; the slot-pool knobs default to
-    ``root.common.serving``. ``initialize`` starts the engine, the
-    window worker and the HTTP service, ``stop`` drains them; the bound
-    port is ``self.port``. An explicit
+    ``root.common.serving``. ``draft`` (a smaller generation stack,
+    moved to the same device) enables ``mode=speculative`` on both
+    planes; ``spec_gamma`` and ``beam_width`` fix the pool's round and
+    group widths. ``initialize`` starts the engine, the window worker
+    and the HTTP service, ``stop`` drains them; the bound port is
+    ``self.port``. An explicit
     ``root.common.serving.drain_handoff = True`` raises: drain by handoff
     is ROADMAP Queue 1 item 4.3."""
 
     MODES = ("greedy", "sample", "speculative", "beam")
-    PORTED_MODES = ("greedy", "sample")
 
     def __init__(self, model, port: int = 0, path: str = "/generate",
                  max_new: int = 512, batch_window: float = 0.02,
@@ -93,7 +112,9 @@ class GenerationAPI(Logger):
                  max_context: Optional[int] = None,
                  decode_block: Optional[int] = None,
                  page_size: Optional[int] = None,
-                 pages: Optional[int] = None, device=None,
+                 pages: Optional[int] = None, draft=None,
+                 spec_gamma: Optional[int] = None,
+                 beam_width: Optional[int] = None, device=None,
                  name: str = "generation_api") -> None:
         if root.common.serving.get("drain_handoff", None):
             raise VelesError(
@@ -102,6 +123,7 @@ class GenerationAPI(Logger):
                 "drains by waiting out the grace")
         self.device = device_for(device)
         self.model = model.to(self.device)
+        self.draft = None if draft is None else draft.to(self.device)
         self.name = name
         self.port = port
         self.path = path
@@ -126,6 +148,8 @@ class GenerationAPI(Logger):
         self.decode_block = int(knob(decode_block, "decode_block", 1))
         self.page_size = page_size
         self.pages = pages
+        self.spec_gamma = int(knob(spec_gamma, "spec_gamma", 4))
+        self.beam_width = int(knob(beam_width, "beam_width", 4))
         #: the ContinuousEngine or RecurrentEngine; None = the window plane
         self._engine = None
         self._service: Optional[HTTPService] = None
@@ -136,6 +160,8 @@ class GenerationAPI(Logger):
         #: admission stopped by begin_drain; requests awaiting an answer
         self._draining = False
         self._inflight = 0
+        #: the tags that keep sampled speculative requests apart
+        self._uniq = 0
         self.batches_run = 0
         self.max_batch = 0
 
@@ -153,16 +179,25 @@ class GenerationAPI(Logger):
         mode = body.get("mode", "greedy")
         if mode not in self.MODES:
             raise ValueError("'mode' must be one of %s" % (self.MODES,))
-        if mode not in self.PORTED_MODES:
-            raise ValueError("mode=%s is not ported yet" % mode)
+        if mode == "speculative" and self.draft is None:
+            raise ValueError("mode=speculative needs a draft model "
+                             "configured on the server")
         try:
             temperature = float(body.get("temperature", 0.0))
             seed = int(body.get("seed", 0))
+            # the engine's fixed shapes are the defaults, so a request
+            # that names neither lands on the pool
+            gamma = int(body.get("gamma", self.spec_gamma))
+            beam = int(body.get("beam", self.beam_width))
         except (TypeError, ValueError) as e:
             raise ValueError("non-numeric knob: %s" % e) from None
+        if gamma < 1:
+            raise ValueError("'gamma' must be >= 1")
+        if beam < 1:
+            raise ValueError("'beam' must be >= 1")
         if mode == "greedy":
             temperature = 0.0
-        elif temperature <= 0:
+        elif mode == "sample" and temperature <= 0:
             raise ValueError("mode=sample needs temperature > 0")
         eos_id = body.get("eos_id")
         if eos_id is not None and (isinstance(eos_id, bool)
@@ -180,17 +215,33 @@ class GenerationAPI(Logger):
         if isinstance(attempt, bool) or not isinstance(attempt, int) \
                 or attempt < 1:
             raise ValueError("'attempt' must be an int >= 1")
-        return {"prompt": [int(t) for t in prompt], "n_new": n_new,
-                "mode": mode, "temperature": temperature, "seed": seed,
-                "eos_id": eos_id, "attempt": attempt, **ids}
+        stream = body.get("stream", False)
+        if not isinstance(stream, bool):
+            raise ValueError("'stream' must be a boolean")
+        # root.common.serving.stream = False answers every request
+        # buffered, whatever the client asked
+        stream = stream and bool(root.common.serving.get("stream", True))
+        req = {"prompt": [int(t) for t in prompt], "n_new": n_new,
+               "mode": mode, "temperature": temperature, "seed": seed,
+               "gamma": gamma, "beam": beam, "eos_id": eos_id,
+               "attempt": attempt, "stream": stream, **ids}
+        if mode == "speculative" and temperature > 0:
+            # a sampled speculative request is never coalesced: its
+            # window-plane decode is its own, as on the pool
+            with self._cv:
+                self._uniq += 1
+                req["_solo"] = self._uniq
+        return req
 
     @staticmethod
     def _batch_key(req):
-        """Requests sharing this key ride one batched decode — greedy and
-        sample alike (per-row generator streams make every row equal to
-        its solo decode)."""
+        """Requests sharing this key ride one batched decode — greedy,
+        sample and greedy speculative alike (per-row generator streams
+        make every row equal to its solo decode); a sampled speculative
+        request's unique ``_solo`` tag keeps it alone."""
         return (req["mode"], len(req["prompt"]), req["n_new"],
-                req["temperature"], req["seed"])
+                req["temperature"], req["gamma"], req["seed"],
+                req.get("_solo"))
 
     # -- worker --------------------------------------------------------------
     @staticmethod
@@ -208,11 +259,34 @@ class GenerationAPI(Logger):
         return out
 
     def _serve_group(self, reqs, tickets) -> None:
+        mode = reqs[0]["mode"]
         try:
+            if mode == "beam":
+                # one search a request (frozen eos lanes: no trimming)
+                for req, ticket in zip(reqs, tickets):
+                    toks, stats = beam_mod.beam_generate(
+                        self.model, req["prompt"], req["n_new"],
+                        beam=req["beam"], eos_id=req["eos_id"])
+                    ticket.succeed({"tokens": toks,
+                                    "scores": stats["scores"]})
+                return
+            prompts = [req["prompt"] for req in reqs]
+            if mode == "speculative":
+                rows, stats = generate_speculative(
+                    self.model, self.draft, prompts, reqs[0]["n_new"],
+                    gamma=reqs[0]["gamma"],
+                    temperature=reqs[0]["temperature"],
+                    seed=reqs[0]["seed"])
+                for i, (req, ticket) in enumerate(zip(reqs, tickets)):
+                    ticket.succeed({
+                        "tokens": self._trim_eos(rows[i], req["eos_id"]),
+                        "acceptance": stats["acceptance"][i],
+                        "rounds": stats["rounds"][i],
+                        "batched_with": len(reqs) - 1})
+                return
             rows = sampling.generate(
-                self.model, [req["prompt"] for req in reqs],
-                reqs[0]["n_new"], temperature=reqs[0]["temperature"],
-                seed=reqs[0]["seed"])
+                self.model, prompts, reqs[0]["n_new"],
+                temperature=reqs[0]["temperature"], seed=reqs[0]["seed"])
         except Exception as e:        # noqa: BLE001 — answer, don't die
             # a decoder-raised ValueError/VelesError on a parsed request
             # is the client's shape problem — 400, not a server fault
@@ -287,6 +361,8 @@ class GenerationAPI(Logger):
                 if self.path == "/stats":
                     stats = {"engine": ("continuous" if engine is not None
                                         else "window"),
+                             "speculative_enabled": api.draft is not None,
+                             "modes": list(api.MODES),
                              "device": str(api.device),
                              "batches_run": api.batches_run,
                              "max_batch": api.max_batch,
@@ -318,7 +394,8 @@ class GenerationAPI(Logger):
                 ticket = Ticket(deadline=time.time() + api.request_timeout,
                                 request_id=req["request_id"],
                                 mode=req["mode"], trace_id=req["trace_id"],
-                                attempt=req["attempt"])
+                                attempt=req["attempt"],
+                                stream=req["stream"])
                 # admission and the in-flight count move together, so a
                 # drain never misses a request it let in
                 with api._cv:
@@ -330,7 +407,10 @@ class GenerationAPI(Logger):
                     return
                 try:
                     if self._admit(req, ticket):
-                        self._await_and_reply(ticket)
+                        if ticket.stream:
+                            self._stream_reply(ticket)
+                        else:
+                            self._await_and_reply(ticket)
                 finally:
                     with api._cv:
                         api._inflight -= 1
@@ -388,6 +468,53 @@ class GenerationAPI(Logger):
                     return
                 json_reply(self, 200, ticket.result)
 
+            def _stream_reply(self, ticket):
+                """``stream=true``: one SSE event per batch of tokens the
+                plane pushed, the tokens no push covered (the window
+                plane's, a beam's) in one event, then the terminal
+                event: the whole answer with ``done``, or the error
+                payload with ``done`` and its ``code``. A client that
+                goes away mid-stream only ends this handler: the decode
+                settles its ticket on its own."""
+                rid = ticket.request_id
+                sent = 0
+                deadline = time.time() + api.request_timeout + 1.0
+                try:
+                    sse_headers(self)
+                    while True:
+                        budget = deadline - time.time()
+                        if budget <= 0:
+                            sse_event(self, {"done": True, "code": 504,
+                                             "error": "generation timed "
+                                                      "out",
+                                             "request_id": rid})
+                            sse_end(self)
+                            return
+                        try:
+                            item = ticket.next_stream_item(
+                                timeout=min(budget, 2.0))
+                        except queue.Empty:
+                            continue
+                        if item is None:
+                            break
+                        sse_event(self, {"tokens": item, "i": sent,
+                                         "request_id": rid})
+                        sent += len(item)
+                    if ticket.error is not None:
+                        sse_event(self, dict(ticket.error_payload(),
+                                             done=True, code=ticket.code))
+                    else:
+                        tail = list(ticket.result.get("tokens")
+                                    or ())[sent:]
+                        if tail:
+                            sse_event(self, {"tokens": tail, "i": sent,
+                                             "request_id": rid})
+                        sse_event(self, dict(ticket.result, done=True))
+                    sse_end(self)
+                except OSError:     # broken pipe, reset: the client left
+                    api.debug("%s: streaming client %s disconnected",
+                              api.name, rid)
+
         return Handler
 
     def _metrics_gauges(self) -> Dict[str, float]:
@@ -437,6 +564,8 @@ class GenerationAPI(Logger):
                     buckets=self.buckets, max_context=self.max_context,
                     decode_block=self.decode_block,
                     page_size=self.page_size, pages=self.pages,
+                    spec_gamma=self.spec_gamma,
+                    beam_width=self.beam_width, draft=self.draft,
                     device=self.device, name=self.name).start()
             except VelesError as e:
                 paged_said = e

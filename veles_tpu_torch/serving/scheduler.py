@@ -5,21 +5,24 @@ Pure host-side bookkeeping: a bounded FIFO request queue, the
 ``max_slots`` slot table, the page-pool admission ledger, prefill-bucket
 selection and deadlines. The engine calls
 :meth:`SlotScheduler.take_admissions` at every step boundary: a queued
-request moves into a free slot the moment one opens AND the page pool
-can reserve its own worst case (``ceil(max(bucket, prompt + n_new) /
+request moves into a free slot (``beam_width`` slots for ``mode=beam``)
+the moment one opens AND the page pool can reserve its own worst case
+per row (``ceil(max(bucket, prompt + n_new [+ gamma + 1]) /
 page_size)`` pages, never ``max_context``); a ticket older than its
 deadline is answered 503 + Retry-After. Each ticket is its request's SLO
 record (:meth:`Ticket._account`): the four serving histograms, the
-request's lifecycle spans and its flight-recorder events.
+request's lifecycle spans and its flight-recorder events; a
+``stream=True`` ticket also carries the queue its tokens are streamed
+through.
 
-Not ported yet: QoS promotion, beam groups and the speculative and beam
-reservations (requests in those modes never reach the pool).
+Not ported yet: QoS promotion.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import queue
 import threading
 import time
 from collections import deque
@@ -64,17 +67,24 @@ class Ticket:
     with its ids and notes a terminal flight-recorder event; any later
     call returns False, so a ticket swept twice never double-counts.
     ``trace_id`` (default the request id) and ``attempt`` are the
-    reference's fleet correlation pair."""
+    reference's fleet correlation pair.
+
+    ``stream=True``: the serving plane pushes emitted tokens at step
+    boundaries (:meth:`push_tokens`) and the HTTP handler drains them
+    as SSE events (:meth:`next_stream_item`); every terminal call
+    enqueues a ``None`` sentinel, so the drain ends the moment the
+    answer exists."""
 
     __slots__ = ("event", "result", "error", "code", "retry_after",
                  "deadline", "request_id", "trace_id", "attempt", "mode",
                  "enqueued", "admitted", "prefill_done", "first_token",
-                 "n_tokens", "outcome", "_terminal_lock")
+                 "n_tokens", "outcome", "_terminal_lock", "stream",
+                 "_stream_q")
 
     def __init__(self, deadline: Optional[float] = None,
                  request_id: Optional[str] = None, mode: str = "greedy",
                  trace_id: Optional[str] = None,
-                 attempt: int = 1) -> None:
+                 attempt: int = 1, stream: bool = False) -> None:
         self._terminal_lock = threading.Lock()
         self.event = threading.Event()
         self.result = None
@@ -92,6 +102,9 @@ class Ticket:
         self.first_token: Optional[float] = None
         self.n_tokens = 0
         self.outcome: Optional[str] = None
+        self.stream = bool(stream)
+        self._stream_q: Optional[queue.SimpleQueue] = (
+            queue.SimpleQueue() if self.stream else None)
 
     # -- lifecycle stamps (host-side, step boundaries only) ------------------
     def mark_admitted(self) -> None:
@@ -117,6 +130,27 @@ class Ticket:
         if self.first_token is None:
             self.first_token = time.time()
 
+    # -- token streaming -------------------------------------------------------
+    def push_tokens(self, tokens) -> None:
+        """Hand freshly emitted tokens to the streaming drain (a no-op
+        for a buffered ticket). Stamps first-token time: a token in
+        this queue is one hop from the client's socket, so a streamed
+        request's TTFT is the one its client sees."""
+        if self._stream_q is None:
+            return
+        toks = [int(t) for t in tokens]
+        if not toks:
+            return
+        self.mark_first_token()
+        self._stream_q.put(toks)
+
+    def next_stream_item(self, timeout: float):
+        """The streaming handler's blocking drain step: a token list,
+        the ``None`` terminal sentinel, or ``queue.Empty`` raised on
+        timeout."""
+        assert self._stream_q is not None
+        return self._stream_q.get(timeout=timeout)
+
     def fail(self, error: str, code: int = 500,
              retry_after: Optional[float] = None,
              outcome: Optional[str] = None) -> bool:
@@ -131,6 +165,8 @@ class Ticket:
             self.retry_after = retry_after
             self._account(outcome or ("shed" if code == 503 else "error"))
             self.event.set()
+            if self._stream_q is not None:
+                self._stream_q.put(None)
         return True
 
     def succeed(self, result, counted=None) -> bool:
@@ -150,6 +186,8 @@ class Ticket:
             if counted is not None:
                 counted()
             self.event.set()
+            if self._stream_q is not None:
+                self._stream_q.put(None)
         return True
 
     def _account(self, outcome: str) -> None:
@@ -242,15 +280,45 @@ def shed_expired(tickets: List[Ticket]) -> None:
             inc("veles_shed_requests_total")
 
 
+class BeamGroup:
+    """Host state shared by the ``beam_width`` hypothesis slots of one
+    beam request. The engine fills the search state (current tokens,
+    scores, finished flags, the token matrix) at the prefill expansion
+    and advances it one top-k step a tick; the group retires as a
+    unit."""
+
+    __slots__ = ("req", "ticket", "slots", "live", "cur", "scores",
+                 "finished", "toks", "step", "t_p")
+
+    def __init__(self, req: Dict, ticket: Ticket) -> None:
+        self.req = req
+        self.ticket = ticket
+        self.slots: List["Slot"] = []
+        self.live = 0               # hypothesis slots not yet retired
+        self.cur = None             # (W,) current tokens
+        self.scores = None          # (W,) float32 total log-probs
+        self.finished = None        # (W,) bool: eos frozen
+        self.toks = None            # (W, n_new) emitted token matrix
+        self.step = 0               # decoded positions past the first
+        self.t_p = len(req["prompt"])
+
+
 class Slot:
     """Host state of one occupied KV-cache row. ``pages`` are the page
-    ids this row holds (freed at retirement)."""
+    ids this row holds (freed at retirement); ``mode`` selects what
+    advances it (``greedy``/``sample`` ride the decode step,
+    ``speculative`` the draft/verify round, ``beam`` the group's top-k
+    step); ``group`` links a beam request's hypothesis rows; ``rounds``
+    and ``acc`` count a speculative row's rounds and accepted draft
+    tokens."""
 
     __slots__ = ("idx", "req", "ticket", "t_p", "bucket", "tokens",
-                 "n_new", "eos_id", "temperature", "pages")
+                 "n_new", "eos_id", "temperature", "mode", "pages",
+                 "group", "rounds", "acc")
 
     def __init__(self, idx: int, req: Dict, ticket: Ticket,
-                 bucket: int, pages: Optional[List[int]] = None) -> None:
+                 bucket: int, pages: Optional[List[int]] = None,
+                 group: Optional[BeamGroup] = None) -> None:
         self.idx = idx
         self.req = req
         self.ticket = ticket
@@ -260,7 +328,11 @@ class Slot:
         self.n_new = int(req["n_new"])
         self.eos_id = req.get("eos_id")
         self.temperature = float(req.get("temperature", 0.0))
+        self.mode = str(req.get("mode", "greedy"))
         self.pages = list(pages or [])
+        self.group = group
+        self.rounds = 0
+        self.acc = 0
 
     def record(self, token: int) -> bool:
         """Append one emitted token; True when the row is finished (its
@@ -280,7 +352,8 @@ class SlotScheduler:
 
     def __init__(self, max_slots: int, buckets: Tuple[int, ...],
                  max_context: int,
-                 page_pool: Optional[PagePool] = None) -> None:
+                 page_pool: Optional[PagePool] = None,
+                 beam_width: int = 4, spec_gamma: int = 4) -> None:
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         self.max_slots = int(max_slots)
@@ -291,6 +364,13 @@ class SlotScheduler:
                 "largest prefill bucket %d exceeds max_context %d"
                 % (self.buckets[-1], self.max_context))
         self.page_pool = page_pool
+        self.beam_width = max(1, int(beam_width))
+        #: the engine's speculation round width, the default of a
+        #: request that names no ``gamma``
+        self.spec_gamma = max(1, int(spec_gamma))
+        #: concurrent beam groups the pool holds
+        self.beam_groups = self.max_slots // self.beam_width
+        self._beams_active = 0
         self.cv = threading.Condition()
         self._queue: deque = deque()
         self._free: List[int] = list(range(self.max_slots))
@@ -304,14 +384,21 @@ class SlotScheduler:
                 return b
         return None
 
-    @staticmethod
-    def _worst_positions(t_p: int, n_new: int) -> int:
+    def _worst_positions(self, t_p: int, n_new: int, mode: str = "greedy",
+                         gamma: Optional[int] = None) -> int:
         """Cache positions a request can ever touch: what the page
-        ledger must hold for it to complete."""
+        ledger must hold for it to complete (a speculation round writes
+        up to ``gamma`` positions past its last emitted token; a beam
+        row never writes its last token)."""
+        if mode == "speculative":
+            return t_p + n_new + int(self.spec_gamma if gamma is None
+                                     else gamma) + 1
+        if mode == "beam":
+            return t_p + max(n_new - 1, 1)
         return t_p + n_new
 
-    def reject_reason(self, t_p: int, n_new: int,
-                      mode: str = "greedy") -> Optional[str]:
+    def reject_reason(self, t_p: int, n_new: int, mode: str = "greedy",
+                      gamma: Optional[int] = None) -> Optional[str]:
         """None when the request fits the slot pool; otherwise why not
         (the caller falls back to the window plane, which has no
         context ceiling)."""
@@ -319,13 +406,18 @@ class SlotScheduler:
         if bucket is None:
             return ("prompt length %d exceeds the largest serving "
                     "bucket %d" % (t_p, self.buckets[-1]))
-        worst = self._worst_positions(t_p, n_new)
+        worst = self._worst_positions(t_p, n_new, mode, gamma)
         if worst > self.max_context:
             return ("prompt %d + generation window %d exceeds "
                     "max_context %d (mode=%s)"
                     % (t_p, worst - t_p, self.max_context, mode))
+        width = self.beam_width if mode == "beam" else 1
+        if width > self.max_slots:
+            return ("beam width %d exceeds the pool's %d slots"
+                    % (width, self.max_slots))
         if self.page_pool is not None:
-            need = pages_for(max(bucket, worst), self.page_pool.page_size)
+            need = width * pages_for(max(bucket, worst),
+                                     self.page_pool.page_size)
             if need > self.page_pool.pages:
                 return ("request needs %d pages at worst, the pool "
                         "holds %d" % (need, self.page_pool.pages))
@@ -383,8 +475,11 @@ class SlotScheduler:
         """Move queued requests into free slots (FIFO), dropping expired
         tickets. Admission is on page availability: the head request
         waits, FIFO kept, while the allocator cannot hold its worst
-        case. Returns (newly filled slots, which the engine prefills;
-        expired tickets, which the engine answers 503)."""
+        case. A ``mode=beam`` request takes ``beam_width`` slots, one
+        page set each, lead hypothesis first, while fewer than
+        ``beam_groups`` groups are live. Returns (newly filled slots,
+        which the engine prefills; expired tickets, which the engine
+        answers 503)."""
         now = time.time() if now is None else now
         admissions: List[Slot] = []
         expired: List[Ticket] = []
@@ -395,7 +490,12 @@ class SlotScheduler:
                     self._queue.popleft()
                     expired.append(ticket)
                     continue
-                if not self._free:
+                mode = str(req.get("mode", "greedy"))
+                width = self.beam_width if mode == "beam" else 1
+                if len(self._free) < width:
+                    break
+                if mode == "beam" and \
+                        self._beams_active >= max(1, self.beam_groups):
                     break
                 bucket = self.bucket_for(len(req["prompt"]))
                 if bucket is None:
@@ -407,23 +507,33 @@ class SlotScheduler:
                                 % (len(req["prompt"]),
                                    self.buckets[-1]), code=400)
                     continue
-                pages: List[int] = []
+                rows_pages: List[List[int]] = [[] for _ in range(width)]
                 if self.page_pool is not None:
                     worst = max(bucket, self._worst_positions(
-                        len(req["prompt"]), int(req["n_new"])))
-                    got = self.page_pool.alloc(
-                        pages_for(worst, self.page_pool.page_size))
+                        len(req["prompt"]), int(req["n_new"]), mode,
+                        req.get("gamma")))
+                    per_row = pages_for(worst, self.page_pool.page_size)
+                    got = self.page_pool.alloc(per_row * width)
                     if got is None:
                         # real exhaustion: keep FIFO order and wait for
                         # retirements to free pages
                         break
-                    pages = got
+                    rows_pages = [got[w * per_row:(w + 1) * per_row]
+                                  for w in range(width)]
                 self._queue.popleft()
                 ticket.mark_admitted()
-                idx = self._free.pop(0)
-                slot = Slot(idx, req, ticket, bucket, pages=pages)
-                self.slots[idx] = slot
-                admissions.append(slot)
+                group = BeamGroup(req, ticket) if mode == "beam" else None
+                for pages in rows_pages:
+                    idx = self._free.pop(0)
+                    slot = Slot(idx, req, ticket, bucket, pages=pages,
+                                group=group)
+                    self.slots[idx] = slot
+                    if group is not None:
+                        group.slots.append(slot)
+                        group.live += 1
+                    admissions.append(slot)
+                if group is not None:
+                    self._beams_active += 1
             # purge expired tickets from ANY queue position: a dead
             # ticket behind a waiting head must not rot while the pool
             # is full
@@ -446,11 +556,28 @@ class SlotScheduler:
             if self.page_pool is not None and slot.pages:
                 self.page_pool.free(slot.pages)
                 slot.pages = []
+            if slot.group is not None:
+                slot.group.live -= 1
+                if slot.group.live == 0:
+                    self._beams_active -= 1
             self.cv.notify_all()
 
-    def active(self) -> List[Slot]:
+    def active(self, modes: Optional[Tuple[str, ...]] = None
+               ) -> List[Slot]:
+        """The occupied slots (of ``modes`` only, when given)."""
         with self.cv:
-            return [s for s in self.slots if s is not None]
+            return [s for s in self.slots if s is not None
+                    and (modes is None or s.mode in modes)]
+
+    def active_beams(self) -> List[BeamGroup]:
+        """The live beam groups, in the order of their first slot."""
+        with self.cv:
+            seen: List[BeamGroup] = []
+            for s in self.slots:
+                if s is not None and s.group is not None \
+                        and s.group not in seen:
+                    seen.append(s.group)
+            return seen
 
     def drain(self, reason: str, code: int = 503,
               retry_after: Optional[float] = 5.0) -> int:

@@ -66,6 +66,12 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_serving_pages_exhausted_total":
         "Page allocations refused by an exhausted pool (admission "
         "waits; decode-time growth sheds 503 + Retry-After)",
+    "veles_serving_spec_rounds_total":
+        "On-device draft/verify speculation rounds run over slot-pool "
+        "rows",
+    "veles_serving_beam_steps_total":
+        "Fixed-shape beam top-k steps run over slot-pool hypothesis "
+        "groups",
     "veles_shed_requests_total":
         "Serving requests shed with 503 + Retry-After",
     "veles_watchdog_trips_total":
