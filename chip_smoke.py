@@ -13,7 +13,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              print the compiler's register / shared-memory / spill report;
 3. kernels — each kernel's wrapper on card tensors against its plain
              torch version at the main paths' shapes and at edge cases.
-             flash_attention_fwd (3xTF32 on the tensor cores): 26 cases
+             flash_attention_fwd (3xTF32 on the tensor cores): 28 cases
              (the engine's B1 prefills at T 128, 1024, 2048, ragged T 1,
              65, 127, 129, D 8..256 including 33, 40, 72 and
              160, GQA 8/1 with a window, views offset by one element, B*H
@@ -83,8 +83,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              fused 4-epoch block under
              torch.profiler: device busy share and top kernels;
 9. kernels_bwd — the flash backward pair (dK/dV, dQ; 3xTF32 on the
-             tensor cores) against the plain backward on 18 cases (the
-             bench shape, GQA 8/2 and 8/1, windows, ragged T 1, 65, 127,
+             tensor cores) against the plain backward on 20 cases (the
+             bench shape, the text char LMs' H4 D12 and H4 D128, GQA 8/2
+             and 8/1, windows, ragged T 1, 65, 127,
              129, D 8..256 including 33, 40, 72 and 160, strided q/k/v
              and views offset by one element, so that no row is 16-byte
              aligned): max abs error of each gradient <= 1e-4 *
@@ -92,7 +93,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              counted once by each kernel's launch counter, and autograd
              through ``flash_attention`` against autograd through the
              plain attention;
-10. timing_bwd — each backward kernel at the bench shape with CUDA
+10. timing_bwd — each backward kernel at the bench shape (and, in
+             records of their own, at the bench-width text LM's B16 T512
+             H4 D128 causal) with CUDA
              events, its bounds (``ops/flash_attention.backward_bounds``:
              3xTF32 on the tensor cores, ``bound_tc_ms``, the one the
              kernels run against and the kernels line's ``bound_ms``; and
@@ -392,6 +395,43 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              ``drain_grace`` would have waited). (d) a greedy and a
              sampled batch row preempted on the LSTM char LM at
              serve_recurrent's 512 x 6 equal solo ``generate_recurrent``.
+32. train_text — the training library's real-text path (after phase 29):
+             (a) the reference's real-text anchor: CPython's pydoc topics
+             cut to 120,000 characters, ``char_lm.build_workflow(epochs=
+             24, minibatch_size=64, n_blocks=2, dim=48, text_file=...)``
+             from seed 11 (4 heads of 12) reaches best_err <= 0.48 and
+             beats the trigram-argmax error of the same split by more
+             than 0.05; each flash kernel's launches equal 2 blocks x the
+             steps the epochs imply (forward: train + evaluation steps).
+             (b) the uncut corpus at the bench LM's width (d 512, 6
+             blocks, 4 heads of 128, T 512, mb 16) one epoch from one
+             seed, tensormon off and then on: the same parameters and
+             optimiser state (``torch.equal``), the same flash launches
+             (6 x the steps), the same synchronising calls under
+             ``torch.cuda.set_sync_debug_mode("warn")``, the
+             ``veles_model_*`` gauges on ``counters.metrics_text`` and one
+             ``tensormon.sample`` span per drained sample; the epoch ms
+             on and off and the launches a step.
+33. train_library — (c) the NaN sentinel on the reference's poisoned
+             blobs: warn counts and completes, halt raises
+             ``ModelHealthError`` with ``/readyz`` 503, snapshot_and_halt
+             leaves one committed, verified snapshot and one black box
+             ("nan sentinel", a ``tensormon.nan`` event); (d) MNIST with
+             tensormon on: 0 fused-FC launches, the reference's reason
+             logged, finite epochs; (e) MNIST 2 epochs through the
+             fused-FC kernel (2 launches), snapshotted, resumed into LoRA
+             rank 8 on both layers for 2 more (0 launches): the output at
+             step 0 equals the base's, the base stays bit for bit, the
+             adapters move, the first two steps within 1e-4 relative of
+             the CPU's from the same state; (f) label smoothing 0.1 with
+             the confusion matrix: the first two SGD steps within 1e-4 of
+             the CPU's, each set's matrix summing to n_samples with n_err
+             off its diagonal; (g) ``engine.fused_epilogue`` on against
+             off on a chain of standalone activation layers, bit for bit;
+             (h) MNIST's rows through ``MinibatchesSaver`` and back
+             through ``MinibatchesLoader`` and ``PicklesLoader``, 2
+             fused-FC epochs each (2 launches) ending on the in-memory
+             run's weights bit for bit.
 
 ``profiled`` (the breakdown phases' profiler window) reads the capture
 through ``telemetry.devtime.measure``: ``device_busy_ms`` is the union
@@ -402,8 +442,9 @@ Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
 launches in the AMP epochs; the fused-FC kernel's launches in ``train``
 and, under ``launches_by_path``, in ``snapshot``, ``telemetry`` and
-``cli`` too; the flash kernels' f32 entries count ``cli`` too, the
-forward's ``serve_spec_beam`` and ``serve_qos_handoff`` too) and,
+``cli`` and ``train_library`` too; the flash kernels' f32 entries
+count ``cli`` and ``train_text`` too, the forward's ``serve_spec_beam``
+and ``serve_qos_handoff`` too) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and the run exits non-zero without the last line; without a card
 it exits 1 at once.
@@ -537,6 +578,10 @@ def phase_kernels(fa):
         ("gqa_8_1_window64", 2, 300, 8, 1, 64, True, 64, None),
         ("offset_views", 2, 100, 4, 2, 64, True, 0, "offset"),
         ("heads_65544", 8193, 2, 8, 8, 8, True, 0, None),
+        # the text char LMs (train_text): the real-text anchor's 4 heads
+        # of 12 and the bench-width text epoch's 4 heads of 128
+        ("text_anchor_b64_t32_d12", 64, 32, 4, 4, 12, True, 0, None),
+        ("text_bench_b16_t512_d128", 16, 512, 4, 4, 128, True, 0, None),
     ]
     worst = 0.0
     for i, (name, b, t, h, kv, d, causal, window, layout) in \
@@ -983,6 +1028,9 @@ def phase_kernels_bwd(fa):
         ("d160_noncausal", 1, 90, 2, 2, 160, False, 0, None),
         ("gqa_8_1_window64", 2, 300, 8, 1, 64, True, 64, None),
         ("offset_views", 2, 100, 4, 4, 64, True, 0, "offset"),
+        # the text char LMs (train_text): 4 heads of 12 and of 128
+        ("text_anchor_b64_t32_d12", 64, 32, 4, 4, 12, True, 0, None),
+        ("text_bench_b16_t512_d128", 16, 512, 4, 4, 128, True, 0, None),
     ]
     worst = {"dq": 0.0, "dkv": 0.0}
     for i, (name, b, t, h, kv, d, causal, window, layout) in \
@@ -1037,11 +1085,19 @@ def phase_kernels_bwd(fa):
 
 
 def phase_timing_bwd(fa, card):
-    """Each backward kernel at the bench shape (B16 T512 H8 D64 causal):
-    CUDA events, its bound, the plain backward and SDPA's backward."""
+    """Each backward kernel at the bench shape (B16 T512 H8 D64 causal)
+    and at the bench-width text LM's (B16 T512 H4 D128 causal): CUDA
+    events, its bound, the plain backward and SDPA's backward. Returns
+    the bench shape's records (the kernels line's)."""
+    timing_bwd_at(fa, card, 16, 512, 4, 4, 128, "text_d128")
+    return timing_bwd_at(fa, card, 16, 512, 8, 8, 64, "bench")
+
+
+def timing_bwd_at(fa, card, b, t, h, kv, d, what):
+    """The backward pair's times at one causal shape (``what`` names it
+    in the records)."""
     import torch
     import torch.nn.functional as F
-    b, t, h, kv, d = 16, 512, 8, 8, 64
     q, k, v, do = bwd_inputs(b, t, h, kv, d, 9)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     delta = (do * o).sum(-1).permute(0, 2, 1)
@@ -1073,7 +1129,8 @@ def phase_timing_bwd(fa, card):
                    bound_by=bound["bound_by"],
                    achieved_tflops=flops / (ms[name] * 1e-3) / 1e12,
                    share_of_tc_bound=bound["tc"] / ms[name])
-        emit("timing_bwd", kernel="flash_attention_bwd_" + name, **rec)
+        emit("timing_bwd", kernel="flash_attention_bwd_" + name,
+             shape_name=what, **rec)
         records[name] = rec
     return records
 
@@ -5138,6 +5195,691 @@ def phase_train_unsupervised(card):
                              "hand-written kernels" % launches)
 
 
+# -- phases 32-33: the rest of the training library --------------------------
+
+#: the real-text anchor (the reference's tests/test_quality_real_data.py
+#: :214-256): CPython's pydoc topics cut to 120,000 characters, a
+#: 2-block d 48 char transformer (4 heads of 12), 24 epochs from seed 11
+TEXT_CHARS = 120_000
+TEXT_SEED = 11
+TEXT_EPOCHS = 24
+TEXT_MAX_ERR = 0.48
+TEXT_MARGIN = 0.05
+#: the bench-width text epoch: d 512, 6 blocks (4 heads of 128), T 512
+TEXT_BENCH_SEED = 77
+#: LoRA, label smoothing: the first two train steps, card vs CPU
+TOL_LIBRARY_STEP_REL = 1e-4
+LORA_RANK = 8
+
+
+def pydoc_corpus(directory, limit=None):
+    """CPython's pydoc topics joined in key order (cut to ``limit``
+    characters), written to ``directory``; returns the path and the
+    text."""
+    import pydoc_data.topics as topics
+    text = "".join(v for _, v in sorted(topics.topics.items()))
+    if limit:
+        text = text[:limit]
+    path = os.path.join(directory, "pydoc_%d.txt" % len(text))
+    with open(path, "w", encoding="utf-8") as fout:
+        fout.write(text)
+    return path, text
+
+
+def trigram_error(text):
+    """The trigram-argmax next-character error on the loader's tail
+    split (train on the first 90 % of the characters, score the rest),
+    as the reference's anchor computes it."""
+    from collections import Counter, defaultdict
+    cut = int(len(text) * 0.9)
+    train, valid = text[:cut], text[cut:]
+    tri = defaultdict(Counter)
+    for a, b, c in zip(train, train[1:], train[2:]):
+        tri[a + b][c] += 1
+    hits = sum(1 for a, b, c in zip(valid, valid[1:], valid[2:])
+               if tri[a + b] and tri[a + b].most_common(1)[0][0] == c)
+    return 1.0 - hits / (len(valid) - 2)
+
+
+def flash_counts():
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.telemetry import counters
+    return {"fwd": counters.get(fa.FWD_LAUNCHES),
+            "dkv": counters.get(fa.DKV_LAUNCHES),
+            "dq": counters.get(fa.DQ_LAUNCHES)}
+
+
+def text_steps(wf):
+    """(train steps, evaluation steps) the loader's plans imply for the
+    epochs the decision recorded."""
+    ld = wf.loader
+    epochs = wf.decision.epoch_number
+    return (epochs * ld.plan_rows_for(2),
+            epochs * (ld.plan_rows_for(0) + ld.plan_rows_for(1)))
+
+
+def text_run(path, tensormon_on, **kw):
+    """One seeded text char-LM run on the card: (workflow, flash launches
+    in the run, synchronising calls in the run, wall ms)."""
+    import warnings
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.telemetry import counters
+    root.common.engine.flash_attention = True
+    root.common.telemetry.tensormon.enabled = bool(tensormon_on)
+    prng.seed_all(kw.pop("seed"))
+    wf = char_lm.build_workflow(text_file=path, **kw)
+    wf.initialize()
+    torch.cuda.synchronize()
+    counters.counters.reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            wf.run()
+            torch.cuda.synchronize()
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    return wf, flash_counts(), syncs, ms
+
+
+def phase_train_text(card):
+    """(a) the reference's real-text anchor on the card: the pydoc char
+    transformer reaches the reference's thresholds through the flash
+    kernels at head dim 12, each kernel launched 2 blocks × the steps the
+    epochs imply; (b) the same corpus uncut at the bench LM's width (4
+    heads of 128) for one epoch, tensormon off and then on from one seed:
+    equal parameters and optimiser state, equal flash launches, equal
+    synchronising calls, the model-health gauges and one
+    ``tensormon.sample`` span per drained sample. Returns the flash
+    launches by kernel."""
+    import shutil
+    import tempfile
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.telemetry import counters, spans, tensormon
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="veles_text_")
+    try:
+        path, text = pydoc_corpus(tmp, TEXT_CHARS)
+        tri = trigram_error(text)
+        wf, launches, _, ms = text_run(
+            path, False, seed=TEXT_SEED, epochs=TEXT_EPOCHS,
+            minibatch_size=64, n_blocks=2, dim=48)
+        res = wf.gather_results()
+        train_steps, eval_steps = text_steps(wf)
+        want = {"fwd": 2 * (train_steps + eval_steps),
+                "dkv": 2 * train_steps, "dq": 2 * train_steps}
+        anchor = dict(chars=len(text), windows=wf.loader.class_lengths,
+                      vocab=wf.loader.vocab_size, head_dim=48 // 4,
+                      epochs=wf.decision.epoch_number,
+                      best_err=res["best_err"], trigram_err=tri,
+                      best_epoch=res["best_epoch"], launches=launches,
+                      expected_launches=want, run_ms=ms,
+                      ms_per_epoch=ms / wf.decision.epoch_number)
+        del wf
+        full, text_full = pydoc_corpus(tmp)
+        runs = {}
+        for on in (False, True):
+            tensormon.monitor.reset()
+            spans.recorder.clear()
+            wf, lch, syncs, ms = text_run(
+                full, on, seed=TEXT_BENCH_SEED, epochs=1, dim=512,
+                n_blocks=6, seq_len=512, minibatch_size=16)
+            steps = text_steps(wf)
+            runs[on] = dict(wf=wf, launches=lch, syncs=syncs, ms=ms,
+                            steps=steps,
+                            samples=counters.get(
+                                "veles_tensormon_samples_total"),
+                            spans=len(spans.recorder.records(
+                                "tensormon.sample")),
+                            text=counters.metrics_text(
+                                tensormon.monitor.gauges()))
+        off, on = runs[False], runs[True]
+        same = all(
+            torch.equal(getattr(off["wf"].train_step, tree)[n][k],
+                        getattr(on["wf"].train_step, tree)[n][k])
+            for tree in ("params",)
+            for n in off["wf"].train_step.params
+            for k in off["wf"].train_step.params[n])
+        same_opt = all(
+            torch.equal(a, b) for a, b in zip(
+                flat_tree(off["wf"].train_step.opt_state),
+                flat_tree(on["wf"].train_step.opt_state)))
+        repeat_equal = None
+        if not (same and same_opt):
+            # tell a tensormon effect from a run that does not repeat:
+            # the off run once more
+            again = text_run(full, False, seed=TEXT_BENCH_SEED, epochs=1,
+                             dim=512, n_blocks=6, seq_len=512,
+                             minibatch_size=16)[0]
+            repeat_equal = all(torch.equal(a, b) for a, b in zip(
+                flat_tree(off["wf"].train_step.params),
+                flat_tree(again.train_step.params)))
+            del again
+        gauges = [ln.split()[0] for ln in on["text"].splitlines()
+                  if ln.startswith("veles_model_")]
+        bench_train, bench_eval = off["steps"]
+        bench_want = {"fwd": 6 * (bench_train + bench_eval),
+                      "dkv": 6 * bench_train, "dq": 6 * bench_train}
+        bench = dict(chars=len(text_full),
+                     windows=off["wf"].loader.class_lengths,
+                     head_dim=512 // 4, train_steps=bench_train,
+                     eval_steps=bench_eval,
+                     epoch_ms={"off": off["ms"], "on": on["ms"]},
+                     launches={"off": off["launches"],
+                               "on": on["launches"]},
+                     expected_launches=bench_want,
+                     launches_per_step={
+                         k: off["launches"][k] / bench_train
+                         for k in off["launches"]},
+                     syncs={"off": off["syncs"], "on": on["syncs"]},
+                     params_equal=same, opt_state_equal=same_opt,
+                     off_repeat_equal=repeat_equal,
+                     samples={"off": off["samples"], "on": on["samples"]},
+                     sample_spans={"off": off["spans"], "on": on["spans"]},
+                     gauges=gauges,
+                     nll_per_token=off["wf"].decision.epoch_losses[1])
+        del runs, off, on
+    finally:
+        root.common.telemetry.tensormon.enabled = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_text", card=card, anchor=anchor, bench_width=bench,
+         phase_s=time.perf_counter() - t_phase)
+    if not (anchor["best_err"] <= TEXT_MAX_ERR
+            and anchor["best_err"] < tri - TEXT_MARGIN):
+        raise AssertionError("the real-text anchor missed the reference's "
+                             "thresholds: %s vs trigram %s"
+                             % (anchor["best_err"], tri))
+    for name, got, expect in (("anchor", anchor["launches"], want),
+                              ("bench width off", bench["launches"]["off"],
+                               bench_want),
+                              ("bench width on", bench["launches"]["on"],
+                               bench_want)):
+        if got != expect or not all(got.values()):
+            raise AssertionError("flash launches in the %s run: %s, the "
+                                 "epochs imply %s" % (name, got, expect))
+    if not (bench["params_equal"] and bench["opt_state_equal"]):
+        raise AssertionError("tensormon changed the bench-width epoch's "
+                             "parameters or optimiser state")
+    if bench["syncs"]["off"] != bench["syncs"]["on"]:
+        raise AssertionError("tensormon added synchronising calls: %s"
+                             % bench["syncs"])
+    if bench["samples"] != {"off": 0, "on": 1} or \
+            bench["sample_spans"]["on"] != bench["samples"]["on"]:
+        raise AssertionError("tensormon samples/spans: %s / %s"
+                             % (bench["samples"], bench["sample_spans"]))
+    need = ("veles_model_grad_norm", "veles_model_weight_norm_",
+            "veles_model_update_ratio_")
+    if not all(any(g.startswith(n) for g in gauges) for n in need):
+        raise AssertionError("model-health gauges missing on /metrics: %s"
+                             % gauges)
+    return {k: anchor["launches"][k] + bench["launches"]["off"][k]
+            + bench["launches"]["on"][k] for k in anchor["launches"]}
+
+
+def flat_tree(tree):
+    """The leaves of a nested dict of tensors, in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in flat_tree(tree[k])]
+    return [tree]
+
+
+def blobs_workflow(poison, policy, snapshot_dir=None):
+    """The reference's tests/test_tensormon.py load on the card: 120
+    seeded blob rows, 40 validation, mb 40, a 10-8-2 tanh/softmax chain,
+    3 epochs with tensormon on under ``policy``; ``poison`` fills the
+    dataset with NaN before the first step."""
+    import numpy
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader import FullBatchLoader
+    from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+    from veles_tpu_torch.snapshotter import Snapshotter
+
+    def load_data(self):
+        rng = numpy.random.RandomState(7)
+        data = rng.randn(120, 10).astype(numpy.float32)
+        self.create_originals(data, (data.sum(axis=1) > 0).astype(
+            numpy.int32))
+        self.class_lengths = [0, 40, 80]
+    root.common.telemetry.tensormon.enabled = True
+    root.common.telemetry.tensormon.nan_policy = policy
+    prng.seed_all(1234)
+    blobs = type("Blobs", (FullBatchLoader,), {"hide_from_registry": True,
+                                               "load_data": load_data})
+    snap = (Snapshotter(None, prefix="mon", directory=snapshot_dir,
+                        interval=1) if snapshot_dir else None)
+    wf = StandardWorkflow(
+        name="mon-wf",
+        layers=[{"type": "all2all_tanh", "output_sample_shape": 8},
+                {"type": "softmax", "output_sample_shape": 2}],
+        loader_unit=blobs(None, minibatch_size=40, name="mon-blobs"),
+        loss_function="softmax",
+        decision_config=dict(max_epochs=3, fail_iterations=100),
+        snapshotter_unit=snap)
+    wf.initialize()
+    if poison:
+        wf.loader.original_data.mem[:, :] = numpy.nan
+    return wf
+
+
+def library_sentinel(tmp):
+    """(c) the three NaN policies on the poisoned blobs, the snapshot
+    directory (where a halt's black box lands) under ``tmp``."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.resilience import health
+    snap_dir = os.path.join(tmp, "sentinel")
+    os.makedirs(snap_dir)
+    prev = root.common.dirs.snapshots
+    # the halting policies' black boxes land beside the snapshots
+    root.common.dirs.snapshots = snap_dir
+    try:
+        return sentinel_policies(snap_dir)
+    finally:
+        root.common.dirs.snapshots = prev
+        root.common.telemetry.tensormon.enabled = False
+        root.common.telemetry.tensormon.nan_policy = "warn"
+        health.forget("model_health")
+
+
+def sentinel_policies(snap_dir):
+    """warn, halt, then snapshot_and_halt, each on the poisoned blobs."""
+    import glob
+    from veles_tpu_torch.resilience import checkpoint_chain, health
+    from veles_tpu_torch.telemetry import counters, tensormon
+    from veles_tpu_torch.telemetry.recorder import flight, read_blackbox
+    out = {}
+    before = counters.snapshot()
+    wf = blobs_workflow(True, "warn")
+    wf.run()
+    delta = counters.counters.delta(before)
+    out["warn"] = dict(nan_total=delta.get("veles_model_nan_total", 0),
+                       epochs=wf.decision.epoch_number)
+    try:
+        blobs_workflow(True, "halt").run()
+        raised = False
+    except tensormon.ModelHealthError:
+        raised = True
+    code, payload = health.readyz()
+    out["halt"] = dict(raised=raised, readyz=code,
+                       model_health=payload["components"].get(
+                           "model_health"))
+    health.forget("model_health")
+    for path in glob.glob(os.path.join(snap_dir, "blackbox-*.jsonl")):
+        os.remove(path)             # the halt policy's box
+    flight.clear()
+    try:
+        blobs_workflow(True, "snapshot_and_halt", snap_dir).run()
+        raised = False
+    except tensormon.ModelHealthError:
+        raised = True
+    snaps = checkpoint_chain.chain(snap_dir, "mon")
+    dumps = glob.glob(os.path.join(snap_dir, "blackbox-*.jsonl"))
+    header, events = (read_blackbox(dumps[0]) if len(dumps) == 1
+                      else ({}, []))
+    out["snapshot_and_halt"] = dict(
+        raised=raised, snapshots=len(snaps),
+        verified=bool(snaps) and checkpoint_chain.verify(snaps[0]) is True,
+        blackboxes=len(dumps), reason=header.get("reason"),
+        nan_events=sum(1 for e in events
+                       if e.get("kind") == "tensormon.nan"))
+    return out
+
+
+class _Reasons:
+    """Collects the train step's fused-FC rejection reasons."""
+
+    def __init__(self):
+        import logging
+        self.messages = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if "fused_fc_scan requested but ineligible" in msg:
+                    outer.messages.append(msg)
+        self.handler = Handler(logging.INFO)
+
+    def __enter__(self):
+        import logging
+        logging.getLogger().addHandler(self.handler)
+        self.level = logging.getLogger().level
+        logging.getLogger().setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        logging.getLogger().removeHandler(self.handler)
+        logging.getLogger().setLevel(self.level)
+
+
+def mnist_library_workflow(device=None, epochs=2, per_dispatch=2,
+                           loader=None, evaluator_config=None,
+                           lora_rank=0, fused=True, seed=SEED,
+                           snapshot_dir=None, layers=None):
+    """models/mnist.py's BASELINE #1 graph with the library's knobs: a
+    LoRA rank on both All2All layers, an evaluator config, another loader
+    (the file loaders' replay of the same rows, named as MNIST's) or
+    other layers; initialised on ``device`` (default the card)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models import mnist
+    from veles_tpu_torch.nn.lr_adjust import exp_decay
+    from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+    from veles_tpu_torch.snapshotter import Snapshotter
+    root.common.engine.fused_fc_scan = bool(fused)
+    prng.seed_all(seed)
+    extra = dict(lora_rank=lora_rank) if lora_rank else {}
+    if layers is None:
+        layers = [{"type": "all2all_tanh", "output_sample_shape": 100,
+                   "learning_rate": 0.03, **extra},
+                  {"type": "softmax", "output_sample_shape": 10,
+                   "learning_rate": 0.03, **extra}]
+    wf = StandardWorkflow(
+        name="mnist-784", layers=layers,
+        loader_unit=loader or mnist.MnistLoader(None, minibatch_size=100,
+                                                name="mnist"),
+        loss_function="softmax",
+        decision_config=dict(max_epochs=epochs, fail_iterations=50),
+        lr_schedule=exp_decay(0.98), epochs_per_dispatch=per_dispatch,
+        evaluator_config=evaluator_config,
+        snapshotter_unit=(Snapshotter(None, prefix="mnist",
+                                      directory=snapshot_dir)
+                          if snapshot_dir else None))
+    wf.initialize(device=device)
+    return wf
+
+
+def fused_launches():
+    from veles_tpu_torch.telemetry import counters
+    return counters.get("veles_fused_fc_launches_total")
+
+
+def tree_max_rel(got, want):
+    """max |got - want| / max(1e-30, max |want|) over paired leaves."""
+    return max(float((g.cpu() - w.cpu()).abs().max())
+               / max(1e-30, float(w.abs().max()))
+               for g, w in zip(flat_tree(got), flat_tree(want)))
+
+
+def library_tensormon_mnist():
+    """(d) MNIST's train load with tensormon on: the fused-FC kernel is
+    refused with the reference's reason, the general path's epochs are
+    finite."""
+    import math as _math
+    from veles_tpu_torch.config import root
+    root.common.telemetry.tensormon.enabled = True
+    try:
+        with _Reasons() as reasons:
+            wf = mnist_library_workflow()
+        before = fused_launches()
+        wf.run()
+        launched = fused_launches() - before
+    finally:
+        root.common.telemetry.tensormon.enabled = False
+    errs = wf.decision.epoch_metrics
+    return dict(fused_launches=launched, reasons=reasons.messages,
+                valid_err=errs[1], train_err=errs[2],
+                finite=all(_math.isfinite(v) for s in (1, 2)
+                           for v in errs[s]) and len(errs[1]) == 2)
+
+
+def library_lora(tmp):
+    """(e) the MNIST base 2 epochs through the fused-FC kernel and a
+    snapshot; resumed into LoRA rank 8 on both All2All layers for 2 more
+    epochs on the general path."""
+    import torch
+    from veles_tpu_torch.snapshotter import resume
+    snap_dir = os.path.join(tmp, "lora")
+    base = mnist_library_workflow(snapshot_dir=snap_dir)
+    before = fused_launches()
+    base.run()
+    base_launches = fused_launches() - before
+    path = base.snapshotter.destination
+    base_params = {n: {k: t.clone() for k, t in p.items()}
+                   for n, p in base.train_step.params.items()}
+    x = base.loader.original_data.device_view(base.train_step.device)[:256]
+    base_out = base.train_step._forward(base.train_step.params, x)
+    out = {"base_fused_launches": base_launches}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with _Reasons() as reasons:
+            wf = mnist_library_workflow(device=dev, epochs=4,
+                                        lora_rank=LORA_RANK)
+        resume(wf, path)
+        wf.decision.complete <<= False
+        runs[dev] = (wf, reasons.messages)
+    wf = runs["cuda"][0]
+    out["reasons"] = runs["cuda"][1]
+    out["step0_output_equal"] = bool(torch.equal(
+        wf.train_step._forward(wf.train_step.params, x), base_out))
+    # the first two steps from the resumed state, card against CPU
+    card_steps = list(train_steps(wf, 2))
+    cpu_steps = list(train_steps(runs["cpu"][0], 2))
+    out["first_steps_loss"] = [float(c[0]) for c in card_steps]
+    out["first_steps_loss_cpu"] = [float(c[0]) for c in cpu_steps]
+    out["first_steps_rel"] = max(
+        max(abs(float(c[0]) - float(h[0])) / abs(float(h[0])),
+            tree_max_rel(c[1], h[1]))
+        for c, h in zip(card_steps, cpu_steps))
+    del runs
+    before = fused_launches()
+    wf.run()
+    out["lora_fused_launches"] = fused_launches() - before
+    params = wf.train_step.params
+    out["base_equal"] = all(
+        torch.equal(params[n][k], base_params[n][k])
+        for n in base_params for k in ("weights", "bias"))
+    out["adapters_moved"] = all(
+        float(params[n]["weights_lora_b"].abs().max()) > 0
+        for n in base_params)
+    out["epochs"] = wf.decision.epoch_number
+    out["valid_err"] = wf.decision.epoch_metrics[1]
+    return out
+
+
+def library_smoothing():
+    """(f) label smoothing 0.1 with the confusion matrix on MNIST's
+    general path: the first two SGD steps card vs CPU, then 2 epochs on
+    the card, each set's matrix against n_samples and n_err."""
+    cfg = dict(label_smoothing=0.1, compute_confusion=True)
+    card = mnist_library_workflow(evaluator_config=cfg)
+    cpu = mnist_library_workflow(device="cpu", evaluator_config=cfg)
+    c_losses, c_deltas = first_train_steps(card, 2)
+    h_losses, h_deltas = first_train_steps(cpu, 2)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(c_losses, h_losses))
+    del cpu
+    card.run()
+    dec = card.decision
+    exact = {}
+    for s in (1, 2):
+        exact[s] = [
+            dict(sum=float(cm.sum()), n_samples=n,
+                 off_diagonal=float(cm.sum() - cm.trace()), n_err=e)
+            for cm, (n, e) in zip(dec.epoch_confusion[s],
+                                  dec.epoch_counts[s])]
+    return dict(first_steps_loss=c_losses, first_steps_loss_cpu=h_losses,
+                first_steps_rel=rel,
+                first_steps_delta_rel=max(
+                    tree_max_rel(c, h) for c, h in zip(c_deltas,
+                                                       h_deltas)),
+                confusion=exact, valid_err=dec.epoch_metrics[1])
+
+
+def library_epilogue():
+    """(g) ``engine.fused_epilogue`` on against off on a chain with
+    standalone activation layers: weights and metrics bit for bit."""
+    import torch
+    from veles_tpu_torch.config import root
+    layers = [{"type": "all2all", "output_sample_shape": 100,
+               "learning_rate": 0.03},
+              {"type": "activation_mul", "factor": 0.6666},
+              {"type": "activation_tanh"},
+              {"type": "activation_mul", "factor": 1.7159},
+              {"type": "softmax", "output_sample_shape": 10,
+               "learning_rate": 0.03}]
+    runs = {}
+    for on in (False, True):
+        root.common.engine.fused_epilogue = on
+        try:
+            wf = mnist_library_workflow(layers=layers, fused=False,
+                                        per_dispatch=1)
+            plan = [(p.name, [t.name for t in ts])
+                    for p, ts in wf.train_step._epilogue or ()]
+            wf.run()
+        finally:
+            root.common.engine.fused_epilogue = False
+        runs[on] = (wf, plan)
+    off, on = runs[False][0], runs[True][0]
+    return dict(plan=runs[True][1],
+                params_equal=all(torch.equal(a, b) for a, b in zip(
+                    flat_tree(off.train_step.params),
+                    flat_tree(on.train_step.params))),
+                metrics_equal=(off.decision.epoch_metrics
+                               == on.decision.epoch_metrics),
+                valid_err=on.decision.epoch_metrics[1])
+
+
+def library_files(tmp):
+    """(h) MNIST's rows written through MinibatchesSaver (served in
+    order, no shuffle), replayed through MinibatchesLoader and through
+    PicklesLoader; each trained 2 epochs through the fused-FC kernel
+    against the in-memory run from the same seed."""
+    import pickle
+    import numpy
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader import (MinibatchesLoader, MinibatchesSaver,
+                                        PicklesLoader)
+    from veles_tpu_torch.models import mnist
+    prng.seed_all(SEED)
+    src = mnist.MnistLoader(None, minibatch_size=100, shuffle_limit=-1,
+                            name="mnist-src")
+    src.initialize()
+    mb_file = os.path.join(tmp, "mnist.vtmb")
+    saver = MinibatchesSaver(None, file_name=mb_file)
+    saver.loader = src
+    saver.initialize()
+    t0 = time.perf_counter()
+    while True:
+        src.run()
+        saver.run()
+        if bool(src.epoch_ended):
+            break
+    saver.stop()
+    save_s = time.perf_counter() - t0
+    files = [None]
+    ends = src.class_end_offsets
+    for cls in (1, 2):
+        rows = slice(ends[cls - 1], ends[cls])
+        path = os.path.join(tmp, "mnist_%d.pickle" % cls)
+        with open(path, "wb") as fout:
+            pickle.dump((numpy.array(src.original_data.mem[rows]),
+                         numpy.array(src.original_labels.mem[rows])), fout,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+        files.append(path)
+    ref = mnist_library_workflow()
+    before = fused_launches()
+    ref.run()
+    out = {"in_memory": fused_launches() - before, "save_s": save_s,
+           "file_bytes": os.path.getsize(mb_file)}
+    for name, ld in (("minibatches", MinibatchesLoader(
+            None, file_name=mb_file, minibatch_size=100, name="mnist")),
+                     ("pickles", PicklesLoader(
+                         None, files=files, minibatch_size=100,
+                         name="mnist"))):
+        wf = mnist_library_workflow(loader=ld)
+        before = fused_launches()
+        wf.run()
+        out[name] = dict(
+            launches=fused_launches() - before,
+            class_lengths=ld.class_lengths,
+            weights_equal=all(torch.equal(a, b) for a, b in zip(
+                flat_tree(wf.train_step.params),
+                flat_tree(ref.train_step.params))),
+            valid_err=wf.decision.epoch_metrics[1])
+    return out
+
+
+def phase_train_library(card):
+    """(c) the NaN sentinel's three policies; (d) MNIST with tensormon on
+    (the fused-FC kernel refused with the reference's reason); (e) LoRA
+    resumed from a fused-FC MNIST base; (f) label smoothing with the
+    confusion matrix; (g) the fused epilogue on against off; (h) MNIST
+    from the minibatch and pickle files. Returns the fused-FC launches
+    on this phase's path."""
+    import shutil
+    import tempfile
+    from veles_tpu_torch import datasets
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="veles_library_")
+    undo = cached_loads(datasets, "load_mnist")
+    try:
+        sentinel = library_sentinel(tmp)
+        mon = library_tensormon_mnist()
+        lora = library_lora(tmp)
+        smoothing = library_smoothing()
+        epilogue = library_epilogue()
+        from_files = library_files(tmp)
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_library", card=card, sentinel=sentinel,
+         tensormon_mnist=mon, lora=lora, smoothing_confusion=smoothing,
+         epilogue=epilogue, from_files=from_files,
+         phase_s=time.perf_counter() - t_phase)
+    fails = []
+    if not (sentinel["warn"]["nan_total"] > 0
+            and sentinel["warn"]["epochs"] == 3):
+        fails.append("warn policy %s" % sentinel["warn"])
+    if sentinel["halt"] != dict(raised=True, readyz=503,
+                                model_health=False):
+        fails.append("halt policy %s" % sentinel["halt"])
+    sh = sentinel["snapshot_and_halt"]
+    if not (sh["raised"] and sh["snapshots"] == 1 and sh["verified"]
+            and sh["blackboxes"] == 1
+            and str(sh["reason"]).startswith("nan sentinel")
+            and sh["nan_events"] >= 1):
+        fails.append("snapshot_and_halt %s" % sh)
+    if mon["fused_launches"] or not mon["finite"] or not any(
+            "tensormon taps are not computed by the fused kernel" in r
+            for r in mon["reasons"]):
+        fails.append("MNIST with tensormon %s" % mon)
+    if not (lora["base_fused_launches"] == 2
+            and lora["lora_fused_launches"] == 0
+            and lora["step0_output_equal"] and lora["base_equal"]
+            and lora["adapters_moved"]
+            and lora["first_steps_rel"] <= TOL_LIBRARY_STEP_REL
+            and any("LoRA" in r for r in lora["reasons"])):
+        fails.append("LoRA %s" % lora)
+    if not smoothing["first_steps_rel"] <= TOL_LIBRARY_STEP_REL or any(
+            e["sum"] != e["n_samples"] or e["off_diagonal"] != e["n_err"]
+            for s in smoothing["confusion"].values() for e in s) or \
+            len(smoothing["confusion"][1]) != 2:
+        fails.append("smoothing/confusion %s" % smoothing)
+    if not (epilogue["params_equal"] and epilogue["metrics_equal"]
+            and epilogue["plan"]):
+        fails.append("epilogue %s" % epilogue)
+    for name in ("minibatches", "pickles"):
+        rec = from_files[name]
+        if not (rec["launches"] == 2 and rec["weights_equal"]):
+            fails.append("%s %s" % (name, rec))
+    if from_files["in_memory"] != 2:
+        fails.append("in-memory MNIST launches %s" % from_files["in_memory"])
+    if fails:
+        raise AssertionError("train_library: " + "; ".join(fails))
+    return (lora["base_fused_launches"] + from_files["in_memory"]
+            + from_files["minibatches"]["launches"]
+            + from_files["pickles"]["launches"])
+
+
 def phase_breakdown(card, model, prompts):
     """Where one batched greedy decode spends its time: prefill (the
     n_new=1 call) vs the per-step decode, and the device's busy share
@@ -5229,6 +5971,8 @@ def main():
     phase_znicz_units(card)
     phase_train_alexnet(card)
     phase_train_unsupervised(card)
+    launches_text = phase_train_text(card)
+    launches_library = phase_train_library(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -5244,7 +5988,8 @@ def main():
                 "launches_by_path": {"train_lm": launches_lm[name],
                                      "train_lm_amp": launches_amp[
                                          ("f32_f32", name)],
-                                     "cli": launches_cli[name]},
+                                     "cli": launches_cli[name],
+                                     "train_text": launches_text[name]},
                 "ok": True}
 
     def amp_entry(inst, kern):
@@ -5288,7 +6033,8 @@ def main():
                              "train_lm_amp": launches_amp[("f32_f32",
                                                            "fwd")],
                              "telemetry": launches_tel,
-                             "cli": launches_cli["fwd"]},
+                             "cli": launches_cli["fwd"],
+                             "train_text": launches_text["fwd"]},
         "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",
         "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",
@@ -5304,7 +6050,9 @@ def main():
         "launches_by_path": {"train": launches_ffc,
                              "snapshot": launches_snap,
                              "telemetry": launches_tel_ffc,
-                             "cli": launches_cli["fused_fc"]}, "ok": True},
+                             "cli": launches_cli["fused_fc"],
+                             "train_library": launches_library},
+        "ok": True},
         bwd_entry("dkv", 248), bwd_entry("dq", 309)] + [
         amp_entry(inst, kern) for inst in AMP_INSTANCES
         for kern in ("fwd", "dkv", "dq")]}), flush=True)

@@ -538,12 +538,21 @@ def test_fused_fc_refuses_each_knob(knob, caplog):
 
 
 def test_unported_knobs_still_raise():
-    with pytest.raises(VelesError, match="fused_epilogue"):
-        _train(True, run=False, knobs=dict(fused_epilogue=True))
+    """Pipeline microbatches name their ROADMAP item (10) in TrainStep
+    and in StandardWorkflow; the streaming loaders, asked for through the
+    loader registry, name theirs (12). ``engine.fused_epilogue`` is
+    ported: it trains (tests/test_torch_lora.py holds its bits)."""
+    _train(True, run=False, knobs=dict(fused_epilogue=True))
     _engine(True, fused_epilogue=False)
-    with pytest.raises(VelesError, match="pipeline microbatches"):
-        from veles_tpu_torch.nn.train_step import TrainStep
+    from veles_tpu_torch.loader import loader_class
+    from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+    from veles_tpu_torch.nn.train_step import TrainStep
+    with pytest.raises(VelesError, match=r"pipeline microbatches .*item 10"):
         TrainStep(None, pipeline_microbatches=4)
+    with pytest.raises(VelesError, match=r"pipeline_microbatches.*item 10"):
+        StandardWorkflow(pipeline_microbatches=4)
+    with pytest.raises(VelesError, match="item 12"):
+        loader_class("restful_loader")
 
 
 def test_precision_helpers():

@@ -404,8 +404,7 @@ REFUSED_FLAGS = [
     (["--graphics"], "11"), (["--plots-dir", "p"], "11"),
     (["--status-url", "http://h"], "11"), (["--overlap"], "11"),
     (["--prefetch-depth", "2"], "11"), (["--router-qos", "on"], "11"),
-    (["--router-slo-ttft-ms", "5"], "11"), (["--tensormon"], "6"),
-    (["--nan-policy", "warn"], "6"),
+    (["--router-slo-ttft-ms", "5"], "11"),
     (["--quant-weights"], "4.4"), (["--quant-kv"], "4.4"),
     (["--serve-artifact", "d"], "4.5"),
     (["--serve-prefix-cache", "on"], "4.1"),

@@ -17,8 +17,14 @@ the CLI (``python -m veles_tpu_torch``: ``--backend auto`` initialises
 on the card; MNIST through it launches the fused-FC kernel), and the
 lossless request plane (a sampled row's generator advanced by offset
 arithmetic equals one that replayed the draws; a batch row preempted
-and resumed on the pool and on the lane answers its solo tokens). Each
-skips without a card (decided inside the fixture, never at import).
+and resumed on the pool and on the lane answers its solo tokens), and
+the training library (a char LM on real text through the flash kernels
+at head dims 12 and 128; tensormon on equal to off bit for bit; the NaN
+sentinel's policies; LoRA, smoothing with the confusion matrix and the
+fused epilogue on the card against the CPU or bit for bit; a minibatch
+file's replay through the fused-FC kernel equal to the in-memory run).
+Each skips without a card (decided inside the fixture, never at
+import).
 
 This file imports torch and the port only — the card's machine has no
 JAX, and ``tests/conftest.py`` imports it — so run it there with
@@ -1486,3 +1492,199 @@ def test_conv_weight_gradient_is_float32_grade(cuda):
     conv2d(x.float(), wf, (1, 1), (0, 0)).backward(gy.float())
     assert float((wf.grad.double() - want).abs().max()
                  / want.abs().max()) <= 1e-4
+
+
+# -- the training library on the card (train_text, train_library) ---------
+
+def _text_file(tmp_path, chars):
+    import chip_smoke
+    return chip_smoke.pydoc_corpus(str(tmp_path), chars)[0]
+
+
+@pytest.mark.parametrize("dim,what", [(48, "d12"), (512, "d128")])
+def test_text_lm_launches_the_flash_kernels(cuda, tmp_path, dim, what):
+    """(a) A char transformer on real text (pydoc, 4 heads of 12 or of
+    128) launches each flash kernel 2 blocks × the steps its epoch
+    implies, and its losses are finite."""
+    import chip_smoke
+    path = _text_file(tmp_path, 20000 if dim == 48 else 60000)
+    wf, launches, _, _ = chip_smoke.text_run(
+        path, False, seed=11, epochs=1, minibatch_size=16, n_blocks=2,
+        dim=dim, seq_len=32 if dim == 48 else 256)
+    train, evals = chip_smoke.text_steps(wf)
+    assert launches == {"fwd": 2 * (train + evals), "dkv": 2 * train,
+                        "dq": 2 * train}
+    assert all(numpy.isfinite(v) for v in wf.decision.epoch_losses[1])
+
+
+def test_tensormon_on_equals_off_on_the_card(cuda, tmp_path):
+    """(b) Tensormon on and off from one seed: the same parameters and
+    optimiser state bit for bit, the same flash launches, the same
+    synchronising calls; one sample on, none off."""
+    import chip_smoke
+    path = _text_file(tmp_path, 40000)
+    runs = {}
+    try:
+        for on in (False, True):
+            before = counters.get("veles_tensormon_samples_total")
+            runs[on] = chip_smoke.text_run(
+                path, on, seed=77, epochs=1, minibatch_size=8, n_blocks=1,
+                dim=512, seq_len=128) + (
+                counters.get("veles_tensormon_samples_total") - before,)
+    finally:
+        root.common.telemetry.tensormon.enabled = False
+    (off, l_off, s_off, _, n_off), (on, l_on, s_on, _, n_on) = \
+        runs[False], runs[True]
+    for a, b in zip(chip_smoke.flat_tree(off.train_step.params)
+                    + chip_smoke.flat_tree(off.train_step.opt_state),
+                    chip_smoke.flat_tree(on.train_step.params)
+                    + chip_smoke.flat_tree(on.train_step.opt_state)):
+        assert torch.equal(a, b)
+    assert l_off == l_on and s_off == s_on
+    assert (n_off, n_on) == (0, 1)
+
+
+def test_nan_sentinel_policies_on_the_card(cuda, tmp_path):
+    """(c) warn counts and completes; halt raises with /readyz 503;
+    snapshot_and_halt commits one verified snapshot and one black box."""
+    import chip_smoke
+    out = chip_smoke.library_sentinel(str(tmp_path))
+    assert out["warn"]["nan_total"] > 0 and out["warn"]["epochs"] == 3
+    assert out["halt"] == dict(raised=True, readyz=503, model_health=False)
+    sh = out["snapshot_and_halt"]
+    assert sh["raised"] and sh["snapshots"] == 1 and sh["verified"]
+    assert sh["blackboxes"] == 1 and sh["nan_events"] >= 1
+    assert sh["reason"].startswith("nan sentinel")
+
+
+def _library_blobs(**kw):
+    """A 784-feature blob load under MNIST's graph and knobs (the fused
+    kernel's shapes), 1,000 train / 200 validation rows."""
+    import chip_smoke
+    from veles_tpu_torch.loader import FullBatchLoader
+
+    def load_data(self):
+        rng = numpy.random.RandomState(5)
+        y = rng.randint(0, 10, 1200).astype(numpy.int32)
+        x = (rng.randn(1200, 784) * 0.3).astype(numpy.float32)
+        x[numpy.arange(1200), y * 70] += 2.0
+        self.create_originals(x, y)
+        self.class_lengths = [0, 200, 1000]
+    loader = type("Blobs", (FullBatchLoader,), {
+        "hide_from_registry": True, "load_data": load_data})(
+        None, minibatch_size=100, name="mnist")
+    return chip_smoke.mnist_library_workflow(loader=loader, **kw)
+
+
+def test_tensormon_keeps_the_general_path_on_the_card(cuda):
+    """(d) With tensormon on the fused-FC kernel is refused and never
+    launched; the general path's epochs are finite."""
+    root.common.telemetry.tensormon.enabled = True
+    try:
+        wf = _library_blobs()
+        assert wf.train_step._fused_fc is None
+        before = counters.get(FFC_LAUNCHES)
+        wf.run()
+        assert counters.get(FFC_LAUNCHES) == before
+    finally:
+        root.common.telemetry.tensormon.enabled = False
+    assert all(numpy.isfinite(v) for v in wf.decision.epoch_metrics[1])
+
+
+def test_lora_on_the_card_matches_the_cpu_and_freezes_the_base(cuda):
+    """(e) LoRA rank 8 on both All2All layers: the first two steps on
+    the card within 1e-4 relative of the CPU's; two epochs keep the base
+    bit for bit and move the adapters, with no fused-FC launch."""
+    import chip_smoke
+    card = _library_blobs(lora_rank=8)
+    cpu = _library_blobs(lora_rank=8, device="cpu")
+    got, want = (list(chip_smoke.train_steps(w, 2)) for w in (card, cpu))
+    for (lc, oc), (lh, oh) in zip(got, want):
+        assert abs(float(lc) - float(lh)) <= 1e-4 * abs(float(lh))
+        assert chip_smoke.tree_max_rel(oc, oh) <= 1e-4
+    base = {n: {k: p[k].clone() for k in ("weights", "bias")}
+            for n, p in card.train_step.params.items()}
+    before = counters.get(FFC_LAUNCHES)
+    card.run()
+    assert counters.get(FFC_LAUNCHES) == before
+    for n, p in card.train_step.params.items():
+        assert all(torch.equal(p[k], base[n][k]) for k in base[n])
+        assert float(p["weights_lora_b"].abs().max()) > 0
+
+
+def test_smoothing_and_confusion_on_the_card(cuda):
+    """(f) Label smoothing 0.1 with the confusion matrix: the first two
+    SGD steps within 1e-4 relative of the CPU's; each set's matrix sums
+    to n_samples and its off-diagonal to n_err."""
+    import chip_smoke
+    cfg = dict(label_smoothing=0.1, compute_confusion=True)
+    card = _library_blobs(evaluator_config=cfg)
+    cpu = _library_blobs(evaluator_config=cfg, device="cpu")
+    lc, _ = chip_smoke.first_train_steps(card, 2)
+    lh, _ = chip_smoke.first_train_steps(cpu, 2)
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lc, lh))
+    card.run()
+    for s in (1, 2):
+        cms = card.decision.epoch_confusion[s]
+        assert len(cms) == 2
+        for cm, (n, err) in zip(cms, card.decision.epoch_counts[s]):
+            assert cm.sum() == n and cm.sum() - numpy.trace(cm) == err
+
+
+def test_fused_epilogue_is_bit_identical_on_the_card(cuda):
+    """(g) ``engine.fused_epilogue`` on against off on a chain with
+    standalone activation layers: the same weights and metrics."""
+    layers = [{"type": "all2all", "output_sample_shape": 100,
+               "learning_rate": 0.03},
+              {"type": "activation_mul", "factor": 0.6666},
+              {"type": "activation_tanh"},
+              {"type": "softmax", "output_sample_shape": 10,
+               "learning_rate": 0.03}]
+    runs = []
+    for on in (False, True):
+        root.common.engine.fused_epilogue = on
+        try:
+            wf = _library_blobs(layers=layers, fused=False, per_dispatch=1)
+            assert bool(wf.train_step._epilogue) == on
+            wf.run()
+        finally:
+            root.common.engine.fused_epilogue = False
+        runs.append(wf)
+    off, on = runs
+    for n in off.train_step.params:
+        for k in off.train_step.params[n]:
+            assert torch.equal(off.train_step.params[n][k],
+                               on.train_step.params[n][k])
+    assert off.decision.epoch_metrics == on.decision.epoch_metrics
+
+
+def test_minibatch_file_replay_trains_the_same_bits(cuda, tmp_path):
+    """(h) The rows written through MinibatchesSaver (served in order)
+    and replayed by MinibatchesLoader train 2 fused-FC epochs (2
+    launches) to the in-memory run's weights bit for bit."""
+    from veles_tpu_torch.loader import MinibatchesLoader, MinibatchesSaver
+    ref = _library_blobs()
+    src = ref.loader
+    path = str(tmp_path / "b.vtmb")
+    saver = MinibatchesSaver(None, file_name=path)
+    plain = type(src)(None, minibatch_size=100, shuffle_limit=-1,
+                      name="src")
+    plain.initialize()
+    saver.loader = plain
+    saver.initialize()
+    while True:
+        plain.run()
+        saver.run()
+        if bool(plain.epoch_ended):
+            break
+    saver.stop()
+    ref.run()
+    import chip_smoke
+    replay = chip_smoke.mnist_library_workflow(loader=MinibatchesLoader(
+        None, file_name=path, minibatch_size=100, name="mnist"))
+    before = counters.get(FFC_LAUNCHES)
+    replay.run()
+    assert counters.get(FFC_LAUNCHES) - before == 2
+    for a, b in zip(chip_smoke.flat_tree(ref.train_step.params),
+                    chip_smoke.flat_tree(replay.train_step.params)):
+        assert torch.equal(a, b)

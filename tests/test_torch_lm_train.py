@@ -377,11 +377,14 @@ def test_generate_serves_the_trained_weights(ref_lm):
     assert char_lm.generate(port, [0, 1, 2], 10, temperature=0) == want
 
 
-def test_main_runs_and_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(VelesError, match="not ported"):
-        char_lm.main(["--text", "corpus.txt", "--device", "cpu"])
-    with pytest.raises(VelesError, match="not ported"):
-        char_lm.build_workflow(arch="lstm", text_file="corpus.txt")
+def test_main_runs_and_refuses_what_is_not_ported(monkeypatch, tmp_path):
+    """``--text`` is ported (tests/test_torch_text_lm.py trains on it): a
+    missing file fails; without a card the entry point raises."""
+    missing = str(tmp_path / "corpus.txt")
+    with pytest.raises(FileNotFoundError):
+        char_lm.main(["--text", missing, "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        char_lm.build_workflow(arch="lstm", text_file=missing)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(VelesError, match="CUDA"):
         char_lm.main(["--epochs", "1"])

@@ -109,6 +109,13 @@ def test_dynamic_retry_after_provider_lifecycle():
 
 
 def test_aimd_controller_matches_reference():
+    # the final observe(None) polls each package's live histogram: start
+    # both from an empty registry, whatever an earlier test in this
+    # process served
+    from veles_tpu.telemetry.counters import histograms as ref_histograms
+    from veles_tpu_torch.telemetry.counters import histograms
+    histograms.reset()
+    ref_histograms.reset()
     kw = dict(slo_ms=100.0, floor=0.05, additive=0.1,
               multiplicative=0.5, interval=0.0)
     ours, ref = overload.AIMDController(**kw), \

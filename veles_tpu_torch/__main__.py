@@ -103,6 +103,12 @@ def main(argv=None) -> int:
         root.common.dirs.snapshots = args.snapshot_dir
     if args.blackbox:
         root.common.telemetry.recorder.autodump = True
+    if args.tensormon or args.nan_policy:
+        # the model-health taps (telemetry/tensormon.py); --nan-policy
+        # implies them
+        root.common.telemetry.tensormon.enabled = True
+        if args.nan_policy:
+            root.common.telemetry.tensormon.nan_policy = args.nan_policy
     if args.dump_config:
         root.print_()
         return 0

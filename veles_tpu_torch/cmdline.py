@@ -20,7 +20,6 @@ ITEMS = {
     "4.4": "int8 weights and KV",
     "4.5": "the serve artifact",
     "4.6": "tensor-parallel serving",
-    "6": "model-health taps (tensormon)",
     "7": "the recurrent lane's state-checkpoint prefix cache",
     "10": "distribution",
     "11": "the framework-agnostic planes",
@@ -65,10 +64,17 @@ def make_parser() -> argparse.ArgumentParser:
                    help="append events and telemetry spans as JSON "
                         "lines here")
     p.add_argument("--tensormon", action="store_true",
-                   help="tensor taps (not ported: item 6)")
+                   help="model-health taps on the train step (gradient "
+                        "norm, update ratios, NaN/Inf counts, activation "
+                        "saturation): accumulated on the device, drained "
+                        "with the epoch metrics, served as veles_model_* "
+                        "gauges (root.common.telemetry.tensormon)")
     p.add_argument("--nan-policy", default=None,
                    choices=("warn", "halt", "snapshot_and_halt"),
-                   help="NaN sentinel policy (not ported: item 6)")
+                   help="NaN sentinel policy (implies --tensormon): warn "
+                        "logs and counts; halt marks health unready and "
+                        "raises ModelHealthError; snapshot_and_halt first "
+                        "commits a snapshot through the checkpoint chain")
     p.add_argument("--blackbox", action="store_true",
                    help="arm flight-recorder autodump: unhandled "
                         "workflow crashes and SIGTERM write "
@@ -250,8 +256,6 @@ def _refused(args):
         ("--router-qos", args.router_qos is not None, "11"),
         ("--router-slo-ttft-ms", args.router_slo_ttft_ms is not None,
          "11"),
-        ("--tensormon", args.tensormon, "6"),
-        ("--nan-policy", args.nan_policy, "6"),
         ("--quant-weights", args.quant_weights, "4.4"),
         ("--quant-kv", args.quant_kv, "4.4"),
         ("--serve-artifact", args.serve_artifact, "4.5"),

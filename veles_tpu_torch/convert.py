@@ -12,6 +12,13 @@ trajectory), checking every name and shape first.
 :func:`random_params` makes a tree of that layout from a numpy seed, for
 runs that need weights but no trained model.
 
+A LoRA'd unit's tree carries its adapters beside the base weights
+(``<k>_lora_a``, ``<k>_lora_b``), as the reference's train step holds
+them; they load into the port's workflow like any parameter (and its
+optimiser state with them). :func:`vocab_from_jax` pins a port
+``TextFileLoader`` to the reference loader's vocabulary, so both encode
+a corpus to the same ids.
+
 Both also take the units that train outside a ``TrainStep`` — the
 Kohonen map (``weights``) and the RBM (``weights``, ``vbias``,
 ``hbias``) — as an iterable of units or as the workflow holding them
@@ -139,6 +146,24 @@ def params_from_jax(target, params: ParamTree,
         node[path[-1]] = torch.from_numpy(arr).to(step.device)
     step.sync_params_to_arrays()
     return target
+
+
+def vocab_from_jax(loader, vocab) -> object:
+    """Give the port's text loader ``loader`` the vocabulary ``vocab``
+    (a string, or the reference's ``TextFileLoader`` holding one), its
+    character ids and the reserved unknown id one past it, before
+    ``load_data`` encodes the corpus; a loader that already encoded with
+    another vocabulary raises."""
+    vocab = getattr(vocab, "vocab", vocab)
+    if not isinstance(vocab, str) or not vocab:
+        raise VelesError("vocab_from_jax needs a vocabulary string, got %r"
+                         % (vocab,))
+    if loader.char_to_id and loader.vocab != vocab:
+        raise VelesError("%s already encoded its corpus with another "
+                         "vocabulary" % loader.name)
+    loader.vocab = vocab
+    loader.char_to_id = {c: i for i, c in enumerate(vocab)}
+    return loader
 
 
 def random_params(forwards, seed: int = 0) -> ParamTree:

@@ -90,6 +90,19 @@ class Loader(Unit):
         """Copy samples minibatch_indices → minibatch_data/labels."""
         raise NotImplementedError
 
+    def fetch_batch(self, idx, size):
+        """A pure gather of one minibatch: ``{name: ndarray}`` for the
+        ``minibatch_<name>`` arrays of the index row ``idx``, or None when
+        this loader cannot gather outside its own state (a custom fill).
+        It touches no serving state and no stream."""
+        return None
+
+    def apply_batch(self, batch) -> None:
+        """Install a :meth:`fetch_batch` result into the minibatch
+        arrays."""
+        for name, arr in batch.items():
+            getattr(self, "minibatch_" + name).map_invalidate()[...] = arr
+
     # -- geometry ------------------------------------------------------------
     @property
     def total_samples(self) -> int:
@@ -124,6 +137,7 @@ class Loader(Unit):
         self.load_data()
         if self.total_samples == 0:
             raise NoMoreJobs("loader %s has no samples" % self.name)
+        self.check_label_diversity()
         self._shuffled_indices = numpy.arange(self.total_samples,
                                               dtype=numpy.int32)
         self.shuffle()
@@ -149,6 +163,50 @@ class Loader(Unit):
         self.info("%s: %d samples (test=%d validation=%d train=%d), mb=%d",
                   self.name, self.total_samples, *self.class_lengths, n)
         return None
+
+    def check_label_diversity(self) -> Optional[float]:
+        """χ² homogeneity check of the validation against the train label
+        distribution, as the reference's: a skewed split usually means a
+        broken loader. Warns below p 0.01; returns the p-value, or None
+        where it does not apply (no labels, an empty set, one class, or
+        no scipy)."""
+        labels = getattr(self, "original_labels", None)
+        if labels is None:
+            return None
+        if hasattr(labels, "mem"):
+            labels = labels.mem
+        if labels is None:
+            return None
+        labels = numpy.asarray(labels).ravel()
+        if labels.size == 0:
+            return None
+        try:
+            from scipy.stats import chi2 as chi2_dist
+        except ImportError:
+            return None
+        offs = self.class_end_offsets
+        valid = labels[offs[TEST]:offs[VALID]]
+        train = labels[offs[VALID]:offs[TRAIN]]
+        if len(valid) == 0 or len(train) == 0:
+            return None
+        classes = numpy.union1d(numpy.unique(valid), numpy.unique(train))
+        if len(classes) < 2:
+            return None
+        cv = numpy.array([(valid == c).sum() for c in classes], float)
+        ct = numpy.array([(train == c).sum() for c in classes], float)
+        n1, n2 = cv.sum(), ct.sum()
+        pooled = (cv + ct) / (n1 + n2)
+        expected_v, expected_t = pooled * n1, pooled * n2
+        with numpy.errstate(divide="ignore", invalid="ignore"):
+            chi2 = numpy.nansum((cv - expected_v) ** 2 / expected_v +
+                                (ct - expected_t) ** 2 / expected_t)
+        p = float(chi2_dist.sf(chi2, df=len(classes) - 1))
+        if p < 0.01:
+            self.warning(
+                "%s: validation/train label distributions differ "
+                "(χ²=%.1f, p=%.2g) — check the dataset split",
+                self.name, chi2, p)
+        return p
 
     def shuffle(self) -> None:
         """Shuffle only the train tail of the index order."""

@@ -57,10 +57,13 @@ class FullBatchLoader(Loader):
 
     hide_from_registry = True
 
-    def __init__(self, workflow, **kwargs):
+    def __init__(self, workflow, validation_ratio=None, **kwargs):
         super().__init__(workflow, **kwargs)
         self.original_data = Array(name=self.name + ".original_data")
         self.original_labels = Array(name=self.name + ".original_labels")
+        #: a validation share carved from the train rows by the file
+        #: loaders that have no validation set (resize_validation)
+        self.validation_ratio = validation_ratio
 
     def create_originals(self, data: numpy.ndarray,
                          labels: Optional[numpy.ndarray] = None) -> None:
@@ -100,6 +103,18 @@ class FullBatchLoader(Loader):
             self.minibatch_labels.map_invalidate()[...] = \
                 self.original_labels.mem[idx]
 
+    def fetch_batch(self, idx, size):
+        """The pure mirror of :meth:`fill_minibatch` (fancy indexing
+        copies); a subclass with its own fill opts out (None)."""
+        if type(self).fill_minibatch not in (
+                FullBatchLoader.fill_minibatch,
+                FullBatchLoaderMSE.fill_minibatch):
+            return None
+        out = {"data": self.original_data.mem[idx]}
+        if self.original_labels:
+            out["labels"] = self.original_labels.mem[idx]
+        return out
+
 
 class FullBatchLoaderMSE(FullBatchLoader, LoaderMSE):
     """Full-batch loader with row-aligned targets (``original_targets``,
@@ -130,3 +145,9 @@ class FullBatchLoaderMSE(FullBatchLoader, LoaderMSE):
         if self.original_targets:
             self.minibatch_targets.map_invalidate()[...] = \
                 self.original_targets.mem[self.minibatch_indices.mem]
+
+    def fetch_batch(self, idx, size):
+        out = super().fetch_batch(idx, size)
+        if out is not None and self.original_targets:
+            out["targets"] = self.original_targets.mem[idx]
+        return out

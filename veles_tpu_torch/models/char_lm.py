@@ -3,11 +3,12 @@ embedding → a stack of RoPE transformer blocks, return-sequences LSTMs
 or SSM blocks (``arch``) → LM head, trained with
 ``loss_function="softmax_seq"`` (per-token cross-entropy on shifted
 targets) and adam. The corpus comes from the reference's small
-deterministic grammar; ``build_bench_workflow`` is the reference's
+deterministic grammar, or from a text file (``text_file``, ``--text``);
+``build_bench_workflow`` is the reference's
 throughput-bench LM (6 blocks, d_model 512, T 512) on random tokens.
 
     python -m veles_tpu_torch.models.char_lm --epochs 10 [--arch lstm]
-        [--device cpu]
+        [--text FILE] [--device cpu]
 
 runs on the card unless ``--device cpu`` is given; the attention's
 forward and backward go through the hand-written flash kernels there.
@@ -20,8 +21,8 @@ import time
 
 import numpy
 
-from ..error import VelesError
 from ..loader import FullBatchLoaderMSE
+from ..loader.text import TextFileLoader
 from ..nn import sampling
 from ..nn.ssm import RecurrentCell
 from ..nn.standard_workflow import StandardWorkflow, forwards_of
@@ -65,19 +66,30 @@ class CharLMLoader(FullBatchLoaderMSE):
 def build_workflow(epochs=10, minibatch_size=64, lr=0.003, n_blocks=2,
                    dim=32, n_train=1536, n_valid=256, text_file=None,
                    seq_len=SEQ_LEN, arch="transformer"):
-    """The reference's char-LM workflow on the generated grammar.
-    ``arch``: "transformer" (RoPE blocks), "lstm" (stacked
-    return-sequences LSTMs) or "ssm" (gated linear-attention SSD
-    blocks), as the reference builds them. ``text_file``
-    (TextFileLoader) is not ported yet."""
+    """The reference's char-LM workflow, on the generated grammar or,
+    with ``text_file``, on a real text file through ``TextFileLoader``
+    (windows of ``seq_len``, the vocabulary the corpus's characters plus
+    the reserved unknown id). ``arch``: "transformer" (RoPE blocks),
+    "lstm" (stacked return-sequences LSTMs) or "ssm" (gated
+    linear-attention SSD blocks), as the reference builds them."""
     if text_file:
-        raise VelesError("training on a text file (TextFileLoader) is not "
-                         "ported yet")
+        # the embedding and the head are sized before the loader reads
+        # the corpus at initialize: one scan for the vocabulary, passed
+        # back in so the loader keeps the same table
+        with open(text_file, "r", encoding="utf-8",
+                  errors="replace") as f:
+            chars = "".join(sorted(set(f.read())))
+        loader = TextFileLoader(None, files=[text_file], seq_len=seq_len,
+                                vocab=chars, minibatch_size=minibatch_size,
+                                name="chars")
+        vocab = loader.vocab_size
+    else:
+        loader = CharLMLoader(None, n_train=n_train, n_valid=n_valid,
+                              minibatch_size=minibatch_size, name="chars")
+        vocab = VOCAB
     if arch not in ("transformer", "lstm", "ssm"):
         raise ValueError("arch must be 'transformer', 'lstm' or "
                          "'ssm', got %r" % (arch,))
-    loader = CharLMLoader(None, n_train=n_train, n_valid=n_valid,
-                          minibatch_size=minibatch_size, name="chars")
     if arch == "lstm":
         body = [{"type": "lstm", "hidden_size": dim,
                  "return_sequences": True, "solver": "adam",
@@ -92,10 +104,10 @@ def build_workflow(epochs=10, minibatch_size=64, lr=0.003, n_blocks=2,
                  "ffn_hidden": 2 * dim, "causal": True, "rope": True,
                  "solver": "adam", "learning_rate": lr,
                  "name": "blk%d" % i} for i in range(n_blocks)]
-    layers = ([{"type": "embedding", "vocab_size": VOCAB, "dim": dim,
+    layers = ([{"type": "embedding", "vocab_size": vocab, "dim": dim,
                 "solver": "adam", "learning_rate": lr}]
               + body
-              + [{"type": "lm_head", "vocab_size": VOCAB,
+              + [{"type": "lm_head", "vocab_size": vocab,
                   "solver": "adam", "learning_rate": lr}])
     return StandardWorkflow(
         name="char-lm", layers=layers, loader_unit=loader,
@@ -183,7 +195,8 @@ def main(argv=None):
     p.add_argument("--sample", type=int, default=48,
                    help="tokens to sample after training (0 = skip)")
     p.add_argument("--text", default=None, metavar="FILE",
-                   help="train on a real text file (not ported yet)")
+                   help="train on a real text file (TextFileLoader) "
+                        "instead of the generated grammar")
     p.add_argument("--device", default=None,
                    help="cuda[:N] (default: the card) or cpu")
     args = p.parse_args(argv)
@@ -201,8 +214,15 @@ def main(argv=None):
     print("throughput: %.0f samples/sec" %
           (wf.loader.samples_served / dt))
     if args.sample:
-        toks = generate(wf, [0, 1, 2], args.sample, temperature=0.8)
-        print("sample:", " ".join(str(t) for t in toks))
+        if args.text:
+            # prompt with the corpus's own first characters
+            loader = wf.loader
+            prompt = [int(t) for t in loader.original_data.mem[0][:8]]
+            toks = generate(wf, prompt, args.sample, temperature=0.8)
+            print("sample: %r" % loader.decode(prompt + toks))
+        else:
+            toks = generate(wf, [0, 1, 2], args.sample, temperature=0.8)
+            print("sample:", " ".join(str(t) for t in toks))
     return res
 
 

@@ -76,7 +76,7 @@ class All2All(ForwardBase):
         return a
 
     def apply(self, params, x):
-        return self.activation(self._linear(params, x))
+        return self.activation(self._linear(self.merged_params(params), x))
 
 
 class All2AllTanh(All2All):
@@ -99,7 +99,7 @@ class All2AllSoftmax(All2All):
         return torch.softmax(a, dim=-1)
 
     def logits(self, params, x):
-        return self._linear(params, x)
+        return self._linear(self.merged_params(params), x)
 
 
 @matches(All2All)

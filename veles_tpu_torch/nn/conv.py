@@ -158,7 +158,7 @@ class Conv(ForwardBase):
         return a
 
     def apply(self, params, x):
-        return self.activation(self._conv(params, x))
+        return self.activation(self._conv(self.merged_params(params), x))
 
 
 class ConvTanh(Conv):

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy
+
 from ..loader.base import CLASS_NAMES, TEST, TRAIN, VALID
 from ..mutable import Bool
 from ..units import Unit
@@ -40,14 +42,31 @@ class DecisionBase(Unit):
                                                      TEST: []}
         self._accum: Dict[int, Dict[str, float]] = {
             TRAIN: {}, VALID: {}, TEST: {}}
+        #: array metrics (an evaluator's confusion matrix), kept apart
+        #: from the scalar sums: per set, each epoch's matrix and that
+        #: epoch's (n_samples, n_err)
+        self.epoch_confusion: Dict[int, List[numpy.ndarray]] = {
+            TRAIN: [], VALID: [], TEST: []}
+        self.epoch_counts: Dict[int, List[tuple]] = {
+            TRAIN: [], VALID: [], TEST: []}
+        self._arrays: Dict[int, Dict[str, numpy.ndarray]] = {
+            TRAIN: {}, VALID: {}, TEST: {}}
         self.demand("loader")
         self.loader = None
         #: the TrainStep whose device-accumulated metrics are drained
         self.step_unit = None
 
     def accumulate(self, set_idx: int, metrics: Dict[str, float]) -> None:
+        """Sum the scalar metrics; an array metric (the confusion
+        matrix) sums apart, as the reference keeps it out of the
+        scalar accumulators."""
         acc = self._accum[set_idx]
         for k, v in metrics.items():
+            if numpy.ndim(v) > 0:
+                arrs = self._arrays[set_idx]
+                arrs[k] = (numpy.array(v, dtype=numpy.float64) if k not in
+                           arrs else arrs[k] + v)
+                continue
             acc[k] = acc.get(k, 0.0) + float(v)
 
     def epoch_metric(self, set_idx: int) -> Optional[float]:
@@ -81,6 +100,11 @@ class DecisionBase(Unit):
             if acc.get("n_samples"):
                 self.epoch_losses[set_idx].append(
                     acc.get("sum_loss", 0.0) / acc["n_samples"])
+            cm = self._arrays[set_idx].pop("confusion", None)
+            if cm is not None:
+                self.epoch_confusion[set_idx].append(cm)
+                self.epoch_counts[set_idx].append(
+                    (acc.get("n_samples", 0.0), acc.get("n_err", 0.0)))
             m = self.epoch_metric(set_idx)
             if m is not None:
                 self.epoch_metrics[set_idx].append(m)
@@ -106,6 +130,8 @@ class DecisionBase(Unit):
             self.complete <<= True
         for acc in self._accum.values():
             acc.clear()
+        for arrs in self._arrays.values():
+            arrs.clear()
 
     # -- snapshots (the reference's schema) ---------------------------------
     def state_dict(self):

@@ -74,6 +74,7 @@ class Deconv(ForwardBase):
                          self.include_bias)
 
     def apply(self, params, x):
+        params = self.merged_params(params)
         xx, ww, ct = promote_operands(x, params["weights"])
         y = conv_transpose2d_nhwc(xx, ww, self.sliding, self.padding)
         if "bias" in params:

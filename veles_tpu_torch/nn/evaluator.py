@@ -1,6 +1,6 @@
 """Evaluator units: loss and quality metrics (counterpart of
 ``veles_tpu/nn/evaluator.py``; the softmax, the per-token softmax and
-the MSE evaluators).
+the MSE evaluators; label smoothing and the confusion matrix).
 
 ``loss(logits, labels, mask)`` is the mean cross-entropy over the mask's
 real rows (fused log-softmax); ``metrics_fn`` counts errors with argmax
@@ -14,11 +14,11 @@ accumulates for an evaluator.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy
 import torch
 
-from ..error import VelesError
 from ..memory import Array
 from ..units import Unit
 
@@ -43,13 +43,22 @@ class EvaluatorBase(Unit):
         in ``metrics_fn``'s n_samples unit."""
         return mask.sum()
 
+    def metric_shape(self, key: str) -> Tuple[int, ...]:
+        """The shape of the accumulator ``key`` (a scalar but for an
+        array metric)."""
+        return ()
+
     def metrics_fn(self, y, target, mask) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
 
 class EvaluatorSoftmax(EvaluatorBase):
     """Cross-entropy over logits; metrics n_err and n_samples (float32
-    device scalars, accumulated on the device)."""
+    device scalars, accumulated on the device). ``label_smoothing`` eps
+    > 0 takes the cross-entropy against (1 - eps)·onehot + eps/V;
+    ``compute_confusion`` (with ``n_classes``) adds the (true, predicted)
+    count matrix ``confusion`` over the valid rows, summed on the device
+    by ``index_add_`` (exact: float32 counts of whole rows)."""
 
     MAPPING = "evaluator_softmax"
     hide_from_registry = False
@@ -57,22 +66,57 @@ class EvaluatorSoftmax(EvaluatorBase):
     def __init__(self, workflow, n_classes=None, compute_confusion=False,
                  label_smoothing=0.0, **kwargs):
         super().__init__(workflow, **kwargs)
-        if compute_confusion or label_smoothing:
-            raise VelesError("confusion matrices and label smoothing are "
-                             "not ported yet")
         self.n_classes = n_classes
-        self.compute_confusion = False
-        self.label_smoothing = 0.0
+        self.compute_confusion = compute_confusion
+        self.label_smoothing = float(label_smoothing)
+        if not 0.0 <= self.label_smoothing < 1.0:
+            raise ValueError("label_smoothing must be in [0, 1)")
+
+    @property
+    def metric_keys(self):
+        keys = EvaluatorBase.metric_keys
+        if self.compute_confusion and self.n_classes:
+            keys = keys + ("confusion",)
+        return keys
+
+    def metric_shape(self, key: str) -> Tuple[int, ...]:
+        if key == "confusion":
+            return (self.n_classes, self.n_classes)
+        return ()
 
     def loss(self, logits, labels, mask):
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+        eps = self.label_smoothing
+        if eps:
+            nll = (1.0 - eps) * nll + eps * (-logp.mean(dim=-1))
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
 
     def metrics_fn(self, logits, labels, mask):
         pred = torch.argmax(logits, dim=-1)
         wrong = (pred != labels.long()) & (mask > 0)
-        return {"n_err": wrong.sum().float(), "n_samples": mask.sum()}
+        out = {"n_err": wrong.sum().float(), "n_samples": mask.sum()}
+        if self.compute_confusion and self.n_classes:
+            n = self.n_classes
+            flat = labels.long() * n + pred
+            flat = torch.where(mask > 0, flat, torch.zeros_like(flat))
+            cm = torch.zeros(n * n, dtype=torch.float32,
+                             device=logits.device).index_add_(
+                                 0, flat, mask.float())
+            out["confusion"] = cm.reshape(n, n)
+        return out
+
+    def numpy_loss(self, logits, labels, mask):
+        """The host oracle of :meth:`loss`, in float64."""
+        z = numpy.asarray(logits, dtype=numpy.float64)
+        z = z - z.max(axis=1, keepdims=True)
+        logp = z - numpy.log(numpy.exp(z).sum(axis=1, keepdims=True))
+        nll = -logp[numpy.arange(len(labels)), labels]
+        eps = self.label_smoothing
+        if eps:
+            nll = (1.0 - eps) * nll + eps * (-logp.mean(axis=1))
+        mask = numpy.asarray(mask)
+        return float((nll * mask).sum() / max(mask.sum(), 1))
 
 
 class EvaluatorSoftmaxSeq(EvaluatorBase):

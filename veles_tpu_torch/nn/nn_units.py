@@ -66,13 +66,21 @@ class ForwardBase(AcceleratedUnit):
                "momentum", "gradient_clip", "gradient_clip_norm",
                "solver", "beta1", "beta2", "epsilon", "rho")
 
+    #: weight keys LoRA adapts (units whose apply calls merged_params)
+    LORA_TARGETS = ("weights",)
+
     def __init__(self, workflow, **kwargs) -> None:
         self.gd_config = {k: kwargs.pop(k) for k in list(kwargs)
                           if k in self.GD_KEYS}
-        for key in ("lora_rank", "lora_alpha", "freeze_base"):
-            if kwargs.pop(key, None):
-                raise VelesError("%s (LoRA fine-tuning) is not ported yet"
-                                 % key)
+        #: LoRA fine-tuning: rank r adds W_eff = W + A·B·(alpha/r) to
+        #: every LORA_TARGET weight; the base freezes by default
+        #: (freeze_base=False trains both)
+        self.lora_rank = int(kwargs.pop("lora_rank", 0) or 0)
+        self.lora_alpha = float(kwargs.pop("lora_alpha",
+                                           self.lora_rank or 1))
+        self.freeze_base = bool(kwargs.pop("freeze_base",
+                                           self.lora_rank > 0))
+        self._lora_names: Tuple[str, ...] = ()
         super().__init__(workflow, **kwargs)
         self.view_group = "WORKER"
         self.input: Optional[Array] = None
@@ -85,10 +93,81 @@ class ForwardBase(AcceleratedUnit):
 
     def param_arrays(self) -> Dict[str, Array]:
         out = {}
-        for k in self.PARAM_NAMES:
+        for k in self.PARAM_NAMES + getattr(self, "_lora_names", ()):
             arr = getattr(self, k, None)
             if isinstance(arr, Array) and arr:
                 out[k] = arr
+        return out
+
+    def _create_lora_params(self) -> None:
+        """Per LORA_TARGET, A (fan_in, r) ~ N(0, 1/sqrt(fan_in)) from the
+        keyed stream ``<unit>.<key>_lora_a`` and B (r, fan_out) = 0, as
+        the reference draws them: the adapted model equals the base at
+        step 0. A unit with no target weight refuses the knob (it would
+        freeze the layer and train nothing)."""
+        if not self.lora_rank or self._lora_names:
+            return
+        names = []
+        for k in self.LORA_TARGETS:
+            arr = getattr(self, k, None)
+            if not (isinstance(arr, Array) and arr) or arr.mem.ndim < 2:
+                continue
+            w = arr.mem
+            fin = int(numpy.prod(w.shape[:-1]))
+            fout = int(w.shape[-1])
+            a = numpy.zeros((fin, self.lora_rank), w.dtype)
+            prng.get("%s.%s_lora_a" % (self.name, k)).fill_normal(
+                a, 1.0 / numpy.sqrt(fin))
+            b = numpy.zeros((self.lora_rank, fout), w.dtype)
+            setattr(self, k + "_lora_a",
+                    Array(a, name="%s.%s_lora_a" % (self.name, k)))
+            setattr(self, k + "_lora_b",
+                    Array(b, name="%s.%s_lora_b" % (self.name, k)))
+            names += [k + "_lora_a", k + "_lora_b"]
+        if not names:
+            raise VelesError(
+                "lora_rank=%d on %s (%s): no LORA_TARGET weights to "
+                "adapt — LoRA supports the All2All/Conv/Deconv "
+                "families; drop the knob from this layer"
+                % (self.lora_rank, self.name, type(self).__name__))
+        self._lora_names = tuple(names)
+
+    def merged_params(self, params):
+        """W_eff = W + A·B·(alpha/r) for every adapted weight (identity
+        without LoRA); the applies of the All2All and conv families call
+        it first, inside autograd."""
+        if not self.lora_rank:
+            return params
+        out = dict(params)
+        scale = self.lora_alpha / self.lora_rank
+        for k in self.LORA_TARGETS:
+            if k + "_lora_a" not in params or k not in params:
+                continue
+            w = params[k]
+            delta = (params[k + "_lora_a"] @ params[k + "_lora_b"]) * scale
+            out[k] = w + delta.reshape(w.shape).to(w.dtype)
+        return out
+
+    def export_param_arrays(self) -> Dict[str, Array]:
+        """param_arrays with the LoRA deltas merged into the base
+        weights (in numpy, as the reference merges them): an export or
+        a server sees a plain dense model."""
+        arrays = self.param_arrays()
+        if not self.lora_rank or not self._lora_names:
+            return arrays
+        scale = self.lora_alpha / self.lora_rank
+        out = {}
+        for k, v in arrays.items():
+            if k.endswith(("_lora_a", "_lora_b")):
+                continue
+            if k + "_lora_a" in arrays:
+                w = numpy.array(v.map_read())
+                a = numpy.asarray(arrays[k + "_lora_a"].map_read())
+                b = numpy.asarray(arrays[k + "_lora_b"].map_read())
+                w = w + ((a @ b) * scale).reshape(w.shape).astype(w.dtype)
+                out[k] = Array(w, name="%s.%s(merged)" % (self.name, k))
+            else:
+                out[k] = v
         return out
 
     def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor
@@ -108,6 +187,8 @@ class ForwardBase(AcceleratedUnit):
             rng = prng.get(self.name)
             for k, v in self.create_params(rng).items():
                 setattr(self, k, v)
+        if self.PARAMETERIZED:
+            self._create_lora_params()
         if self.input is not None and self.input:
             shape = self.output_shape_for(self.input.shape)
             if self.output.mem is None or self.output.shape != shape:
@@ -137,12 +218,20 @@ class ForwardBase(AcceleratedUnit):
                                        name="%s.%s" % (self.name, k)))
 
     def torch_run(self) -> None:
-        """Standalone forward of ``input`` (inference graphs)."""
+        """Standalone forward of ``input`` (inference graphs). Under an
+        installed epilogue plan (``ops/fused_fc.install_epilogues``) a
+        producer computes its tails too and writes each stage's output,
+        and a folded tail does nothing."""
+        if getattr(self, "_epilogue_folded", False):
+            return
         params = {k: v.device_view(self.device)
                   for k, v in self.param_arrays().items()}
         with torch.no_grad():
             y = self.apply(params, self.input.device_view(self.device))
-        self.output.assign_devmem(y)
+            self.output.assign_devmem(y)
+            for t in getattr(self, "_epilogue_tails", None) or ():
+                y = t.apply({}, y)
+                t.output.assign_devmem(y)
 
 
 class GradientDescentBase(AcceleratedUnit):
@@ -201,10 +290,20 @@ class GradientDescentBase(AcceleratedUnit):
             return {"a": zeros(), "d": zeros()}
         return zeros()
 
+    def _frozen(self, k: str) -> bool:
+        """freeze_base (LoRA fine-tuning): every key but the adapter
+        pairs is held: no step and no decay."""
+        fwd = getattr(self, "forward", None)
+        return (fwd is not None and getattr(fwd, "freeze_base", False)
+                and not k.endswith(("_lora_a", "_lora_b")))
+
     def knobs(self, k: str, lr_scale: Any) -> Tuple[float, float]:
         """(lr, wd) of parameter ``k``: the bias on its own learning rate
-        and decay. The learning rate is rounded to f32 with the
-        schedule's factor, as the reference's traced product is."""
+        and decay, (0, 0) for a frozen key. The learning rate is rounded
+        to f32 with the schedule's factor, as the reference's traced
+        product is."""
+        if self._frozen(k):
+            return 0.0, 0.0
         base = (self.learning_rate_bias if k == "bias"
                 else self.learning_rate)
         wd = float(self.weight_decay_bias if k == "bias"
@@ -232,8 +331,12 @@ class GradientDescentBase(AcceleratedUnit):
                grads: Dict[str, torch.Tensor], state: Any,
                lr_scale: Any = 1.0) -> Tuple[Dict[str, torch.Tensor], Any]:
         """One step of the unit's solver; ``lr_scale`` is the schedule's
-        factor (an f32 scalar). Returns (new params, new state)."""
+        factor (an f32 scalar). Returns (new params, new state). A frozen
+        key's gradient is zeroed after the clipping, as the reference's
+        ``knobs`` does."""
         grads = self.clipped(grads)
+        grads = {k: (g * 0 if self._frozen(k) else g)
+                 for k, g in grads.items()}
         if self.solver in ("adam", "adamw"):
             return self._adam(params, grads, state, lr_scale)
         if self.solver in ("adagrad", "rmsprop", "adadelta"):

@@ -175,6 +175,7 @@ class SSMBlock(_SSMConfig, ForwardBase):
     hide_from_registry = False
     MIXED_PRECISION = False
     PARAM_NAMES = ("wq", "wk", "wv", "wg", "wo", "a_log")
+    LORA_TARGETS = ()
 
     def __init__(self, workflow, n_heads=4, decay_min=0.6, decay_max=0.95,
                  **kwargs):

@@ -22,7 +22,8 @@ with ``mcdnnic_parameters`` merged into every layer. Losses: ``"softmax"`` (labe
 ``"softmax_seq"`` (per-token targets, ``EvaluatorSoftmaxSeq``, the
 language models) and ``"mse"`` (``EvaluatorMSE`` and ``DecisionMSE``,
 the autoencoders; ``target_mode`` "input", "targets" or, by default,
-"auto").
+"auto"). ``evaluator_config`` passes the softmax evaluator's knobs
+(``label_smoothing``, ``compute_confusion``).
 
 :func:`build_forwards` takes the same ``layers`` list of dicts that the
 reference's ``StandardWorkflow`` takes (``models/char_lm.py``
@@ -206,13 +207,18 @@ class StandardWorkflow(AcceleratedWorkflow):
                  steps_per_dispatch: int = 16,
                  epochs_per_dispatch: int = 1, target_mode: str = None,
                  remat: bool = False, grad_accumulation: int = 1,
+                 evaluator_config: Optional[Dict[str, Any]] = None,
                  mcdnnic_topology: str = None,
                  mcdnnic_parameters: Optional[Dict[str, Any]] = None,
                  **kwargs):
-        for key in ("pipeline_microbatches", "evaluator_config"):
-            if kwargs.pop(key, None) not in (None, False, 1, {}):
-                raise VelesError("StandardWorkflow(%s=...) is not ported "
-                                 "yet" % key)
+        if kwargs.pop("pipeline_microbatches", None) not in (None, False,
+                                                             1):
+            raise VelesError("StandardWorkflow(pipeline_microbatches=...) "
+                             "is not ported yet (ROADMAP Queue 1 item 10: "
+                             "distribution)")
+        #: extra EvaluatorSoftmax knobs (label_smoothing,
+        #: compute_confusion), as the reference routes them
+        self._evaluator_config = dict(evaluator_config or {})
         if loss_function not in LOSSES:
             raise VelesError("loss_function %r is not ported yet (%s)"
                              % (loss_function, ", ".join(LOSSES)))
@@ -261,7 +267,8 @@ class StandardWorkflow(AcceleratedWorkflow):
         if self.forwards and hasattr(self.forwards[-1], "neurons_number"):
             n_classes = self.forwards[-1].neurons_number
         if self.loss_function == "softmax":
-            self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes)
+            self.evaluator = EvaluatorSoftmax(self, n_classes=n_classes,
+                                              **self._evaluator_config)
             self.decision = DecisionGD(self, **decision_config)
             target_mode = "labels"
         elif self.loss_function == "softmax_seq":

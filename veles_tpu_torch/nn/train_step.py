@@ -62,6 +62,26 @@ an explicit generator). The reference folds its threefry key with the
 same numbers, whose bits the port cannot reproduce. In evaluation they
 draw nothing.
 
+The training library's knobs, as the reference's:
+
+- tensormon (``root.common.telemetry.tensormon``,
+  ``telemetry/tensormon.py``): each train step's model-health statistics
+  are summed on the device into the train accumulators beside the
+  metrics, leave the card with the same per-epoch drain, and are
+  stripped and observed there (the NaN sentinel may raise in the drain).
+  With it off the step is unchanged;
+- ``root.common.engine.fused_epilogue``: runs of standalone activation
+  units apply right after their producer (``ops/fused_fc.
+  plan_epilogues``), the same ops in the same order;
+- LoRA: a unit's adapters are parameters like any other; its GD rule
+  holds the frozen base (``freeze_base``), and a base snapshot resumed
+  into a LoRA config keeps zero optimiser state for the adapters;
+- an evaluator's array metric (the confusion matrix) accumulates on the
+  device like the scalars and drains as a numpy array.
+
+The fused-FC kernel refuses tensormon, label smoothing, the confusion
+matrix, LoRA and ``freeze_base``, each with the reference's reason.
+
 ``param_masks`` (:meth:`TrainStep.register_param_mask`, ZeroFiller's
 sparsity contract): each mask multiplies its parameter after every
 optimiser update, inside a plan as between plans; a registered mask
@@ -151,7 +171,8 @@ class TrainStep(AcceleratedUnit):
                  remat: bool = False, grad_accumulation: int = 1,
                  **kwargs):
         if pipeline_microbatches:
-            raise VelesError("pipeline microbatches are not ported yet")
+            raise VelesError("pipeline microbatches are not ported yet "
+                             "(ROADMAP Queue 1 item 10: distribution)")
         if target_mode not in TARGET_MODES:
             raise VelesError("target_mode %r is not ported yet (%s)"
                              % (target_mode, ", ".join(TARGET_MODES)))
@@ -186,6 +207,12 @@ class TrainStep(AcceleratedUnit):
         self.opt_state: Tree = {}
         #: fused-FC plan (_setup_fused_fc); None = general path
         self._fused_fc: Optional[Dict[str, Any]] = None
+        #: the model-health taps' settings (telemetry/tensormon.py),
+        #: resolved at initialize; None = off, the step unchanged
+        self._tensormon: Optional[Dict[str, Any]] = None
+        #: the fused epilogue plan (engine.fused_epilogue,
+        #: _setup_epilogue); None = the unfused chain
+        self._epilogue = None
         #: whether the last epoch block ran the fused kernel
         self._fused_fc_active = False
         #: per-epoch device accums of the last block, drained lazily
@@ -248,8 +275,9 @@ class TrainStep(AcceleratedUnit):
         for f in self.forwards:
             if f.PARAMETERIZED and not f.param_arrays():
                 return True
-        if root.common.engine.get("fused_epilogue", False):
-            raise VelesError("engine.fused_epilogue is not ported yet")
+        from ..telemetry import tensormon
+        self._tensormon = (tensormon.settings() if tensormon.enabled()
+                           else None)
         self.mixed_precision = bool(
             root.common.engine.get("mixed_precision", False))
         if self.mixed_precision:
@@ -285,6 +313,7 @@ class TrainStep(AcceleratedUnit):
                      for k, v in f.param_arrays().items()}
             for f in self.forwards if f.PARAMETERIZED}
         self._setup_fused_fc()
+        self._setup_epilogue()
         self.opt_state = {name: self._gd_for[name].init_state(p)
                           for name, p in self.params.items()}
         # the step owns the device tensors from here on; the forwards'
@@ -293,6 +322,28 @@ class TrainStep(AcceleratedUnit):
             for arr in f.param_arrays().values():
                 arr.detach_devmem()
         return None
+
+    def _setup_epilogue(self) -> None:
+        """The fused scale-bias-activation epilogue plan
+        (``root.common.engine.fused_epilogue``, ``ops/fused_fc.py``):
+        runs of standalone activation units fold into their producer in
+        the forward, the same ops in the same order, so on gives the
+        bits of off. It composes with the tensormon taps, which read
+        the head's output after the epilogue."""
+        from ..ops import fused_fc as ff
+        self._epilogue = None
+        if not root.common.engine.get("fused_epilogue", False):
+            return
+        plan = ff.plan_epilogues(self.forwards)
+        if not plan:
+            return
+        self._epilogue = plan
+        self.info("fused epilogue engaged%s: %s",
+                  " (composes with tensormon taps)"
+                  if self._tensormon is not None else "",
+                  "; ".join("%s ← %s" % (p.name,
+                                         "+".join(t.name for t in ts))
+                            for p, ts in plan))
 
     def _setup_fused_fc(self) -> None:
         """Opt-in whole-epoch kernel (``root.common.engine.fused_fc_scan``,
@@ -319,17 +370,30 @@ class TrainStep(AcceleratedUnit):
                 or type(fs[-1]) is not All2AllSoftmax):
             return reject("needs an [all2all_tanh ... all2all_tanh, "
                           "softmax] chain")
-        if not isinstance(self.evaluator, EvaluatorSoftmax):
+        if not isinstance(self.evaluator, EvaluatorSoftmax) \
+                or getattr(self.evaluator, "label_smoothing", 0.0) \
+                or getattr(self.evaluator, "compute_confusion", False):
             return reject("needs plain softmax-CE evaluator")
-        if self.param_masks:
-            return reject("sparsity masks not fused")
         if self.mixed_precision or self.remat \
                 or self.grad_accumulation > 1:
             return reject("amp/remat/grad-accumulation not fused")
+        if self._tensormon is not None:
+            return reject("tensormon taps are not computed by the "
+                          "fused kernel — the general scan path keeps "
+                          "the fused scale-bias-activation epilogue "
+                          "(engine.fused_epilogue), so the elementwise "
+                          "tail stays fused there; disable "
+                          "telemetry.tensormon or fused_fc_scan")
+        if self.param_masks:
+            return reject("sparsity masks not fused")
         knobs = set()
         for f in fs:
             if set(self.params[f.name]) != {"weights", "bias"}:
-                return reject("%s params beyond weights+bias" % f.name)
+                return reject("%s params beyond weights+bias (LoRA?)"
+                              % f.name)
+            if getattr(f, "freeze_base", False):
+                return reject("%s is frozen (freeze_base) — the "
+                              "kernel updates unconditionally" % f.name)
             gd = self._gd_for[f.name]
             if gd.solver != "sgd" or gd.gradient_clip \
                     or gd.gradient_clip_norm:
@@ -419,11 +483,20 @@ class TrainStep(AcceleratedUnit):
         and, in training, its layer's generator for the draw ``rng``.
         ``bf16_activations``: an interlayer activation that left a unit
         float32 is stored bf16 (the head's output feeds the evaluator as
-        it is)."""
+        it is). Under the epilogue plan each producer's activation tails
+        apply right after it and are skipped at their own positions (the
+        layer indices, hence the random units' generators, unchanged)."""
+        from ..ops.fused_fc import apply_epilogue
         last = self.forwards[-1]
         use_logits = (isinstance(last, All2AllSoftmax)
                       and isinstance(self.evaluator, EvaluatorSoftmax))
+        folded, prod_tails = set(), {}
+        for prod, tails in self._epilogue or ():
+            prod_tails[id(prod)] = tails
+            folded.update(id(t) for t in tails)
         for i, f in enumerate(self.forwards):
+            if id(f) in folded:
+                continue        # applied by its producer's epilogue
             p = params.get(f.name, {})
             if f is last and use_logits:
                 return f.logits(p, x)
@@ -433,20 +506,32 @@ class TrainStep(AcceleratedUnit):
                 x = f.apply(p, x, train=train, generator=gen)
             else:
                 x = f.apply(p, x)
-            if self._bf16_acts and f is not last \
+            tails = prod_tails.get(id(f))
+            if tails:
+                x = apply_epilogue(x, tails)
+            head = f is last or (tails and tails[-1] is last)
+            if self._bf16_acts and not head \
                     and x.dtype == torch.float32:
                 x = x.to(torch.bfloat16)
         return x
 
-    def _zero_accum(self) -> Dict[str, torch.Tensor]:
-        return {k: torch.zeros((), dtype=torch.float32, device=self.device)
-                for k in self.evaluator.metric_keys}
+    def _zero_accum(self, mon: bool = False) -> Dict[str, torch.Tensor]:
+        """The evaluator's accumulators; ``mon`` (a train context with
+        tensormon on) adds the monitor's."""
+        out = {k: torch.zeros(self.evaluator.metric_shape(k),
+                              dtype=torch.float32, device=self.device)
+               for k in self.evaluator.metric_keys}
+        if mon and self._tensormon is not None:
+            from ..telemetry import tensormon
+            out.update(tensormon.zero_stats(self.params, self.device))
+        return out
 
     def _metrics(self, out, tgt, mask, loss, accum):
         metrics = self.evaluator.metrics_fn(out, tgt, mask)
         metrics["sum_loss"] = loss * self.evaluator.sum_loss_weight(out,
                                                                     mask)
-        return {k: accum[k] + metrics[k] for k in accum}
+        return {k: accum[k] + metrics[k] if k in metrics else accum[k]
+                for k in accum}
 
     def _grads(self, params, batch, tgt, mask, rng=None):
         """Autograd forward + loss over ``batch`` (a minibatch, or one
@@ -503,6 +588,7 @@ class TrainStep(AcceleratedUnit):
             with torch.no_grad():
                 accum = self._metrics(out, tgt, mask, loss, accum)
         else:
+            out = None
             rows = mask.shape[0] // ga
             total = torch.clamp(mask.sum().float(), min=1.0)
             g_sum = l_sum = None
@@ -528,10 +614,20 @@ class TrainStep(AcceleratedUnit):
         with torch.no_grad():
             # an all-padded plan row must not decay the params
             valid = mask.sum() > 0
-            params, opt_state = self._apply_updates(params, grads,
-                                                    opt_state, lr_scale,
-                                                    valid)
-        return params, opt_state, accum, loss
+            new_params, opt_state = self._apply_updates(params, grads,
+                                                        opt_state, lr_scale,
+                                                        valid)
+            if self._tensormon is not None and "mon_steps" in accum:
+                # the taps: scalars over this step's values, summed into
+                # the accumulators beside the metrics (no sync); the
+                # accumulation path's from the one applied update
+                from ..telemetry import tensormon
+                stats = tensormon.step_stats(
+                    params, new_params, grads, loss, out,
+                    self._tensormon["sat_threshold"])
+                accum = {k: accum[k] + stats[k] if k in stats else accum[k]
+                         for k in accum}
+        return new_params, opt_state, accum, loss
 
     def _apply_updates(self, params, grads, opt_state, lr_scale, valid):
         """Each unit's GD rule, kept only where ``valid``: an all-padded
@@ -688,8 +784,8 @@ class TrainStep(AcceleratedUnit):
                     self.last_loss = loss_sum / n_rows
                 else:
                     p, o, outs[TRAIN], self.last_loss = self._train_plan(
-                        p, o, self._zero_accum(), dataset, targets, idx[e],
-                        mask[e], scales[e])
+                        p, o, self._zero_accum(mon=True), dataset, targets,
+                        idx[e], mask[e], scales[e])
             stacked.append(outs)
         return p, o, stacked
 
@@ -703,7 +799,7 @@ class TrainStep(AcceleratedUnit):
         train = cls == TRAIN and not self.evaluation_mode
         accum = self._accum.get(cls)
         if accum is None:
-            accum = self._zero_accum()
+            accum = self._zero_accum(mon=train)
         dataset, targets = self._dataset()
         indices = loader.minibatch_indices.device_view(self.device)
         mask = loader.minibatch_mask.device_view(self.device)
@@ -793,25 +889,41 @@ class TrainStep(AcceleratedUnit):
     # -- epoch drain (the Decision pulls these) ------------------------------
     @staticmethod
     def _to_host(entries) -> List[Dict[int, Dict[str, float]]]:
-        """One device → host copy for every accumulator of ``entries``."""
+        """One device → host copy for every accumulator of ``entries``:
+        scalars as floats, an array metric (the confusion matrix) as a
+        numpy array."""
         keys = [(e, cls, k) for e, per in enumerate(entries)
                 for cls, acc in sorted(per.items()) for k in sorted(acc)]
         if not keys:
             return [{} for _ in entries]
-        host = torch.stack([entries[e][cls][k].float()
-                            for e, cls, k in keys]).cpu().tolist()
+        leaves = [entries[e][cls][k] for e, cls, k in keys]
+        host = torch.cat([t.float().reshape(-1) for t in leaves]).cpu()
         out = [{} for _ in entries]
-        for (e, cls, k), v in zip(keys, host):
+        at = 0
+        for (e, cls, k), t in zip(keys, leaves):
+            n = t.numel()
+            v = (float(host[at]) if t.dim() == 0
+                 else host[at:at + n].numpy().reshape(t.shape).copy())
+            at += n
             out[e].setdefault(cls, {})[k] = v
         return out
 
     def drain_epoch_blocks(self) -> List[Dict[int, Dict[str, float]]]:
         """Per-epoch metric dicts since the last drain: H entries after a
-        block, one in the classic mode."""
+        block, one in the classic mode. With tensormon on, the monitor's
+        accumulators ride this same copy, are stripped before the
+        Decision sees the dicts, and the NaN sentinel may raise
+        ``ModelHealthError`` here."""
         if self._block_metrics is not None:
             entries, self._block_metrics = self._block_metrics, None
-            return self._to_host(entries)
-        return [self.drain_epoch_metrics()]
+            entries = self._to_host(entries)
+        else:
+            entries = [self.drain_epoch_metrics()]
+        if self._tensormon is not None:
+            from ..telemetry import tensormon
+            for mon in tensormon.extract_mon(entries, TRAIN):
+                tensormon.monitor.observe(self, mon)
+        return entries
 
     def drain_epoch_metrics(self) -> Dict[int, Dict[str, float]]:
         out = self._to_host([self._accum])[0]
@@ -862,6 +974,9 @@ class TrainStep(AcceleratedUnit):
         saved = sd["opt_state"]
         self.opt_state = {}
         for name, p in self.params.items():
+            # a state restored into more parameters than it covers (a
+            # base snapshot resumed into a lora_rank config) grows: the
+            # adapters' keys keep their fresh zero state
             fresh = self._gd_for[name].init_state(p)
             self.opt_state[name] = (fresh if name not in saved else
                                     _restored_like(saved[name], fresh, name))

@@ -378,3 +378,72 @@ def fused_fc_sgd_epoch(weights: Sequence, biases: Sequence,
                          "got %s" % dataset.device)
     return _launch(weights, biases, vel_w, vel_b, dataset, labels, plan,
                    lr, cluster=cluster, **kw)
+
+
+# -- fused scale-bias-activation epilogues -----------------------------------
+#
+# A Znicz chain may hold standalone elementwise units after a
+# parameterised forward (``activation_tanh``, ``activation_mul``, ...:
+# the cifar sample's topology). The epilogue plan folds each run of them
+# into their producer: the train step applies them right after it and
+# skips them at their own position (the same ops in the same order, so
+# on and off give the same bits), and a standalone forward chain
+# (``install_epilogues``) runs producer and tails in one ``torch_run``,
+# the tails' own runs doing nothing. Like the reference's, these are
+# torch ops outside any hand-written kernel
+# (``root.common.engine.fused_epilogue``).
+
+
+def epilogue_eligible(unit) -> bool:
+    """True for a forward whose whole work is a random-free,
+    shape-preserving elementwise map: the activation family."""
+    from ..nn.activation import ActivationForward
+    return isinstance(unit, ActivationForward)
+
+
+def plan_epilogues(forwards):
+    """``[(producer, [tail units...]), ...]``: each maximal run of
+    eligible units right after a parameterised forward, in chain order.
+    Touches no unit."""
+    plan = []
+    producer = None
+    for f in forwards:
+        if producer is not None and epilogue_eligible(f):
+            if not plan or plan[-1][0] is not producer:
+                plan.append((producer, []))
+            plan[-1][1].append(f)
+            continue
+        producer = f if getattr(f, "PARAMETERIZED", False) else None
+    return plan
+
+
+def apply_epilogue(y, tails):
+    """Each planned tail unit's map on ``y``, in chain order: exactly
+    the ops the unfused chain runs."""
+    for t in tails:
+        y = t.apply({}, y)
+    return y
+
+
+def install_epilogues(forwards, force: bool = False):
+    """Put the epilogue plan on a standalone forward chain: producers
+    get ``_epilogue_tails`` (their ``torch_run`` computes the producer
+    and every tail and writes every stage's output), tails get
+    ``_epilogue_folded`` (their ``torch_run`` does nothing). Gated on
+    ``root.common.engine.fused_epilogue`` unless ``force``; any earlier
+    plan on these units is cleared first, so a call with the knob off
+    restores the unfused chain. Returns ``{producer name: [tail
+    names]}``."""
+    from ..config import root
+    for f in forwards:
+        f._epilogue_tails = None
+        f._epilogue_folded = False
+    if not force and not root.common.engine.get("fused_epilogue", False):
+        return {}
+    installed = {}
+    for producer, tails in plan_epilogues(forwards):
+        producer._epilogue_tails = list(tails)
+        for t in tails:
+            t._epilogue_folded = True
+        installed[producer.name] = [t.name for t in tails]
+    return installed

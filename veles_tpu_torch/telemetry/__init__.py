@@ -9,9 +9,11 @@
 - :mod:`cost` — FLOPs/bytes of a call, the kernels' analytic costs and
   the card's peaks;
 - :mod:`devtime` — device self-time from a ``torch.profiler`` capture,
-  attributed to span names.
+  attributed to span names;
+- :mod:`tensormon` — the train step's model-health taps and the NaN
+  sentinel.
 
-Not ported yet: ``tensormon``, ``timeseries``, ``alerts``, ``fleet``.
+Not ported yet: ``timeseries``, ``alerts``, ``fleet``.
 
 As in the reference, the package attribute ``recorder`` is the SPAN
 recorder instance; import the flight recorder by full path

@@ -97,6 +97,14 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_bench_legacy_sections_total":
         "Gate sections compared on wall-clock because a legacy bench "
         "document carries no device_time_s fields",
+    # model-health observability (telemetry/tensormon.py)
+    "veles_tensormon_samples_total":
+        "Tensor-statistics samples drained from the jitted train step",
+    "veles_model_nan_total":
+        "Non-finite (NaN/Inf) values detected in gradients, loss or "
+        "activations by the tensormon taps",
+    "veles_model_health_errors_total":
+        "ModelHealthError raised by the NaN sentinel (halt policies)",
     # the flight recorder (telemetry/recorder.py)
     "veles_blackbox_dumps_total":
         "Flight-recorder black-box dumps written",
