@@ -582,6 +582,8 @@ def phase_kernels(fa):
         # of 12 and the bench-width text epoch's 4 heads of 128
         ("text_anchor_b64_t32_d12", 64, 32, 4, 4, 12, True, 0, None),
         ("text_bench_b16_t512_d128", 16, 512, 4, 4, 128, True, 0, None),
+        # tiny_transformer's blocks (lm_family): 4 heads of 8, not causal
+        ("tiny_transformer_b64_t16_d8", 64, 16, 4, 4, 8, False, 0, None),
     ]
     worst = 0.0
     for i, (name, b, t, h, kv, d, causal, window, layout) in \
@@ -1031,6 +1033,8 @@ def phase_kernels_bwd(fa):
         # the text char LMs (train_text): 4 heads of 12 and of 128
         ("text_anchor_b64_t32_d12", 64, 32, 4, 4, 12, True, 0, None),
         ("text_bench_b16_t512_d128", 16, 512, 4, 4, 128, True, 0, None),
+        # tiny_transformer's blocks (lm_family): 4 heads of 8, not causal
+        ("tiny_transformer_b64_t16_d8", 64, 16, 4, 4, 8, False, 0, None),
     ]
     worst = {"dq": 0.0, "dkv": 0.0}
     for i, (name, b, t, h, kv, d, causal, window, layout) in \
@@ -5880,6 +5884,490 @@ def phase_train_library(card):
             + from_files["pickles"]["launches"])
 
 
+#: phase lm_family (34): tiny_transformer's CI anchor (tests/test_models_
+#: ci.py:120-131), the MHA unit and the MoE layer at the bench LM's
+#: width, RProp and resize, the lane's state cache, AMP recurrent units
+TT_SEED = 1234
+TT_MAX_ERR = 0.35
+TT_PROFILED_STEPS = 4
+TOL_TT_STEP_REL = 1e-4
+#: card against the port on the CPU, forward and gradients
+TOL_LM_FAMILY = 1e-4
+LM_FAMILY_CASES = [(kv, causal) for kv in (8, 2) for causal in (False, True)]
+#: the bench LM's width: (B, T, d), its heads; MoE's experts and FFN
+LM_FAMILY_SHAPE = (16, 512, 512)
+LM_FAMILY_HEADS = 8
+MOE_EXPERTS, MOE_HIDDEN = 4, 2048
+MOE_SEED = 9
+STATE_CACHE_PROMPT = 512
+STATE_CACHE_N_NEW = 16
+#: AMP: a bf16-derived value within 2^-7 of max(1, max|cpu|) (PERF.md §2)
+TOL_AMP_OUT = 2.0 ** -7
+AMP_GENRE_EPOCHS = 3
+
+
+def lm_family_loader(kind):
+    """The reference's toy loaders of its MoE and RProp workflows:
+    "toy" (tests/test_pipeline_moe.py:97-107), "blobs3" (:191-201),
+    "xorish" (tests/test_variants.py:43-52)."""
+    import numpy
+    from veles_tpu_torch.loader import FullBatchLoader
+
+    class Toy(FullBatchLoader):
+        hide_from_registry = True
+
+        def load_data(self):
+            if kind == "blobs3":
+                rng = numpy.random.RandomState(5)
+                centers = rng.randn(3, 8) * 3
+                y = rng.randint(0, 3, 240).astype(numpy.int32)
+                x = (centers[y] + rng.randn(240, 8)).astype(numpy.float32)
+                self.create_originals(x, y)
+                self.class_lengths = [0, 48, 192]
+                return
+            rng = numpy.random.RandomState(0)
+            x = rng.rand(256, 8).astype(numpy.float32)
+            col = 4 if kind == "toy" else 1
+            y = (x[:, 0] > x[:, col]).astype(numpy.int32)
+            self.create_originals(x, y)
+            self.class_lengths = [0, 64, 192]
+    return Toy(None, minibatch_size=24 if kind == "blobs3" else 32,
+               name=kind)
+
+
+def lm_family_workflow(kind, layers, epochs, **decision):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+    prng.seed_all(SEED)
+    wf = StandardWorkflow(name=kind, layers=layers,
+                          loader_unit=lm_family_loader(kind),
+                          loss_function="softmax",
+                          decision_config=dict(max_epochs=epochs,
+                                               **decision))
+    wf.initialize()
+    return wf
+
+
+def lm_family_tiny_transformer():
+    """(a) the reference's CI anchor through the flash kernels at H 4 D 8
+    non-causal: the first two adam steps against the CPU, 15 epochs,
+    launches as the steps imply, a profiled window of train steps."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import tiny_transformer as tt
+    kw = dict(epochs=15, minibatch_size=64, n_blocks=2, n_train=2048,
+              n_valid=512)
+
+    def build(device):
+        prng.seed_all(TT_SEED)
+        wf = tt.build_workflow(**kw)
+        wf.initialize(device=device)
+        return wf
+    host = adam_first_steps(build("cpu"))
+    wf = build(None)
+    mine = adam_first_steps(wf, starts=[h[2] for h in host])
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mine, host))
+    rel = {}
+    for (_, got, _), (_, want, _) in zip(mine, host):
+        for key, w in want.items():
+            d = float((got[key] - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            rel[key[1]] = max(rel.get(key[1], 0.0), d)
+    stamps = stamp_epochs(wf)
+    torch.cuda.synchronize()
+    before = flash_counts()
+    t0 = time.perf_counter()
+    wf.run()
+    epoch_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+    launches = {k: v - before[k] for k, v in flash_counts().items()}
+    train_steps_n, eval_steps_n = text_steps(wf)
+    blocks = kw["n_blocks"]
+    want = {"fwd": blocks * (train_steps_n + eval_steps_n),
+            "dkv": blocks * train_steps_n, "dq": blocks * train_steps_n}
+
+    def window():
+        for _ in train_steps(wf, TT_PROFILED_STEPS):
+            pass
+    prof = profiled(window, match=("flash",))
+    res = wf.gather_results()
+    lengths = wf.loader.class_lengths
+    return dict(
+        heads=4, head_dim=8, causal=False, blocks=blocks,
+        rows={"train": lengths[2], "validation": lengths[1]},
+        step_loss_rel_diff=loss_rel, step_m_rel_diff=rel["m"],
+        step_v_rel_diff=rel["v"], step_update_rel_diff=rel["update"],
+        best_err=res["best_err"], best_epoch=res["best_epoch"],
+        valid_err=wf.decision.epoch_metrics[1],
+        epochs=wf.decision.epoch_number,
+        epoch_ms=[t * 1e3 for t in epoch_s],
+        epoch_ms_median=sorted(epoch_s)[len(epoch_s) // 2] * 1e3,
+        train_samples_per_s=lengths[2] / sorted(epoch_s)[
+            len(epoch_s) // 2],
+        launches=launches, expected_launches=want,
+        train_steps=train_steps_n, eval_steps=eval_steps_n,
+        launches_per_train_step=(None if prof["kernel_launches"] is None
+                                 else prof["kernel_launches"]
+                                 / TT_PROFILED_STEPS),
+        profiled=prof)
+
+
+def card_vs_cpu(unit, x, seed):
+    """The unit's forward and the gradients of sum(y · E) on the card and
+    on the CPU from the same host parameters: per output, max |card -
+    cpu| / max(1, max |cpu|); the card's flash launches."""
+    import torch
+    host = {k: torch.from_numpy(numpy_copy(v.map_read()))
+            for k, v in unit.param_arrays().items()}
+    e = torch.from_numpy(numpy_rand(seed, x.shape))
+    out = {}
+    before = flash_counts()
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in host.items()}
+        xx = torch.from_numpy(x).to(dev).requires_grad_(True)
+        y = unit.apply(p, xx)
+        (y * e.to(dev)).sum().backward()
+        out[dev] = dict({"y": y.detach().cpu(), "dx": xx.grad.cpu()},
+                        **{"d" + k: t.grad.cpu() for k, t in p.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in flash_counts().items()}
+    errs = {k: float((out["cuda"][k] - w).abs().max())
+            / max(1.0, float(w.abs().max())) for k, w in out["cpu"].items()}
+    return errs, launched
+
+
+def numpy_copy(a):
+    import numpy
+    return numpy.array(a, dtype=numpy.float32)
+
+
+def numpy_rand(seed, shape):
+    import numpy
+    return numpy.random.RandomState(seed).randn(*shape).astype("float32")
+
+
+def lm_family_mha():
+    """(b) the MHA unit at the bench LM's width: B16 T512 d512, 8 heads
+    over 8 or 2 kv heads, causal and not, card against CPU."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn.attention import MultiHeadAttention
+    x = numpy_rand(71, LM_FAMILY_SHAPE)
+    out = []
+    for i, (kv, causal) in enumerate(LM_FAMILY_CASES):
+        prng.seed_all(SEED + i)
+        u = MultiHeadAttention(None, n_heads=LM_FAMILY_HEADS,
+                               n_kv_heads=kv, causal=causal, name="mha")
+        u.input = Array(x)
+        u.initialize(device="cuda")
+        errs, launched = card_vs_cpu(u, x, 72 + i)
+        out.append(dict(n_kv_heads=kv, causal=causal, errors=errs,
+                        max_err=max(errs.values()), launches=launched))
+    return out
+
+
+def route_margins(gates, m_card, m_cpu, k):
+    """Per token whose routing masks differ: the gap between its k-th and
+    (k+1)-th largest gate (on the CPU)."""
+    import torch
+    rows = torch.nonzero((m_card != m_cpu).any(dim=-1)).flatten()
+    s = torch.sort(gates[rows], dim=-1, descending=True).values
+    return [dict(token=int(r), margin=float(s[j, k - 1] - s[j, k]))
+            for j, r in enumerate(rows.tolist())]
+
+
+def lm_family_moe():
+    """(c) MoE at d 512, E 4, F 2,048 over 16 × 512 tokens, dense and
+    top-2 (capacity factor 1.25), card against CPU: forward, gradients
+    and the routing masks."""
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn.moe import MoEFFN
+    x = numpy_rand(MOE_SEED, LM_FAMILY_SHAPE)
+    d = LM_FAMILY_SHAPE[-1]
+    out = []
+    for top_k in (0, 2):
+        prng.seed_all(SEED + 10 + top_k)
+        u = MoEFFN(None, n_experts=MOE_EXPERTS, hidden=MOE_HIDDEN,
+                   top_k=top_k, capacity_factor=1.25, name="moe")
+        u.input = Array(x)
+        u.initialize(device="cuda")
+        errs, _ = card_vs_cpu(u, x, 90 + top_k)
+        rec = dict(top_k=top_k, errors=errs, max_err=max(errs.values()))
+        if top_k:
+            host = {k: torch.from_numpy(numpy_copy(v.map_read()))
+                    for k, v in u.param_arrays().items()}
+            flat = torch.from_numpy(x.reshape(-1, d))
+            with torch.no_grad():
+                gates, m_cpu = u.route(host, flat)
+                _, m_card = u.route({k: v.cuda() for k, v in host.items()},
+                                    flat.cuda())
+            m_card = m_card.cpu()
+            rec.update(capacity=u.capacity(flat.shape[0]),
+                       routing_equal=bool(torch.equal(m_card, m_cpu)),
+                       expert_load=[int(v) for v in m_cpu.sum(0)],
+                       margins=route_margins(gates, m_card, m_cpu, top_k))
+        out.append(rec)
+    return out
+
+
+def lm_family_trained():
+    """(c, d) the reference's MoE and RProp workflows on one card, and
+    ``resize`` of a trained resizable layer."""
+    import numpy
+    runs = {}
+    for name, kind, layers, epochs, decision in (
+            ("moe_dense", "toy",
+             [{"type": "moe_ffn", "n_experts": 4, "hidden": 16,
+               "learning_rate": 0.1},
+              {"type": "softmax", "output_sample_shape": 2,
+               "learning_rate": 0.1}], 12, {}),
+            ("moe_top2", "blobs3",
+             [{"type": "moe_ffn", "n_experts": 4, "hidden": 16, "top_k": 2,
+               "learning_rate": 0.05},
+              {"type": "softmax", "output_sample_shape": 3}], 8,
+             {"fail_iterations": 100}),
+            ("rprop", "xorish",
+             [{"type": "rprop_all2all", "output_sample_shape": 16},
+              {"type": "softmax", "output_sample_shape": 2}], 15, {})):
+        t0 = time.perf_counter()
+        wf = lm_family_workflow(kind, layers, epochs, **decision)
+        wf.run()
+        runs[name] = dict(best_err=wf.decision.best_metric,
+                          valid_err=wf.decision.epoch_metrics[1],
+                          gds=sorted({type(g).__name__
+                                      for g in wf.train_step.gds}),
+                          run_ms=(time.perf_counter() - t0) * 1e3)
+    wf = lm_family_workflow("xorish", [
+        {"type": "resizable_all2all", "output_sample_shape": 16},
+        {"type": "softmax", "output_sample_shape": 2}], 3)
+    wf.run()
+    wf.train_step.sync_params_to_arrays()
+    unit = wf.forwards[0]
+    w0 = numpy.array(unit.weights.map_read())
+    b0 = numpy.array(unit.bias.map_read())
+    kept = []
+    import torch
+    x = torch.from_numpy(wf.loader.original_data.mem[:32]).cuda()
+    for n in (24, 8):
+        unit.resize(n)
+        keep = min(16, n)
+        params = {k: v.device_view("cuda")
+                  for k, v in unit.param_arrays().items()}
+        y = unit.apply(params, x)
+        kept.append(dict(
+            neurons=n,
+            weights_equal=bool(numpy.array_equal(
+                numpy.asarray(unit.weights.map_read())[:, :keep],
+                w0[:, :keep])),
+            bias_equal=bool(numpy.array_equal(
+                numpy.asarray(unit.bias.map_read())[:keep], b0[:keep])),
+            output_shape=list(y.shape), finite=bool(torch.isfinite(y).all())))
+    runs["resize"] = kept
+    return runs
+
+
+def lm_family_state_cache():
+    """(e) the state cache on serve_recurrent's LSTM char LM (512 × 6,
+    chunks of 16): a 512-token prompt cold then warm, greedy and sampled,
+    against ``generate_recurrent``; the three fault points."""
+    import os
+    import warnings
+    import numpy
+    import torch
+    from veles_tpu_torch.serving import (RecurrentEngine,
+                                         generate_recurrent, make_request)
+    from veles_tpu_torch.telemetry import counters
+    model = recurrent_lm("lstm")
+    vocab = model.layers["embedding0"].vocab_size
+    prompt = [int(t) for t in numpy.random.RandomState(12).randint(
+        0, vocab, STATE_CACHE_PROMPT)]
+    n = STATE_CACHE_N_NEW
+    sample = dict(temperature=0.8, seed=7, mode="sample")
+    solo = generate_recurrent(model, prompt, n)
+    solo_s = generate_recurrent(model, prompt, n, **sample)
+    chunk = RECURRENT_ENGINE["page_size"]
+
+    def engine():
+        return RecurrentEngine(model, state_cache=True, name="sc",
+                               **RECURRENT_ENGINE).start()
+
+    def serve(eng, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                tokens = eng.serve([make_request(prompt, n, **kw)])[0]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+        return dict(tokens=tokens, ttft_ms=eng.ttft_ms[-1], syncs=syncs,
+                    snapshot_copies=eng.last_snapshot_copies)
+
+    c0 = {k: counters.get(k) for k in (
+        "veles_o1_state_restores_total",
+        "veles_o1_state_restored_tokens_total",
+        "veles_o1_state_rescans_total")}
+    eng = engine()
+    try:
+        cold = serve(eng)
+        warm = serve(eng)
+        warm_s = serve(eng, **sample)
+        st = eng.stats()
+        faults = {}
+        for name, spec in (("restore_raise",
+                            "serve.state_restore:raise:times=1"),
+                           ("restore_corrupt",
+                            "serve.state_restore:corrupt:times=1")):
+            os.environ["VELES_FAULTS"] = spec
+            try:
+                faults[name] = serve(eng)["tokens"] == solo
+            finally:
+                del os.environ["VELES_FAULTS"]
+        st_after = eng.stats()
+    finally:
+        eng.stop()
+    moved = {k: counters.get(k) - v for k, v in c0.items()}
+    eng = engine()
+    try:
+        os.environ["VELES_FAULTS"] = "serve.state_checkpoint:raise:times=1"
+        try:
+            faults["checkpoint_raise"] = serve(eng)["tokens"] == solo
+        finally:
+            del os.environ["VELES_FAULTS"]
+        faults["checkpoint_raise_blocks"] = eng.stats()["state_cache_blocks"]
+    finally:
+        eng.stop()
+    matched_blocks = (STATE_CACHE_PROMPT - 1) // chunk
+    return dict(
+        prompt=STATE_CACHE_PROMPT, n_new=n, chunk=chunk,
+        cold_equal=cold["tokens"] == solo, warm_equal=warm["tokens"] == solo,
+        warm_sampled_equal=warm_s["tokens"] == solo_s,
+        ttft_ms={"cold": cold["ttft_ms"], "warm": warm["ttft_ms"],
+                 "warm_sampled": warm_s["ttft_ms"]},
+        # every synchronising call of a request: the chunks' uploads, the
+        # snapshot copies, the first token's read, one copy a decode tick
+        syncs_per_request={"cold": cold["syncs"], "warm": warm["syncs"]},
+        # of which the state tensors copied to the host in the prefill
+        snapshot_copies_per_prefill={"cold": cold["snapshot_copies"],
+                                     "warm": warm["snapshot_copies"]},
+        blocks=st["state_cache_blocks"],
+        snapshot_bytes_per_block=st["state_cache_bytes"]
+        / max(1, st["state_cache_blocks"]),
+        restores=st["state_restores"], matched_blocks=matched_blocks,
+        counters=moved, rescans=st_after["state_rescans"], faults=faults)
+
+
+def lm_family_amp_genre():
+    """(f) BASELINE #5 under ``engine.mixed_precision``: the first two
+    SGD steps against the CPU, then AMP_GENRE_EPOCHS epochs."""
+    from veles_tpu_torch.config import root
+    root.common.engine.mixed_precision = True
+    try:
+        host = genre_workflow("cpu")
+        cpu_loss, cpu_d = first_train_steps(host)
+        del host
+        wf = genre_workflow()
+        card_loss, card_d = first_train_steps(wf)
+        wf.decision.max_epochs = AMP_GENRE_EPOCHS
+        stamps = stamp_epochs(wf)
+        t0 = time.perf_counter()
+        wf.run()
+        epoch_s = [b - a for a, b in zip([t0] + stamps, stamps)]
+        dtypes = sorted({str(t.dtype) for p in wf.train_step.params.values()
+                         for t in p.values()})
+    finally:
+        root.common.engine.mixed_precision = False
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss))
+    delta = max(float((c[u][k] - h[u][k]).abs().max())
+                / max(1.0, float(h[u][k].abs().max()))
+                for c, h in zip(card_d, cpu_d) for u in h for k in h[u])
+    return dict(step_loss_card=card_loss, step_loss_cpu=cpu_loss,
+                step_loss_rel_diff=loss_rel, step_delta_err=delta,
+                valid_err=wf.decision.epoch_metrics[1],
+                epochs=wf.decision.epoch_number,
+                epoch_ms=[t * 1e3 for t in epoch_s], master_dtypes=dtypes)
+
+
+def phase_lm_family(card):
+    """Phase 34: the rest of the LM family on the card — (a) the
+    tiny_transformer anchor through the flash kernels at H 4 D 8 non-
+    causal, (b) the MHA unit and (c) the MoE layer at the bench LM's
+    width against the CPU, the reference's MoE and RProp workflows and
+    ``resize`` (c, d), (e) the O(1)-state lane's state cache and (f) the
+    recurrent units under AMP. Every part fails the run on a miss.
+    Returns the flash launches by kernel in (a) and (b)."""
+    t_phase = time.perf_counter()
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        times[name] = time.perf_counter() - t0
+        return out
+    tt = timed("tiny_transformer", lm_family_tiny_transformer)
+    mha = timed("mha", lm_family_mha)
+    moe = timed("moe", lm_family_moe)
+    trained = timed("trained", lm_family_trained)
+    cache = timed("state_cache", lm_family_state_cache)
+    amp = timed("amp_genre", lm_family_amp_genre)
+    emit("lm_family", card=card, tiny_transformer=tt, mha=mha, moe=moe,
+         trained=trained, state_cache=cache, amp_genre=amp,
+         part_s=times, phase_s=time.perf_counter() - t_phase)
+    bad = []
+    if not tt["best_err"] < TT_MAX_ERR:
+        bad.append("tiny_transformer best_err %s" % tt["best_err"])
+    if tt["launches"] != tt["expected_launches"] or not all(
+            tt["launches"].values()):
+        bad.append("tiny_transformer flash launches %s, the steps imply %s"
+                   % (tt["launches"], tt["expected_launches"]))
+    if not max(tt["step_loss_rel_diff"], tt["step_m_rel_diff"],
+               tt["step_v_rel_diff"]) <= TOL_TT_STEP_REL:
+        bad.append("tiny_transformer's first adam steps vs the CPU: %s"
+                   % {k: tt[k] for k in ("step_loss_rel_diff",
+                                         "step_m_rel_diff",
+                                         "step_v_rel_diff")})
+    for rec in mha:
+        if rec["max_err"] > TOL_LM_FAMILY or \
+                rec["launches"] != {"fwd": 1, "dkv": 1, "dq": 1}:
+            bad.append("mha %s" % rec)
+    for rec in moe:
+        if rec["max_err"] > TOL_LM_FAMILY or (
+                rec["top_k"] and not rec["routing_equal"]):
+            bad.append("moe %s" % rec)
+    for name, limit in (("moe_dense", 0.4), ("moe_top2", 0.15),
+                        ("rprop", 0.35)):
+        if not trained[name]["best_err"] < limit:
+            bad.append("%s best_err %s" % (name, trained[name]))
+    if not all(r["weights_equal"] and r["bias_equal"] and r["finite"]
+               for r in trained["resize"]):
+        bad.append("resize %s" % trained["resize"])
+    per_restore = cache["matched_blocks"] * cache["chunk"]
+    if not (cache["cold_equal"] and cache["warm_equal"]
+            and cache["warm_sampled_equal"] and cache["restores"] >= 1
+            and cache["counters"]["veles_o1_state_restored_tokens_total"]
+            == per_restore * cache["counters"][
+                "veles_o1_state_restores_total"]
+            and cache["counters"]["veles_o1_state_rescans_total"] == 1
+            and cache["faults"]["restore_raise"]
+            and cache["faults"]["restore_corrupt"]
+            and cache["faults"]["checkpoint_raise"]
+            and cache["faults"]["checkpoint_raise_blocks"] == 0):
+        bad.append("state cache %s" % cache)
+    valid = amp["valid_err"]
+    if not (amp["step_loss_rel_diff"] <= TOL_AMP_OUT
+            and amp["step_delta_err"] <= TOL_AMP_OUT
+            and amp["epochs"] == AMP_GENRE_EPOCHS
+            and all(math.isfinite(v) for v in valid) and valid[-1] < valid[0]
+            and amp["master_dtypes"] == ["torch.float32"]):
+        bad.append("AMP genre %s" % amp)
+    if bad:
+        raise AssertionError("lm_family: " + "; ".join(bad))
+    return {k: tt["launches"][k] + sum(r["launches"][k] for r in mha)
+            for k in tt["launches"]}
+
+
 def phase_breakdown(card, model, prompts):
     """Where one batched greedy decode spends its time: prefill (the
     n_new=1 call) vs the per-step decode, and the device's busy share
@@ -5973,6 +6461,7 @@ def main():
     phase_train_unsupervised(card)
     launches_text = phase_train_text(card)
     launches_library = phase_train_library(card)
+    launches_family = phase_lm_family(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -5989,7 +6478,8 @@ def main():
                                      "train_lm_amp": launches_amp[
                                          ("f32_f32", name)],
                                      "cli": launches_cli[name],
-                                     "train_text": launches_text[name]},
+                                     "train_text": launches_text[name],
+                                     "lm_family": launches_family[name]},
                 "ok": True}
 
     def amp_entry(inst, kern):
@@ -6034,7 +6524,8 @@ def main():
                                                            "fwd")],
                              "telemetry": launches_tel,
                              "cli": launches_cli["fwd"],
-                             "train_text": launches_text["fwd"]},
+                             "train_text": launches_text["fwd"],
+                             "lm_family": launches_family["fwd"]},
         "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",
         "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",

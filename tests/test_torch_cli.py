@@ -409,7 +409,6 @@ REFUSED_FLAGS = [
     (["--serve-artifact", "d"], "4.5"),
     (["--serve-prefix-cache", "on"], "4.1"),
     (["--serve-prefill-chunk", "8"], "4.1"), (["--serve-tp", "2"], "4.6"),
-    (["--serve-state-cache", "on"], "7"),
 ]
 
 
@@ -444,7 +443,7 @@ def test_ported_off_values_are_accepted(tiny_model):
 
 
 #: the serving flags of speculative and beam decoding, streaming, the QoS
-#: plane and drain by handoff, each with the ``root.common.serving`` key
+#: plane, drain by handoff and the O(1)-state lane's cache, each with the ``root.common.serving`` key
 #: and value it sets (None: the draft flags, which load a model under
 #: --serve-generate)
 SERVING_FLAGS = [
@@ -456,6 +455,8 @@ SERVING_FLAGS = [
     (["--serve-qos", "off"], "qos", False),
     (["--serve-drain-handoff", "on"], "drain_handoff", True),
     (["--serve-drain-handoff", "off"], "drain_handoff", False),
+    (["--serve-state-cache", "on"], "state_cache", True),
+    (["--serve-state-cache", "off"], "state_cache", False),
     (["--serve-generate", "0", "--serve-draft", "d.py",
       "--serve-draft-snapshot", "d.pickle.gz"], None, None),
 ]

@@ -22,7 +22,10 @@ the training library (a char LM on real text through the flash kernels
 at head dims 12 and 128; tensormon on equal to off bit for bit; the NaN
 sentinel's policies; LoRA, smoothing with the confusion matrix and the
 fused epilogue on the card against the CPU or bit for bit; a minibatch
-file's replay through the fused-FC kernel equal to the in-memory run).
+file's replay through the fused-FC kernel equal to the in-memory run),
+and the rest of the LM family (the multi-head attention unit through the
+flash kernels and the MoE layer's routing against the CPU; the
+O(1)-state lane's state cache restoring the cold scan's bits).
 Each skips without a card (decided inside the fixture, never at
 import).
 
@@ -58,8 +61,8 @@ import numpy
 import pytest
 import torch
 
-from chip_smoke import (TOL_CONV, conv_cases, conv_error, conv_inputs,
-                        unit_outputs)
+from chip_smoke import (TOL_CONV, TOL_LM_FAMILY, card_vs_cpu, conv_cases,
+                        conv_error, conv_inputs, unit_outputs)
 from veles_tpu_torch.config import root
 from veles_tpu_torch.convert import params_from_jax, random_params
 from veles_tpu_torch.error import VelesError
@@ -107,7 +110,9 @@ def qkv(device, b, t, h, kv, d, seed):
     (2, 129, 4, 4, 64, True, 0), (2, 200, 4, 4, 8, True, 0),
     (2, 150, 4, 2, 40, True, 0), (2, 140, 4, 4, 72, False, 0),
     (2, 100, 4, 4, 33, True, 0), (1, 90, 2, 2, 160, False, 0),
-    (2, 300, 8, 1, 64, True, 64)])
+    (2, 300, 8, 1, 64, True, 64),
+    # tiny_transformer's blocks: 4 heads of 8, not causal
+    (64, 16, 4, 4, 8, False, 0)])
 def test_kernel_matches_plain(cuda, b, t, h, kv, d, causal, window):
     q, k, v = qkv(cuda, b, t, h, kv, d, seed=t)
     before = counters.get(LAUNCHES)
@@ -406,7 +411,9 @@ BWD_CASES = [
     (2, 129, 4, 4, 64, True, 0), (2, 200, 4, 4, 8, True, 0),
     (2, 150, 4, 2, 40, True, 0), (2, 140, 4, 4, 72, False, 0),
     (2, 100, 4, 4, 33, True, 0), (1, 90, 2, 2, 160, False, 0),
-    (2, 300, 8, 1, 64, True, 64)]
+    (2, 300, 8, 1, 64, True, 64),
+    # tiny_transformer's blocks: 4 heads of 8, not causal
+    (64, 16, 4, 4, 8, False, 0)]
 
 
 @pytest.mark.parametrize("b,t,h,kv,d,causal,window", BWD_CASES)
@@ -1688,3 +1695,70 @@ def test_minibatch_file_replay_trains_the_same_bits(cuda, tmp_path):
     for a, b in zip(chip_smoke.flat_tree(ref.train_step.params),
                     chip_smoke.flat_tree(replay.train_step.params)):
         assert torch.equal(a, b)
+
+
+# -- the rest of the LM family on the card -----------------------------------
+
+@pytest.mark.parametrize("n_kv,causal", [(4, False), (2, True)])
+def test_mha_unit_runs_the_flash_kernels(cuda, n_kv, causal):
+    """The multi-head attention unit on the card: one forward launch and
+    one dK/dV and one dQ launch a call; forward and gradients within
+    1e-4 · max(1, max|cpu|) of the CPU's."""
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn.attention import MultiHeadAttention
+    x = numpy.random.RandomState(3).randn(4, 96, 64).astype("float32")
+    u = MultiHeadAttention(None, n_heads=4, n_kv_heads=n_kv,
+                           causal=causal, name="mha")
+    u.input = Array(x)
+    u.initialize(device=cuda)
+    errs, launched = card_vs_cpu(u, x, 4)
+    assert launched == {"fwd": 1, "dkv": 1, "dq": 1}
+    assert max(errs.values()) <= TOL_LM_FAMILY, errs
+
+
+def test_moe_routing_on_the_card_matches_the_cpu(cuda):
+    """Top-2 MoE over 1,024 tokens: the routing masks equal the CPU's,
+    forward and gradients within 1e-4 · max(1, max|cpu|)."""
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn.moe import MoEFFN
+    x = numpy.random.RandomState(5).randn(8, 128, 64).astype("float32")
+    u = MoEFFN(None, n_experts=4, hidden=128, top_k=2, name="moe")
+    u.input = Array(x)
+    u.initialize(device=cuda)
+    host = {k: torch.from_numpy(numpy.array(v.map_read(), "float32"))
+            for k, v in u.param_arrays().items()}
+    flat = torch.from_numpy(x.reshape(-1, 64))
+    with torch.no_grad():
+        _, m_cpu = u.route(host, flat)
+        _, m_card = u.route({k: v.to(cuda) for k, v in host.items()},
+                            flat.to(cuda))
+    assert torch.equal(m_card.cpu(), m_cpu)
+    errs, _ = card_vs_cpu(u, x, 6)
+    assert max(errs.values()) <= TOL_LM_FAMILY, errs
+
+
+def test_state_cache_restores_the_cold_bits_on_the_card(cuda):
+    """A warm admission (snapshot adopted, the suffix scanned) leaves
+    the slot's state row with the cold scan's bits, and answers the
+    cold tokens."""
+    from veles_tpu_torch.serving import RecurrentEngine, make_request
+    model = _recurrent_lm("lstm", cuda)
+    prompt = [int(t) for t in numpy.random.RandomState(8).randint(
+        0, 64, 45)]
+    eng = RecurrentEngine(model, max_slots=2, max_context=80, page_size=8,
+                          state_cache=True, name="gpu_sc").start()
+    try:
+        rows = []
+        toks = []
+        for _ in range(2):
+            toks.append(eng.serve([make_request(prompt, 1)])[0])
+            rows.append([{k: v[0].clone() for k, v in st.items()}
+                         for st in eng._states])
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    assert stats["state_restores"] == 1 and stats["state_cache_blocks"] == 5
+    assert toks[0] == toks[1]
+    for cold, warm in zip(*rows):
+        for k in cold:
+            assert torch.equal(cold[k], warm[k]), k

@@ -21,8 +21,10 @@ of 8 and max_context 64, as the reference's tests run them.
   through the lane (``/stats``: ``slot_kind`` "state", ``pages_total``
   0; ``/metrics``: state gauges, no page gauges); a pinned "recurrent"
   on a transformer degrades to the window plane; speculative and beam
-  modes answer 400; the knobs of the parts not ported yet raise, naming
-  their ROADMAP item."""
+  modes answer 400; the serve artifact, not ported yet, raises naming
+  its ROADMAP item; the ``veles_o1_state_*`` counters stay 0 with the
+  state cache off and move with it on (the cache itself:
+  ``tests/test_torch_state_cache.py``)."""
 import json
 import urllib.error
 import urllib.request
@@ -213,30 +215,44 @@ def test_eos_retires_the_row(stacks):
     assert st["retired"] == 1 and st["slots_busy"] == 0
 
 
-@pytest.mark.parametrize("knob", ["state_cache", "artifact"])
+@pytest.mark.parametrize("knob", ["artifact"])
 def test_unported_parts_raise(stacks, knob):
-    """The lane's parts not ported yet name their item of ROADMAP Queue
-    1 item 7; QoS is ported and constructs."""
-    item = {"state_cache": "7.1", "artifact": "7.3"}[knob]
-    with pytest.raises(VelesError, match=r"ROADMAP Queue 1 item %s, the "
-                       r"O\(1\)-state lane" % item.replace(".", r"\.")):
-        RecurrentEngine(stacks["lstm"][1], name="o1t_knob",
-                        **{knob: True if knob == "state_cache" else "d"})
+    """The lane's part not ported yet names its item of ROADMAP Queue 1
+    item 7; QoS and the state cache are ported and construct."""
+    with pytest.raises(VelesError, match=r"ROADMAP Queue 1 item 7\.3, the "
+                       r"O\(1\)-state lane"):
+        RecurrentEngine(stacks["lstm"][1], name="o1t_knob", **{knob: "d"})
     root.common.serving.qos = True
     try:
         assert RecurrentEngine(stacks["lstm"][1], name="o1t_qos").qos
     finally:
         root.common.serving.qos = False
+    assert RecurrentEngine(stacks["lstm"][1], name="o1t_sc",
+                           state_cache=True).state_cache is not None
 
 
 def test_o1_counters_are_registered_and_stay_zero(stacks):
+    """Registered with the reference's HELP; 0 with the cache off (the
+    default); moving with it on."""
+    assert root.common.serving.state_cache is False
+    assert root.common.serving.get("state_cache_blocks") is None
     before = {name: counters.get(name) for name in O1_COUNTERS}
     _serve(stacks["ssm"][1], [make_request(PROMPTS[1], 5)])
     for name in O1_COUNTERS:
         assert DESCRIPTIONS[name]
-        assert counters.get(name) == before[name] == 0
-    assert root.common.serving.state_cache is False
-    assert root.common.serving.get("state_cache_blocks") is None
+        assert counters.get(name) == before[name]
+    prompt = PROMPTS[1] + PROMPTS[0]
+    cold, st = _serve(stacks["ssm"][1], [make_request(prompt, 5)] * 2,
+                      state_cache=True, max_slots=1)
+    assert cold[0] == cold[1]
+    moved = {name: counters.get(name) - before[name]
+             for name in O1_COUNTERS}
+    assert moved["veles_o1_state_checkpoints_total"] == \
+        st["state_checkpoints"] == len(prompt) // 8
+    assert moved["veles_o1_state_restores_total"] == st["state_restores"] == 1
+    assert moved["veles_o1_state_restored_tokens_total"] == 16
+    assert moved["veles_o1_state_rescans_total"] == 0
+    assert moved["veles_o1_state_evictions_total"] == 0
 
 
 # -- the request plane --------------------------------------------------------

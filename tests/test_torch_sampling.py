@@ -177,7 +177,7 @@ def test_build_forwards_names_and_layout(stacks):
     for layer in port:
         for pname, shape in layer.param_shapes().items():
             assert tuple(ref[layer.name][pname].shape) == shape
-    with pytest.raises(VelesError, match="not ported"):
+    with pytest.raises(VelesError, match="cached sampling supports"):
         build_forwards([{"type": "embedding", "vocab_size": 4, "dim": 8},
                         {"type": "moe_ffn", "n_experts": 2}], device="cpu")
     with pytest.raises(VelesError, match="seq_len"):

@@ -70,7 +70,8 @@ def main(argv=None) -> int:
             setattr(serving, key, value)
     for key, value in (("stream", args.serve_stream),
                        ("qos", args.serve_qos),
-                       ("drain_handoff", args.serve_drain_handoff)):
+                       ("drain_handoff", args.serve_drain_handoff),
+                       ("state_cache", args.serve_state_cache)):
         if value is not None:
             setattr(serving, key, value == "on")
     level = (logging.WARNING, logging.INFO,

@@ -20,7 +20,6 @@ ITEMS = {
     "4.4": "int8 weights and KV",
     "4.5": "the serve artifact",
     "4.6": "tensor-parallel serving",
-    "7": "the recurrent lane's state-checkpoint prefix cache",
     "10": "distribution",
     "11": "the framework-agnostic planes",
 }
@@ -155,8 +154,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "4.6)")
     p.add_argument("--serve-state-cache", default=None,
                    choices=("on", "off"),
-                   help="the O(1)-state lane's prefix cache (on: not "
-                        "ported, item 7)")
+                   help="the O(1)-state lane's state-checkpoint prefix "
+                        "cache (root.common.serving.state_cache)")
     p.add_argument("--serve-stream", default=None,
                    choices=("on", "off"),
                    help="SSE token streaming of stream=true requests "
@@ -262,7 +261,6 @@ def _refused(args):
         ("--serve-prefix-cache on", args.serve_prefix_cache in on, "4.1"),
         ("--serve-prefill-chunk", bool(args.serve_prefill_chunk), "4.1"),
         ("--serve-tp", (args.serve_tp or 1) > 1, "4.6"),
-        ("--serve-state-cache on", args.serve_state_cache in on, "7"),
     ]
     return [(flag, item) for flag, asked, item in checks if asked]
 

@@ -240,8 +240,7 @@ def _default_root() -> Config:
             # "continuous" falls back to for Embedding → LSTM/RNN/SSM →
             # LMHead stacks; "recurrent" pins it): its state-checkpoint
             # prefix cache, off by default as in the reference, and the
-            # cache's soft block budget (None = unbounded). The cache
-            # is not ported yet: turning it on raises
+            # cache's soft block budget (None = unbounded)
             "state_cache": False,
             "state_cache_blocks": None,
         },

@@ -12,6 +12,12 @@ trajectory), checking every name and shape first.
 :func:`random_params` makes a tree of that layout from a numpy seed, for
 runs that need weights but no trained model.
 
+The trees are checked against the layout each unit gives, so the
+units of every slice carry as they are: the MoE layer's expert-leading
+3-D ``w1`` (E, D, F) and ``w2`` (E, F, D), the multi-head attention
+unit's ``wk``/``wv`` at ``kv_d`` = D / n_heads · n_kv_heads columns, and
+GDRProp's optimiser state ``{"step": tree, "prev_grad": tree}``.
+
 A LoRA'd unit's tree carries its adapters beside the base weights
 (``<k>_lora_a``, ``<k>_lora_b``), as the reference's train step holds
 them; they load into the port's workflow like any parameter (and its
@@ -99,8 +105,9 @@ def _stage_state(want, got, what: str, path: Tuple[str, ...] = ()):
 def params_from_jax(target, params: ParamTree,
                     opt_state: Optional[Dict[str, object]] = None):
     """Copy ``params`` (and, for a workflow, its ``opt_state`` in the
-    reference's layout: per unit SGD's tree of the params' layout, or
-    Adam's ``{"m": tree, "v": tree, "t": step}``) into ``target`` in
+    reference's layout: per unit SGD's tree of the params' layout,
+    Adam's ``{"m": tree, "v": tree, "t": step}`` or GDRProp's ``{"step":
+    tree, "prev_grad": tree}``) into ``target`` in
     place and return it. ``target`` is a ``Forwards`` stack or an
     initialised ``StandardWorkflow``."""
     step = getattr(target, "train_step", None)

@@ -20,9 +20,10 @@ import time
 
 import numpy
 
-from ..datasets import load_synthetic
-from ..loader import FullBatchLoader
-from ..nn.standard_workflow import StandardWorkflow
+# absolute imports: the CLI executes this file by its path
+from veles_tpu_torch.datasets import load_synthetic
+from veles_tpu_torch.loader import FullBatchLoader
+from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
 
 N_CLASSES = 10
 

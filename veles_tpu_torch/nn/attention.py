@@ -1,19 +1,35 @@
-"""Attention core (counterpart of ``veles_tpu/nn/attention.py`` and of
+"""Attention core and the multi-head attention unit (counterpart of
+``veles_tpu/nn/attention.py`` and of
 ``veles_tpu/parallel/ring_attention.py::attention_reference``).
 
+:class:`MultiHeadAttention` (layer type "multi_head_attention", paired
+with :class:`GDMultiHeadAttention`) projects (B, T, D) to q, k and v,
+runs :func:`attention_core` — on the card the flash kernels, forward
+and backward, with GQA's grouped k/v read natively — and projects back
+through ``wo``. Under mixed precision its products promote as the
+reference's ``jnp.dot`` does (``ops/precision.dot``), and the attention
+core takes bf16 operands through the kernels' bf16 instances.
+
 Single device only: the reference's ring and Ulysses schemes over a
-sequence mesh are not ported yet.
+sequence mesh are not ported yet (ROADMAP Queue 1 item 10); a device
+carrying a sequence mesh raises :class:`VelesError`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy
 import torch
 
+from ..config import root
+from ..error import VelesError
+from ..memory import Array
+from .. import prng
 from ..ops import flash_attention as fa
-from ..ops.precision import promote_operands
+from ..ops.precision import dot, promote_operands
+from .nn_units import ForwardBase, GradientDescentBase, matches
 
 
 def expand_kv(x, n_heads: int):
@@ -76,3 +92,70 @@ def attention_core(q, k, v, *, causal: bool = False,
         return fa.flash_attention(q, k, v, causal=causal, window=window)
     return attention_reference(q, expand_kv(k, h), expand_kv(v, h),
                                causal=causal, window=window)
+
+
+class MultiHeadAttention(ForwardBase):
+    """(B, T, D) → (B, T, D); parameters ``wq`` and ``wo`` (D, D), ``wk``
+    and ``wv`` (D, kv_d) with kv_d = D / n_heads · n_kv_heads, each from
+    the keyed stream ``<unit>.<param>`` at stddev ``weights_stddev`` or
+    1/sqrt(D). ``n_kv_heads`` < ``n_heads`` is grouped-query attention;
+    ``causal`` masks the future."""
+
+    MAPPING = "multi_head_attention"
+    PARAMETERIZED = True
+    hide_from_registry = False
+    PARAM_NAMES = ("wq", "wk", "wv", "wo")
+
+    def __init__(self, workflow, n_heads=4, causal=False, n_kv_heads=None,
+                 **kwargs):
+        self.weights_stddev = kwargs.pop("weights_stddev", None)
+        super().__init__(workflow, **kwargs)
+        self.n_heads = int(n_heads)
+        self.n_kv_heads = int(n_kv_heads) if n_kv_heads else self.n_heads
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError("n_heads %d not divisible by n_kv_heads %d"
+                             % (self.n_heads, self.n_kv_heads))
+        self.causal = bool(causal)
+
+    def output_shape_for(self, input_shape):
+        return tuple(input_shape)
+
+    def create_params(self, rng) -> Dict[str, Array]:
+        d = self.input.shape[-1]
+        if d % self.n_heads:
+            raise ValueError("model dim %d not divisible by %d heads"
+                             % (d, self.n_heads))
+        stddev = self.weights_stddev or (1.0 / numpy.sqrt(d))
+        dtype = root.common.engine.precision_type
+        kv_d = (d // self.n_heads) * self.n_kv_heads
+        params = {}
+        for k, cols in (("wq", d), ("wk", kv_d), ("wv", kv_d), ("wo", d)):
+            w = numpy.zeros((d, cols), dtype=dtype)
+            prng.get("%s.%s" % (self.name, k)).fill_normal(w, stddev)
+            params[k] = Array(w, name="%s.%s" % (self.name, k))
+        return params
+
+    def initialize(self, device=None, **kwargs):
+        mesh = getattr(device, "mesh", None)
+        if mesh is not None and "sequence" in getattr(
+                mesh, "axis_names", ()) and mesh.shape["sequence"] > 1:
+            raise VelesError("%s: attention over a sequence mesh (ring / "
+                             "Ulysses) is not ported yet (ROADMAP Queue 1 "
+                             "item 10: distribution)" % self.name)
+        return super().initialize(device=device, **kwargs)
+
+    def apply(self, params, x):
+        b, t, d = x.shape
+        h, kv = self.n_heads, self.n_kv_heads
+        hd = d // h
+        q = dot(x, params["wq"]).reshape(b, t, h, hd)
+        k = dot(x, params["wk"]).reshape(b, t, kv, hd)
+        v = dot(x, params["wv"]).reshape(b, t, kv, hd)
+        o = attention_core(q, k, v, causal=self.causal).reshape(b, t, d)
+        return dot(o, params["wo"])
+
+
+@matches(MultiHeadAttention)
+class GDMultiHeadAttention(GradientDescentBase):
+    MAPPING = "gd_multi_head_attention"
+    hide_from_registry = False

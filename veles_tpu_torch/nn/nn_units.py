@@ -52,9 +52,6 @@ class ForwardBase(AcceleratedUnit):
     PARAMETERIZED = False
     #: parameter attribute names
     PARAM_NAMES = ("weights", "bias")
-    #: whether the unit follows the reference's bf16 promotions under
-    #: ``engine.mixed_precision`` (TrainStep refuses the ones that do not)
-    MIXED_PRECISION = True
     #: units that draw random numbers in training (dropout, stochastic
     #: pooling): TrainStep calls their ``apply(params, x, train=...,
     #: generator=...)`` with the layer's own ``torch.Generator``

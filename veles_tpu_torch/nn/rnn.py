@@ -12,6 +12,13 @@ scan loops over (``nn/ssm.recurrent_scan``), bit for bit. Neither
 another order and use another sigmoid. Hoisting ``x @ W[:D]`` out of the
 time loop is faster and breaks that identity, so it is not done.
 
+Under ``engine.mixed_precision`` the train step hands the units bf16
+parameters and a bf16 batch; the state starts in the input's dtype (as
+the reference's ``init_state(batch, x.dtype)``), every product of bf16
+operands comes out bf16, and so the carry stays bf16 through the scan,
+as in the reference's ``lax.scan``. The scan is still the step loop, bit
+for bit.
+
 Each unit has a training form (``LSTM``, ``RNN`` under the mappings
 "lstm" and "rnn", paired with ``GDLSTM`` and ``GDRNN``; weights from the
 unit's keyed stream ``prng.get(<name>)``, bias zero) and a serving form
@@ -30,7 +37,7 @@ import torch
 from ..config import root
 from ..memory import Array
 from .. import prng
-from ..ops.precision import dot
+from ..ops.precision import dot, weak_scalar
 from .nn_units import ForwardBase, GradientDescentBase, matches
 from .ssm import RecurrentCell, stable_sigmoid
 from .transformer import _Layer
@@ -48,7 +55,8 @@ def lstm_step(cell, p, x_t, state):
     "c"}`` (B, H) each → (h, new state)."""
     i, f, g, o = _gates(p, x_t, state["h"]).chunk(4, dim=-1)
     i = stable_sigmoid(i)
-    f = stable_sigmoid(f + cell.forget_bias)
+    # the bias is a weak scalar beside the gate, as jnp takes it
+    f = stable_sigmoid(f + weak_scalar(cell.forget_bias, f.dtype))
     g = torch.tanh(g)
     o = stable_sigmoid(o)
     c = f * state["c"] + i * g
@@ -107,7 +115,6 @@ class _RecurrentUnit(ForwardBase):
 
     hide_from_registry = True
     PARAMETERIZED = True
-    MIXED_PRECISION = False
 
     def create_params(self, rng) -> Dict[str, Array]:
         d = int(self.input.shape[-1])

@@ -26,8 +26,11 @@ reference's keyed streams) and an ``nn.Module`` for serving
 (``SSMBlockLayer``, parameters under the reference's names and layout).
 Both expose the protocol ``state_shapes`` / ``init_state`` /
 ``step_state`` / ``scan_state`` that ``serving/recurrent.py`` drives.
-The products go through ``ops/precision.dot``; the recurrent units hold
-float32 (``TrainStep`` refuses them under ``engine.mixed_precision``).
+The products go through ``ops/precision.dot``. Under
+``engine.mixed_precision`` the state starts in the input's dtype (bf16),
+and the promotions are the reference's: every product of bf16 operands
+is bf16, the read ``q · S`` times the float32 scale 1/sqrt(e) is rounded
+back to the input's dtype before the gate.
 """
 
 from __future__ import annotations
@@ -173,7 +176,6 @@ class SSMBlock(_SSMConfig, ForwardBase):
     MAPPING = "ssm_block"
     PARAMETERIZED = True
     hide_from_registry = False
-    MIXED_PRECISION = False
     PARAM_NAMES = ("wq", "wk", "wv", "wg", "wo", "a_log")
     LORA_TARGETS = ()
 

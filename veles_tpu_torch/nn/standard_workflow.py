@@ -13,9 +13,12 @@ list and a loader, as the reference does::
 Its forward units are the All2All units (``nn/all2all.py``), the conv
 family (``nn/conv.py``, ``deconv.py``, ``pooling.py``, ``depooling.py``,
 ``activation.py``, ``normalization.py``, ``dropout.py``, ``cutter.py``,
-``channel_split.py``), the transformer LM units (``nn/transformer.py``)
-and the recurrent units (``nn/rnn.py``'s LSTM and RNN, ``nn/ssm.py``'s
-SSM block), named as the reference names them; the per-minibatch compute
+``channel_split.py``), the transformer LM units (``nn/transformer.py``,
+with ``mean_pool``), the multi-head attention unit (``nn/attention.py``),
+the mixture of experts (``nn/moe.py``), the All2All variants
+(``nn/variants.py``: ``rprop_all2all``, ``resizable_all2all``) and the
+recurrent units (``nn/rnn.py``'s LSTM and RNN, ``nn/ssm.py``'s SSM
+block), named as the reference names them; the per-minibatch compute
 is the TrainStep. A net may be given as the reference's
 ``mcdnnic_topology`` string instead of ``layers`` (:func:`parse_mcdnnic`),
 with ``mcdnnic_parameters`` merged into every layer. Losses: ``"softmax"`` (labels, ``EvaluatorSoftmax``),
@@ -54,6 +57,7 @@ from ..units import UnitRegistry
 from . import activation, all2all, conv, deconv, depooling, pooling  # noqa
 from . import channel_split, cutter, dropout, normalization  # noqa
 from . import kohonen, rbm, rnn, ssm, zerofill  # noqa
+from . import attention, moe, variants  # noqa
 from .decision import DecisionGD, DecisionMSE
 from .evaluator import EvaluatorMSE, EvaluatorSoftmax, EvaluatorSoftmaxSeq
 from .lr_adjust import LearningRateAdjust
@@ -172,6 +176,14 @@ def build_forwards(layers: List[dict], seq_len: Optional[int] = None,
             dim = layer.hidden_size
         elif kind == "ssm_block":
             layer = ssm.SSMBlockLayer(dim, **kw)
+        elif kind in UnitRegistry.mapping:
+            # the reference's generator takes these chains only
+            # (veles_tpu/nn/sampling.py split_stack)
+            raise VelesError(
+                "layer %r (%s): cached sampling supports Embedding → "
+                "[PositionalEmbedding] → TransformerBlock* → LMHead chains "
+                "(and Embedding → (SSMBlock|LSTM|RNN)* → LMHead on the "
+                "O(1)-state lane)" % (name, kind))
         else:
             raise VelesError("layer type %r is not ported yet" % (kind,))
         if name in out:

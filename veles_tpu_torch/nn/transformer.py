@@ -18,7 +18,8 @@ functions of ``(layer, params, x)`` below (:func:`embed`,
   ``transformer_block``, ``lm_head``), each paired with its GD unit and
   creating its parameters from the reference's keyed streams
   (``prng.get("<unit>.<param>")``), so training starts from the
-  reference's initial weights bit for bit.
+  reference's initial weights bit for bit; and ``MeanPool``
+  (``mean_pool``), the sequence classifier's (B, T, D) → (B, D) head.
 
 Block (pre-LN, GPT-style):
     h = x + W_o · attn(LN1(x))
@@ -456,6 +457,21 @@ class LMHeadUnit(ForwardBase):
 
     def apply(self, params, x):
         return lm_logits(params, x)
+
+
+class MeanPool(ForwardBase):
+    """(B, T, D) → (B, D): the mean over the sequence axis (layer type
+    "mean_pool"), the classification head's plumbing for sequence
+    stacks. No parameters."""
+
+    MAPPING = "mean_pool"
+    hide_from_registry = False
+
+    def output_shape_for(self, input_shape):
+        return (input_shape[0],) + tuple(input_shape[2:])
+
+    def apply(self, params, x):
+        return x.mean(dim=1)
 
 
 @matches(TransformerBlockUnit)

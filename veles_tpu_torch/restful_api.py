@@ -112,7 +112,8 @@ class GenerationAPI(Logger):
     ``root.common.serving``. ``draft`` (a smaller generation stack,
     moved to the same device) enables ``mode=speculative`` on both
     planes; ``spec_gamma`` and ``beam_width`` fix the pool's round and
-    group widths. ``initialize`` starts the engine, the window worker
+    group widths; ``state_cache`` turns the O(1)-state lane's prefix cache
+    on. ``initialize`` starts the engine, the window worker
     and the HTTP service, ``stop`` drains them; the bound port is
     ``self.port``."""
 
@@ -129,7 +130,8 @@ class GenerationAPI(Logger):
                  page_size: Optional[int] = None,
                  pages: Optional[int] = None, draft=None,
                  spec_gamma: Optional[int] = None,
-                 beam_width: Optional[int] = None, device=None,
+                 beam_width: Optional[int] = None,
+                 state_cache: Optional[bool] = None, device=None,
                  name: str = "generation_api") -> None:
         self.device = device_for(device)
         self.model = model.to(self.device)
@@ -160,6 +162,9 @@ class GenerationAPI(Logger):
         self.pages = pages
         self.spec_gamma = int(knob(spec_gamma, "spec_gamma", 4))
         self.beam_width = int(knob(beam_width, "beam_width", 4))
+        #: the O(1)-state lane's prefix cache; None defers to
+        #: root.common.serving.state_cache
+        self.state_cache = state_cache
         #: the ContinuousEngine or RecurrentEngine; None = the window plane
         self._engine = None
         self._service: Optional[HTTPService] = None
@@ -672,7 +677,8 @@ class GenerationAPI(Logger):
                 self.model, max_slots=self.max_slots,
                 max_context=self.max_context,
                 decode_block=self.decode_block, page_size=self.page_size,
-                device=self.device, name=self.name)
+                state_cache=self.state_cache, device=self.device,
+                name=self.name)
             engine.on_death = self._on_replica_death
             engine.start()
         except VelesError as e:

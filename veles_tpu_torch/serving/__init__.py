@@ -1,6 +1,7 @@
 """The port's serving plane (counterpart of ``veles_tpu/serving/``):
 request tickets and the slot scheduler (``scheduler.py``), the paged KV
-pool's allocator (``pages.py``), the continuous-batching engine
+pool's allocator and the lane's state cache (``pages.py``), the
+continuous-batching engine
 (``engine.py``), the O(1)-state lane for recurrent stacks
 (``recurrent.py``) and the overload-control plane (``overload.py``)."""
 
@@ -36,7 +37,7 @@ def engines() -> Dict[str, "ContinuousEngine"]:
 
 #: the counters of the O(1)-state lane's state-checkpoint prefix cache,
 #: the reference's names (registered in telemetry/counters.py); they
-#: stay 0 until that cache is ported
+#: stay 0 while ``root.common.serving.state_cache`` is off
 O1_COUNTERS = (
     "veles_o1_state_checkpoints_total",
     "veles_o1_state_restores_total",
@@ -76,6 +77,7 @@ def parse_buckets(spec) -> tuple:
 from .engine import (ContinuousEngine, fold_resume,  # noqa: E402,F401
                      make_request)
 from ..nn.sampling import advanced_generator  # noqa: E402,F401
+from .pages import StateCache  # noqa: E402,F401
 from .overload import (AIMDController, BrownoutLadder,  # noqa: E402,F401
                        OverloadGovernor, QOS_PRIORITIES, RetryTokenBucket,
                        dynamic_retry_after, governor_from_config,

@@ -40,9 +40,21 @@ lane, so its state has the bits of the uninterrupted decode's; a
 sampled row's generator is advanced by one draw per emitted token
 (``nn/sampling.advanced_generator``).
 
-Not ported yet: the state-checkpoint prefix cache (``state_cache``,
-ROADMAP Queue 1 item 7.1) and the serve artifact (item 7.3); asking for
-either raises :class:`VelesError`.
+The state-checkpoint prefix cache (``state_cache``, off by default;
+``root.common.serving.state_cache`` and ``state_cache_blocks``): each
+full chunk of a scanned prompt ends on a ``page_size`` block boundary,
+and the row's state there is copied to the host and cached
+(:class:`~veles_tpu_torch.serving.pages.StateCache`, under the
+``serve.state_checkpoint`` fault point). A later admission matches
+``prompt[:t_p - 1]`` against the cache (under ``serve.state_restore``:
+raise and corrupt degrade to a shorter match or a re-scan), uploads the
+deepest snapshot into its row and scans only the unmatched suffix, in
+chunks aligned to the same boundaries and at the same
+:data:`LANE_ROWS` rows, so a restored row holds the cold scan's bits.
+A resumed row's rebuild adopts a matched snapshot the same way.
+
+Not ported yet: the serve artifact (ROADMAP Queue 1 item 7.3); asking
+for it raises :class:`VelesError`.
 """
 
 from __future__ import annotations
@@ -68,13 +80,14 @@ from ..telemetry.counters import inc
 from ..telemetry.spans import span
 from .engine import _STEP_MODES, _TEMP_EPS, ResumePlane, _layers_of
 from .overload import clear_pressure_provider, set_pressure_provider
+from .pages import StateCache
 from .scheduler import SlotScheduler, Ticket, shed_expired
 
 #: rows of every product the lane runs (see the module's docstring)
 LANE_ROWS = 8
 
 #: the ROADMAP Queue 1 item of each lane knob not ported yet
-_NOT_PORTED = {"state_cache": "7.1", "artifact": "7.3"}
+_NOT_PORTED = {"artifact": "7.3"}
 
 
 def split_recurrent_stack(forwards) -> Dict:
@@ -103,7 +116,10 @@ class RecurrentEngine(ResumePlane, Logger):
     :class:`VelesError`). ``device`` defaults to the stack's.
     ``page_size`` is the prefill's chunk length; ``decode_block`` runs
     that many decode steps per tick before the tokens come back to the
-    host. ``root.common.serving.qos`` turns the QoS plane on."""
+    host. ``root.common.serving.qos`` turns the QoS plane on;
+    ``state_cache`` (default ``root.common.serving.state_cache``) the
+    state-checkpoint prefix cache, holding at most
+    ``root.common.serving.state_cache_blocks`` blocks (None: no bound)."""
 
     def __init__(self, wf, max_slots: int = 8, max_context: int = 640,
                  decode_block: int = 1, page_size: Optional[int] = None,
@@ -112,15 +128,11 @@ class RecurrentEngine(ResumePlane, Logger):
                  name: str = "serving") -> None:
         super().__init__()
         cfg = root.common.serving
-        for knob, value in (
-                ("state_cache", cfg.get("state_cache", False)
-                 if state_cache is None else state_cache),
-                ("artifact", artifact)):
-            if value:
-                raise VelesError(
-                    "serving knob %s=%r is not ported yet (ROADMAP Queue 1 "
-                    "item %s, the O(1)-state lane)"
-                    % (knob, value, _NOT_PORTED[knob]))
+        if artifact:
+            raise VelesError(
+                "serving knob artifact=%r is not ported yet (ROADMAP Queue "
+                "1 item %s, the O(1)-state lane)"
+                % (artifact, _NOT_PORTED["artifact"]))
         self.name = name
         self.stack = split_recurrent_stack(_layers_of(wf))
         stack_device = self.stack["stem"].table.device
@@ -136,6 +148,11 @@ class RecurrentEngine(ResumePlane, Logger):
                              if page_size is None else page_size)
         if self.page_size < 1:
             raise ValueError("page_size must be >= 1")
+        want_cache = bool(cfg.get("state_cache", False)
+                          if state_cache is None else state_cache)
+        self.state_cache: Optional[StateCache] = (
+            StateCache(self.page_size, cfg.get("state_cache_blocks", None))
+            if want_cache else None)
         # one bucket: chunked scanning serves any prompt length
         self.scheduler = SlotScheduler(self.max_slots, (self.max_context,),
                                        self.max_context, page_pool=None)
@@ -154,6 +171,15 @@ class RecurrentEngine(ResumePlane, Logger):
         self.retired = 0
         self.peak_slots = 0
         self.chunk_dispatches = 0
+        #: requests that adopted a snapshot, and the cache's counters
+        #: mirrored for stats()
+        self.prefix_requests = 0
+        self.state_restores = 0
+        self.state_rescans = 0
+        self.state_checkpoints = 0
+        #: state tensors copied to the host (every layer's leaves, once
+        #: a full chunk) in the most recent admission
+        self.last_snapshot_copies = 0
         #: host ms of the most recent decode ticks (each ending in the
         #: tokens' copy to the host) and time to first token
         self.decode_ms: collections.deque = collections.deque(maxlen=4096)
@@ -172,9 +198,11 @@ class RecurrentEngine(ResumePlane, Logger):
         from . import register_engine
         register_engine(self)
         self.info("%s: O(1)-state serving up (slots=%d max_context=%d "
-                  "decode_block=%d chunk=%d qos=%s, %s)", self.name,
+                  "decode_block=%d chunk=%d qos=%s%s, %s)", self.name,
                   self.max_slots, self.max_context, self.decode_block,
-                  self.page_size, self.qos, self.device)
+                  self.page_size, self.qos,
+                  " +state_cache" if self.state_cache is not None else "",
+                  self.device)
         return self
 
     def stop(self) -> None:
@@ -190,6 +218,8 @@ class RecurrentEngine(ResumePlane, Logger):
         self.scheduler.drain("server shutting down")
         self._abort_active("server shutting down", code=503,
                            retry_after=5.0, count_shed=False)
+        if self.state_cache is not None:
+            self.state_cache.clear()
         clear_pressure_provider(self._pressure_fn)
         from . import unregister_engine
         unregister_engine(self)
@@ -262,6 +292,8 @@ class RecurrentEngine(ResumePlane, Logger):
     def stats(self) -> Dict[str, float]:
         pool_bytes = sum(t.numel() * t.element_size()
                          for st in self._states or () for t in st.values())
+        cache = (self.state_cache.stats() if self.state_cache is not None
+                 else {"blocks": 0, "bytes": 0})
         return {
             "slots": self.max_slots,
             "slots_busy": self.scheduler.busy_count(),
@@ -281,8 +313,12 @@ class RecurrentEngine(ResumePlane, Logger):
             "kv_pool_bytes": pool_bytes,
             "state_bytes_per_slot": self.state_bytes_per_slot(),
             "state_pool_rows": self.rows,
-            "state_cache_blocks": 0,
-            "state_cache_bytes": 0,
+            "prefix_requests": self.prefix_requests,
+            "state_cache_blocks": cache["blocks"],
+            "state_cache_bytes": cache["bytes"],
+            "state_checkpoints": self.state_checkpoints,
+            "state_restores": self.state_restores,
+            "state_rescans": self.state_rescans,
             "qos": int(self.qos),
             "preemptions": self.preemptions,
             "preempted_tokens": self.preempted_tokens,
@@ -376,6 +412,45 @@ class RecurrentEngine(ResumePlane, Logger):
                 st[k][tile] = v
         return x
 
+    def _restore(self, prompt, t_p: int):
+        """The cache's deepest snapshot over ``prompt[:t_p - 1]`` (at
+        least one token must scan: the last chunk gives the first token,
+        so a whole-prompt match adopts the boundary before it): (matched
+        tokens, snapshot or None). An injected ``serve.state_restore``
+        raise degrades to a full re-scan (counted); corrupt to a shorter
+        match — the node's tokens are the authority."""
+        start, snap = 0, None
+        if self.state_cache is None:
+            return start, snap
+        try:
+            corrupting = fire_fault("serve.state_restore")
+            start, snap = self.state_cache.match(prompt[:t_p - 1],
+                                                 corrupt=corrupting)
+        except FaultInjected as e:
+            self.warning("%s: injected state-restore fault (%s) — "
+                         "degrading to a full re-scan", self.name, e)
+            start, snap = 0, None
+            self.state_rescans += 1
+            inc("veles_o1_state_rescans_total")
+        if start:
+            self.state_restores += 1
+            self.prefix_requests += 1
+            inc("veles_o1_state_restores_total")
+            inc("veles_o1_state_restored_tokens_total", start)
+        return start, snap
+
+    def _set_state_row(self, row: int, snap) -> None:
+        """A slot's state row: zeros for a cold scan, or an adopted
+        snapshot copied in (copy-on-write: the cache's host copy is never
+        aliased, so it keeps its bits however the row decodes on)."""
+        for st, saved in zip(self._states, snap or [None] * len(
+                self._states)):
+            for k, leaf in st.items():
+                if saved is None:
+                    leaf[row].zero_()
+                else:
+                    leaf[row].copy_(saved[k])
+
     def _admit(self, params, slot) -> None:
         prompt = slot.req["prompt"]
         t_p, chunk = slot.t_p, self.page_size
@@ -385,14 +460,16 @@ class RecurrentEngine(ResumePlane, Logger):
         resume_k = int(slot.req.get("resume_k", 0) or 0)
         if resume_k:
             inc("veles_resume_tokens_total", resume_k)
+        start, snap = self._restore(prompt, t_p)
+        #: block index (1-based) → the row's host state after that block
+        snaps: Dict[int, tuple] = {}
         with span("serving.prefill", bucket=chunk, slot=slot.idx,
                   t_p=t_p, mode=slot.req.get("mode", "greedy"),
                   request_id=ticket.request_id, trace_id=ticket.trace_id,
                   attempt=ticket.attempt):
-            for st in self._states:
-                for leaf in st.values():
-                    leaf[slot.idx].zero_()
-            p0 = 0
+            self._set_state_row(slot.idx, snap)
+            # the suffix scans in chunks on the cold scan's boundaries
+            p0 = start
             while True:
                 n_real = min(chunk, t_p - p0)
                 ids = torch.zeros((LANE_ROWS, chunk), dtype=torch.int64)
@@ -405,6 +482,12 @@ class RecurrentEngine(ResumePlane, Logger):
                 inc("veles_decode_dispatches_total")
                 self.chunk_dispatches += 1
                 p0 += n_real
+                if n_real == chunk and self.state_cache is not None:
+                    # a full chunk ends on a block boundary: the row's
+                    # state there, copied to the host
+                    snaps[p0 // chunk] = tuple(
+                        {k: v[slot.idx].to("cpu", copy=True)
+                         for k, v in st.items()} for st in self._states)
                 if p0 >= t_p:
                     break
             # the tile's rows at their last real position, as a decode
@@ -432,8 +515,35 @@ class RecurrentEngine(ResumePlane, Logger):
             self.ttft_ms.append(
                 (slot.ticket.first_token - slot.ticket.enqueued) * 1e3)
         self._tok[slot.idx] = first
+        self.last_snapshot_copies = sum(len(st) for snap in snaps.values()
+                                        for st in snap)
+        self._checkpoint_insert(slot, snaps)
         if slot.record(first):
             self._finish(slot)
+
+    def _checkpoint_insert(self, slot, snaps: Dict[int, tuple]) -> None:
+        """Cache a scanned prompt's block-boundary snapshots for the next
+        admission. An injected ``serve.state_checkpoint`` raise caches
+        nothing: the request is answered from its live state already, so
+        the fault costs later admissions a re-scan, never an answer."""
+        if self.state_cache is None or not snaps:
+            return
+        n_blocks = slot.t_p // self.page_size
+        if not n_blocks:
+            return
+        try:
+            fire_fault("serve.state_checkpoint")
+        except FaultInjected as e:
+            self.warning("%s: injected state-checkpoint fault (%s) — "
+                         "prompt not cached; same-prefix admissions "
+                         "re-scan", self.name, e)
+            return
+        added = self.state_cache.insert(
+            slot.req["prompt"][:n_blocks * self.page_size],
+            [snaps.get(i + 1) for i in range(n_blocks)])
+        if added:
+            self.state_checkpoints += added
+            inc("veles_o1_state_checkpoints_total", added)
 
     # -- the decode step ------------------------------------------------------
     def _step_tile(self, params, tile: slice, tok, live, sampled):
