@@ -432,6 +432,45 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              through ``MinibatchesLoader`` and ``PicklesLoader``, 2
              fused-FC epochs each (2 launches) ending on the in-memory
              run's weights bit for bit.
+34. lm_family — the rest of the LM family (after phase 33):
+             ``tiny_transformer`` through the flash kernels at H 4 D 8,
+             the MHA unit and MoE at the bench width against the CPU,
+             the MoE and RProp workflows, the O(1)-state lane's state
+             cache, the recurrent units under AMP.
+35. rest_serving — classic REST serving of a trained classifier and
+             the image loaders (after phase 34): (a) MNIST-784, BASELINE
+             #1 (seed 1234), 2 epochs through the fused-FC kernel (2
+             launches), then served as ``docs/examples.md`` §5 wires it,
+             ``Repeater → RestfulLoader(sample_shape=(784,),
+             minibatch_size=8) → All2AllTanh(100) → All2AllSoftmax(10) →
+             RESTfulAPI`` on the card with the trained parameters: 256
+             validation rows POSTed over HTTP from 32 threads (in a
+             process of their own), all 200,
+             each within 1e-5 of the trained forward of that row alone
+             on the card, the argmax equal (a differing one only on a
+             near-tie, printed with its margin), the served error count
+             equal to the workflow's own evaluation of the rows, fewer
+             dispatches than requests and at most 8 rows a dispatch,
+             ``veles_rest_requests_served 256`` on ``/metrics``; a bad
+             shape 400 then 200, an unknown path 404, ``max_pending=0``
+             503 + Retry-After, ``loader.close()`` ending the workflow,
+             ``stop()`` settling an outstanding ticket once with 503.
+             (b) BASELINE #4's caffe-quick stack from a class tree of
+             5,000 uint8 ``.npy`` files (the CIFAR surrogate's rows, 10
+             classes, ``ClassImageLoader``, valid ratio 0.1): one epoch
+             with host augmentation (mirror, multiplicity 2), one with
+             ``device_augmentation`` (mirror, crop 28×28): every row of
+             a step's batch a window of its source or its mirror, the
+             mirrored share of 4,000 rows in 0.5 ± 0.1, one key one
+             draw, the evaluation crop exact, ``minibatch_data`` 28×28×3,
+             the fused-FC gate refusing an FC chain on that loader with
+             the reference's reason and 0 launches; the host-augmented
+             model served through ``RestfulImageLoader(sample_shape=(32,
+             32, 3), minibatch_size=16)``: 64 ``input`` requests within
+             1e-5 of the forward alone (PNG payloads too where Pillow
+             imports). Reports requests/s, per-request wall p50/p99,
+             dispatches and rows a dispatch, the decode seconds of the
+             5,000 files, each epoch's ms.
 
 ``profiled`` (the breakdown phases' profiler window) reads the capture
 through ``telemetry.devtime.measure``: ``device_busy_ms`` is the union
@@ -442,9 +481,9 @@ Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
 launches in the AMP epochs; the fused-FC kernel's launches in ``train``
 and, under ``launches_by_path``, in ``snapshot``, ``telemetry`` and
-``cli`` and ``train_library`` too; the flash kernels' f32 entries
-count ``cli`` and ``train_text`` too, the forward's ``serve_spec_beam``
-and ``serve_qos_handoff`` too) and,
+``cli``, ``train_library`` and ``rest_serving`` too; the flash
+kernels' f32 entries count ``cli`` and ``train_text`` too, the forward's
+``serve_spec_beam`` and ``serve_qos_handoff`` too) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and the run exits non-zero without the last line; without a card
 it exits 1 at once.
@@ -6368,6 +6407,612 @@ def phase_lm_family(card):
             for k in tt["launches"]}
 
 
+#: phase 35 rest_serving: BASELINE #1 served through RESTfulAPI with
+#: dynamic batching, and BASELINE #4 trained from an image tree
+REST_MB = 8
+REST_REQUESTS = 256
+REST_CLIENTS = 32
+#: an answered row against the forward of that row alone on the card
+#: (cuBLAS sums a product row in another order at 1–8 rows)
+TOL_REST = 1e-5
+IMG_FILES_PER_CLASS = 500
+IMG_VALID_RATIO = 0.1
+IMG_CROP = (28, 28)
+IMG_MB = 100
+IMG_REST_MB = 16
+IMG_REQUESTS = 64
+IMG_CLIENTS = 16
+#: the mirrored share of a device-augmented draw: 0.5 ± this
+TOL_MIRROR_SHARE = 0.1
+MIRROR_SHARE_ROWS = 4000
+
+
+def http_status(url, payload=None, timeout=30.0):
+    """(status, headers, body text) of a GET (``payload`` None) or a
+    JSON POST, error statuses included."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode(errors="replace")
+
+
+def rest_workflow(layers, tree, loader_cls, device=None, **loader_kw):
+    """``docs/examples.md`` §5's serving workflow on the port, as a user
+    wires it: Repeater → ``loader_cls`` (of ``loader/stream.py``) → the
+    forward units of the ``layers`` config → ``RESTfulAPI``, initialised
+    on ``device`` (default: the card), the forwards given the trained
+    parameter tree ``tree`` through ``convert.params_from_jax``. Returns
+    (workflow, loader, forwards, api)."""
+    from veles_tpu_torch import RESTfulAPI
+    from veles_tpu_torch.convert import params_from_jax
+    from veles_tpu_torch.loader import stream
+    from veles_tpu_torch.nn.standard_workflow import _unit_class
+    from veles_tpu_torch.plumbing import Repeater
+    from veles_tpu_torch.workflow import Workflow
+    wf = Workflow(name="serve")
+    rep = Repeater(wf)
+    loader = getattr(stream, loader_cls)(wf, name="rest_loader",
+                                         **loader_kw)
+    rep.link_from(wf.start_point)
+    loader.link_from(rep)
+    prev, attr, fwds = loader, "minibatch_data", []
+    for i, cfg in enumerate(layers):
+        cfg = dict(cfg)
+        kind = cfg.pop("type")
+        unit = _unit_class(kind)(wf, name=cfg.pop("name", "%s%d" % (kind, i)),
+                                 **cfg)
+        unit.link_from(prev)
+        unit.link_attrs(prev, ("input", attr))
+        prev, attr = unit, "output"
+        fwds.append(unit)
+    api = RESTfulAPI(wf, loader=loader, port=0)
+    api.link_from(prev)
+    api.link_attrs(prev, ("input", "output"))
+    rep.link_from(api)
+    wf.initialize(device=device)
+    params_from_jax(wf, tree)
+    return wf, loader, fwds, api
+
+
+def trained_tree(wf):
+    """A trained workflow's parameters as numpy, in the reference's
+    layout."""
+    return {n: {k: v.detach().cpu().numpy() for k, v in p.items()}
+            for n, p in wf.train_step.params.items()}
+
+
+def forward_alone(wf, rows):
+    """The trained workflow's forward units over each row alone on the
+    card (evaluation mode; the softmax head's probabilities, as the
+    served forward's)."""
+    import numpy
+    import torch
+    step = wf.train_step
+    out = []
+    with torch.no_grad():
+        for row in rows:
+            x = torch.from_numpy(numpy_copy(row)[None]).to(step.device)
+            for f in wf.forwards:
+                x = f.apply(step.params.get(f.name, {}), x)
+            out.append(x[0].cpu().numpy())
+    return numpy.stack(out)
+
+
+def record_dispatches(loader):
+    """Wrap the stream loader's run: the list it returns fills with the
+    rows of each dispatch that served requests."""
+    sizes = []
+    run = loader.run
+
+    def recording():
+        run()
+        if loader.current_tickets:
+            sizes.append(loader.minibatch_size)
+    loader.run = recording
+    return sizes
+
+
+def rest_load(url, payloads, clients):
+    """POST every payload over HTTP from ``clients`` threads (client c
+    posts payloads c, c + clients, ...): (answers as (code, body, ms),
+    wall s)."""
+    answers = [None] * len(payloads)
+
+    def client(c):
+        for i in range(c, len(payloads), clients):
+            answers[i] = post(url, payloads[i], timeout=120.0)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return answers, time.perf_counter() - t0
+
+
+def rest_load_apart(url, payloads, clients):
+    """:func:`rest_load` in a process of its own (spawned; it imports
+    this file and no torch), so the clients' JSON encoding and sockets
+    do not share the server's interpreter lock, as a real client's do
+    not. The process ends with the call."""
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(rest_load, (url, payloads, clients))
+
+
+def served_vs_alone(answers, alone, what):
+    """Each 200 answer's row against the forward alone: the largest
+    error, and the rows whose argmax differs with both top values and
+    their margin (allowed only on a near-tie: the margin within
+    TOL_REST)."""
+    import numpy
+    bad = [i for i, a in enumerate(answers) if a is None or a[0] != 200]
+    if bad:
+        raise AssertionError("%s: %d answers not 200, e.g. %s"
+                             % (what, len(bad), answers[bad[0]]))
+    served = numpy.asarray([a[1]["result"] for a in answers],
+                           dtype=numpy.float64)
+    err = float(numpy.abs(served - alone).max())
+    flips = []
+    for i in numpy.flatnonzero(served.argmax(1) != alone.argmax(1)):
+        top = numpy.sort(alone[i])[-2:]
+        flips.append({"row": int(i), "served": int(served[i].argmax()),
+                      "alone": int(alone[i].argmax()),
+                      "top_two": top.tolist(),
+                      "margin": float(top[1] - top[0])})
+    return served, err, flips
+
+
+def rest_stats(answers, wall, dispatches):
+    """The load's numbers: requests/s, per-request wall percentiles, the
+    dispatches that served it and their rows."""
+    ms = [a[2] for a in answers]
+    return dict(requests=len(answers), requests_per_s=len(answers) / wall,
+                wall_ms_p50=pct(ms, 50), wall_ms_p99=pct(ms, 99),
+                dispatches=len(dispatches), rows_dispatched=sum(dispatches),
+                rows_per_dispatch=(sum(dispatches) / len(dispatches)
+                                   if dispatches else 0.0),
+                max_rows_per_dispatch=max(dispatches, default=0))
+
+
+def rest_mnist():
+    """(a) BASELINE #1 trained 2 epochs through the fused-FC kernel, then
+    served: 256 validation rows POSTed from 32 threads through
+    ``RestfulLoader(minibatch_size=8)``, each answer against the trained
+    forward of that row alone on the card, the error count against the
+    workflow's own evaluation of the same rows; the error paths (a bad
+    shape, an unknown path, the pending bound, the loader's close, the
+    stop sweep)."""
+    import numpy
+    import torch
+    from veles_tpu_torch import RESTfulAPI
+    from veles_tpu_torch.loader import stream
+    from veles_tpu_torch.serving.scheduler import Ticket
+    from veles_tpu_torch.workflow import Workflow
+    from veles_tpu_torch.config import root
+    before = fused_launches()
+    try:
+        wf = mnist_library_workflow(epochs=2, per_dispatch=2)
+        wf.run()
+    finally:
+        root.common.engine.fused_fc_scan = False
+    launches = fused_launches() - before
+    step = wf.train_step
+    dataset, labels = step._dataset()
+    idx = torch.arange(REST_REQUESTS, device=step.device)
+    rows = dataset[idx].cpu().numpy()
+    want_labels = labels[idx].cpu().numpy()
+    with torch.no_grad():
+        batch_logits = step._forward(step.params, dataset[idx])
+        own = step._eval_step(step.params, step._zero_accum(), dataset,
+                              labels, idx.int(),
+                              torch.ones(REST_REQUESTS, device=step.device))
+    own_err = int(round(float(own["n_err"])))
+    batch_pred = batch_logits.argmax(1).cpu().numpy()
+    alone = forward_alone(wf, rows)
+    serve_wf, loader, fwds, api = rest_workflow(
+        wf.layers_config, trained_tree(wf), "RestfulLoader",
+        sample_shape=(784,), minibatch_size=REST_MB, timeout=120.0)
+    dispatches = record_dispatches(loader)
+    thread = threading.Thread(target=serve_wf.run, daemon=True)
+    thread.start()
+    url = "http://127.0.0.1:%d" % api.port
+    answers, wall = rest_load_apart(url + "/api", [{"input": r.tolist()}
+                                                   for r in rows],
+                                    REST_CLIENTS)
+    stats = rest_stats(answers, wall, list(dispatches))
+    metrics = http_status(url + "/metrics")[2]
+    served_total = api.requests_served
+    served, err, flips = served_vs_alone(answers, alone, "mnist")
+    served_pred = served.argmax(1)
+    served_err = int((served_pred != want_labels).sum())
+    # a served row may differ from the 256-row evaluation only on a
+    # near-tie of its logits
+    logits = batch_logits.cpu().numpy()
+    batch_flips = []
+    for i in numpy.flatnonzero(served_pred != batch_pred):
+        top = numpy.sort(logits[i])[-2:]
+        batch_flips.append({"row": int(i), "top_two": top.tolist(),
+                            "margin": float(top[1] - top[0])})
+    bad_shape = http_status(url + "/api", {"input": [0.0] * 10})[0]
+    after_bad = post(url + "/api", {"input": rows[0].tolist()})[0]
+    unknown = http_status(url + "/nope", {"input": []})[0]
+    health = [http_status(url + p)[0] for p in ("/healthz", "/readyz")]
+    loader.close()
+    thread.join(timeout=30)
+    closed = not thread.is_alive()
+    after_close = http_status(url + "/api", {"input": rows[0].tolist()})[0]
+    straggler = Ticket()
+    api._outstanding.add(straggler)
+    api.stop()
+    swept = (straggler.event.is_set() and straggler.code == 503
+             and straggler.retry_after == 5.0
+             and not straggler.fail("second sweep", code=503))
+    shed_wf = Workflow(None, name="shed")
+    shed_loader = stream.RestfulLoader(shed_wf, sample_shape=(784,),
+                                       name="shed_loader")
+    shed_api = RESTfulAPI(shed_wf, loader=shed_loader, port=0,
+                          max_pending=0, name="shed_api")
+    shed_api.initialize()
+    try:
+        shed = http_status("http://127.0.0.1:%d/api" % shed_api.port,
+                           {"input": rows[0].tolist()})
+    finally:
+        shed_api.stop()
+    return dict(
+        fused_launches=launches, valid_err=wf.decision.epoch_metrics[1],
+        max_err=err, argmax_flips=flips, batch_argmax_flips=batch_flips,
+        served_err_count=served_err, workflow_err_count=own_err,
+        requests_served=served_total,
+        metrics_served_line="veles_rest_requests_served %d"
+        % REST_REQUESTS in metrics.splitlines(),
+        bad_shape=bad_shape, after_bad_shape=after_bad, unknown=unknown,
+        health=health, after_close=after_close, workflow_ended=closed,
+        stop_sweep_once=swept, shed=shed[0],
+        shed_retry_after=shed[1].get("Retry-After"), **stats)
+
+
+def image_tree(directory):
+    """The CIFAR-10 surrogate's rows as a class tree of uint8 ``.npy``
+    files (``c0/0000.npy`` ...), 500 a class: the reference's codec path
+    for arrays (the card's machine has no Pillow)."""
+    import numpy
+    from veles_tpu_torch import datasets
+    tx, ty, _, _ = datasets.load_cifar10(n_train=6000, n_test=10)
+    for c in range(10):
+        pick = numpy.flatnonzero(ty == c)[:IMG_FILES_PER_CLASS]
+        if len(pick) < IMG_FILES_PER_CLASS:
+            raise AssertionError("class %d has %d surrogate rows"
+                                 % (c, len(pick)))
+        d = os.path.join(directory, "c%d" % c)
+        os.makedirs(d)
+        for j, i in enumerate(pick):
+            numpy.save(os.path.join(d, "%04d.npy" % j),
+                       numpy.round(tx[i] * 255).astype(numpy.uint8))
+
+
+def image_split_lengths(directory, multiplicity):
+    """[test, valid, train] rows ``ClassImageLoader`` must give: each
+    class's deterministic split, the train files times the host
+    augmentation's multiplicity."""
+    from veles_tpu_torch.loader import deterministic_split
+    lengths = [0, 0, 0]
+    for cls in sorted(os.listdir(directory)):
+        files = [os.path.join(directory, cls, f)
+                 for f in os.listdir(os.path.join(directory, cls))]
+        tr, va, te = deterministic_split(files, IMG_VALID_RATIO, 0.0,
+                                         key=cls)
+        lengths[0] += len(te)
+        lengths[1] += len(va)
+        lengths[2] += len(tr) * multiplicity
+    return lengths
+
+
+def image_workflow(directory, layers, **loader_kw):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader import ClassImageLoader
+    from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+    prng.seed_all(SEED)
+    loader = ClassImageLoader(None, root_dir=directory,
+                              valid_ratio=IMG_VALID_RATIO,
+                              minibatch_size=IMG_MB, name="images",
+                              **loader_kw)
+    wf = StandardWorkflow(
+        name="cifar-images", layers=layers, loader_unit=loader,
+        loss_function="softmax",
+        decision_config=dict(max_epochs=1, fail_iterations=100))
+    wf.initialize()
+    return wf
+
+
+def window_hits(src, out, crop):
+    """(B, 2) bools on the device: whether each row of ``out`` is a
+    ``crop`` window of its source row, unmirrored and mirrored."""
+    import torch
+    ch, cw = crop
+    hits = []
+    for flip in (False, True):
+        s = src.flip(2) if flip else src
+        wins = s.unfold(1, ch, 1).unfold(2, cw, 1).permute(0, 1, 2, 4, 5, 3)
+        hits.append((wins == out[:, None, None]).flatten(3).all(-1)
+                    .flatten(1).any(-1))
+    return torch.stack(hits, 1)
+
+
+def device_augment_checks(wf):
+    """Device augmentation on the card by its semantics, for the first
+    train step's key: one step's batch (mb rows), each row a window of
+    its source or of its mirror; a 4,000-row draw's mirrored share;
+    the same key the same draw, another key another; the evaluation
+    crop exact."""
+    import torch
+    step, loader = wf.train_step, wf.loader
+    dataset, _ = step._dataset()
+    n = min(MIRROR_SHARE_ROWS, dataset.shape[0])
+    big = dataset[:n]
+    drawn = step._augmented(big, 0)
+    src = big[:IMG_MB]
+    out = step._augmented(src, 0)
+    hits = torch.cat([window_hits(big[i:i + 500], drawn[i:i + 500],
+                                  IMG_CROP) for i in range(0, n, 500)])
+    mirrored = int((hits[:, 1] & ~hits[:, 0]).sum())
+    ch, cw = IMG_CROP
+    h, w = src.shape[1:3]
+    y, x = (h - ch) // 2, (w - cw) // 2
+    return dict(
+        batch_rows=int(src.shape[0]),
+        batch_all_windows=bool(window_hits(src, out, IMG_CROP).any(1).all()),
+        draw_rows=n, draw_all_windows=bool(hits.any(1).all()),
+        mirrored_share=mirrored / n,
+        ambiguous_rows=int((hits[:, 0] & hits[:, 1]).sum()),
+        same_key_same_draw=bool(torch.equal(out, step._augmented(src, 0))),
+        other_key_other_draw=not torch.equal(out, step._augmented(src, 1)),
+        eval_crop_exact=bool(torch.equal(loader.device_eval_fn(src),
+                                         src[:, y:y + ch, x:x + cw, :])),
+        out_shape=list(out.shape), on_card=out.device.type == "cuda")
+
+
+def rest_images(directory):
+    """(b) BASELINE #4's caffe-quick stack trained one epoch from a class
+    tree of 5,000 ``.npy`` files with host augmentation, one epoch with
+    device augmentation; the host-augmented model served through
+    ``RestfulImageLoader``."""
+    import numpy
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader import decode_image
+    from veles_tpu_torch.models import cifar
+    t0 = time.perf_counter()
+    image_tree(directory)
+    write_s = time.perf_counter() - t0
+    files = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(directory)
+                   for f in fs)
+    t0 = time.perf_counter()
+    for f in files:
+        decode_image(f)
+    decode_s = time.perf_counter() - t0
+    layers = cifar.caffe_quick_layers(0.001)
+
+    # host augmentation: every train file and its mirror
+    wf = image_workflow(directory, layers, mirror=True)
+    host_lengths = list(wf.loader.class_lengths)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+
+    # device augmentation: one stored copy a file, mirror + crop on the
+    # card in the train step; the fused gate stays off
+    dev = image_workflow(directory, layers, mirror=True, crop=IMG_CROP,
+                         device_augmentation=True)
+    calls = []
+    real_aug = dev.loader.device_augment_fn
+
+    def counting(batch, generator):
+        calls.append(generator is not None
+                     and generator.device.type == "cuda")
+        return real_aug(batch, generator)
+    dev.loader.device_augment_fn = counting
+    before = fused_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev.run()
+    torch.cuda.synchronize()
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    dev.loader.device_augment_fn = real_aug
+    semantics = device_augment_checks(dev)
+    dev_launches = fused_launches() - before
+    root.common.engine.fused_fc_scan = True
+    try:
+        with _Reasons() as reasons:
+            fc = image_workflow(directory, [
+                {"type": "all2all_tanh", "output_sample_shape": 100},
+                {"type": "softmax", "output_sample_shape": 10}],
+                mirror=True, crop=IMG_CROP, device_augmentation=True)
+        before = fused_launches()
+        fc.run()
+        fc_launches = fused_launches() - before
+    finally:
+        root.common.engine.fused_fc_scan = False
+
+    # serving the host-augmented model: validation rows as ``input``
+    n_valid = host_lengths[1]
+    rows = wf.loader.original_data.mem[:min(IMG_REQUESTS, n_valid)]
+    alone = forward_alone(wf, rows)
+    serve_wf, loader, fwds, api = rest_workflow(
+        wf.layers_config, trained_tree(wf), "RestfulImageLoader",
+        sample_shape=(32, 32, 3), minibatch_size=IMG_REST_MB,
+        timeout=120.0)
+    dispatches = record_dispatches(loader)
+    thread = threading.Thread(target=serve_wf.run, daemon=True)
+    thread.start()
+    url = "http://127.0.0.1:%d/api" % api.port
+    answers, wall = rest_load_apart(url, [{"input": r.tolist()}
+                                          for r in rows], IMG_CLIENTS)
+    stats = rest_stats(answers, wall, list(dispatches))
+    served, err, flips = served_vs_alone(answers, alone, "images")
+    png = {"png_payloads": "skipped: no Pillow on this machine"}
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        import base64
+        import io
+        from PIL import Image
+        payloads = []
+        for r in rows:
+            buf = io.BytesIO()
+            Image.fromarray(numpy.round(r * 255).astype(numpy.uint8)).save(
+                buf, format="PNG")
+            payloads.append({"image": base64.b64encode(
+                buf.getvalue()).decode()})
+        png_answers, _ = rest_load_apart(url, payloads, IMG_CLIENTS)
+        png_served, png_err, _ = served_vs_alone(png_answers, alone, "png")
+        png = {"png_payloads": len(png_answers),
+               "png_vs_input_max_err": float(numpy.abs(
+                   png_served - served).max()), "png_max_err": png_err}
+    loader.close()
+    thread.join(timeout=30)
+    api.stop()
+    return dict(
+        files=len(files), write_s=write_s, decode_s=decode_s,
+        host_class_lengths=host_lengths,
+        expected_host_lengths=image_split_lengths(directory, 2),
+        host_epoch_ms=host_ms, host_loss=wf.decision.epoch_losses[2],
+        host_valid_err=wf.decision.epoch_metrics[1],
+        device_class_lengths=list(dev.loader.class_lengths),
+        expected_device_lengths=image_split_lengths(directory, 1),
+        device_epoch_ms=dev_ms, device_loss=dev.decision.epoch_losses[2],
+        device_valid_err=dev.decision.epoch_metrics[1],
+        device_minibatch_shape=list(dev.loader.minibatch_data.shape[1:]),
+        device_stored_shape=list(dev.loader.original_data.shape[1:]),
+        augment_calls=len(calls), augment_calls_on_card=all(calls),
+        train_steps=-(-dev.loader.class_lengths[2] // IMG_MB),
+        device_semantics=semantics,
+        device_fused_engaged=dev.train_step._fused_fc is not None,
+        device_fused_launches=dev_launches,
+        fc_chain_reasons=reasons.messages, fc_chain_launches=fc_launches,
+        fc_chain_engaged=fc.train_step._fused_fc is not None,
+        max_err=err, argmax_flips=flips, requests_served=api.requests_served,
+        **png, **stats)
+
+
+def phase_rest_serving(card):
+    """Phase 35: classic REST serving of a trained classifier and the
+    image loaders with on-device augmentation. Every part fails the run
+    on a miss. Returns the fused-FC launches of (a)'s training."""
+    import tempfile
+    t_phase = time.perf_counter()
+    mnist = rest_mnist()
+    t_mnist = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        images = rest_images(tmp)
+    print(json.dumps({"png_payloads": images["png_payloads"]}), flush=True)
+    emit("rest_serving", card=card, mnist=mnist, images=images,
+         mnist_s=t_mnist, phase_s=time.perf_counter() - t_phase)
+    bad = []
+    if mnist["fused_launches"] != 2:
+        bad.append("fused-FC launches %s, want 2" % mnist["fused_launches"])
+    if mnist["max_err"] > TOL_REST or any(
+            f["margin"] > TOL_REST for f in mnist["argmax_flips"]):
+        bad.append("mnist answers vs alone: %s, flips %s"
+                   % (mnist["max_err"], mnist["argmax_flips"]))
+    if mnist["served_err_count"] != mnist["workflow_err_count"] and (
+            abs(mnist["served_err_count"] - mnist["workflow_err_count"])
+            > len(mnist["batch_argmax_flips"]) or any(
+                f["margin"] > TOL_REST
+                for f in mnist["batch_argmax_flips"])):
+        bad.append("served errors %d, the workflow's %d (flips %s)"
+                   % (mnist["served_err_count"],
+                      mnist["workflow_err_count"],
+                      mnist["batch_argmax_flips"]))
+    if not (mnist["dispatches"] < REST_REQUESTS
+            and mnist["max_rows_per_dispatch"] <= REST_MB
+            and mnist["rows_dispatched"] == REST_REQUESTS):
+        bad.append("dynamic batching: %d dispatches, at most %d rows"
+                   % (mnist["dispatches"], mnist["max_rows_per_dispatch"]))
+    if mnist["requests_served"] != REST_REQUESTS \
+            or not mnist["metrics_served_line"]:
+        bad.append("requests_served %d (want %d), /metrics line %s"
+                   % (mnist["requests_served"], REST_REQUESTS,
+                      mnist["metrics_served_line"]))
+    if (mnist["bad_shape"], mnist["after_bad_shape"], mnist["unknown"],
+            mnist["health"], mnist["after_close"]) != (
+                400, 200, 404, [200, 200], 503):
+        bad.append("error paths %s" % {k: mnist[k] for k in (
+            "bad_shape", "after_bad_shape", "unknown", "health",
+            "after_close")})
+    if mnist["shed"] != 503 or not mnist["shed_retry_after"]:
+        bad.append("pending bound: %s, Retry-After %s"
+                   % (mnist["shed"], mnist["shed_retry_after"]))
+    if not (mnist["workflow_ended"] and mnist["stop_sweep_once"]):
+        bad.append("close ended the workflow %s, stop sweep once %s"
+                   % (mnist["workflow_ended"], mnist["stop_sweep_once"]))
+    if images["host_class_lengths"] != images["expected_host_lengths"] \
+            or images["device_class_lengths"] != \
+            images["expected_device_lengths"]:
+        bad.append("class lengths %s / %s, the split gives %s / %s" % (
+            images["host_class_lengths"], images["device_class_lengths"],
+            images["expected_host_lengths"],
+            images["expected_device_lengths"]))
+    if not all(math.isfinite(v) for v in images["host_loss"]
+               + images["device_loss"]):
+        bad.append("losses %s / %s" % (images["host_loss"],
+                                      images["device_loss"]))
+    sem = images["device_semantics"]
+    if not (sem["batch_all_windows"] and sem["draw_all_windows"]
+            and abs(sem["mirrored_share"] - 0.5) <= TOL_MIRROR_SHARE
+            and sem["same_key_same_draw"] and sem["other_key_other_draw"]
+            and sem["eval_crop_exact"] and sem["on_card"]
+            and sem["out_shape"][1:] == list(IMG_CROP) + [3]):
+        bad.append("device augmentation %s" % sem)
+    if images["device_minibatch_shape"] != list(IMG_CROP) + [3] \
+            or images["device_stored_shape"] != [32, 32, 3]:
+        bad.append("minibatch %s, stored %s"
+                   % (images["device_minibatch_shape"],
+                      images["device_stored_shape"]))
+    if images["augment_calls"] < images["train_steps"] \
+            or not images["augment_calls_on_card"]:
+        bad.append("augmentation drawn %d times for %d train steps (on the "
+                   "card: %s)" % (images["augment_calls"],
+                                  images["train_steps"],
+                                  images["augment_calls_on_card"]))
+    if images["device_fused_engaged"] or images["device_fused_launches"] \
+            or images["fc_chain_engaged"] or images["fc_chain_launches"] \
+            or not any(m.endswith("device-side augmentation not fused")
+                       for m in images["fc_chain_reasons"]):
+        bad.append("fused gate under device augmentation: %s" % {
+            k: images[k] for k in ("device_fused_engaged",
+                                   "device_fused_launches",
+                                   "fc_chain_engaged", "fc_chain_launches",
+                                   "fc_chain_reasons")})
+    if images["max_err"] > TOL_REST or any(
+            f["margin"] > TOL_REST for f in images["argmax_flips"]) \
+            or images["requests_served"] < IMG_REQUESTS:
+        bad.append("image answers vs alone: %s, flips %s, served %d"
+                   % (images["max_err"], images["argmax_flips"],
+                      images["requests_served"]))
+    if images["dispatches"] >= IMG_REQUESTS \
+            or images["max_rows_per_dispatch"] > IMG_REST_MB:
+        bad.append("image dynamic batching: %d dispatches, at most %d rows"
+                   % (images["dispatches"],
+                      images["max_rows_per_dispatch"]))
+    if images.get("png_vs_input_max_err", 0.0) > TOL_REST:
+        bad.append("png answers vs input answers %s"
+                   % images["png_vs_input_max_err"])
+    if bad:
+        raise AssertionError("rest_serving: " + "; ".join(bad))
+    return mnist["fused_launches"]
+
+
 def phase_breakdown(card, model, prompts):
     """Where one batched greedy decode spends its time: prefill (the
     n_new=1 call) vs the per-step decode, and the device's busy share
@@ -6462,6 +7107,7 @@ def main():
     launches_text = phase_train_text(card)
     launches_library = phase_train_library(card)
     launches_family = phase_lm_family(card)
+    launches_rest = phase_rest_serving(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -6542,7 +7188,8 @@ def main():
                              "snapshot": launches_snap,
                              "telemetry": launches_tel_ffc,
                              "cli": launches_cli["fused_fc"],
-                             "train_library": launches_library},
+                             "train_library": launches_library,
+                             "rest_serving": launches_rest},
         "ok": True},
         bwd_entry("dkv", 248), bwd_entry("dq", 309)] + [
         amp_entry(inst, kern) for inst in AMP_INSTANCES

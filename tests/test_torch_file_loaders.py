@@ -6,8 +6,8 @@ carved by ``validation_ratio`` too, from the same keyed stream); the
 minibatch files cross between the packages both ways; HDF5 through the
 installed ``h5py``; sound from a ``.wav`` the stdlib writes; HDFS text
 from a local WebHDFS-shaped HTTP server; a missing ``lmdb`` raises a
-VelesError naming it; the streaming loaders, asked for through the
-loader registry, name their ROADMAP item.
+VelesError naming it; the streaming loaders resolve through the loader
+registry to their ported classes.
 """
 import http.server
 import json
@@ -310,15 +310,18 @@ def test_file_scanning_equals_the_reference(tmp_path):
         loader.FileListScanner([str(tmp_path / "nope")]).scan()
 
 
-@pytest.mark.parametrize("name", ["restful_loader", "RestfulLoader",
-                                  "interactive_loader", "zeromq_loader",
-                                  "StreamLoader"])
-def test_stream_loaders_name_their_item(name):
-    with pytest.raises(VelesError, match=r"ROADMAP Queue 1 item 12: "
-                                         r"classic REST serving"):
-        loader.loader_class(name)
-    if name[0].isupper():
-        with pytest.raises(VelesError, match="item 12"):
-            getattr(loader, name)
+@pytest.mark.parametrize("name, want", [
+    ("restful_loader", "RestfulLoader"), ("RestfulLoader", "RestfulLoader"),
+    ("interactive_loader", "StreamLoader"),
+    ("zeromq_loader", "ZeroMQLoader"), ("StreamLoader", "StreamLoader")])
+def test_stream_loaders_resolve_to_ported_classes(name, want):
+    """The streaming loaders' registry and class names resolve to the
+    port's classes in ``loader/stream.py``, which the package exports
+    as the reference's does."""
+    from veles_tpu_torch.loader import stream
+    cls = loader.loader_class(name)
+    assert cls is getattr(stream, want) is getattr(loader, want)
+    assert cls.__name__ == getattr(ref_loader, want).__name__
+    assert cls.MAPPING == getattr(ref_loader, want).MAPPING
     assert loader.loader_class("pickles_loader") is loader.PicklesLoader
     assert os.path.basename(loader.__file__) == "__init__.py"

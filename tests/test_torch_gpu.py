@@ -25,7 +25,10 @@ fused epilogue on the card against the CPU or bit for bit; a minibatch
 file's replay through the fused-FC kernel equal to the in-memory run),
 and the rest of the LM family (the multi-head attention unit through the
 flash kernels and the MoE layer's routing against the CPU; the
-O(1)-state lane's state cache restoring the cold scan's bits).
+O(1)-state lane's state cache restoring the cold scan's bits), and
+classic REST serving with the image loaders (a RESTfulAPI round trip on
+the card within 1e-5 of the forward alone; device augmentation's
+semantics; the fused-FC gate refusing it).
 Each skips without a card (decided inside the fixture, never at
 import).
 
@@ -1762,3 +1765,135 @@ def test_state_cache_restores_the_cold_bits_on_the_card(cuda):
     for cold, warm in zip(*rows):
         for k in cold:
             assert torch.equal(cold[k], warm[k]), k
+
+
+def _npy_class_tree(directory, classes=3, per_class=30, size=12, seed=0):
+    """A class tree of uint8 ``.npy`` images (no Pillow on the card's
+    machine), each class a distinct mean color."""
+    rng = numpy.random.RandomState(seed)
+    for c in range(classes):
+        d = directory / ("c%d" % c)
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            img = numpy.clip(rng.rand(size, size, 3) * 0.3
+                             + numpy.eye(3)[c % 3] * 0.7, 0, 1)
+            numpy.save(str(d / ("%03d.npy" % i)),
+                       numpy.round(img * 255).astype(numpy.uint8))
+    return str(directory)
+
+
+def _image_workflow(directory, layers, **kw):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader import ClassImageLoader
+    from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+    prng.seed_all(3)
+    loader = ClassImageLoader(None, root_dir=directory, valid_ratio=0.25,
+                              minibatch_size=16, name="gpu_images", **kw)
+    wf = StandardWorkflow(
+        name="gpu-images", layers=layers, loader_unit=loader,
+        loss_function="softmax",
+        decision_config=dict(max_epochs=2, fail_iterations=99))
+    wf.initialize()
+    return wf
+
+
+FC_LAYERS = [{"type": "all2all_tanh", "output_sample_shape": 16},
+             {"type": "softmax", "output_sample_shape": 3}]
+
+
+def test_device_augmentation_semantics_on_the_card(cuda, tmp_path):
+    """Mirror + 8x8 crop in the train step on the card: each row of a
+    step's draw a window of its source or of its mirror, about half of
+    600 rows mirrored, one key one draw, the evaluation crop exact; the
+    workflow trains on the 8x8 minibatch."""
+    from chip_smoke import window_hits
+    wf = _image_workflow(_npy_class_tree(tmp_path), FC_LAYERS, mirror=True,
+                         crop=(8, 8), device_augmentation=True)
+    step = wf.train_step
+    dataset, _ = step._dataset()
+    assert dataset.device.type == "cuda"
+    src = dataset.repeat(10, 1, 1, 1)[:600]
+    out = step._augmented(src, 0)
+    assert out.shape == (600, 8, 8, 3) and out.device.type == "cuda"
+    hits = window_hits(src, out, (8, 8))
+    assert bool(hits.any(1).all())
+    share = float((hits[:, 1] & ~hits[:, 0]).float().mean())
+    assert 0.4 <= share <= 0.6, share
+    assert torch.equal(out, step._augmented(src, 0))
+    assert not torch.equal(out, step._augmented(src, 1))
+    assert torch.equal(wf.loader.device_eval_fn(src), src[:, 2:10, 2:10])
+    assert wf.loader.minibatch_data.shape[1:] == (8, 8, 3)
+    wf.run()
+    assert all(numpy.isfinite(wf.decision.epoch_losses[2]))
+
+
+def test_fused_gate_refuses_device_augmentation_on_the_card(cuda,
+                                                            tmp_path,
+                                                            caplog):
+    """An FC chain on a device-augmenting loader with ``fused_fc_scan``
+    on keeps the general path, with the reference's reason, and never
+    launches the fused-FC kernel."""
+    import logging
+    root.common.engine.fused_fc_scan = True
+    try:
+        with caplog.at_level(logging.INFO):
+            wf = _image_workflow(_npy_class_tree(tmp_path), FC_LAYERS,
+                                 mirror=True, crop=(8, 8),
+                                 device_augmentation=True)
+        before = counters.get(FFC_LAUNCHES)
+        wf.run()
+    finally:
+        root.common.engine.fused_fc_scan = False
+    assert wf.train_step._fused_fc is None
+    assert counters.get(FFC_LAUNCHES) == before
+    assert any(r.getMessage().endswith("device-side augmentation not fused")
+               for r in caplog.records)
+
+
+def test_restful_api_round_trip_on_the_card(cuda):
+    """``docs/examples.md`` §5's serving workflow on the card: 24
+    concurrent POSTs, each answered within 1e-5 of the forward of its
+    row alone, in fewer dispatches than requests; a bad shape 400, an
+    unknown path 404, the close ending the workflow."""
+    import threading
+    from chip_smoke import (TOL_REST, http_status, record_dispatches,
+                            rest_load, rest_workflow)
+    layers = [{"type": "all2all_tanh", "output_sample_shape": 32},
+              {"type": "softmax", "output_sample_shape": 5}]
+    rng = numpy.random.RandomState(4)
+    tree = {"all2all_tanh0": {"weights": rng.randn(12, 32) * 0.3,
+                              "bias": rng.randn(32) * 0.1},
+            "softmax1": {"weights": rng.randn(32, 5) * 0.3,
+                         "bias": rng.randn(5) * 0.1}}
+    wf, loader, fwds, api = rest_workflow(
+        layers, tree, "RestfulLoader", sample_shape=(12,),
+        minibatch_size=8, timeout=60.0)
+    assert all(f.device.type == "cuda" for f in fwds)
+    dispatches = record_dispatches(loader)
+    thread = threading.Thread(target=wf.run, daemon=True)
+    thread.start()
+    url = "http://127.0.0.1:%d" % api.port
+    xs = rng.rand(24, 12).astype(numpy.float32)
+    try:
+        answers, _ = rest_load(url + "/api", [{"input": x.tolist()}
+                                              for x in xs], 24)
+        assert [a[0] for a in answers] == [200] * 24
+        assert len(dispatches) < 24 and max(dispatches) <= 8
+        with torch.no_grad():
+            for x, a in zip(xs, answers):
+                y = torch.from_numpy(x[None]).to(cuda)
+                for f in fwds:
+                    y = f.apply({k: v.device_view(cuda) for k, v in
+                                 f.param_arrays().items()}, y)
+                err = numpy.abs(numpy.asarray(a[1]["result"])
+                                - y[0].cpu().numpy()).max()
+                assert err <= TOL_REST, err
+        assert http_status(url + "/api", {"input": [0.0] * 3})[0] == 400
+        assert http_status(url + "/nope", {"input": []})[0] == 404
+        assert "veles_rest_requests_served 24" in http_status(
+            url + "/metrics")[2]
+    finally:
+        loader.close()
+        thread.join(timeout=30)
+        api.stop()
+    assert not thread.is_alive()

@@ -22,7 +22,11 @@ reader finds each counterpart: ``nn/transformer.py`` here mirrors
 - the command line, ``python -m veles_tpu_torch MODEL.py [CONFIG]
   [root.x=y] [flags]`` (``__main__.py``, ``cmdline.py``,
   ``launcher.py``): train, resume, write results or serve a model file,
-  with the reference's argv.
+  with the reference's argv;
+- classic REST serving of a trained classifier: a forward workflow
+  ``Repeater → RestfulLoader → forwards → RESTfulAPI``
+  (``restful_api.RESTfulAPI``, ``loader/stream.py``), and the image
+  loaders (``loader/image.py``) with on-device augmentation.
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``veles_tpu``. Entry points run on the CUDA card unless the caller
@@ -36,3 +40,4 @@ from .snapshotter import (Snapshotter, SnapshotterToDB,  # noqa: F401,E402
 from .mean_disp_normalizer import MeanDispNormalizer  # noqa: F401,E402
 from .input_joiner import InputJoiner  # noqa: F401,E402
 from . import normalization  # noqa: F401,E402
+from .restful_api import GenerationAPI, RESTfulAPI  # noqa: F401,E402

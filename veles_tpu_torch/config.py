@@ -178,6 +178,7 @@ def _default_root() -> Config:
             "retry": {"max_attempts": 4, "base_delay": 0.5,
                       "max_delay": 30.0},
             "keep_last": 0,           # snapshot retention; 0 = keep all
+            "max_pending": 64,        # RESTfulAPI in-flight bound
             # /healthz: a heartbeat older than this is unhealthy
             # (resilience/health.py)
             "heartbeat_timeout": 300.0,

@@ -29,7 +29,10 @@ Both also take the units that train outside a ``TrainStep`` — the
 Kohonen map (``weights``) and the RBM (``weights``, ``vbias``,
 ``hbias``) — as an iterable of units or as the workflow holding them
 (DemoKohonen's); such a unit's parameters are its host Arrays, rebound
-to the loaded values.
+to the loaded values. :func:`params_from_jax` takes the initialised
+forward units of any other workflow the same way (the classic serving
+workflow, ``Repeater → RestfulLoader → forwards → RESTfulAPI``), their
+shapes read from their parameter Arrays.
 """
 
 from __future__ import annotations
@@ -46,12 +49,21 @@ ParamTree = Dict[str, Dict[str, numpy.ndarray]]
 Shapes = Dict[str, Dict[str, Tuple[int, ...]]]
 
 
+def _param_shapes(layer) -> Dict[str, Tuple[int, ...]]:
+    """A layer's or unit's parameter shapes: its ``param_shapes()``, else
+    the shapes of its initialised parameter Arrays (a forward unit of a
+    workflow, as the classic serving workflow's), else none."""
+    if callable(getattr(layer, "param_shapes", None)):
+        return layer.param_shapes()
+    if callable(getattr(layer, "param_arrays", None)):
+        return {k: tuple(v.shape) for k, v in layer.param_arrays().items()}
+    return {}
+
+
 def _parameterised(forwards):
     """{name: layer} of the layers or units with parameters; a unit
-    without ``param_shapes`` (a loader, a decision) is passed over."""
-    return {layer.name: layer for layer in forwards
-            if callable(getattr(layer, "param_shapes", None))
-            and layer.param_shapes()}
+    without any (a loader, a decision, the REST unit) is passed over."""
+    return {layer.name: layer for layer in forwards if _param_shapes(layer)}
 
 
 def _stage(shapes: Shapes, tree: ParamTree, what: str
@@ -116,7 +128,7 @@ def params_from_jax(target, params: ParamTree,
             raise VelesError("opt_state loads into a StandardWorkflow, "
                              "not a forward stack")
         layers = _parameterised(target)
-        staged = _stage({n: l.param_shapes() for n, l in layers.items()},
+        staged = _stage({n: _param_shapes(l) for n, l in layers.items()},
                         params, "parameter tree")
         with torch.no_grad():
             for name, pname, arr in staged:
@@ -186,7 +198,7 @@ def random_params(forwards, seed: int = 0) -> ParamTree:
     for name, layer in _parameterised(forwards).items():
         out = {}
         fixed = getattr(layer, "deterministic_params", dict)()
-        for pname, shape in layer.param_shapes().items():
+        for pname, shape in _param_shapes(layer).items():
             if pname in fixed:
                 w = numpy.asarray(fixed[pname])
             elif pname == "table":

@@ -1,12 +1,9 @@
 """Loaders: the minibatch-serving contract, the full-batch loader, the
-text loader and the file loaders (counterpart of ``veles_tpu/loader``).
+text, file and image loaders, and the streaming loaders that the classic
+REST serving unit feeds (counterpart of ``veles_tpu/loader``).
 
 :func:`loader_class` resolves a loader by its registry name
-(``MAPPING``) or class name. The streaming loaders of
-``veles_tpu/loader/stream.py`` (fed at run time by the classic REST
-serving unit or ZeroMQ) are not ported yet: asking for one, by name or
-as an attribute of this package, raises a VelesError naming its ROADMAP
-item (12).
+(``MAPPING``) or class name.
 """
 
 from ..error import VelesError
@@ -22,35 +19,19 @@ from .ensemble import EnsembleLoader                        # noqa: F401
 from .sound import SoundFileLoader, decode_audio            # noqa: F401
 from .kv_store import LMDBLoader, HDFSTextLoader            # noqa: F401
 from .text import TextFileLoader                            # noqa: F401
-
-#: the streaming loaders of loader/stream.py, by class and registry name
-STREAM_LOADERS = frozenset((
-    "StreamLoader", "InteractiveLoader", "RestfulLoader", "ZeroMQLoader",
-    "InteractiveImageLoader", "RestfulImageLoader", "LoaderClosed",
-    "interactive_loader", "restful_loader", "zeromq_loader",
-    "interactive_image_loader", "restful_image_loader"))
-
-
-def _refuse_stream(name: str) -> None:
-    if name in STREAM_LOADERS:
-        raise VelesError(
-            "loader %r is not ported yet (ROADMAP Queue 1 item 12: classic "
-            "REST serving of a trained classifier (RESTfulAPI with "
-            "loader/stream.py))" % name)
+from .image import (IMAGE_PATTERNS, ClassImageLoader,       # noqa: F401
+                    FileListImageLoader, ImageLoader, ImageLoaderMSE,
+                    augment, decode_image, deterministic_split)
+from .stream import (InteractiveImageLoader,                # noqa: F401
+                     InteractiveLoader, LoaderClosed, RestfulImageLoader,
+                     RestfulLoader, StreamLoader, ZeroMQLoader)
 
 
 def loader_class(name: str) -> type:
     """The loader class registered as ``name`` (its ``MAPPING``) or
-    named ``name``; a streaming loader raises a VelesError naming its
-    ROADMAP item."""
-    _refuse_stream(name)
+    named ``name``."""
     for key, cls in UnitRegistry.mapping.items():
         if issubclass(cls, Loader) and name in (key, cls.__name__):
             return cls
     raise VelesError("no loader %r (have: %s)" % (name, sorted(
         k for k, c in UnitRegistry.mapping.items() if issubclass(c, Loader))))
-
-
-def __getattr__(name: str):
-    _refuse_stream(name)
-    raise AttributeError("module %r has no attribute %r" % (__name__, name))

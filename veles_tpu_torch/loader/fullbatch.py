@@ -80,18 +80,30 @@ class FullBatchLoader(Loader):
         n_valid = int(n_train * ratio)
         start = self.class_lengths[0] + self.class_lengths[VALID]
         perm = start + self.prng.permutation(n_train)
-        for arr in (self.original_data, self.original_labels,
-                    getattr(self, "original_targets", None)):
+        to_permute = [self.original_data, self.original_labels]
+        # a per-label target table does not follow the rows
+        if not getattr(self, "targets_by_label", False):
+            to_permute.append(getattr(self, "original_targets", None))
+        for arr in to_permute:
             if arr is not None and arr:
                 arr.mem[start:] = arr.mem[perm]
+        paths = getattr(self, "row_paths", None)
+        if paths:
+            # the rows' source files follow them (basename-matched
+            # targets are looked up through them)
+            self.row_paths = paths[:start] + [paths[i] for i in perm]
         self.class_lengths[VALID] += n_valid
         self.class_lengths[TRAIN] -= n_valid
 
     def create_minibatch_data(self) -> None:
         n = self.max_minibatch_size
-        self.minibatch_data.reset(_zeros(
-            (n,) + tuple(self.original_data.shape[1:]),
-            self.original_data.dtype))
+        # a loader that augments on the device (loader/image.py) may
+        # change the sample shape: the forwards see the augmented one
+        shape_for = getattr(self, "sample_shape_after_augment", None)
+        sample = (shape_for() if callable(shape_for)
+                  else self.original_data.shape[1:])
+        self.minibatch_data.reset(_zeros((n,) + tuple(sample),
+                                         self.original_data.dtype))
         if self.original_labels:
             self.minibatch_labels.reset(numpy.zeros(n, dtype=numpy.int32))
 
@@ -117,11 +129,17 @@ class FullBatchLoader(Loader):
 
 
 class FullBatchLoaderMSE(FullBatchLoader, LoaderMSE):
-    """Full-batch loader with row-aligned targets (``original_targets``,
-    served as ``minibatch_targets``): a language model's (N, T) int32
-    next-token targets beside its (N, T) int32 token rows."""
+    """Full-batch loader with targets (``original_targets``, served as
+    ``minibatch_targets``): row-aligned, as a language model's (N, T)
+    int32 next-token targets beside its (N, T) int32 token rows, or,
+    with ``targets_by_label`` True, a table of one target a label (a
+    class's template image, stored once) that the host fill and the
+    train step gather through the rows' labels."""
 
     hide_from_registry = True
+
+    #: True: ``original_targets`` is indexed by label, not by row
+    targets_by_label = False
 
     def __init__(self, workflow, **kwargs):
         super().__init__(workflow, **kwargs)
@@ -140,14 +158,21 @@ class FullBatchLoaderMSE(FullBatchLoader, LoaderMSE):
                 (n,) + tuple(self.original_targets.shape[1:]),
                 self.original_targets.dtype))
 
+    def _target_rows(self, idx):
+        """The targets of dataset rows ``idx``: row → label → template
+        under ``targets_by_label``."""
+        if self.targets_by_label:
+            return self.original_targets.mem[self.original_labels.mem[idx]]
+        return self.original_targets.mem[idx]
+
     def fill_minibatch(self) -> None:
         super().fill_minibatch()
         if self.original_targets:
             self.minibatch_targets.map_invalidate()[...] = \
-                self.original_targets.mem[self.minibatch_indices.mem]
+                self._target_rows(self.minibatch_indices.mem)
 
     def fetch_batch(self, idx, size):
         out = super().fetch_batch(idx, size)
         if out is not None and self.original_targets:
-            out["targets"] = self.original_targets.mem[idx]
+            out["targets"] = self._target_rows(idx)
         return out

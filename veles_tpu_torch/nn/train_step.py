@@ -82,6 +82,20 @@ The training library's knobs, as the reference's:
 The fused-FC kernel refuses tensormon, label smoothing, the confusion
 matrix, LoRA and ``freeze_base``, each with the reference's reason.
 
+A loader's on-device augmentation (``loader/image.py``
+``device_augmentation``): its ``device_augment_fn(batch, generator)``
+runs right after each train step's gather, before the mixed-precision
+cast (on the whole minibatch, before an accumulation split), and its
+``device_eval_fn(batch)`` after each evaluation step's; under
+``target_mode="input"`` the augmented batch is the target. The
+generator is seeded like a random layer's, from the step's key and the
+fixed index ``AUGMENT_INDEX`` (the reference folds the same number into
+its key), so a step redraws its augmentation when it is recomputed or
+resumed. The fused-FC kernel refuses such a loader with the reference's
+reason. A loader whose ``targets_by_label`` is set (``ImageLoaderMSE``)
+serves a per-label target table: the steps gather a row's target
+through its label.
+
 ``param_masks`` (:meth:`TrainStep.register_param_mask`, ZeroFiller's
 sparsity contract): each mask multiplies its parameter after every
 optimiser update, inside a plan as between plans; a registered mask
@@ -115,6 +129,10 @@ Tree = Dict[str, Dict[str, Any]]
 #: ported target modes: gather the labels or the loader's targets,
 #: reconstruct the input, or pick targets/input by what the loader has
 TARGET_MODES = ("labels", "targets", "input", "auto")
+
+#: the generator index of a loader's on-device augmentation (the number
+#: the reference folds into the step's key for it)
+AUGMENT_INDEX = 0x417
 
 
 def _f32(x) -> float:
@@ -408,6 +426,8 @@ class TrainStep(AcceleratedUnit):
         lr, lr_bias, wd, wd_bias, momentum = knobs.pop()
         if lr <= 0:
             return reject("non-positive learning rate")
+        if getattr(self.loader, "device_augment_fn", None) is not None:
+            return reject("device-side augmentation not fused")
         # shared-memory budget: one cluster holds the weights, both
         # delta recurrences and a minibatch's activations
         mb = self.loader.max_minibatch_size
@@ -469,6 +489,28 @@ class TrainStep(AcceleratedUnit):
 
     def _rng_key(self, step: int, chunk: int = 0) -> Tuple[int, ...]:
         return (self._rng.initial_seed, step, chunk)
+
+    def _augmented(self, batch: torch.Tensor, step: int) -> torch.Tensor:
+        """The loader's on-device augmentation of train step ``step``'s
+        gathered batch (the batch itself without one)."""
+        aug = getattr(self.loader, "device_augment_fn", None)
+        if aug is None:
+            return batch
+        return aug(batch, self._layer_generator(self._rng_key(step),
+                                                AUGMENT_INDEX))
+
+    @staticmethod
+    def _target_for(batch, targets, idx):
+        """The targets of the rows ``idx``: the batch itself (``targets``
+        None: the input is the target), a per-label table gathered
+        through the rows' labels (``targets`` a (table, labels) pair,
+        :meth:`_dataset`), or the rows of ``targets``."""
+        if targets is None:
+            return batch
+        if isinstance(targets, tuple):
+            table, labels = targets
+            return table[labels[idx].long()]
+        return targets[idx]
 
     # -- pure functions -------------------------------------------------------
     def _forward(self, params: Tree, x: torch.Tensor, train: bool = False,
@@ -572,8 +614,8 @@ class TrainStep(AcceleratedUnit):
             step = self.rng_step
             self.rng_step += 1
         idx = indices.long()
-        batch = dataset[idx]
-        tgt = batch if targets is None else targets[idx]
+        batch = self._augmented(dataset[idx], step)
+        tgt = self._target_for(batch, targets, idx)
         if self.mixed_precision:
             batch = amp_cast(batch)
         ga = self.grad_accumulation
@@ -655,7 +697,10 @@ class TrainStep(AcceleratedUnit):
     def _eval_step(self, params, accum, dataset, targets, indices, mask):
         idx = indices.long()
         batch = dataset[idx]
-        tgt = batch if targets is None else targets[idx]
+        ev = getattr(self.loader, "device_eval_fn", None)
+        if ev is not None:
+            batch = ev(batch)
+        tgt = self._target_for(batch, targets, idx)
         if self.mixed_precision:
             batch, params = amp_cast(batch), amp_cast(params)
         out = self._forward(params, batch)
@@ -673,7 +718,8 @@ class TrainStep(AcceleratedUnit):
     def _dataset(self):
         """The device dataset and the device array the targets are
         gathered from: the labels, or under ``target_mode="targets"`` the
-        loader's row-aligned targets (a dataset may have no labels);
+        loader's row-aligned targets (a dataset may have no labels), or
+        its per-label table paired with the labels (``targets_by_label``);
         under ``"input"`` None, the minibatch being its own target."""
         loader = self.loader
         dataset = loader.original_data.device_view(self.device)
@@ -686,6 +732,11 @@ class TrainStep(AcceleratedUnit):
         if src is None or not src:
             raise VelesError("target_mode %r: the loader has no %s"
                              % (self.target_mode, self.target_mode))
+        if self.target_mode == "targets" \
+                and getattr(loader, "targets_by_label", False):
+            return dataset, (src.device_view(self.device),
+                             loader.original_labels.device_view(
+                                 self.device))
         return dataset, src.device_view(self.device)
 
     def _block_inputs(self, h: int):

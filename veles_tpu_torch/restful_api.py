@@ -1,5 +1,23 @@
-"""REST serving of the generation stack (counterpart of
-``veles_tpu/restful_api.py`` ``GenerationAPI``).
+"""REST serving (counterpart of ``veles_tpu/restful_api.py``): the
+classic serving unit of a trained classifier, :class:`RESTfulAPI`, and
+the generation stack's :class:`GenerationAPI`.
+
+:class:`RESTfulAPI` is VELES's original serving path, a unit of a
+forward workflow wired ``Repeater → RestfulLoader → forwards →
+RESTfulAPI``: POST ``/api`` with ``{"input": [...]}`` (or, through an
+image loader, ``{"image": base64}``) → ``{"result": [...], "request_id":
+...}``, the forward's row for that sample. The HTTP handler feeds the
+sample with a ticket to the loader and waits on it; the loader batches
+every request queued at its run into one minibatch (dynamic batching);
+the forwards run on the workflow's device; the unit's ``run`` answers
+row i's ticket from the forward's output. A bad body or shape answers
+400, a closed loader or a full ``max_pending`` bound 503 (+ Retry-After
+for the bound), a timeout 504. ``GET /healthz``, ``/readyz``,
+``/trace/spans`` and ``/metrics`` (``veles_rest_requests_served``,
+``veles_rest_pending``) as the reference's; its ``/metrics/history`` and
+``/alerts`` (the timeseries and alerts planes, not ported) answer 404.
+
+:class:`GenerationAPI`:
 
 POST ``/generate`` with ``{"prompt": [ids], "n_new": N}`` (+ optional
 ``mode``: ``greedy`` | ``sample`` | ``speculative`` | ``beam``,
@@ -82,6 +100,8 @@ import time
 from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Optional
 
+import numpy
+
 from ._http import (HTTPService, bytes_reply, handle_trace_spans,
                     json_reply, read_json_object, sse_end, sse_event,
                     sse_headers)
@@ -99,8 +119,203 @@ from .serving.overload import QOS_PRIORITIES
 from .serving.scheduler import (Ticket, new_request_id, shed_expired,
                                 split_expired)
 from .telemetry.counters import METRICS_CONTENT_TYPE, metrics_text
+from .units import Unit
 
 ENGINES = ("continuous", "recurrent", "window")
+
+
+class RESTfulAPI(Unit):
+    """The serving endpoint unit of a forward workflow:
+
+        api = RESTfulAPI(wf, loader=rest_loader, port=0)
+        api.link_attrs(last_forward, ("input", "output"))
+        api.link_from(last_forward); repeater.link_from(api)
+
+    ``max_pending`` (default ``root.common.resilience.max_pending``)
+    bounds the requests in flight: one beyond it is shed 503 +
+    Retry-After. ``initialize`` starts the HTTP service (the bound port
+    is ``self.port``); ``stop`` ends it and answers every request still
+    waiting 503 + Retry-After."""
+
+    MAPPING = "restful_api"
+    hide_from_registry = False
+
+    def __init__(self, workflow, loader=None, port: int = 0,
+                 path: str = "/api", request_timeout: float = 60.0,
+                 max_pending: Optional[int] = None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.view_group = "SERVICE"
+        self.loader = loader
+        self.port = port
+        self.path = path
+        self.request_timeout = request_timeout
+        self.max_pending = int(max_pending if max_pending is not None
+                               else root.common.resilience.get(
+                                   "max_pending", 64) or 64)
+        self._pending = 0
+        self._pending_lock = threading.Lock()
+        #: tickets fed and not yet answered, which stop() settles
+        self._outstanding: set = set()
+        #: the forward output answered from (link_attrs)
+        self.input = None
+        self._service: Optional[HTTPService] = None
+        self.requests_served = 0
+        self.demand("loader")
+
+    # -- lifecycle ----------------------------------------------------------
+    def _handler_class(self):
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                api.debug("http: " + fmt, *args)
+
+            def do_GET(self):
+                if health.handle_health(self, self.path):
+                    return
+                if handle_trace_spans(self, self.path,
+                                      name="rest.%s" % api.name):
+                    return
+                if self.path != "/metrics":
+                    self.send_error(404)
+                    return
+                text = metrics_text({
+                    "veles_rest_requests_served": api.requests_served,
+                    "veles_rest_pending": api._pending})
+                bytes_reply(self, 200, text.encode(),
+                            METRICS_CONTENT_TYPE)
+
+            def do_POST(self):
+                if self.path != api.path:
+                    self.send_error(404)
+                    return
+                try:
+                    fire_fault("serve.request")
+                except FaultInjected as e:
+                    health.shed(self, retry_after=1.0, reason=str(e),
+                                request_id=new_request_id())
+                    return
+                with api._pending_lock:
+                    if api._pending >= api.max_pending:
+                        health.shed(
+                            self, retry_after=1.0,
+                            reason="%d requests in flight (bound %d)"
+                            % (api._pending, api.max_pending),
+                            request_id=new_request_id())
+                        return
+                    api._pending += 1
+                try:
+                    self._serve()
+                finally:
+                    with api._pending_lock:
+                        api._pending -= 1
+
+            def _serve(self):
+                from .loader.stream import LoaderClosed
+                try:
+                    body = read_json_object(self)
+                    sample = api.loader.parse_request(body)
+                except (ValueError, KeyError, VelesError) as e:
+                    # the client's fault only: a server-side bug must
+                    # surface as a 5xx
+                    json_reply(self, 400, {"error": "bad request: %s" % e})
+                    return
+                ticket = Ticket()
+                try:
+                    api.loader.feed(sample, ticket=ticket)
+                except VelesError as e:
+                    # a bad shape is the client's fault, a closed loader
+                    # the server shutting down
+                    code = 503 if isinstance(e, LoaderClosed) else 400
+                    json_reply(self, code, {"error": str(e)})
+                    return
+                except Exception as e:
+                    json_reply(self, 503, {"error": str(e)})
+                    return
+                with api._pending_lock:
+                    api._outstanding.add(ticket)
+                try:
+                    settled = ticket.event.wait(api.request_timeout)
+                finally:
+                    with api._pending_lock:
+                        api._outstanding.discard(ticket)
+                if not settled:
+                    json_reply(self, 504, {"error": "inference timed out",
+                                           "request_id": ticket.request_id})
+                    return
+                if ticket.error is not None:
+                    headers = None
+                    if ticket.retry_after:
+                        headers = {"Retry-After": str(max(1, int(
+                            ticket.retry_after)))}
+                    json_reply(self, ticket.code, ticket.error_payload(),
+                               headers=headers)
+                    return
+                json_reply(self, 200, {"result": ticket.result,
+                                       "request_id": ticket.request_id})
+
+        return Handler
+
+    def initialize(self, **kwargs):
+        res = super().initialize(**kwargs)
+        if res:
+            return res
+        if self._service is not None:
+            return None
+        self._service = HTTPService(self._handler_class(), self.port,
+                                    self.name + ".http")
+        self.port = self._service.port
+        self._service.start_serving()
+        health.mark_ready("rest.%s" % self.name)
+        health.heartbeats.beat("rest.%s" % self.name)
+        self.info("%s: REST API on http://127.0.0.1:%d%s", self.name,
+                  self.port, self.path)
+        return None
+
+    # -- graph side ---------------------------------------------------------
+    def run(self) -> None:
+        """Answer each ticket of the loader's minibatch from its row of
+        the linked forward output (read from the device once), exactly
+        once through ``Ticket.succeed``; a failure answers them all 500."""
+        health.heartbeats.beat("rest.%s" % self.name)
+        tickets = list(getattr(self.loader, "current_tickets", ()))
+        real = [(i, t) for i, t in enumerate(tickets)
+                if isinstance(t, Ticket)]
+        if not real:
+            return      # samples from elsewhere (a warm-up feed)
+        try:
+            out = self.input
+            if out is None:
+                raise VelesError("%s: no forward output linked" % self.name)
+            if hasattr(out, "map_read"):
+                out = out.map_read()
+            out = numpy.asarray(out)
+            served = 0
+            for i, ticket in real:
+                ticket.mark_admitted()
+                if ticket.succeed(numpy.asarray(out[i]).tolist()):
+                    served += 1
+            self.requests_served += served
+        except Exception as e:
+            for _, ticket in real:
+                ticket.mark_admitted()
+                ticket.fail("%s: %s" % (type(e).__name__, e), code=500)
+        finally:
+            self.loader.current_tickets = []
+
+    def stop(self) -> None:
+        """End the HTTP service and settle every fed, unanswered ticket
+        503 + Retry-After through the first-terminal ``fail`` (a second
+        sweep changes nothing)."""
+        health.forget("rest.%s" % self.name)
+        if self._service is not None:
+            self._service.stop_serving()
+            self._service = None
+        with self._pending_lock:
+            stragglers = list(self._outstanding)
+        for ticket in stragglers:
+            ticket.fail("server shutting down", code=503,
+                        retry_after=5.0)
 
 
 class GenerationAPI(Logger):
