@@ -471,6 +471,38 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              imports). Reports requests/s, per-request wall p50/p99,
              dispatches and rows a dispatch, the decode seconds of the
              5,000 files, each epoch's ms.
+36. quant_serving — int8 serving (after phase 35): (a) the bench LM
+             (seed 0) under serve_continuous's 24 requests on four
+             engines (float, ``quant_weights``, ``quant_kv``, both) and
+             the float engine serving the dequantized twin: every
+             eligible weight's int8 values and scales, and the longest
+             prompt's K/V rows', on the card equal to the CPU quantizer's
+             bit for bit; the int8-weights tokens, greedy and sampled,
+             equal to the twin's; ``kv_pool_bytes`` equal to the shapes'
+             (payload and scales), int8 / float = 1,032 / 4,096; 8 of the
+             24 served alone on each int8 engine equal to their concurrent
+             answers; flash launches = 6 x prefills, each at its bucket;
+             admitted = retired = 24, no page left; the quant counters 0
+             on the float engine, 1 calibration, 37 tensors and the
+             shapes' bytes saved on the int8-weights ones;
+             ``quant.calibrate:raise:times=1`` fails one tick and the
+             queued request is answered as the int8-weights engine
+             answered it. Reported: greedy agreement with float, the
+             first flip's two logits and margin, the twin's max logit
+             delta, tokens/s, peak memory, tick ms, launches a tick and
+             idle share of every engine. (b) the reference's drill
+             (``bench.py:3021-3070``, trained on the card through the
+             flash kernels): int8 greedy answers token-exact against
+             float, max logit delta < 0.25. (c) MNIST (2 fused-FC epochs)
+             and the bench LM exported by the Snapshotter and quantized
+             by ``python -m veles_tpu_torch quantize`` subprocesses: the
+             manifests verify, the records are the eligible tensors with
+             the bytes the shapes give, ``load_snapshot`` returns ``q ·
+             s`` bit for bit; MNIST resumed from its int8 snapshot counts
+             the dequantized weights' validation errors; the LM's int8
+             snapshot served by ``--serve-generate --quant-weights
+             --quant-kv`` in another process answers 8 of (a)'s requests
+             as (a)'s int8 (both) engine did, its ``/metrics`` modes 1.
 
 ``profiled`` (the breakdown phases' profiler window) reads the capture
 through ``telemetry.devtime.measure``: ``device_busy_ms`` is the union
@@ -481,14 +513,16 @@ Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
 launches in the AMP epochs; the fused-FC kernel's launches in ``train``
 and, under ``launches_by_path``, in ``snapshot``, ``telemetry`` and
-``cli``, ``train_library`` and ``rest_serving`` too; the flash
-kernels' f32 entries count ``cli`` and ``train_text`` too, the forward's
-``serve_spec_beam`` and ``serve_qos_handoff`` too) and,
+``cli``, ``train_library``, ``rest_serving`` and ``quant_serving``
+too; the flash kernels' f32 entries count ``cli`` and ``train_text``
+too, the forward's ``serve_spec_beam``, ``serve_qos_handoff`` and
+``quant_serving`` too) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and the run exits non-zero without the last line; without a card
 it exits 1 at once.
 """
 
+import gc
 import json
 import math
 import os
@@ -7013,6 +7047,586 @@ def phase_rest_serving(card):
     return mnist["fused_launches"]
 
 
+#: quant_serving: the four engines of (a) (serve_continuous's knobs), the
+#: requests of (a) served alone on each int8 engine (every third: each
+#: prompt length, greedy and sampled), the profiled decode ticks an
+#: engine with 8 rows live, and the reference's drill (``bench.py:
+#: 3021-3070``: seed 515, char LM 1 block d 32, 2 epochs, 12 greedy
+#: requests of 8 tokens) with its logit bar
+QUANT_ENGINES = (("float", {}), ("weights", {"quant_weights": True}),
+                 ("kv", {"quant_kv": True}),
+                 ("both", {"quant_weights": True, "quant_kv": True}))
+QUANT_SOLO = tuple(range(0, 24, 3))
+QUANT_TICKS = 10
+QUANT_DRILL = dict(max_slots=8, buckets=(8, 16), max_context=32,
+                   decode_block=8)
+QUANT_DRILL_LENGTHS = (5, 9, 14, 7, 12, 16, 6, 11, 13, 8, 15, 10)
+TOL_QUANT_LOGIT = 0.25
+#: requests of (a) the int8 snapshot's server answers in another process
+QUANT_SERVED = (0, 2, 5, 7, 12, 14, 19, 21)
+
+
+def quant_requests(requests):
+    from veles_tpu_torch.serving import make_request
+    return [make_request(r["prompt"], r["n_new"],
+                         temperature=r.get("temperature", 0.0),
+                         seed=r["seed"], mode=r.get("mode", "greedy"))
+            for r in requests]
+
+
+def quant_engine_run(model, requests, name, solo=(), **knobs):
+    """``requests`` posted at once on a fresh engine with serve_continuous's
+    knobs and ``knobs``, then those of ``solo`` alone: the answers, the
+    counters, the pool and the peak memory of the concurrent run."""
+    import torch
+    from veles_tpu_torch.serving import ContinuousEngine
+    from veles_tpu_torch.telemetry import counters
+    reqs = quant_requests(requests)
+    # the engines before this one hold their pools until a collection
+    # (a stopped engine's callbacks form a cycle)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    engine = ContinuousEngine(model, name=name, **CONT_ENGINE,
+                              **knobs).start()
+    try:
+        torch.cuda.synchronize()
+        counters.counters.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = engine.serve(reqs, timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = dict(tokens=out, wall_s=wall, snap=counters.counters.snapshot(),
+                   peak_memory_bytes=int(torch.cuda.max_memory_allocated()),
+                   resident_bytes=int(resident),
+                   stats=engine.stats(),
+                   by_bucket=dict(engine.prefills_by_bucket),
+                   ledger=engine.page_pool.ledger(),
+                   decode_tick_ms_p50=pct(engine.decode_ms, 50),
+                   rows=engine.page_pool.device_rows * engine.page_size)
+        rec["solo"] = {i: engine.serve([reqs[i]], timeout=600)[0]
+                       for i in solo}
+    finally:
+        engine.stop()
+    rec["tokens_per_s"] = sum(len(t) for t in out) / wall
+    return rec
+
+
+def quant_tick_profile(model, requests, knobs):
+    """QUANT_TICKS decode ticks of an engine with all 8 rows live under
+    torch.profiler: ms and launches a tick, the device's idle share."""
+    import torch
+    from veles_tpu_torch.serving import ContinuousEngine
+    from veles_tpu_torch.serving.scheduler import Ticket
+    engine = ContinuousEngine(model, name="quant_ticks", **CONT_ENGINE,
+                              **knobs)
+    try:
+        for req in quant_requests(requests[:CONT_ENGINE["max_slots"]]):
+            req["n_new"] = QUANT_TICKS + 8
+            engine.submit(req, Ticket())
+        with torch.inference_mode():
+            engine._tick()
+            live = engine.scheduler.busy_count()
+
+            def ticks():
+                for _ in range(QUANT_TICKS):
+                    engine._tick()
+
+            rec = profiled(ticks)
+    finally:
+        engine.stop()
+    return dict(live_rows=live, tick_ms=rec["profiled_wall_ms"] / QUANT_TICKS,
+                launches_per_tick=(rec["kernel_launches"] or 0) / QUANT_TICKS,
+                device_idle_share=rec["device_idle_share"],
+                top_kernels=rec["top_kernels"][:6])
+
+
+def quant_first_flip(model, req, want, got):
+    """Where an int8 engine's greedy tokens first leave the float
+    engine's: the position, and the float model's two logits there with
+    their margin (None when equal)."""
+    from veles_tpu_torch.nn import sampling
+    for j, (a, b) in enumerate(zip(want, got)):
+        if a != b:
+            logits = sampling.prompt_logits(model, req["prompt"] + want[:j])
+            return {"position": j, "float_token": int(a),
+                    "int8_token": int(b),
+                    "float_logit": float(logits[a]),
+                    "int8_logit": float(logits[b]),
+                    "margin": float(logits[a] - logits[b])}
+    return None
+
+
+def quant_bench_load(card):
+    """(a): the bench LM (seed 0) under serve_continuous's 24 requests on
+    the float engine, the int8 engines and the float engine serving the
+    dequantized twin; the quantizer's bits on the card against the CPU;
+    the pool's bytes; the calibrate fault. Returns (record, problems,
+    the engines' answers, the model)."""
+    import numpy
+    import torch
+    from veles_tpu_torch import quant
+    from veles_tpu_torch.convert import params_from_jax
+    from veles_tpu_torch.nn import sampling
+    from veles_tpu_torch.nn.standard_workflow import build_forwards
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.resilience import faults
+    from veles_tpu_torch.serving import ContinuousEngine
+    from veles_tpu_torch.telemetry import counters
+    bad = []
+    model = bench_lm()
+    requests = continuous_load()
+    n, n_blocks = len(requests), len(BENCH_LAYERS) - 2
+    blocks = [layer for layer in model if hasattr(layer, "n_kv_heads")]
+    kv_dh = blocks[0].n_kv_heads * blocks[0].head_dim
+
+    # the quantizer's bits: every eligible weight on the card vs the CPU
+    params = sampling.params_of(model)
+    q_card, report = quant.quantize_params(params)
+    q_cpu, report_cpu = quant.quantize_params(
+        {u: {k: v.cpu() for k, v in t.items()} for u, t in params.items()})
+    records = [(u, k) for u, t in q_card.items() for k, v in t.items()
+               if isinstance(v, dict)]
+    weights_bits = report == report_cpu and all(
+        torch.equal(q_card[u][k]["q"].cpu(), q_cpu[u][k]["q"])
+        and q_card[u][k]["scale"].cpu().numpy().tobytes()
+        == q_cpu[u][k]["scale"].numpy().tobytes() for u, k in records)
+    requant = quant.quantize_params(quant.dequantize_params(q_card))[0]
+    requant_same = all(torch.equal(requant[u][k]["q"], q_card[u][k]["q"])
+                       and torch.equal(requant[u][k]["scale"],
+                                       q_card[u][k]["scale"])
+                       for u, k in records)
+    # ... and the K/V rows of the longest prompt's prefill, every block
+    with torch.inference_mode():
+        stack = sampling.split_stack(model)
+        ids = torch.as_tensor([requests[-1]["prompt"]],
+                              device=stack["stem"].table.device)
+        x = sampling._embed_prompt(stack["stem"], stack["pos_emb"], ids)
+        _, caches = sampling._prefill_blocks(stack["blocks"], x,
+                                             ids.shape[1])
+        kv_bits = True
+        for pair in caches:
+            for rows in pair:
+                qc, sc = quant.quantize_rows_int8(rows[0])
+                qh, sh = quant.quantize_rows_int8(rows[0].cpu())
+                kv_bits &= bool(torch.equal(qc.cpu(), qh)) and \
+                    sc.cpu().numpy().tobytes() == sh.numpy().tobytes()
+    del caches, x
+    if not weights_bits or not kv_bits:
+        bad.append("quantizer bits card vs CPU: weights %s, K/V rows %s"
+                   % (weights_bits, kv_bits))
+    want_saved = report["bytes_before"] - report["bytes_after"]
+
+    # the float engine serving the dequantized twin
+    twin = build_forwards(BENCH_LAYERS)
+    params_from_jax(twin, {u: {k: v.cpu().numpy() for k, v in t.items()}
+                           for u, t in quant.dequantize_params(
+                               q_card).items()})
+    # warm-up outside the measured runs
+    for name, knobs in (QUANT_ENGINES[0], QUANT_ENGINES[-1]):
+        warm = ContinuousEngine(model, name="quant_warm", **CONT_ENGINE,
+                                **knobs).start()
+        try:
+            warm.serve(quant_requests([requests[0], requests[-1]]))
+        finally:
+            warm.stop()
+    runs = {}
+    for name, knobs in QUANT_ENGINES:
+        runs[name] = quant_engine_run(model, requests, "quant_" + name,
+                                      QUANT_SOLO if knobs else (), **knobs)
+    runs["twin"] = quant_engine_run(twin, requests, "quant_twin")
+    want_buckets = {}
+    for req in requests:
+        b = CONT_ENGINE["buckets"][next(
+            i for i, b in enumerate(CONT_ENGINE["buckets"])
+            if b >= len(req["prompt"]))]
+        want_buckets[b] = want_buckets.get(b, 0) + 1
+    for name, run in runs.items():
+        snap, st = run["snap"], run["stats"]
+        prefills = snap.get("veles_serving_prefill_dispatches_total", 0)
+        launches = snap.get(fa.FWD_LAUNCHES, 0)
+        run["prefills"], run["flash_launches"] = prefills, launches
+        if prefills != n or launches != n_blocks * prefills \
+                or run["by_bucket"] != want_buckets:
+            bad.append("%s: flash launches %d, prefills %d, buckets %r"
+                       % (name, launches, prefills, run["by_bucket"]))
+        if not st["admitted"] == st["retired"] == n or run["ledger"] \
+                or st["pages_in_use"]:
+            bad.append("%s: admitted %d retired %d, pages %r"
+                       % (name, st["admitted"], st["retired"],
+                          run["ledger"]))
+        deltas = {k: snap.get(k, 0) for k in quant.QUANT_COUNTERS}
+        run["quant_counters"] = deltas
+        qw = name in ("weights", "both")
+        want = {k: 0 for k in quant.QUANT_COUNTERS}
+        if qw:
+            want.update(veles_quant_calibrations_total=1,
+                        veles_quant_params_total=len(records),
+                        veles_quant_bytes_saved_total=want_saved)
+        if deltas != want:
+            bad.append("%s: quant counters %r, want %r"
+                       % (name, deltas, want))
+        for i, toks in run["solo"].items():
+            if toks != run["tokens"][i]:
+                bad.append("%s: request %d alone %r != concurrent %r"
+                           % (name, i, toks, run["tokens"][i]))
+        want_pool = len(blocks) * 2 * run["rows"] * (
+            kv_dh + 4 if name in ("kv", "both") else kv_dh * 4)
+        run["pool_bytes_from_shapes"] = want_pool
+        if st["kv_pool_bytes"] != want_pool:
+            bad.append("%s: pool %d bytes, the shapes give %d"
+                       % (name, st["kv_pool_bytes"], want_pool))
+    pool_ratio = (runs["kv"]["stats"]["kv_pool_bytes"],
+                  runs["float"]["stats"]["kv_pool_bytes"])
+    if pool_ratio[0] * 4096 != pool_ratio[1] * 1032:
+        bad.append("int8 / float pool %d / %d, not 1032 / 4096"
+                   % pool_ratio)
+    if runs["weights"]["tokens"] != runs["twin"]["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(runs["weights"]["tokens"],
+                                                 runs["twin"]["tokens"]))
+                if a != b]
+        bad.append("int8 weights != the dequantized twin on requests %s"
+                   % diff)
+    greedy = [i for i, r in enumerate(requests) if not r.get("temperature")]
+    agreement, flips = {}, {}
+    for name in ("weights", "kv", "both"):
+        same = [runs[name]["tokens"][i] == runs["float"]["tokens"][i]
+                for i in greedy]
+        agreement[name] = sum(same) / len(greedy)
+        first = next((i for i, s in zip(greedy, same) if not s), None)
+        flips[name] = None if first is None else dict(
+            request=first, **(quant_first_flip(
+                model, requests[first], runs["float"]["tokens"][first],
+                runs[name]["tokens"][first]) or {}))
+    dq = quant.dequantize_params(q_card)
+    logit_delta = max(float(numpy.abs(
+        sampling.prompt_logits(model, r["prompt"])
+        - sampling.prompt_logits(model, r["prompt"], params=dq)).max())
+        for r in requests)
+    ticks = {name: quant_tick_profile(model, requests, knobs)
+             for name, knobs in QUANT_ENGINES}
+
+    # the calibrate fault: one failed tick, then the queued request
+    prev = os.environ.get("VELES_FAULTS")
+    os.environ["VELES_FAULTS"] = "quant.calibrate:raise:times=1"
+    faults.plane.configure()
+    injected = counters.get("veles_faults_injected_total")
+    try:
+        engine = ContinuousEngine(model, quant_weights=True,
+                                  name="quant_fault", **CONT_ENGINE).start()
+        try:
+            fault_answer = engine.serve(quant_requests(requests[:1]),
+                                        timeout=120)[0]
+        finally:
+            engine.stop()
+    finally:
+        if prev is None:
+            os.environ.pop("VELES_FAULTS", None)
+        else:
+            os.environ["VELES_FAULTS"] = prev
+        faults.plane.configure()
+    injected = counters.get("veles_faults_injected_total") - injected
+    if injected < 1 or fault_answer != runs["weights"]["tokens"][0]:
+        bad.append("calibrate fault: %d injected, answer %r, want %r"
+                   % (injected, fault_answer, runs["weights"]["tokens"][0]))
+    rec = dict(
+        requests=n, engine=CONT_ENGINE, eligible_weights=len(records),
+        quantizer_bits_equal_cpu={"weights": weights_bits,
+                                  "kv_rows": kv_bits},
+        requant_idempotent=requant_same,
+        weights_equal_twin=runs["weights"]["tokens"]
+        == runs["twin"]["tokens"],
+        bytes_before=report["bytes_before"],
+        bytes_after=report["bytes_after"],
+        pool_ratio=[pool_ratio[0], pool_ratio[1],
+                    pool_ratio[0] / pool_ratio[1]],
+        greedy_agreement=agreement, first_flip=flips,
+        max_logit_delta=logit_delta, fault_injected=injected,
+        engines={name: {k: run[k] for k in (
+            "wall_s", "tokens_per_s", "peak_memory_bytes",
+            "resident_bytes", "prefills",
+            "flash_launches", "by_bucket", "quant_counters",
+            "decode_tick_ms_p50", "pool_bytes_from_shapes")}
+            | {"kv_pool_bytes": run["stats"]["kv_pool_bytes"],
+               "solo_equal": all(run["tokens"][i] == t
+                                 for i, t in run["solo"].items()),
+               "ticks": ticks.get(name)}
+            for name, run in runs.items()})
+    launches = sum(run["flash_launches"] for run in runs.values())
+    return rec, bad, runs, launches
+
+
+def quant_drill():
+    """(b): the reference's quant proof at its own size, trained on the
+    card: float and int8 (weights + KV) engines with its knobs on its 12
+    greedy requests; the int8 answers token-exact, the max logit delta of
+    the dequantized twin under TOL_QUANT_LOGIT."""
+    import numpy
+    from veles_tpu_torch import prng, quant
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.nn import sampling
+    from veles_tpu_torch.nn.standard_workflow import forwards_of
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.serving import ContinuousEngine, make_request
+    from veles_tpu_torch.telemetry import counters
+    prng.seed_all(515)
+    wf = char_lm.build_workflow(epochs=2, minibatch_size=32, n_blocks=1,
+                                dim=32, n_train=256, n_valid=32)
+    wf.initialize()
+    counters.counters.reset()
+    wf.run()
+    train_launches = {k: counters.get(k) for k in (
+        fa.FWD_LAUNCHES, fa.DKV_LAUNCHES, fa.DQ_LAUNCHES)}
+    model = forwards_of(wf)
+    rng = numpy.random.RandomState(23)
+    reqs = [make_request([int(t) for t in rng.randint(0, char_lm.VOCAB,
+                                                      t_p)], 8)
+            for t_p in QUANT_DRILL_LENGTHS]
+    out = {}
+    for name, knobs in (("float", {}), ("int8", {"quant_weights": True,
+                                                 "quant_kv": True})):
+        engine = ContinuousEngine(model, name="drill_" + name,
+                                  **QUANT_DRILL, **knobs).start()
+        try:
+            engine.serve(list(reqs))
+            t0 = time.perf_counter()
+            out[name] = engine.serve(list(reqs))
+            out[name + "_tokens_per_s"] = sum(r["n_new"] for r in reqs) / (
+                time.perf_counter() - t0)
+        finally:
+            engine.stop()
+    match = sum(a == b for a, b in zip(out["float"], out["int8"])) / len(
+        reqs)
+    qparams, _ = quant.quantize_params(sampling.params_of(model))
+    dq = quant.dequantize_params(qparams)
+    delta = max(float(numpy.abs(
+        sampling.prompt_logits(model, r["prompt"])
+        - sampling.prompt_logits(model, r["prompt"], params=dq)).max())
+        for r in reqs)
+    rec = dict(
+        train_flash_launches=train_launches, greedy_token_match=match,
+        max_logit_delta=delta,
+        float_tokens_per_s=out["float_tokens_per_s"],
+        int8_tokens_per_s=out["int8_tokens_per_s"])
+    bad = []
+    if match < 1.0:
+        bad.append("drill: int8 greedy not token-exact (match %.2f)"
+                   % match)
+    if not delta < TOL_QUANT_LOGIT:
+        bad.append("drill: max logit delta %.4f" % delta)
+    if not train_launches[fa.FWD_LAUNCHES] > 0:
+        bad.append("drill: the flash kernels did not train the model")
+    return rec, bad, train_launches[fa.FWD_LAUNCHES]
+
+
+def quant_snapshot_check(src, out, label):
+    """An int8 snapshot ``out`` written by the subcommand from ``src``:
+    its manifest verifies, its records are the eligible tensors' with the
+    bytes the shapes give, and ``load_snapshot`` returns the in-process
+    quantizer's ``q · s`` bit for bit."""
+    import numpy
+    from veles_tpu_torch import quant
+    from veles_tpu_torch.quant.weights import _eligible
+    from veles_tpu_torch.resilience.checkpoint_chain import verify
+    from veles_tpu_torch.snapshotter import _read_state, load_snapshot
+    src_state = load_snapshot(src)
+    eligible = {(u, k): a for u, sd in src_state["__units__"].items()
+                if isinstance(sd, dict) for k, a in sd.items()
+                if isinstance(a, numpy.ndarray) and _eligible(k, a)}
+    raw = _read_state(out)              # the records, not expanded
+    recs = {(u, k): v for u, sd in raw["__units__"].items()
+            if isinstance(sd, dict) for k, v in sd.items()
+            if isinstance(v, dict) and "__quant__" in v}
+    payload_ok = set(recs) == set(eligible) and all(
+        recs[key]["q"].nbytes == eligible[key].size
+        and recs[key]["scale"].nbytes == 4 * eligible[key].shape[1]
+        for key in recs)
+    saved = sum(a.nbytes - a.size - 4 * a.shape[1]
+                for a in eligible.values())
+    want = quant.dequantize_state(quant.quantize_state(src_state)[0])
+    got = load_snapshot(out)
+    bits = all(got["__units__"][u][k].tobytes()
+               == want["__units__"][u][k].tobytes() for u, k in eligible)
+    bad = []
+    if verify(out) is not True or not payload_ok or not bits:
+        bad.append("%s int8 snapshot: manifest %s, payload %s, q·s bits %s"
+                   % (label, verify(out), payload_ok, bits))
+    return dict(records=len(recs), bytes_saved_by_shapes=saved,
+                src_bytes=os.path.getsize(src), out_bytes=os.path.getsize(out),
+                manifest=verify(out), payload_as_shapes=payload_ok,
+                q_times_s_bits=bits), bad, got
+
+
+def quant_snapshots(card, tmp, runs):
+    """(c): MNIST (2 fused-FC epochs) and the bench LM (seed 0 weights)
+    exported by the Snapshotter, quantized by ``python -m veles_tpu_torch
+    quantize`` subprocesses; MNIST resumed from its int8 snapshot
+    evaluates to the dequantized weights' error count; the LM's int8
+    snapshot served by ``--serve-generate --quant-weights --quant-kv`` in
+    another process answers (a)'s int8 engine's tokens."""
+    import signal
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.convert import params_from_jax, random_params
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.nn.standard_workflow import forwards_of
+    from veles_tpu_torch.snapshotter import Snapshotter, resume
+    from veles_tpu_torch.telemetry import counters
+    bad = []
+    # MNIST, 2 fused-FC epochs, its _current snapshot
+    mnist_dir = os.path.join(tmp, "mnist")
+    wf = mnist_workflow(True, epochs=2, per_dispatch=2,
+                        snapshot_dir=mnist_dir)
+    counters.counters.reset()
+    wf.run()
+    ffc = counters.get("veles_fused_fc_launches_total")
+    mnist_src = os.path.join(mnist_dir, "mnist_current.pickle.gz")
+    # the bench LM's workflow holding (a)'s weights, exported uncompressed
+    lm = char_lm.build_bench_workflow()
+    lm.decision.max_epochs = 1
+    lm.initialize()
+    bench = bench_lm()
+    tree = random_params(bench, seed=0)
+    params_from_jax(lm, {unit.name: tree[layer.name] for unit, layer in
+                         zip(forwards_of(lm), bench)})
+    del bench
+    lm_src = Snapshotter(lm, prefix="benchlm", directory=os.path.join(
+        tmp, "lm"), compression="").export()
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        cli_command("quantize", src), cwd=REPO, env=cli_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, src in (("mnist", mnist_src), ("lm", lm_src))}
+    said = {name: p.communicate(timeout=600) for name, p in procs.items()}
+    quantize_s = time.perf_counter() - t0
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError("quantize %s exited %d:\n%s"
+                                 % (name, p.returncode, said[name][1][-3000:]))
+    mnist_out = mnist_src.replace(".pickle", ".int8.pickle")
+    lm_out = lm_src.replace(".pickle", ".int8.pickle")
+    mnist_rec, b, state = quant_snapshot_check(mnist_src, mnist_out, "mnist")
+    bad += b
+    lm_rec, b, _ = quant_snapshot_check(lm_src, lm_out, "lm")
+    bad += b
+    # MNIST resumed from the int8 snapshot vs the dequantized weights
+    wf2 = mnist_workflow(True, epochs=2, per_dispatch=2)
+    resume(wf2, mnist_out)
+    step = wf2.train_step
+    dataset, labels = step._dataset()
+    lengths = wf2.loader.class_lengths
+    idx = torch.arange(lengths[0], lengths[0] + lengths[1],
+                       device=step.device)
+    twin = {u: {k: torch.from_numpy(state["__units__"][u][k]).to(
+        step.device) for k in p} for u, p in step.params.items()}
+    with torch.no_grad():
+        own = step._eval_step(step.params, step._zero_accum(), dataset,
+                              labels, idx.int(),
+                              torch.ones(len(idx), device=step.device))
+        twin_out = step._forward(twin, dataset[idx])
+        twin_err = int((twin_out.argmax(1) != labels[idx].long()).sum())
+        same_out = torch.equal(step._forward(step.params, dataset[idx]),
+                               twin_out)
+    resumed_err = int(round(float(own["n_err"])))
+    if resumed_err != twin_err or not same_out:
+        bad.append("mnist from its int8 snapshot: %d errors, the "
+                   "dequantized weights %d, outputs equal %s"
+                   % (resumed_err, twin_err, same_out))
+    del wf, wf2, lm
+    root.common.engine.fused_fc_scan = False
+    # the LM's int8 snapshot served in another process
+    model_py = os.path.join(tmp, "lm_model.py")
+    with open(model_py, "w") as fout:
+        fout.write(CLI_LM_MODEL)
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        cli_command(model_py, "--snapshot", lm_out, "--serve-generate", "0",
+                    "--quant-weights", "--quant-kv", *CLI_SERVE_FLAGS),
+        cwd=REPO, env=cli_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    head, port = [], None
+    try:
+        while port is None:
+            line = server.stdout.readline()
+            if not line:
+                raise AssertionError("quant: the server exited %s before "
+                                     "serving:\n%s" % (server.poll(),
+                                                       "".join(head[-40:])))
+            if line.startswith("SERVING port="):
+                port = int(line.split("=", 1)[1])
+            else:
+                head.append(line)
+        startup_s = time.perf_counter() - t0
+        reader = threading.Thread(target=lambda: head.extend(
+            iter(server.stdout.readline, "")), daemon=True)
+        reader.start()
+        base = "http://127.0.0.1:%d" % port
+        requests = continuous_load()
+        sent = [requests[i] for i in QUANT_SERVED]
+        results, wall = post_all(base + "/generate", sent)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            page = r.read().decode()
+        server.send_signal(signal.SIGTERM)
+        server.wait(timeout=CLI_DRAIN_GRACE + 60)
+        reader.join(timeout=60)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.communicate()
+    served = [None if r is None or r[0] != 200 else r[1]["tokens"]
+              for r in results]
+    want = [runs["both"]["tokens"][i] for i in QUANT_SERVED]
+    modes = {m: metric_value(page, m) for m in (
+        "veles_quant_weights_mode", "veles_quant_kv_mode")}
+    if served != want or modes != {"veles_quant_weights_mode": 1,
+                                   "veles_quant_kv_mode": 1}:
+        bad.append("int8 snapshot served in another process: equal %s, "
+                   "modes %r" % ([a == b for a, b in zip(served, want)],
+                                 modes))
+    rec = dict(mnist=dict(mnist_rec, fused_fc_launches=ffc,
+                          resumed_err=resumed_err, twin_err=twin_err,
+                          outputs_equal_twin=same_out),
+               lm=dict(lm_rec), quantize_s=quantize_s,
+               served=dict(requests=len(sent), equal_to_a=served == want,
+                           metrics_modes=modes, startup_s=startup_s,
+                           wall_s=wall, exit_code=server.returncode))
+    if ffc != 2:
+        bad.append("mnist: %d fused-FC launches, want 2" % ffc)
+    return rec, bad, ffc
+
+
+def phase_quant_serving(card):
+    """Phase 36: int8 serving. (a) the bench LM's four engines, (b) the
+    reference's drill, (c) int8 snapshots through the subcommand and a
+    served resume. Every part fails the run on a miss. Returns the
+    flash-forward launches of (a) and (b) and the fused-FC launches of
+    (c)."""
+    import shutil
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    bench, bad, runs, launches = quant_bench_load(card)
+    t_a = time.perf_counter() - t_phase
+    drill, drill_bad, drill_launches = quant_drill()
+    bad += drill_bad
+    t_b = time.perf_counter() - t_phase - t_a
+    tmp = tempfile.mkdtemp(dir=os.environ.get("TMPDIR"))
+    try:
+        snaps, snap_bad, ffc = quant_snapshots(card, tmp, runs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad += snap_bad
+    del runs
+    torch.cuda.empty_cache()
+    emit("quant_serving", card=card, bench=bench, drill=drill,
+         snapshots=snaps, a_s=t_a, b_s=t_b,
+         phase_s=time.perf_counter() - t_phase)
+    if bad:
+        raise AssertionError("quant_serving: " + "; ".join(bad))
+    return launches + drill_launches, ffc
+
+
 def phase_breakdown(card, model, prompts):
     """Where one batched greedy decode spends its time: prefill (the
     n_new=1 call) vs the per-step decode, and the device's busy share
@@ -7108,6 +7722,7 @@ def main():
     launches_library = phase_train_library(card)
     launches_family = phase_lm_family(card)
     launches_rest = phase_rest_serving(card)
+    launches_quant, launches_quant_ffc = phase_quant_serving(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -7171,7 +7786,8 @@ def main():
                              "telemetry": launches_tel,
                              "cli": launches_cli["fwd"],
                              "train_text": launches_text["fwd"],
-                             "lm_family": launches_family["fwd"]},
+                             "lm_family": launches_family["fwd"],
+                             "quant_serving": launches_quant},
         "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",
         "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",
@@ -7189,7 +7805,8 @@ def main():
                              "telemetry": launches_tel_ffc,
                              "cli": launches_cli["fused_fc"],
                              "train_library": launches_library,
-                             "rest_serving": launches_rest},
+                             "rest_serving": launches_rest,
+                             "quant_serving": launches_quant_ffc},
         "ok": True},
         bwd_entry("dkv", 248), bwd_entry("dq", 309)] + [
         amp_entry(inst, kern) for inst in AMP_INSTANCES

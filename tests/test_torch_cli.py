@@ -20,8 +20,9 @@ __main__.py, cmdline.py, launcher.py) against the reference's on the CPU.
   reference's ``nn.sampling.generate`` gives from it; SIGTERM drains
   and, under ``--blackbox``, dumps the flight recorder;
 - ``--snapshot-dir`` auto-resume, ``run(load, main)``, the ``trace``,
-  ``blackbox`` and ``faults`` subcommands, and every refused flag and
-  subcommand naming its ROADMAP item before the model is imported;
+  ``blackbox``, ``faults`` and ``quantize`` subcommands, ``--quant-weights``
+  and ``--quant-kv`` arming ``root.common.quant``, and every refused flag
+  and subcommand naming its ROADMAP item before the model is imported;
   ``--backend auto`` without a card fails with ``device_for``'s message.
 
 Most cases call ``veles_tpu_torch.__main__.main`` in process (and put the
@@ -405,7 +406,6 @@ REFUSED_FLAGS = [
     (["--status-url", "http://h"], "11"), (["--overlap"], "11"),
     (["--prefetch-depth", "2"], "11"), (["--router-qos", "on"], "11"),
     (["--router-slo-ttft-ms", "5"], "11"),
-    (["--quant-weights"], "4.4"), (["--quant-kv"], "4.4"),
     (["--serve-artifact", "d"], "4.5"),
     (["--serve-prefix-cache", "on"], "4.1"),
     (["--serve-prefill-chunk", "8"], "4.1"), (["--serve-tp", "2"], "4.6"),
@@ -471,6 +471,52 @@ def test_serving_flag_is_accepted_and_reaches_root(tiny_model, flags, key,
     assert _cpu(tiny_model, *flags, "--dry-run") == 0
     if key is not None:
         assert root.common.serving.get(key) == value
+
+
+@pytest.mark.parametrize("flag,key", [("--quant-weights", "weights"),
+                                      ("--quant-kv", "kv")])
+def test_quant_flag_is_accepted_and_arms_root(tiny_model, flag, key):
+    """The int8 serving flags (item 4.4, refused before it was ported)
+    parse, are not refused, and arm ``root.common.quant`` as the
+    reference's ``__main__`` does; the engine a ``--serve-generate``
+    builds reads it."""
+    assert not root.common.quant.get(key)
+    assert _cpu(tiny_model, flag, "--dry-run") == 0
+    assert root.common.quant.get(key) is True
+
+
+def test_quantize_subcommand_writes_a_verified_int8_snapshot(tmp_path,
+                                                             capsys):
+    """``quantize SNAPSHOT`` (item 4.4's subcommand, refused before it was
+    ported): the ``.int8`` file beside the input, its manifest's SHA-256
+    verifying, the eligible weight read back as ``q · s`` and the rest
+    as it was; an unreadable path fails with the reference's message
+    and exit code 1."""
+    import gzip
+    import pickle
+    from veles_tpu_torch.resilience.checkpoint_chain import verify
+    from veles_tpu_torch.snapshotter import load_snapshot
+    rng = numpy.random.RandomState(3)
+    w = rng.randn(32, 16).astype(numpy.float32)
+    b = rng.randn(16).astype(numpy.float32)
+    path = str(tmp_path / "t_1.pickle.gz")
+    with gzip.open(path, "wb") as fout:
+        pickle.dump({"__units__": {"fc": {"weights": w, "bias": b}},
+                     "__meta__": {"checksum": "c"}}, fout)
+    assert main(["quantize", path]) == 0
+    assert "quantized 1 tensor(s) (per_channel)" in capsys.readouterr().out
+    out = str(tmp_path / "t_1.int8.pickle.gz")
+    assert verify(out) is True
+    state = load_snapshot(out)
+    assert state["__meta__"]["quant"] == {"granularity": "per_channel",
+                                          "params": 1}
+    scale = numpy.abs(w).max(axis=0, keepdims=True) / numpy.float32(127)
+    got = state["__units__"]["fc"]["weights"]
+    assert got.dtype == numpy.float32
+    assert numpy.abs(got - w).max() <= scale.max() / 2 + 1e-7
+    assert numpy.array_equal(state["__units__"]["fc"]["bias"], b)
+    assert main(["quantize", str(tmp_path / "nope.pickle.gz")]) == 1
+    assert "quantize failed" in capsys.readouterr().err
 
 
 def test_refused_serving_flags_still_name_their_items(tmp_path):

@@ -28,7 +28,11 @@ flash kernels and the MoE layer's routing against the CPU; the
 O(1)-state lane's state cache restoring the cold scan's bits), and
 classic REST serving with the image loaders (a RESTfulAPI round trip on
 the card within 1e-5 of the forward alone; device augmentation's
-semantics; the fused-FC gate refusing it).
+semantics; the fused-FC gate refusing it), and int8 serving (the int8
+quantizer's values and scales on the card equal the CPU's bit for bit;
+the int8-weights engine equals the float engine serving the dequantized
+twin; the int8 KV pool's rows equal the CPU's quantizer of the same
+float rows).
 Each skips without a card (decided inside the fixture, never at
 import).
 
@@ -1897,3 +1901,86 @@ def test_restful_api_round_trip_on_the_card(cuda):
         thread.join(timeout=30)
         api.stop()
     assert not thread.is_alive()
+
+
+# -- int8 serving ---------------------------------------------------------------
+
+def test_int8_quantizer_bits_on_the_card_equal_the_cpu(cuda):
+    """Weights (both granularities, float32 and bf16 sources, an all-zero
+    column, huge and tiny columns, a NaN and an infinity) and K/V rows:
+    the card's int8 values and scales equal the CPU's bit for bit (a
+    true division, round-half-to-even, NaN → 0 before the cast)."""
+    from veles_tpu_torch.ops import precision
+    rng = numpy.random.RandomState(8)
+    w = rng.randn(512, 2048).astype("float32")
+    w[:, 0] = 0
+    w[:, 1] *= 3e4
+    w[:, 2] *= 1e-30
+    w[5, 3], w[6, 4] = numpy.nan, numpy.inf
+    for dtype in (torch.float32, torch.bfloat16):
+        src = torch.from_numpy(w).to(dtype)
+        for axis in (-1, None):
+            q, s = precision.quantize_int8(src.to(cuda), axis=axis)
+            q_cpu, s_cpu = precision.quantize_int8(src, axis=axis)
+            assert torch.equal(q.cpu(), q_cpu)
+            assert s.cpu().numpy().tobytes() == s_cpu.numpy().tobytes()
+            # the infinity's column dequantizes to 0 · inf = NaN, whose
+            # bits the two devices may spell differently
+            got = precision.dequantize_int8(q, s).cpu()
+            want = precision.dequantize_int8(q_cpu, s_cpu)
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    x = torch.from_numpy(rng.randn(3, 300, 8, 64).astype("float32"))
+    q, s = precision.quantize_rows_int8(x.to(cuda))
+    q_cpu, s_cpu = precision.quantize_rows_int8(x)
+    assert torch.equal(q.cpu(), q_cpu)
+    assert s.cpu().numpy().tobytes() == s_cpu.numpy().tobytes()
+
+
+def test_int8_engines_on_the_card(model, cuda):
+    """The int8-weights engine's tokens, greedy and sampled, equal the
+    float engine serving ``dequantize_params(quantize_params(...))`` bit
+    for bit; on the int8 KV pool every prefill is 2 flash launches, the
+    pool's scales are the CPU quantizer's of the float prefill rows, and
+    concurrent tokens equal solo ones."""
+    from veles_tpu_torch import quant
+    from veles_tpu_torch.serving import ContinuousEngine
+    reqs = _engine_requests(12, 8)
+    q, _ = quant.quantize_params(sampling.params_of(model))
+    twin = build_forwards(LAYERS, device=cuda)
+    params_from_jax(twin, {u: {k: v.cpu().numpy() for k, v in t.items()}
+                           for u, t in quant.dequantize_params(q).items()})
+    geometry = dict(max_slots=4, buckets=(32, 64, 128), max_context=160)
+    out = {}
+    for name, stack, kw in (("twin", twin, {}),
+                            ("qw", model, {"quant_weights": True}),
+                            ("qkv", model, {"quant_kv": True})):
+        engine = ContinuousEngine(stack, name="gpu_" + name, **geometry,
+                                  **kw).start()
+        try:
+            before = counters.counters.snapshot()
+            out[name] = engine.serve(reqs)
+            delta = counters.counters.delta(before)
+            if name == "qkv":
+                assert [engine.serve([r])[0] for r in reqs] == out[name]
+                assert engine.stats()["kv_pool_bytes"] == 2 * 2 * (
+                    engine.page_pool.device_rows * engine.page_size
+                    * (1 * 64 + 4))
+            assert delta[LAUNCHES] == 2 * len(reqs)
+            assert engine.page_pool.in_use() == 0
+        finally:
+            engine.stop()
+    assert out["qw"] == out["twin"]
+    # the int8 pool's prefill rows: the CPU quantizer of the card's float
+    # K rows of block 0 (1 kv head of 64)
+    from veles_tpu_torch.nn.sampling import (_embed_prompt, _prefill_blocks,
+                                             split_stack)
+    stack = split_stack(model)
+    ids = torch.as_tensor([reqs[0]["prompt"]], device=cuda)
+    with torch.inference_mode():
+        x = _embed_prompt(stack["stem"], stack["pos_emb"], ids)
+        _, caches = _prefill_blocks(stack["blocks"], x, ids.shape[1])
+    k = caches[0][0][0]
+    qk, sk = quant.quantize_rows_int8(k)
+    qk_cpu, sk_cpu = quant.quantize_rows_int8(k.cpu())
+    assert torch.equal(qk.cpu(), qk_cpu) and torch.equal(sk.cpu(), sk_cpu)

@@ -407,9 +407,7 @@ def test_unported_knobs_raise(stacks):
     """A knob of the reference's engine that is not ported raises a
     VelesError naming its ROADMAP item; it is never silently ignored."""
     _, _, port = stacks
-    for knob, item in ((dict(quant_weights=True), "4.4"),
-                       (dict(quant_kv=True), "4.4"),
-                       (dict(prefix_cache=True), "4.1"),
+    for knob, item in ((dict(prefix_cache=True), "4.1"),
                        (dict(prefill_chunk=8), "4.1"),
                        (dict(artifact="x"), "4.5"), (dict(tp=2), "4.6")):
         with pytest.raises(VelesError, match=r"not ported yet \(ROADMAP "
@@ -417,6 +415,24 @@ def test_unported_knobs_raise(stacks):
             ContinuousEngine(port, **dict(ENGINE, **knob))
     with pytest.raises(ValueError, match="multiple of decode_block"):
         ContinuousEngine(port, page_size=6, decode_block=4, **ENGINE)
+
+
+@pytest.mark.parametrize("knob", ["quant_weights", "quant_kv"])
+def test_int8_knobs_are_accepted(stacks, knob):
+    """The int8 knobs (item 4.4, refused before it was ported) build an
+    engine that serves: a greedy answer of the right length, the knob
+    on in ``stats()``, the page ledger empty after."""
+    lm, _, port = stacks
+    engine = ContinuousEngine(port, name="eng_" + knob,
+                              **dict(ENGINE, **{knob: True})).start()
+    try:
+        tokens = engine.serve([make_request(_prompt(lm, 5), 4)])[0]
+        assert len(tokens) == 4
+        st = engine.stats()
+        assert st[knob] == 1 and st["retired"] == 1
+        _drained(engine)
+    finally:
+        engine.stop()
 
 
 def test_page_reuse_after_retire_not_poisoned(stacks):

@@ -22,7 +22,9 @@ units' state_dict/load_state_dict) against the reference's, on the CPU:
   state gives the same paths, shapes, dtypes and values (less the
   reference's threefry counter, which the port has not);
 - a snapshot whose shapes do not fit raises a VelesError naming the
-  unit; int8 snapshots and asynchronous commits are refused;
+  unit; an int8 record loads as ``q · s`` in its recorded dtype, while a
+  record of another scheme, one without its scale, and asynchronous
+  commits are refused;
 - ``models/mnist.py --snapshot-dir`` then ``--resume`` through the
   fused-FC route equals the straight run.
 """
@@ -431,18 +433,37 @@ def test_unfitting_snapshot_names_the_unit(tmp_path):
         resume(wf, _current(tmp_path / "a"))
 
 
+def _write_state(state, path):
+    with gzip.open(path, "wb") as fout:
+        pickle.dump(state, fout)
+    return path
+
+
 def test_int8_and_async_snapshots_are_refused(tmp_path):
+    """int8 snapshots are no longer refused: an int8 record reads back as
+    ``q · s``. A record this build cannot read still is (another scheme,
+    a record without its scale: the reference's ``dequantize_state``
+    messages), and so is an asynchronous commit (item 11)."""
     fresh_prng()
     _run(build(tmp_path, 1))
     state = load_snapshot(_current(tmp_path))
+    q = numpy.arange(-32, 32, dtype=numpy.int8).reshape(8, 8)
+    scale = numpy.linspace(0.5, 4.0, 8, dtype=numpy.float32)[None]
     state["__units__"]["all2all_tanh0"]["weights"] = {
-        "__quant__": "int8", "q": numpy.zeros((8, 8), numpy.int8),
-        "scale": numpy.ones(8, numpy.float32)}
-    path = str(tmp_path / "q.pickle.gz")
-    with gzip.open(path, "wb") as fout:
-        pickle.dump(state, fout)
-    with pytest.raises(VelesError, match="int8.*item 4.4"):
-        load_snapshot(path)
+        "__quant__": "int8", "q": q, "scale": scale, "dtype": "float32",
+        "granularity": "per_channel"}
+    back = load_snapshot(_write_state(state, str(tmp_path / "q.pickle.gz")))
+    got = back["__units__"]["all2all_tanh0"]["weights"]
+    assert got.dtype == numpy.float32
+    assert numpy.array_equal(got, q.astype(numpy.float32) * scale)
+    state["__units__"]["all2all_tanh0"]["weights"] = {
+        "__quant__": "int4", "q": q, "scale": scale}
+    with pytest.raises(VelesError, match="unknown quant scheme 'int4'"):
+        load_snapshot(_write_state(state, str(tmp_path / "q4.pickle.gz")))
+    state["__units__"]["all2all_tanh0"]["weights"] = {
+        "__quant__": "int8", "q": q}
+    with pytest.raises(VelesError, match="missing its q/scale"):
+        load_snapshot(_write_state(state, str(tmp_path / "qs.pickle.gz")))
     with pytest.raises(VelesError, match="item 11"):
         Snapshotter(None, directory=str(tmp_path), async_mode=True)
 

@@ -11,9 +11,9 @@ model's import (a model may set keys when it is imported). The run
 happens on the CUDA card unless ``--backend cpu`` is given; without a
 card ``--backend auto`` fails.
 
-Subcommands: ``trace export|self-time``, ``blackbox dump|inspect`` and
-``faults list``; the reference's others name the ROADMAP item that
-brings them.
+Subcommands: ``trace export|self-time``, ``blackbox dump|inspect``,
+``faults list`` and ``quantize SNAPSHOT [--out PATH] [--granularity
+G]``; the reference's others name the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from .logger import setup_logging
 #: the reference's subcommands that are not ported, with their items
 REFUSED_SUBCOMMANDS = {
     "metrics": "11", "watch": "11", "alerts": "11", "route": "11",
-    "loadgen": "11", "quantize": "4.4", "export": "4.5", "linalg": "10",
+    "loadgen": "11", "export": "4.5", "linalg": "10",
 }
 
 
@@ -49,6 +49,8 @@ def main(argv=None) -> int:
         return _faults_cli(argv[1:])
     if argv and argv[0] == "blackbox":
         return _blackbox_cli(argv[1:])
+    if argv and argv[0] == "quantize":
+        return _quantize_cli(argv[1:])
     parser = make_parser()
     args = parse_args(parser, argv)
     if args.serve_draft_snapshot and not args.serve_draft:
@@ -74,6 +76,12 @@ def main(argv=None) -> int:
                        ("state_cache", args.serve_state_cache)):
         if value is not None:
             setattr(serving, key, value == "on")
+    # int8 serving: the flags arm the config tree, which the engine that
+    # --serve-generate builds reads
+    if args.quant_weights:
+        root.common.quant.weights = True
+    if args.quant_kv:
+        root.common.quant.kv = True
     level = (logging.WARNING, logging.INFO,
              logging.DEBUG)[min(args.verbose, 2)]
     setup_logging(level=level, tracefile=args.trace_file)
@@ -338,6 +346,81 @@ def _faults_cli(argv) -> int:
           "window=T0:T1]")
     spec = faults.plane.current_spec()
     print("active spec: %s" % (spec or "(none)"))
+    return 0
+
+
+def _quantize_cli(argv) -> int:
+    """``quantize SNAPSHOT [--out PATH] [--granularity G]``: offline int8
+    quantization of a snapshot (``quant/``): eligible 2-D matmul weights
+    become symmetric int8 with float32 scales, about a quarter of their
+    bytes. The output is an ordinary snapshot with its manifest:
+    ``load_snapshot`` of either package dequantizes it on read, so resume
+    and serving work unchanged."""
+    import argparse
+    import os
+    import pickle
+    import time
+    parser = argparse.ArgumentParser(
+        prog="veles_tpu_torch quantize",
+        description="int8 snapshot quantization")
+    parser.add_argument("snapshot", help="snapshot file to quantize")
+    parser.add_argument("--out", default=None,
+                        help="output path (default: insert .int8 "
+                             "before the .pickle extension)")
+    parser.add_argument("--granularity", default=None,
+                        choices=("per_channel", "per_tensor"),
+                        help="scale granularity (default: "
+                             "root.common.quant.granularity)")
+    args = parser.parse_args(argv)
+    from .quant import quantize_state
+    from .resilience import checkpoint_chain as chain_mod
+    from .snapshotter import CODECS, load_snapshot
+    out = args.out
+    if out is None:
+        marker = ".pickle"
+        if marker not in args.snapshot:
+            parser.error("cannot derive --out from %r (no .pickle "
+                         "extension); pass --out" % args.snapshot)
+        idx = args.snapshot.rindex(marker)
+        out = args.snapshot[:idx] + ".int8" + args.snapshot[idx:]
+    try:
+        state = load_snapshot(args.snapshot)
+        qstate, report = quantize_state(state,
+                                        granularity=args.granularity)
+    except (OSError, VelesError) as e:
+        print("quantize failed: %s" % e, file=sys.stderr)
+        return 1
+    opener = open
+    for op, ext in CODECS.values():
+        if ext and out.endswith(ext):
+            opener = op
+            break
+    tmp = out + ".tmp"
+    with opener(tmp, "wb") as fout:
+        pickle.dump(qstate, fout, protocol=pickle.HIGHEST_PROTOCOL)
+    digest = chain_mod.file_sha256(tmp)
+    chain_mod.commit_file(tmp, out)
+    chain_mod.write_manifest(
+        out, sha256=digest, prefix="quantize", runs=0,
+        created=time.time(),
+        checksum=qstate.get("__meta__", {}).get("checksum", ""))
+    out_size = os.path.getsize(out)
+    granularity = qstate["__meta__"]["quant"]["granularity"]
+    try:
+        in_size = os.path.getsize(args.snapshot)
+    except OSError:
+        # a sqlite:// source has no file size to compare
+        in_size = None
+    if in_size is None:
+        print("quantized %d tensor(s) (%s): %s -> %s (%.1f KiB)"
+              % (report["params"], granularity, args.snapshot, out,
+                 out_size / 1024))
+    else:
+        print("quantized %d tensor(s) (%s): %s (%.1f KiB) -> %s (%.1f "
+              "KiB, %.2fx)"
+              % (report["params"], granularity, args.snapshot,
+                 in_size / 1024, out, out_size / 1024,
+                 in_size / max(1, out_size)))
     return 0
 
 

@@ -17,7 +17,6 @@ from .error import VelesError
 #: the planes not ported yet and the ROADMAP Queue 1 item of each
 ITEMS = {
     "4.1": "prefix sharing and chunked prefill",
-    "4.4": "int8 weights and KV",
     "4.5": "the serve artifact",
     "4.6": "tensor-parallel serving",
     "10": "distribution",
@@ -176,9 +175,12 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-artifact", default=None, metavar="DIR",
                    help="AOT serve artifact (not ported: 4.5)")
     p.add_argument("--quant-weights", action="store_true",
-                   help="int8 decode weights (not ported: 4.4)")
+                   help="serve with per-channel symmetric int8 decode "
+                        "matmul weights, dequantized on read just before "
+                        "each product (root.common.quant.weights)")
     p.add_argument("--quant-kv", action="store_true",
-                   help="int8 KV pool (not ported: 4.4)")
+                   help="store the serving KV page pool int8 with one "
+                        "float32 scale a position (root.common.quant.kv)")
     p.add_argument("--serve-draft", default=None, metavar="MODEL_PY",
                    help="draft model file (build_workflow()) for "
                         "mode=speculative under --serve-generate")
@@ -255,8 +257,6 @@ def _refused(args):
         ("--router-qos", args.router_qos is not None, "11"),
         ("--router-slo-ttft-ms", args.router_slo_ttft_ms is not None,
          "11"),
-        ("--quant-weights", args.quant_weights, "4.4"),
-        ("--quant-kv", args.quant_kv, "4.4"),
         ("--serve-artifact", args.serve_artifact, "4.5"),
         ("--serve-prefix-cache on", args.serve_prefix_cache in on, "4.1"),
         ("--serve-prefill-chunk", bool(args.serve_prefill_chunk), "4.1"),

@@ -203,6 +203,17 @@ def _default_root() -> Config:
             "recorder": {"enabled": True, "capacity": 4096,
                          "autodump": False, "counter_threshold": 0},
         },
+        # int8 serving (veles_tpu_torch/quant/), the reference's keys
+        # and defaults: off, and the off path is the float engine's.
+        # weights = per-channel int8 decode matmul weights dequantized
+        # on read; kv = the int8 page pool with one scale a position;
+        # granularity = per_channel (one scale an output column) or
+        # per_tensor
+        "quant": {
+            "weights": False,
+            "kv": False,
+            "granularity": "per_channel",
+        },
         # the reference's non-blocking snapshots: not ported (the
         # Snapshotter refuses True)
         "overlap": {

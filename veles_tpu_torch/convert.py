@@ -25,6 +25,11 @@ optimiser state with them). :func:`vocab_from_jax` pins a port
 ``TextFileLoader`` to the reference loader's vocabulary, so both encode
 a corpus to the same ids.
 
+A tree of the reference's int8 serving twin (``veles_tpu.quant.
+quantize_params``: ``{"q", "scale"}`` records) or a snapshot's
+``__quant__`` records load as the dequantized weights, ``q · s`` in
+float32, bit for bit the port's ``quant.dequantize_params``.
+
 Both also take the units that train outside a ``TrainStep`` — the
 Kohonen map (``weights``) and the RBM (``weights``, ``vbias``,
 ``hbias``) — as an iterable of units or as the workflow holding them
@@ -66,6 +71,16 @@ def _parameterised(forwards):
     return {layer.name: layer for layer in forwards if _param_shapes(layer)}
 
 
+def _host_array(val) -> numpy.ndarray:
+    """A tree leaf as a host array; an int8 record (``{"q", "scale"}``,
+    with or without the snapshot marker) as its float32 ``q · s``."""
+    if isinstance(val, dict) and "q" in val and "scale" in val:
+        from .ops.precision import dequantize_int8
+        return dequantize_int8(numpy.asarray(val["q"]),
+                               numpy.asarray(val["scale"])).numpy()
+    return numpy.asarray(val)
+
+
 def _stage(shapes: Shapes, tree: ParamTree, what: str
            ) -> List[Tuple[str, str, numpy.ndarray]]:
     """(unit, param, float32 host copy) for every entry of ``shapes``;
@@ -83,7 +98,7 @@ def _stage(shapes: Shapes, tree: ParamTree, what: str
             raise VelesError("%s unit %r: parameters %s, expected %s"
                              % (what, name, sorted(got), sorted(params)))
         for pname, shape in params.items():
-            arr = numpy.asarray(got[pname])
+            arr = _host_array(got[pname])
             if tuple(arr.shape) != tuple(shape):
                 raise VelesError("%s unit %r param %r: shape %s, expected "
                                  "%s" % (what, name, pname, arr.shape,

@@ -32,8 +32,8 @@ from ..telemetry.spans import span
 from .transformer import (Embedding, EmbeddingUnit, LMHead, LMHeadUnit,
                           PositionalEmbedding, PositionalEmbeddingUnit,
                           TransformerBlock, TransformerBlockUnit, _rotate,
-                          block_apply, block_ffn, block_norm, block_qkv,
-                          rope_angles)
+                          add_positions, block_apply, block_ffn, block_norm,
+                          block_qkv, embed, lm_logits, rope_angles)
 
 
 def _rope_at(x, pos: int, base=10000.0):
@@ -125,8 +125,27 @@ def _block_step(block, x_t, cache_k, cache_v, pos: int):
                    _visible(rows, pos, block.window))
 
 
+def _step_qkv_rows(block, p, x_t, positions):
+    """q, k, v of S single-position rows at their own ``positions``,
+    rotated."""
+    q, k, v = block_qkv(block, p, block_norm(block, p, x_t, "ln1"))
+    if block.rope:
+        q = _rope_rows(q, positions, block.rope_base)
+        k = _rope_rows(k, positions, block.rope_base)
+    return q, k, v
+
+
+def _row_visible(block, n_rows: int, positions, device):
+    """Each row's causal (and window) mask over its ``n_rows``-position
+    view, broadcastable to :func:`_attend`'s scores."""
+    rows = torch.arange(n_rows, device=device)
+    pos = torch.as_tensor(numpy.asarray(positions, numpy.int64),
+                          device=device)[:, None]
+    return _visible(rows[None, :], pos, block.window)[:, None, None, None, :]
+
+
 def _block_step_rows(block, x_t, pool_k, pool_v, tables, positions,
-                     targets):
+                     targets, p=None):
     """One-token pass of S rows that sit at different positions, over a
     paged cache: x_t (S, 1, D); pools (pages + 1, page_size, KV, Dh);
     ``tables`` (S, P) page ids on the pools' device; ``positions`` the
@@ -134,23 +153,51 @@ def _block_step_rows(block, x_t, pool_k, pool_v, tables, positions,
     (S,) each, where each row's new K/V row is written (in place; a
     masked row's target is the sink page 0). Each row then reads its
     view through its page-table row, with its own causal and window
-    mask: :func:`_block_step`'s arithmetic row by row."""
-    p = block.params()
-    q, k, v = block_qkv(block, p, block_norm(block, p, x_t, "ln1"))
-    if block.rope:
-        q = _rope_rows(q, positions, block.rope_base)
-        k = _rope_rows(k, positions, block.rope_base)
+    mask: :func:`_block_step`'s arithmetic row by row. ``p`` overrides
+    the block's parameters (the int8 engine's dequantizing view)."""
+    p = block.params() if p is None else p
+    q, k, v = _step_qkv_rows(block, p, x_t, positions)
     page, off = targets
     pool_k[page, off] = k[:, 0]
     pool_v[page, off] = v[:, 0]
     cache_k = pool_k[tables].flatten(1, 2)        # (S, P*page_size, ...)
     cache_v = pool_v[tables].flatten(1, 2)
-    rows = torch.arange(cache_k.shape[1], device=x_t.device)
-    pos = torch.as_tensor(numpy.asarray(positions, numpy.int64),
-                          device=x_t.device)[:, None]
-    valid = _visible(rows[None, :], pos, block.window)
     return _attend(block, p, x_t, q, cache_k, cache_v,
-                   valid[:, None, None, None, :])
+                   _row_visible(block, cache_k.shape[1], positions,
+                                x_t.device))
+
+
+def _block_step_rows_int8(block, x_t, pool, tables, positions, targets,
+                          p=None):
+    """:func:`_block_step_rows` over an int8 pool ``(kq, vq, k_scale,
+    v_scale)`` (``quant/kv.py``): each row's view is dequantized in the
+    activations' dtype, its own new K/V row goes into that view
+    unquantized, and the attention reads it; then only the new row is
+    quantized, with its own scale, and written at ``targets``. Written
+    rows are never re-scaled (the reference's ``rowq``)."""
+    from ..ops.precision import dequantize_rows_int8, quantize_rows_int8
+    p = block.params() if p is None else p
+    kq, vq, ks, vs = pool
+    q, k, v = _step_qkv_rows(block, p, x_t, positions)
+    cache_k = dequantize_rows_int8(kq[tables].flatten(1, 2),
+                                   ks[tables].flatten(1, 2), x_t.dtype)
+    cache_v = dequantize_rows_int8(vq[tables].flatten(1, 2),
+                                   vs[tables].flatten(1, 2), x_t.dtype)
+    n_rows = cache_k.shape[1]
+    rows = torch.arange(x_t.shape[0], device=x_t.device)
+    # a masked row may sit past its view: its write lands on the last
+    # row, as the reference's dynamic_update_slice clamps it
+    at = torch.as_tensor(numpy.minimum(numpy.asarray(positions, numpy.int64),
+                                       n_rows - 1), device=x_t.device)
+    cache_k[rows, at] = k[:, 0]
+    cache_v[rows, at] = v[:, 0]
+    page, off = targets
+    for pool_q, pool_s, new in ((kq, ks, k), (vq, vs, v)):
+        qn, sn = quantize_rows_int8(new[:, 0])
+        pool_q[page, off] = qn
+        pool_s[page, off] = sn
+    return _attend(block, p, x_t, q, cache_k, cache_v,
+                   _row_visible(block, n_rows, positions, x_t.device))
 
 
 def params_of(layers) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -190,41 +237,56 @@ def _embed_rows(stem, pos_emb, tok, positions):
     return x
 
 
-def _prefill_blocks(blocks, x, cache_len: int):
+def _prefill_blocks(blocks, x, cache_len: int, params=None):
     """Every block's full-window pass over fresh zero K/V caches of
     ``cache_len`` rows, writing each block's K/V into its cache's first
     T rows → (x, [(ck, cv), ...]). The pass is the block's own
     composition (``transformer.block_apply``), causal, so prefill logits
     cannot drift from the full forward. Each block shapes its own cache
-    (heads may differ per block; GQA caches hold n_kv_heads)."""
+    (heads may differ per block; GQA caches hold n_kv_heads).
+    ``params`` (``{layer name: params}``) overrides the blocks' own."""
     b = x.shape[0]
     caches = []
     for blk in blocks:
         shape = (b, cache_len, blk.n_kv_heads, blk.head_dim)
         ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
         cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        x = block_apply(blk, blk.params(), x, cache=(ck, cv), causal=True)
+        p = blk.params() if params is None else params[blk.name]
+        x = block_apply(blk, p, x, cache=(ck, cv), causal=True)
         caches.append((ck, cv))
     return x, caches
 
 
-def _head_logits(head, x_last):
+def _head_logits(head, x_last, params=None):
     """Vocabulary head projection of the last positions (…, D) →
-    (…, V)."""
-    return head(x_last)
+    (…, V); ``params`` (``{layer name: params}``) overrides the head's
+    own."""
+    if params is None:
+        return head(x_last)
+    return lm_logits(params[head.name], x_last)
 
 
-def prompt_logits(forwards, prompt) -> numpy.ndarray:
+def prompt_logits(forwards, prompt, params=None) -> numpy.ndarray:
     """Last-position logits (V,) for ``prompt`` through the cached-decode
-    prefill path — the float reference a decode is checked against."""
+    prefill path — the float reference a decode is checked against.
+    ``params`` (``{layer name: {param: tensor}}``) overrides the
+    stack's own tree: a ``dequantize(quantize(...))`` twin measures the
+    quantization error alone."""
     stack = split_stack(forwards)
     device = forwards.device
+    stem, pos_emb = stack["stem"], stack["pos_emb"]
     with torch.inference_mode():
         ids = torch.as_tensor(numpy.asarray(prompt, numpy.int64),
                               device=device)[None]
-        x = _embed_prompt(stack["stem"], stack["pos_emb"], ids)
-        x, _ = _prefill_blocks(stack["blocks"], x, ids.shape[-1])
-        return _head_logits(stack["head"], x[0, -1]).cpu().numpy()
+        if params is None:
+            x = _embed_prompt(stem, pos_emb, ids)
+        else:
+            x = embed(params[stem.name]["table"], ids)
+            if pos_emb is not None:
+                x = add_positions(params[pos_emb.name]["table"], x)
+        x, _ = _prefill_blocks(stack["blocks"], x, ids.shape[-1], params)
+        return _head_logits(stack["head"], x[0, -1],
+                            params).cpu().numpy()
 
 
 def _row_generators(seed, batch: int, device) -> List[torch.Generator]:

@@ -111,13 +111,15 @@ def _block_span(block, x, cache_k, cache_v, pos0):
     return _span_rest(block, p, x, q, cache_k, cache_v, pos)
 
 
-def _block_span_rows(block, x, pool_k, pool_v, tables, pos0, targets):
+def _block_span_rows(block, x, pool_k, pool_v, tables, pos0, targets,
+                     p=None):
     """:func:`_block_span` over the engine's paged pools: x (S, g, D);
     pools (pages + 1, page_size, KV, Dh); ``tables`` (S, P) page ids;
     ``targets`` = (page ids, in-page offsets), (S, g) each, where each
     new K/V row is written (a masked row's targets are the sink page
-    0). Each row then reads its view through its page-table row."""
-    p = block.params()
+    0). Each row then reads its view through its page-table row. ``p``
+    overrides the block's parameters (the int8 engine's view)."""
+    p = block.params() if p is None else p
     s, g = x.shape[:2]
     q, k, v = block_qkv(block, p, block_norm(block, p, x, "ln1"))
     if block.rope:

@@ -328,7 +328,9 @@ class GenerationAPI(Logger):
     moved to the same device) enables ``mode=speculative`` on both
     planes; ``spec_gamma`` and ``beam_width`` fix the pool's round and
     group widths; ``state_cache`` turns the O(1)-state lane's prefix cache
-    on. ``initialize`` starts the engine, the window worker
+    on; ``quant_weights`` and ``quant_kv`` (default ``root.common.quant``'s)
+    the paged engine's int8 weights and int8 KV pool. ``initialize``
+    starts the engine, the window worker
     and the HTTP service, ``stop`` drains them; the bound port is
     ``self.port``."""
 
@@ -346,7 +348,9 @@ class GenerationAPI(Logger):
                  pages: Optional[int] = None, draft=None,
                  spec_gamma: Optional[int] = None,
                  beam_width: Optional[int] = None,
-                 state_cache: Optional[bool] = None, device=None,
+                 state_cache: Optional[bool] = None,
+                 quant_weights: Optional[bool] = None,
+                 quant_kv: Optional[bool] = None, device=None,
                  name: str = "generation_api") -> None:
         self.device = device_for(device)
         self.model = model.to(self.device)
@@ -380,6 +384,10 @@ class GenerationAPI(Logger):
         #: the O(1)-state lane's prefix cache; None defers to
         #: root.common.serving.state_cache
         self.state_cache = state_cache
+        #: the int8 planes of the paged engine; None defers to
+        #: root.common.quant inside the engine
+        self.quant_weights = quant_weights
+        self.quant_kv = quant_kv
         #: the ContinuousEngine or RecurrentEngine; None = the window plane
         self._engine = None
         self._service: Optional[HTTPService] = None
@@ -847,6 +855,10 @@ class GenerationAPI(Logger):
                 "veles_serving_slots_busy": st["slots_busy"],
                 "veles_serving_peak_slots": st["peak_slots"],
                 "veles_serving_queue_depth": st["queue_depth"],
+                # 1 = the int8 plane is on: whether a throughput number
+                # is float or int8 (the O(1)-state lane reports 0)
+                "veles_quant_weights_mode": st["quant_weights"],
+                "veles_quant_kv_mode": st["quant_kv"],
                 "veles_serving_kv_pool_bytes": st["kv_pool_bytes"]})
             if st.get("slot_kind", "paged") == "state":
                 # the O(1)-state pool: no page rows, its per-slot state
@@ -882,7 +894,9 @@ class GenerationAPI(Logger):
                     page_size=self.page_size, pages=self.pages,
                     spec_gamma=self.spec_gamma,
                     beam_width=self.beam_width, draft=self.draft,
-                    device=self.device, name=self.name)
+                    quant_weights=self.quant_weights,
+                    quant_kv=self.quant_kv, device=self.device,
+                    name=self.name)
                 engine.on_death = self._on_replica_death
                 return engine.start()
             except VelesError as e:

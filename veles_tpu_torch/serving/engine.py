@@ -64,13 +64,26 @@ iteration-level scheduling:
   ``serve.replica_death`` (at a busy step boundary: every live row is
   settled with its progress, then ``on_death`` runs) and
   ``serve.handoff`` (per handed-off request: that one leaves without
-  progress).
+  progress);
+- **int8 serving** (``quant/``, ``root.common.quant``): under
+  ``quant_weights`` the stack's 2-D matmul weights are calibrated once
+  to per-channel int8 (again only when the weights changed, checked at
+  an idle step boundary) and each is rebuilt as ``q · s`` in the
+  model's float dtype just before its own product, in the prefill
+  (still the flash kernel's attention), the decode step, the
+  speculative verify and the beam step; the draft stays float. Under
+  ``quant_kv`` the pool holds int8 K/V with one float32 scale a
+  position: the prefill quantizes its float rows once, the decode step
+  reads a dequantized view with its own new row unquantized and
+  quantizes only that row. Speculative and beam requests on the int8
+  pool ride the window plane. A resumed or preempted row's prefill
+  re-quantizes the emitted tokens' rows from the prefill's K/V, as the
+  reference's does.
 
 Not ported yet: prefix sharing and chunked prefill (ROADMAP Queue 1
-item 4.1), int8 weights and KV (4.4), the serve artifact (4.5) and
-tensor-parallel serving (4.6); asking for them raises
-:class:`VelesError`. Requests the pool cannot hold ride the window
-plane (:meth:`ContinuousEngine.accepts`).
+item 4.1), the serve artifact (4.5) and tensor-parallel serving (4.6);
+asking for them raises :class:`VelesError`. Requests the pool cannot
+hold ride the window plane (:meth:`ContinuousEngine.accepts`).
 """
 
 from __future__ import annotations
@@ -88,12 +101,15 @@ from ..config import root
 from ..error import VelesError
 from ..logger import Logger
 from ..nn.beam import _beam_topk, _expand_first
-from ..nn.sampling import (_block_step_rows, _draw, _embed_prompt,
-                           _embed_rows, _head_logits, _prefill_blocks,
-                           advanced_generator, split_stack)
+from ..nn.sampling import (_block_step_rows, _block_step_rows_int8, _draw,
+                           _embed_prompt, _embed_rows, _head_logits,
+                           _prefill_blocks, advanced_generator, params_of,
+                           split_stack)
 from ..nn.speculative import (_accept_rows, _block_span_rows,
                               _draft_pick, _embed_span, _emission)
 from ..ops.flash_attention import choose_flash
+from ..quant import (DequantView, block_page_pool, pool_nbytes,
+                     quantize_params, quantize_rows_int8)
 from ..resilience.faults import FaultInjected, fire as fire_fault
 from ..telemetry.counters import inc
 from ..telemetry.spans import span
@@ -113,7 +129,6 @@ _STEP_MODES = RESUME_MODES
 
 #: the ROADMAP Queue 1 item of each engine knob not ported yet
 _NOT_PORTED = {"prefix_cache": "4.1", "prefill_chunk": "4.1",
-               "quant_weights": "4.4", "quant_kv": "4.4",
                "artifact": "4.5"}
 
 
@@ -148,6 +163,21 @@ def fold_resume(req: Dict, resume_tokens) -> Dict:
     return dict(req,
                 prompt=[int(t) for t in req["prompt"]] + resume,
                 n_new=remaining, resume_k=len(resume))
+
+
+def _version(t) -> int:
+    try:
+        return t._version
+    except RuntimeError:      # an inference tensor tracks no version
+        return 0
+
+
+def _leaf_key(params) -> Tuple:
+    """Each leaf of a ``params_of`` tree by identity and in-place version:
+    unchanged weights give the same key, so the int8 twin is calibrated
+    again only when a weight was replaced or written in place."""
+    return tuple((u, k, id(t), _version(t)) for u, tree in params.items()
+                 for k, t in tree.items())
 
 
 def _layers_of(wf):
@@ -350,9 +380,11 @@ class ContinuousEngine(ResumePlane, Logger):
     4 each) fix the round width and the group width.
     ``decode_block`` runs that many decode steps per tick before the
     tokens come back to the host; ``page_size`` must be a positive
-    multiple of it. Knob geometry that cannot work raises ValueError; a
-    knob of a plane not ported yet raises :class:`VelesError` naming its
-    ROADMAP item. ``root.common.serving.qos`` turns the QoS plane on.
+    multiple of it. ``quant_weights`` and ``quant_kv`` (default
+    ``root.common.quant``'s, off) turn on int8 weights and the int8 KV
+    pool. Knob geometry that cannot work raises ValueError; a knob of a
+    plane not ported yet raises :class:`VelesError` naming its ROADMAP
+    item. ``root.common.serving.qos`` turns the QoS plane on.
     """
 
     def __init__(self, wf, max_slots: int = 8,
@@ -369,8 +401,7 @@ class ContinuousEngine(ResumePlane, Logger):
                  tp: Optional[int] = None, device=None,
                  name: str = "serving") -> None:
         super().__init__()
-        for knob, value in (("quant_weights", quant_weights),
-                            ("quant_kv", quant_kv), ("artifact", artifact),
+        for knob, value in (("artifact", artifact),
                             ("prefix_cache", prefix_cache),
                             ("prefill_chunk", prefill_chunk)):
             if value:
@@ -383,6 +414,13 @@ class ContinuousEngine(ResumePlane, Logger):
                              % int(tp))
         from . import parse_buckets
         self.name = name
+        # the int8 planes (root.common.quant, --quant-weights/--quant-kv);
+        # both off = the float engine
+        self.quant_weights = bool(
+            root.common.quant.get("weights", False)
+            if quant_weights is None else quant_weights)
+        self.quant_kv = bool(root.common.quant.get("kv", False)
+                             if quant_kv is None else quant_kv)
         self.stack = split_stack(_layers_of(wf))
         stack_device = self.stack["stem"].table.device
         self.device = (stack_device if device is None
@@ -451,6 +489,11 @@ class ContinuousEngine(ResumePlane, Logger):
         #: page ids
         self._caches: Optional[List] = None
         self._draft_caches: Optional[List] = None
+        #: the target's parameters for this burst: None (each layer's
+        #: own) or, under quant_weights, a DequantView a layer
+        self._params: Optional[Dict] = None
+        #: (leaf key of the float tree, its calibrated int8 twin)
+        self._quant_cache: Optional[Tuple] = None
         self._page_table = numpy.zeros(
             (self.max_slots, self.pages_per_slot), numpy.int64)
         self._tok = numpy.zeros(self.max_slots, numpy.int64)
@@ -490,11 +533,13 @@ class ContinuousEngine(ResumePlane, Logger):
         register_engine(self)
         self.info("%s: continuous batching up (slots=%d buckets=%s "
                   "max_context=%d decode_block=%d pages=%dx%d "
-                  "spec_gamma=%d beam_width=%d draft=%s qos=%s, %s)",
+                  "spec_gamma=%d beam_width=%d draft=%s qos=%s "
+                  "quant_weights=%s quant_kv=%s, %s)",
                   self.name, self.max_slots, list(self.buckets),
                   self.max_context, self.decode_block, self.pages,
                   self.page_size, self.spec_gamma, self.beam_width,
-                  self.draft_stack is not None, self.qos, self.device)
+                  self.draft_stack is not None, self.qos,
+                  self.quant_weights, self.quant_kv, self.device)
         return self
 
     def stop(self) -> None:
@@ -546,11 +591,17 @@ class ContinuousEngine(ResumePlane, Logger):
             if gamma != self.spec_gamma:
                 return ("gamma %d differs from the pool's fixed-shape "
                         "round (spec_gamma=%d)" % (gamma, self.spec_gamma))
+            if self.quant_kv:
+                return ("int8 KV pool serves greedy/sample only; "
+                        "speculation rides the window plane")
         if mode == "beam":
             beam = int(req.get("beam", self.beam_width))
             if beam != self.beam_width:
                 return ("beam %d differs from the pool's fixed-shape "
                         "group (beam_width=%d)" % (beam, self.beam_width))
+            if self.quant_kv:
+                return ("int8 KV pool serves greedy/sample only; beam "
+                        "rides the window plane")
             vocab = int(self.stack["head"].vocab_size)
             if self.beam_width > vocab:
                 return ("beam %d exceeds the head's vocab size %d"
@@ -660,7 +711,6 @@ class ContinuousEngine(ResumePlane, Logger):
                                        self.page_size))
         frag = (0.0 if in_use == 0 else
                 max(0.0, 1.0 - occupied / (in_use * self.page_size)))
-        pools = (self._caches or []) + (self._draft_caches or [])
         return {
             "slots": self.max_slots,
             "slots_busy": self.scheduler.busy_count(),
@@ -672,8 +722,11 @@ class ContinuousEngine(ResumePlane, Logger):
             "pages_in_use": in_use,
             "page_size": self.page_size,
             "page_fragmentation": round(frag, 4),
-            "kv_pool_bytes": sum(t.numel() * t.element_size()
-                                 for pair in pools for t in pair),
+            # payloads and, on the int8 pool, the scales
+            "kv_pool_bytes": pool_nbytes(self._caches)
+            + pool_nbytes(self._draft_caches),
+            "quant_weights": int(self.quant_weights),
+            "quant_kv": int(self.quant_kv),
             "spec_gamma": self.spec_gamma,
             "beam_width": self.beam_width,
             # the QoS plane, all 0 with the knob off
@@ -681,6 +734,12 @@ class ContinuousEngine(ResumePlane, Logger):
             "preemptions": self.preemptions,
             "preempted_tokens": self.preempted_tokens,
         }
+
+    def invalidate_quant_cache(self) -> None:
+        """Drop the calibrated int8 twin, so the next idle step boundary
+        calibrates from the live weights again."""
+        self._quant_cache = None
+        self._params = None
 
     # -- worker --------------------------------------------------------------
     def _loop(self) -> None:
@@ -719,6 +778,10 @@ class ContinuousEngine(ResumePlane, Logger):
         step, the speculative round, the beam step."""
         if self._step_boundary():
             return
+        if self._params is None or self.scheduler.busy_count() == 0:
+            # at an idle boundary only: no row decodes on half-old,
+            # half-new weights
+            self._params = self._prepare_params()
         self._ensure_pool()
         if self.qos:
             # before admission, so the freed slots go to the waiting
@@ -760,21 +823,44 @@ class ContinuousEngine(ResumePlane, Logger):
             # consistent
             self._abort_active(str(e), code=503, retry_after=1.0)
 
-    def _pools(self, stack) -> List:
+    def _prepare_params(self) -> Optional[Dict]:
+        """The target's parameters for the next burst: None (the float
+        engine reads each layer's own), or the int8 twin read through a
+        :class:`~veles_tpu_torch.quant.DequantView` a layer, in the
+        model's float dtype. The twin is calibrated again only when a
+        weight was replaced or written in place since
+        (:func:`_leaf_key`); :meth:`invalidate_quant_cache` forces it."""
+        if not self.quant_weights:
+            return None
+        stack = self.stack
+        layers = ([stack["stem"]]
+                  + ([stack["pos_emb"]] if stack["pos_emb"] is not None
+                     else []) + stack["blocks"] + [stack["head"]])
+        params = params_of(layers)
+        key = _leaf_key(params)
+        cached = self._quant_cache
+        if cached is None or cached[0] != key:
+            qparams, _report = quantize_params(params)
+            cached = self._quant_cache = (key, qparams)
         dtype = stack["stem"].table.dtype
-        # zeros, not empty: a masked position's weight is an exact 0,
-        # and 0 times a NaN left in fresh memory would still be NaN
-        return [tuple(
-            torch.zeros((self.page_pool.device_rows, self.page_size,
-                         blk.n_kv_heads, blk.head_dim), dtype=dtype,
-                        device=self.device) for _ in range(2))
-            for blk in stack["blocks"]]
+        return {name: DequantView(unit, dtype)
+                for name, unit in cached[1].items()}
+
+    def _pools(self, stack, quantized: bool) -> List:
+        return [block_page_pool(self.page_pool.device_rows, self.page_size,
+                                blk.n_kv_heads, blk.head_dim,
+                                stack["stem"].table.dtype, quantized,
+                                self.device)
+                for blk in stack["blocks"]]
 
     def _ensure_pool(self) -> None:
         if self._caches is None:
-            self._caches = self._pools(self.stack)
-        if self._draft_caches is None and self.draft_stack is not None:
-            self._draft_caches = self._pools(self.draft_stack)
+            self._caches = self._pools(self.stack, self.quant_kv)
+        # under quant_kv every speculative request rides the window
+        # plane, so a draft pool would be dead memory
+        if (self._draft_caches is None and self.draft_stack is not None
+                and not self.quant_kv):
+            self._draft_caches = self._pools(self.draft_stack, False)
 
     def _refresh_table_row(self, slot) -> None:
         """Sync the host page-table row with the slot's page list."""
@@ -784,26 +870,37 @@ class ContinuousEngine(ResumePlane, Logger):
 
     # -- admission: the bucketed prefill --------------------------------------
     def _scatter_prompt(self, pool, rows, pages) -> None:
-        """Write a bucket's prefill K or V rows (bucket, KV, Dh) page by
-        page into ``pool`` at ``pages``, padded up to whole pages."""
+        """Write a bucket's prefill rows (bucket, ...) — K or V rows
+        (bucket, KV, Dh), or their int8 scales (bucket,) — page by page
+        into ``pool`` at ``pages``, padded up to whole pages."""
         n_pages = pages.shape[0]
         pad = n_pages * self.page_size - rows.shape[0]
         if pad:
-            rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+            rows = torch.nn.functional.pad(
+                rows, (0, 0) * (rows.dim() - 1) + (0, pad))
         pool[pages] = rows.reshape((n_pages, self.page_size)
                                    + tuple(rows.shape[1:]))
 
-    def _prefill_into(self, stack, pools, ids, bucket, pages):
+    def _prefill_into(self, stack, pools, ids, bucket, pages, params=None):
         """One stack's bucketed prefill of ``ids`` (1, bucket), its K/V
         rows scattered into ``pools`` at ``pages`` → the hidden rows.
         Pad rows land in the pages too: the causal mask hides them from
         every real query, and each decode step writes position p before
-        any read can reach it."""
+        any read can reach it. On the int8 pool the float rows are
+        quantized once, one scale a position, and the payloads and
+        scales go through the same page ids."""
         x = _embed_prompt(stack["stem"], stack["pos_emb"], ids)
-        x, caches = _prefill_blocks(stack["blocks"], x, bucket)
-        for (ck, cv), (kp, vp) in zip(caches, pools):
-            self._scatter_prompt(kp, ck[0], pages)
-            self._scatter_prompt(vp, cv[0], pages)
+        x, caches = _prefill_blocks(stack["blocks"], x, bucket, params)
+        for (ck, cv), pool in zip(caches, pools):
+            if len(pool) == 4:
+                for rows, pool_q, pool_s in ((ck, pool[0], pool[2]),
+                                             (cv, pool[1], pool[3])):
+                    q, scale = quantize_rows_int8(rows[0])
+                    self._scatter_prompt(pool_q, q, pages)
+                    self._scatter_prompt(pool_s, scale, pages)
+            else:
+                self._scatter_prompt(pool[0], ck[0], pages)
+                self._scatter_prompt(pool[1], cv[0], pages)
         inc("veles_serving_prefill_dispatches_total")
         return x
 
@@ -841,13 +938,14 @@ class ContinuousEngine(ResumePlane, Logger):
                   request_id=ticket.request_id, trace_id=ticket.trace_id,
                   attempt=ticket.attempt):
             x = self._prefill_into(self.stack, self._caches, ids, bucket,
-                                   pages)
+                                   pages, self._params)
             if slot.mode == "speculative":
                 self._prefill_into(self.draft_stack, self._draft_caches,
                                    ids, bucket, pages)
                 self.draft_prefills_by_bucket[bucket] = \
                     self.draft_prefills_by_bucket.get(bucket, 0) + 1
-            logits = _head_logits(self.stack["head"], x[:, t_p - 1])
+            logits = _head_logits(self.stack["head"], x[:, t_p - 1],
+                                  self._params)
             if group is not None:
                 scores, cur, finished = _expand_first(
                     logits[0], self.beam_width,
@@ -939,16 +1037,24 @@ class ContinuousEngine(ResumePlane, Logger):
         return (torch.as_tensor(page, device=self.device),
                 torch.as_tensor(pos % self.page_size, device=self.device))
 
-    def _step_logits(self, stack, pools, tok, pos, mask, tables):
+    def _step_logits(self, stack, pools, tok, pos, mask, tables,
+                     params=None):
         """One position of every row through ``stack`` over its paged
         ``pools`` → (S, V) logits: each masked-in row writes its new K/V
         at ``pos`` and reads its own pages (the decode step, a draft
-        step of the speculative round, the beam step)."""
+        step of the speculative round, the beam step). ``params``
+        overrides the layers' own (the int8 twin's views)."""
         targets = self._row_targets(pos, mask)
         x = _embed_rows(stack["stem"], stack["pos_emb"], tok, pos)
-        for blk, (kp, vp) in zip(stack["blocks"], pools):
-            x = _block_step_rows(blk, x, kp, vp, tables, pos, targets)
-        return _head_logits(stack["head"], x[:, 0])
+        for blk, pool in zip(stack["blocks"], pools):
+            p = None if params is None else params[blk.name]
+            if len(pool) == 4:
+                x = _block_step_rows_int8(blk, x, pool, tables, pos,
+                                          targets, p)
+            else:
+                x = _block_step_rows(blk, x, pool[0], pool[1], tables, pos,
+                                     targets, p)
+        return _head_logits(stack["head"], x[:, 0], params)
 
     def _mask(self, slots) -> numpy.ndarray:
         mask = numpy.zeros(self.max_slots, bool)
@@ -976,7 +1082,8 @@ class ContinuousEngine(ResumePlane, Logger):
                   chunk=self.decode_block):
             for _ in range(self.decode_block):
                 logits = self._step_logits(self.stack, self._caches, tok,
-                                           pos, mask, tables)   # (S, V)
+                                           pos, mask, tables,
+                                           self._params)        # (S, V)
                 nxt = torch.argmax(logits, dim=-1)
                 for slot in sampled:
                     nxt[slot.idx] = _draw(logits[slot.idx],
@@ -1054,9 +1161,13 @@ class ContinuousEngine(ResumePlane, Logger):
             targets = (torch.stack([t[0] for t in targets], dim=1),
                        torch.stack([t[1] for t in targets], dim=1))
             x = _embed_span(stack["stem"], stack["pos_emb"], window, pos)
+            params = self._params
             for blk, (kp, vp) in zip(stack["blocks"], self._caches):
-                x = _block_span_rows(blk, x, kp, vp, tables, pos, targets)
-            t_logits = _head_logits(stack["head"], x)   # (S, gamma, V)
+                x = _block_span_rows(
+                    blk, x, kp, vp, tables, pos, targets,
+                    None if params is None else params[blk.name])
+            t_logits = _head_logits(stack["head"], x,
+                                    params)             # (S, gamma, V)
             verdicts = _accept_rows(
                 t_logits, d_toks, rows, taus, gens,
                 {r: torch.stack(v) for r, v in pd_rows.items()})
@@ -1109,7 +1220,7 @@ class ContinuousEngine(ResumePlane, Logger):
             logits = self._step_logits(
                 self.stack, self._caches, torch.as_tensor(tok, device=dev),
                 self._pos.copy(), self._mask(slots),
-                torch.as_tensor(self._page_table, device=dev))
+                torch.as_tensor(self._page_table, device=dev), self._params)
             idx = torch.as_tensor([[s.idx for s in g.slots]
                                    for g in groups], device=dev)
             nxt, parent, scores, fin = _beam_topk(

@@ -319,6 +319,10 @@ class RecurrentEngine(ResumePlane, Logger):
             "state_checkpoints": self.state_checkpoints,
             "state_restores": self.state_restores,
             "state_rescans": self.state_rescans,
+            # the int8 planes are the paged engine's (the reference's
+            # lane reports them 0 too)
+            "quant_weights": 0,
+            "quant_kv": 0,
             "qos": int(self.qos),
             "preemptions": self.preemptions,
             "preempted_tokens": self.preempted_tokens,

@@ -26,9 +26,14 @@ A CUDA generator's state comes back only on a card: a stream whose
 snapshot holds only its card generator's state reseeds its CPU
 generator from its seed, with a warning (``prng.py``).
 
-Refused, each with a ``VelesError`` naming its ROADMAP item: the
-asynchronous commit (``async_mode``, ``root.common.overlap.
-async_snapshots``; Queue 1 item 11) and int8 snapshots (item 4.4).
+int8 snapshots (``python -m veles_tpu_torch quantize``, or the
+reference's ``veles-tpu quantize``) are expanded back to float on every
+read (``quant.dequantize_state``), so every consumer sees an ordinary
+state tree; a record this build cannot read raises a ``VelesError``.
+
+Refused with a ``VelesError`` naming its ROADMAP item: the asynchronous
+commit (``async_mode``, ``root.common.overlap.async_snapshots``; Queue 1
+item 11).
 Rank agreement on the time gate and the cross-process gathers stay
 local to the process until distribution (item 10) is ported: with
 ``torch.distributed`` initialised only rank 0 writes.
@@ -50,6 +55,7 @@ from . import prng
 from .config import root
 from .error import VelesError
 from .mutable import Bool
+from .quant.weights import dequantize_state
 from .resilience import checkpoint_chain as chain_mod
 from .resilience.checkpoint_chain import SnapshotCorruptError, verify
 from .resilience.faults import fire as fire_fault
@@ -62,9 +68,6 @@ CODECS = {
     "bz2": (bz2.open, ".bz2"),
     "xz": (lzma.open, ".xz"),
 }
-
-#: the quantised-record marker of the reference's int8 snapshots
-QUANT_MARKER = "__quant__"
 
 
 def _snappy_module():
@@ -417,24 +420,17 @@ def _load_sqlite(path: str) -> Dict[str, Any]:
     return _loads(io.BytesIO(gzip.decompress(row[0])))
 
 
-def _refuse_quantized(state: Dict[str, Any]) -> Dict[str, Any]:
-    for uname, sd in (state.get("__units__") or {}).items():
-        for pname, val in (sd.items() if isinstance(sd, dict) else ()):
-            if isinstance(val, dict) and QUANT_MARKER in val:
-                raise _refuse("int8 snapshots (%s.%s is quantised)"
-                              % (uname, pname), "4.4")
-    return state
-
-
 def load_snapshot(path: str) -> Dict[str, Any]:
     """Read a snapshot state tree; ``path`` may be a ``_current`` link or
     a ``sqlite://FILE[#ID]`` DSN. With a sidecar manifest the file's
     SHA-256 is verified first; a mismatching, truncated or corrupt file
     raises :class:`~veles_tpu_torch.resilience.checkpoint_chain.
-    SnapshotCorruptError` (a VelesError)."""
+    SnapshotCorruptError` (a VelesError). int8 records come back as
+    ``q · s`` in their recorded dtype (one read path for every
+    consumer)."""
     fire_fault("snapshot.load")
     if path.startswith("sqlite://") or path.endswith(".sqlite3"):
-        return _refuse_quantized(_load_sqlite(path))
+        return dequantize_state(_load_sqlite(path))
     if verify(path) is False:
         raise SnapshotCorruptError(
             "snapshot %s fails its manifest SHA-256 — the file is "
@@ -449,7 +445,7 @@ def load_snapshot(path: str) -> Dict[str, Any]:
         raise SnapshotCorruptError(
             "snapshot %s is truncated or corrupt (%s: %s)"
             % (path, type(exc).__name__, exc)) from exc
-    return _refuse_quantized(state)
+    return dequantize_state(state)
 
 
 def _read_state(path: str) -> Dict[str, Any]:

@@ -121,6 +121,20 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_trace_span_pulls_total":
         "Span-ring pulls served over GET /trace/spans (router + "
         "serving APIs; the fleet trace assembler's read path)",
+    # int8 serving (quant/, the reference's names and HELP strings);
+    # all 0 in a quant-off run, the artifact ones until item 4.5
+    "veles_quant_params_total":
+        "Parameter tensors quantized to int8 (per-channel symmetric)",
+    "veles_quant_bytes_saved_total":
+        "Bytes saved by int8 weight quantization (float minus "
+        "int8+scale storage)",
+    "veles_quant_calibrations_total":
+        "Weight-quantization calibration passes (amax scale scans)",
+    "veles_artifact_loads_total":
+        "AOT serve-artifacts loaded by the serving engine",
+    "veles_artifact_load_failures_total":
+        "AOT serve-artifact loads that failed and fell back to "
+        "live jit (corrupt/mismatched/injected)",
     # the O(1)-state lane's state-checkpoint prefix cache
     # (serving.O1_COUNTERS, the reference's names and HELP strings); 0
     # until that cache is ported
