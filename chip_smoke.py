@@ -36,7 +36,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              events, beside the bound the published peaks give. The
              flash forward at B4 T512, B16 T512, B2 T2048 and the
              engine's B1 T128 and B1 T2048 (H8 D64 causal) against
-             SDPA, each record with ``bound_ms`` (float32 FMA),
+             SDPA — ``ms`` the launch, ``op_ms`` through the registered
+             op every model path calls — each record with ``bound_ms``
+             (float32 FMA),
              ``bound_tc_ms`` (3xTF32 on the tensor cores, the one the
              kernel runs against and the kernels line's ``bound_ms``)
              and ``pct_of_tc_bound``. The
@@ -503,6 +505,38 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              snapshot served by ``--serve-generate --quant-weights
              --quant-kv`` in another process answers 8 of (a)'s requests
              as (a)'s int8 (both) engine did, its ``/metrics`` modes 1.
+37. export — the export plane (after phase 36): (a) MNIST (BASELINE
+             #1, 2 fused-FC epochs) exported as packages (plain with
+             ``forward.pt2``, int8, ``.zip``, ``.tgz``): ``run_package``
+             on the card of each float package within 1e-5 of the
+             trained forward, the native runtime (``native/`` built from
+             the checkout, host, ctypes) within rtol 2e-3 / atol 2e-4,
+             ``forward.pt2`` run on the card by a separate ``python3``
+             within 1e-5. (b) the reference's drill LM (1 block, d 32,
+             seed 515, 2 epochs through the flash kernels) exported:
+             ``run_package`` and ``forward.pt2`` on the card launch the
+             flash forward once each and agree within 1e-5; the native
+             runtime's cached greedy generation equals the port's
+             ``generate`` on 4 prompts. (c) the bench LM's serve
+             artifact exported on the card by a ``python -m
+             veles_tpu_torch export serve-artifact -b cuda`` subprocess
+             with serve_continuous's knobs and served by a
+             ``GenerationAPI`` with ``artifact=``: ``artifact_mode`` 1,
+             one load and no failure, the 24 requests' tokens (greedy and
+             sampled) equal to the live engine's, flash launches = 6 x
+             prefills, each at its bucket through its program,
+             admitted = retired = 24, no page left; a corrupt program, a
+             mismatched knob and a CPU-exported artifact (a ``-b cpu``
+             subprocess) each fall back counted with the live answers.
+             (d) the drill's int8 artifact (``--quant-weights
+             --quant-kv``, buckets 8/16) equal to the live int8 engine;
+             (e) serve_recurrent's LSTM LM (512 x 6) and its lane
+             artifact: 8 requests equal to the live lane's. Reports each
+             program's export seconds, artifact and package bytes, time
+             to the SERVING line with and without ``--serve-artifact``,
+             tokens/s and the profiled tick (ms, launches, idle share)
+             live and through the artifact, the lane's tokens/s both
+             ways and the native runtime's ms a 100-row MNIST batch.
 
 ``profiled`` (the breakdown phases' profiler window) reads the capture
 through ``telemetry.devtime.measure``: ``device_busy_ms`` is the union
@@ -513,10 +547,10 @@ Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
 launches in the AMP epochs; the fused-FC kernel's launches in ``train``
 and, under ``launches_by_path``, in ``snapshot``, ``telemetry`` and
-``cli``, ``train_library``, ``rest_serving`` and ``quant_serving``
-too; the flash kernels' f32 entries count ``cli`` and ``train_text``
-too, the forward's ``serve_spec_beam``, ``serve_qos_handoff`` and
-``quant_serving`` too) and,
+``cli``, ``train_library``, ``rest_serving``, ``quant_serving`` and
+``export`` too; the flash kernels' f32 entries count ``cli`` and
+``train_text`` too, the forward's ``serve_spec_beam``,
+``serve_qos_handoff``, ``quant_serving`` and ``export`` too) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and the run exits non-zero without the last line; without a card
 it exits 1 at once.
@@ -727,7 +761,13 @@ def phase_timing(fa, card):
         d = 64
         q, k, v = qkv(b, t, h, kv, d, seed=7)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        # ms: the launch (the ctypes entry with its counters), what the
+        # forward's wrapper ran before it became a registered op; op_ms:
+        # through the op, the entry every model path takes, whose Python
+        # dispatch the small shapes' times show
         ms = cuda_time_ms(
+            lambda: fa._launch(q, k, v, True, 0, 1.0 / math.sqrt(d)), 100)
+        op_ms = cuda_time_ms(
             lambda: fa.flash_attention_fwd(q, k, v, causal=True), 100)
         plain_ms = cuda_time_ms(
             lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True),
@@ -738,7 +778,7 @@ def phase_timing(fa, card):
         flops, nbytes = fa.forward_work(b, t, h, d, causal=True, kv=kv)
         bound = fa.forward_bounds(b, t, h, d, causal=True, kv=kv)
         rec = dict(shape=[b, t, h, kv, d], causal=True, card=card, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
+                   op_ms=op_ms, plain_ms=plain_ms, library_ms=library_ms,
                    flops=flops, bytes=nbytes,
                    # float32 FMA on the CUDA cores, kept comparable with
                    # earlier runs; the kernel's products run on the tensor
@@ -7627,6 +7667,708 @@ def phase_quant_serving(card):
     return launches + drill_launches, ffc
 
 
+#: phase 37: the model files the CLI exports (and, the bench LM's,
+#: serves): serve_continuous's bench LM, the reference's drill LM and
+#: serve_recurrent's LSTM LM, with the name of the knobs each is served
+#: with
+EXPORT_MODELS = {
+    "bench": ("""
+from veles_tpu_torch.models import char_lm
+
+
+def build_workflow():
+    return char_lm.build_bench_workflow(n_train=16, n_valid=16)
+""", "CONT_ENGINE"),
+    "drill": ("""
+from veles_tpu_torch.models import char_lm
+
+
+def build_workflow():
+    return char_lm.build_workflow(epochs=2, minibatch_size=32, n_blocks=1,
+                                  dim=32, n_train=256, n_valid=32)
+""", "QUANT_DRILL"),
+    "lane": ("""
+from veles_tpu_torch.models import char_lm
+
+
+def build_workflow():
+    return char_lm.build_workflow(arch="lstm", dim=512, n_blocks=6)
+""", "RECURRENT_ENGINE"),
+}
+#: the CLI exports of phase 37: (model, backend, extra flags)
+EXPORT_RUNS = (("bench", "cuda", ()), ("bench", "cpu", ()),
+               ("drill", "cuda", ("--quant-weights", "--quant-kv")),
+               ("lane", "cuda", ()))
+#: a fresh process that loads a package's forward.pt2 on the card and
+#: runs it on a saved batch
+EXPORT_PT2_SCRIPT = """
+import sys
+import numpy
+import torch
+from veles_tpu_torch.export.package import (load_program, package_import,
+                                            program_params)
+pkg = package_import(sys.argv[1])
+program = load_program(sys.argv[1])
+x = torch.from_numpy(numpy.load(sys.argv[2])).to("cuda")
+with torch.no_grad():
+    y = program(program_params(pkg, "cuda"), x)
+numpy.save(sys.argv[3], y.cpu().numpy())
+"""
+TOL_EXPORT = 1e-5
+TOL_NATIVE_RTOL, TOL_NATIVE_ATOL = 2e-3, 2e-4
+EXPORT_DRILL_PROMPTS = (5, 11, 20, 40)
+EXPORT_DRILL_N_NEW = 12
+#: requests each unusable artifact answers, against the live engine's
+EXPORT_FALLBACK = (0, 5, 12, 23)
+EXPORT_LANE_REQUESTS = 8
+
+
+def serve_flags(knobs):
+    """A serving-knob dict as the CLI's ``--serve-*`` flags."""
+    out = []
+    for key, flag in (("max_slots", "--serve-slots"),
+                      ("buckets", "--serve-buckets"),
+                      ("max_context", "--serve-max-context"),
+                      ("decode_block", "--serve-decode-block"),
+                      ("page_size", "--serve-page-size")):
+        if key in knobs:
+            value = knobs[key]
+            out += [flag, ",".join(map(str, value))
+                    if isinstance(value, tuple) else str(value)]
+    return out
+
+
+def export_model_file(tmp, name):
+    path = os.path.join(tmp, name + "_model.py")
+    if not os.path.exists(path):
+        with open(path, "w") as fout:
+            fout.write(EXPORT_MODELS[name][0])
+    return path
+
+
+def export_cli_start(tmp, name, backend, extra=()):
+    """``python -m veles_tpu_torch export serve-artifact`` of a model file
+    of EXPORT_MODELS with its knobs, in the background, into
+    ``<tmp>/<name>_<backend>``."""
+    knobs = globals()[EXPORT_MODELS[name][1]]
+    return subprocess.Popen(
+        cli_command("export", "serve-artifact", export_model_file(tmp, name),
+                    "--out", os.path.join(tmp, "%s_%s" % (name, backend)),
+                    "-b", backend, *serve_flags(knobs), *extra),
+        cwd=REPO, env=cli_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def export_seconds(path):
+    """Each program's export seconds, as the artifact's contents stamp
+    them."""
+    with open(os.path.join(path, "contents.json")) as fin:
+        return json.load(fin)["serving"]["export_seconds"]
+
+
+def export_cli_wait(proc, what, timeout=600):
+    out = proc.communicate(timeout=timeout)[0]
+    if proc.returncode != 0:
+        raise AssertionError("%s export failed (exit %d):\n%s"
+                             % (what, proc.returncode, out[-4000:]))
+    return out
+
+
+def artifact_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def export_mnist(tmp, native_lib):
+    """(a) MNIST trained 2 epochs through the fused-FC kernel, exported as
+    packages: plain (with ``forward.pt2``), int8, ``.zip`` and ``.tgz``.
+    ``run_package`` on the card of each float package equals the trained
+    forward within TOL_EXPORT; the native runtime within the reference's
+    rtol/atol; ``forward.pt2`` run by a separate process on the card
+    equals it within TOL_EXPORT."""
+    import numpy
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.export import package_export, run_package
+    from veles_tpu_torch.export.native import NativeModel
+    bad = []
+    before = fused_launches()
+    try:
+        wf = mnist_library_workflow(epochs=2, per_dispatch=2)
+        wf.run()
+    finally:
+        root.common.engine.fused_fc_scan = False
+    launches = fused_launches() - before
+    step = wf.train_step
+    dataset, _ = step._dataset()
+    rows = dataset[:100]
+    with torch.no_grad():
+        x = rows
+        for f in wf.forwards:
+            x = f.apply(step.params.get(f.name, {}), x)
+    trained = x.cpu().numpy()
+    batch = numpy.ascontiguousarray(rows.cpu().numpy())
+    batch_path = os.path.join(tmp, "mnist_batch.npy")
+    numpy.save(batch_path, batch)
+    paths, seconds = {}, {}
+    for tag, suffix, kw in (("plain", "", {}), ("int8", "", {"quant": True}),
+                            ("zip", ".zip", {"with_program": False}),
+                            ("tgz", ".tgz", {"with_program": False})):
+        t0 = time.perf_counter()
+        paths[tag] = package_export(
+            wf, os.path.join(tmp, "mnist_" + tag + suffix),
+            **dict({"with_program": tag == "plain"}, **kw))
+        seconds[tag] = time.perf_counter() - t0
+    out_npy = os.path.join(tmp, "mnist_pt2_out.npy")
+    t_proc = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", EXPORT_PT2_SCRIPT,
+                             paths["plain"], batch_path, out_npy],
+                            cwd=REPO, env=cli_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    errs = {}
+    for tag in ("plain", "zip", "tgz"):
+        errs[tag] = float(numpy.abs(run_package(paths[tag], batch)
+                                    - trained).max())
+        if not errs[tag] <= TOL_EXPORT:
+            bad.append("mnist %s package: run_package off the trained "
+                       "forward by %.3g" % (tag, errs[tag]))
+    q_out = run_package(paths["int8"], batch)
+    int8 = dict(max_abs_vs_float=float(numpy.abs(q_out - trained).max()),
+                argmax_agreement=float((q_out.argmax(1)
+                                        == trained.argmax(1)).mean()))
+    if not numpy.isfinite(q_out).all():
+        bad.append("mnist int8 package: non-finite outputs")
+    native_s = native_lib()
+    model = NativeModel(paths["plain"])
+    try:
+        got = model(batch)
+        native_err = float(numpy.abs(got - trained).max())
+        if not numpy.allclose(got, trained, rtol=TOL_NATIVE_RTOL,
+                              atol=TOL_NATIVE_ATOL):
+            bad.append("mnist native: off the trained forward by %.3g"
+                       % native_err)
+    finally:
+        model.close()
+    rec = dict(fused_fc_launches=launches, export_s=seconds,
+               package_bytes={t: (artifact_bytes(p) if os.path.isdir(p)
+                                  else os.path.getsize(p))
+                              for t, p in paths.items()},
+               run_package_max_abs=errs, int8=int8,
+               native_build_s=native_s, native_max_abs=native_err,
+               native_timing=(paths["plain"], batch), native_batch=100,
+               pt2_process=(proc, out_npy, trained, t_proc))
+    return rec, bad, launches
+
+
+def mnist_pt2_check(rec):
+    """The end of (a): the fresh process's ``forward.pt2`` answer within
+    TOL_EXPORT of the trained forward."""
+    import numpy
+    proc, out_npy, trained, t_proc = rec.pop("pt2_process")
+    out = proc.communicate(timeout=300)[0]
+    rec["pt2_process_s"] = time.perf_counter() - t_proc
+    if proc.returncode != 0:
+        return ["forward.pt2 in a fresh process failed:\n" + out[-3000:]]
+    err = rec["pt2_process_max_abs"] = float(
+        numpy.abs(numpy.load(out_npy) - trained).max())
+    if not err <= TOL_EXPORT:
+        return ["forward.pt2 in a fresh process off by %.3g" % err]
+    return []
+
+
+def native_batch_ms(timing):
+    """Median host ms of the native runtime's forward of a package over a
+    batch, 20 calls after one."""
+    from veles_tpu_torch.export.native import NativeModel
+    path, batch = timing
+    model = NativeModel(path)
+    try:
+        model(batch)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            model(batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        model.close()
+    return pct(times, 50)
+
+
+def export_drill(tmp):
+    """(b) the reference's drill LM trained on the card through the flash
+    kernels, exported as a package: ``run_package`` on the card launches
+    the flash forward once (its one attention) and equals the trained
+    forward; ``forward.pt2`` runs the op once more to the same answer;
+    the native runtime's cached greedy generation equals the port's
+    ``generate`` on 4 prompts. Returns the trained stack too."""
+    import numpy
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.export import package_export, run_package
+    from veles_tpu_torch.export.native import NativeModel
+    from veles_tpu_torch.export.package import (load_program,
+                                                package_import,
+                                                program_params)
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.nn import sampling
+    from veles_tpu_torch.nn.standard_workflow import forwards_of
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.telemetry import counters
+    bad = []
+    prng.seed_all(515)
+    wf = char_lm.build_workflow(epochs=2, minibatch_size=32, n_blocks=1,
+                                dim=32, n_train=256, n_valid=32)
+    wf.initialize()
+    before = counters.counters.snapshot()
+    wf.run()
+    delta = counters.counters.delta(before)
+    train = {k: delta.get(k, 0) for k in (fa.FWD_LAUNCHES, fa.DKV_LAUNCHES,
+                                          fa.DQ_LAUNCHES)}
+    if not all(train.values()):
+        bad.append("drill: trained without the flash kernels %r" % train)
+    t0 = time.perf_counter()
+    path = package_export(wf, os.path.join(tmp, "drill"))
+    export_s = time.perf_counter() - t0
+    step = wf.train_step
+    ids = step._dataset()[0][:32]
+    with torch.no_grad():
+        x = ids
+        for f in wf.forwards:
+            x = f.apply(step.params.get(f.name, {}), x)
+    trained = x.cpu().numpy()
+    batch = ids.float().cpu().numpy()
+    pkg = package_import(path)
+    launches = {}
+    before = counters.get(fa.FWD_LAUNCHES)
+    got = run_package(pkg, batch)
+    launches["run_package"] = counters.get(fa.FWD_LAUNCHES) - before
+    err = float(numpy.abs(got - trained).max())
+    before = counters.get(fa.FWD_LAUNCHES)
+    with torch.no_grad():
+        prog = load_program(path)(program_params(pkg, "cuda"),
+                                  torch.from_numpy(batch).cuda())
+    launches["forward_pt2"] = counters.get(fa.FWD_LAUNCHES) - before
+    prog_err = float(numpy.abs(prog.cpu().numpy() - got).max())
+    if launches != {"run_package": 1, "forward_pt2": 1}:
+        bad.append("drill package: flash launches %r, want 1 each"
+                   % launches)
+    if not err <= TOL_EXPORT or not prog_err <= TOL_EXPORT:
+        bad.append("drill package: run_package off by %.3g, forward.pt2 "
+                   "off by %.3g" % (err, prog_err))
+    model = forwards_of(wf)
+    rng = numpy.random.RandomState(29)
+    native = NativeModel(path)
+    gens = []
+    try:
+        for t_p in EXPORT_DRILL_PROMPTS:
+            prompt = [int(t) for t in char_lm.make_corpus(rng, t_p)]
+            want = sampling.generate(model, prompt, EXPORT_DRILL_N_NEW,
+                                     temperature=0)
+            got_tokens = native.generate(prompt, EXPORT_DRILL_N_NEW)
+            gens.append(got_tokens == want)
+            if got_tokens != want:
+                flip = quant_first_flip(model, {"prompt": prompt}, want,
+                                        got_tokens)
+                bad.append("drill: native generation %r != the port's %r "
+                           "(first flip %r)" % (got_tokens, want, flip))
+    finally:
+        native.close()
+    rec = dict(train_flash_launches=train, export_s=export_s,
+               package_bytes=artifact_bytes(path),
+               run_package_max_abs=err, forward_pt2_max_abs=prog_err,
+               flash_launches=launches, native_generation_equal=gens)
+    return rec, bad, model
+
+
+def engine_tokens(model, reqs, name, artifact=None, **knobs):
+    """(tokens, stats, counter delta) of ``reqs`` on a fresh continuous
+    engine."""
+    from veles_tpu_torch.serving import ContinuousEngine
+    from veles_tpu_torch.telemetry import counters
+    before = counters.counters.snapshot()
+    engine = ContinuousEngine(model, name=name, artifact=artifact,
+                              **knobs).start()
+    try:
+        out = engine.serve(reqs, timeout=600)
+        st = engine.stats()
+    finally:
+        engine.stop()
+    return out, st, counters.counters.delta(before)
+
+
+def export_tick_profile(model, requests, programs):
+    """CONT_TICKS decode ticks with all 8 rows live under torch.profiler,
+    live or through ``programs`` (an artifact's, as an engine loaded
+    them): ms and launches a tick, the device's idle share."""
+    import torch
+    from veles_tpu_torch.serving import ContinuousEngine
+    from veles_tpu_torch.serving.scheduler import Ticket
+    engine = ContinuousEngine(model, name="export_ticks", **CONT_ENGINE)
+    try:
+        engine._programs.update(programs)
+        for req in quant_requests(requests[:CONT_ENGINE["max_slots"]]):
+            req["n_new"] = CONT_TICKS + 8
+            engine.submit(req, Ticket())
+        with torch.inference_mode():
+            engine._tick()
+
+            def ticks():
+                for _ in range(CONT_TICKS):
+                    engine._tick()
+
+            rec = profiled(ticks)
+    finally:
+        engine.stop()
+    return dict(tick_ms=rec["profiled_wall_ms"] / CONT_TICKS,
+                launches_per_tick=(rec["kernel_launches"] or 0) / CONT_TICKS,
+                device_idle_share=rec["device_idle_share"])
+
+
+def export_serving_start(tmp, artifact):
+    """Time to the SERVING line of ``python -m veles_tpu_torch`` serving
+    the bench LM model file with serve_continuous's knobs, with and
+    without ``--serve-artifact``; one request answered, ``/metrics``
+    read, then SIGTERM."""
+    import signal
+    argv = [export_model_file(tmp, "bench"), "--backend", "cuda",
+            "--serve-generate", "0", *CLI_SERVE_FLAGS]
+    if artifact:
+        argv += ["--serve-artifact", artifact]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli_command(*argv), cwd=REPO, env=cli_env(),
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    port, head = None, []
+    try:
+        while port is None:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError("export: the server exited %s before "
+                                     "serving:\n%s" % (proc.poll(),
+                                                       "".join(head[-40:])))
+            if line.startswith("SERVING port="):
+                port = int(line.split("=", 1)[1])
+            else:
+                head.append(line)
+        ready_s = time.perf_counter() - t0
+        # keep reading: a full pipe would stall the server's logging
+        threading.Thread(target=lambda: head.extend(
+            iter(proc.stdout.readline, "")), daemon=True).start()
+        url = "http://127.0.0.1:%d" % port
+        code, body, _ = post(url + "/generate",
+                             {"prompt": list(range(60)), "n_new": 8})
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=CLI_DRAIN_GRACE + 60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return dict(serving_s=ready_s, status=code,
+                tokens=len(body.get("tokens", ())),
+                artifact_mode=metric_value(
+                    metrics, "veles_serving_artifact_mode"),
+                artifact_loads=metric_value(metrics,
+                                            "veles_artifact_loads_total"))
+
+
+def export_bench(tmp, procs):
+    """(c) the bench LM's serve artifact, exported on the card by a CLI
+    subprocess (``bench_cuda``), served by GenerationAPI with
+    ``artifact=``: serve_continuous's 24 requests equal the live engine's,
+    every prefill through its bucket's program at 6 flash launches,
+    admitted = retired = 24, no page left, one load and no failure; a
+    corrupt program, a mismatched knob and the CPU-exported artifact
+    (``bench_cpu``) each fall back counted with the live answers."""
+    import shutil
+    import torch
+    from veles_tpu_torch.convert import params_from_jax, random_params
+    from veles_tpu_torch.import_file import import_file_as_module
+    from veles_tpu_torch.nn.standard_workflow import forwards_of
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.restful_api import GenerationAPI
+    from veles_tpu_torch.serving.engine import PrefillProgram, StepProgram
+    from veles_tpu_torch.telemetry import counters
+    bad = []
+    art = {"cuda": os.path.join(tmp, "bench_cuda"),
+           "cpu": os.path.join(tmp, "bench_cpu")}
+    wf = import_file_as_module(export_model_file(tmp, "bench"),
+                               "export_bench_model").build_workflow()
+    wf.initialize()
+    model = forwards_of(wf)
+    params_from_jax(model, random_params(model, seed=0))
+    del wf
+    requests = continuous_load()
+    reqs = quant_requests(requests)
+    n_blocks = len(BENCH_LAYERS) - 2
+    live, live_st, _ = engine_tokens(model, reqs, "export_live",
+                                     **CONT_ENGINE)
+    cli_out = procs["bench_cuda_out"]
+    runs = {}
+    for name, artifact in (("live", None), ("artifact", art["cuda"])):
+        before = counters.counters.snapshot()
+        api = GenerationAPI(model, port=0, artifact=artifact,
+                            name="export_" + name, **CONT_ENGINE)
+        api.initialize()
+        engine = api._engine
+        try:
+            torch.cuda.synchronize()
+            results, wall = post_all(
+                "http://127.0.0.1:%d/generate" % api.port, requests)
+            torch.cuda.synchronize()
+            delta = counters.counters.delta(before)
+            gauges = api._metrics_gauges()
+            st = engine.stats()
+        finally:
+            api.stop()
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200:
+                raise AssertionError("export %s request %d failed: %r"
+                                     % (name, i, res))
+        runs[name] = dict(tokens=[r[1]["tokens"] for r in results],
+                          wall=wall, delta=delta, st=st, engine=engine,
+                          gauge=gauges["veles_serving_artifact_mode"])
+    a = runs["artifact"]
+    engine = a["engine"]
+    if a["tokens"] != live or runs["live"]["tokens"] != live:
+        diff = [i for i, t in enumerate(a["tokens"]) if t != live[i]]
+        bad.append("bench artifact: tokens differ from the live engine's "
+                   "at requests %r" % diff)
+    want = {}
+    for req in requests:
+        b = engine.scheduler.bucket_for(len(req["prompt"]))
+        want[b] = want.get(b, 0) + 1
+    n = len(requests)
+    prefills = a["delta"].get("veles_serving_prefill_dispatches_total", 0)
+    flash = a["delta"].get(fa.FWD_LAUNCHES, 0)
+    calls = a["st"]["program_calls"]
+    if not (a["st"]["artifact_mode"] == 1 and a["gauge"] == 1
+            and a["delta"].get("veles_artifact_loads_total", 0) == 1
+            and a["delta"].get("veles_artifact_load_failures_total", 0)
+            == 0):
+        bad.append("bench artifact: mode %r gauge %r delta %r"
+                   % (a["st"]["artifact_mode"], a["gauge"], a["delta"]))
+    if prefills != n or flash != n_blocks * prefills:
+        bad.append("bench artifact: flash launches %d for %d prefills"
+                   % (flash, prefills))
+    if engine.prefills_by_bucket != want or {
+            int(k[len("prefill_"):]): v for k, v in calls.items()
+            if k.startswith("prefill_")} != want:
+        bad.append("bench artifact: prefills %r, program calls %r, want %r"
+                   % (engine.prefills_by_bucket, calls, want))
+    if not engine.admitted == engine.retired == n or \
+            engine.page_pool.in_use() or engine.page_pool.ledger():
+        bad.append("bench artifact: admitted %d retired %d pages %d"
+                   % (engine.admitted, engine.retired,
+                      engine.page_pool.in_use()))
+    # the loaded programs, for the tick profile (the live ones excluded)
+    programs = {k: v for k, v in engine._programs.items()
+                if not isinstance(v, (PrefillProgram, StepProgram))}
+    del runs["artifact"]["engine"], runs["live"]["engine"], engine
+    # the unusable artifacts: each falls back counted, answers as live
+    corrupt = os.path.join(tmp, "bench_corrupt")
+    shutil.copytree(art["cuda"], corrupt)
+    with open(os.path.join(corrupt, "serve_prefill_128.pt2"), "r+b") as f:
+        f.truncate(4096)
+    sub = [reqs[i] for i in EXPORT_FALLBACK]
+    fallbacks = {}
+    for case, path, knobs in (
+            ("corrupt_program", corrupt, CONT_ENGINE),
+            ("mismatched_knob", art["cuda"], dict(CONT_ENGINE,
+                                                  max_slots=4)),
+            ("cpu_artifact", art["cpu"], CONT_ENGINE)):
+        out, st, delta = engine_tokens(model, sub, "export_" + case,
+                                       artifact=path, **knobs)
+        fallbacks[case] = dict(
+            failures=delta.get("veles_artifact_load_failures_total", 0),
+            loads=delta.get("veles_artifact_loads_total", 0),
+            artifact_mode=st["artifact_mode"],
+            same_answers=out == [live[i] for i in EXPORT_FALLBACK])
+        if fallbacks[case] != dict(failures=1, loads=0, artifact_mode=0,
+                                   same_answers=True):
+            bad.append("bench %s: %r" % (case, fallbacks[case]))
+    ticks = {name: export_tick_profile(model, requests, progs)
+             for name, progs in (("live", {}), ("artifact", programs))}
+    del programs
+    tokens = sum(len(t) for t in live)
+    rec = dict(
+        export_s=export_seconds(art["cuda"]),
+        export_cli_tail=cli_out.strip().splitlines()[-2:],
+        artifact_bytes=artifact_bytes(art["cuda"]),
+        cpu_artifact_bytes=artifact_bytes(art["cpu"]),
+        requests=n, prefills_by_bucket=want, program_calls=calls,
+        flash_launches=flash,
+        tokens_per_s={k: tokens / r["wall"] for k, r in runs.items()},
+        ticks=ticks, fallbacks=fallbacks)
+    serving_start = {name: export_serving_start(tmp, artifact)
+                     for name, artifact in (("live", None),
+                                            ("artifact", art["cuda"]))}
+    for name, rec_s in serving_start.items():
+        if rec_s["status"] != 200 or rec_s["tokens"] != 8 or \
+                rec_s["artifact_mode"] != (name == "artifact"):
+            bad.append("bench CLI server (%s): %r" % (name, rec_s))
+    rec["serving_start"] = serving_start
+    return rec, bad, flash
+
+
+def export_int8(drill_model, tmp):
+    """(d) the drill LM's int8 artifact (``--quant-weights --quant-kv`` at
+    the drill's knobs, exported by the CLI): its engine's tokens equal
+    the live int8 engine's, greedy and sampled."""
+    import numpy
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.serving import make_request
+    knobs = dict(QUANT_DRILL, quant_weights=True, quant_kv=True)
+    path = os.path.join(tmp, "drill_cuda")
+    rng = numpy.random.RandomState(23)
+    reqs = [make_request([int(t) for t in rng.randint(0, char_lm.VOCAB,
+                                                      t_p)], 8,
+                         temperature=0.8 if i % 3 == 2 else 0.0, seed=i)
+            for i, t_p in enumerate(QUANT_DRILL_LENGTHS)]
+    live, _, _ = engine_tokens(drill_model, reqs, "export_q_live", **knobs)
+    got, st, delta = engine_tokens(drill_model, reqs, "export_q_art",
+                                   artifact=path, **knobs)
+    bad = []
+    if got != live or st["artifact_mode"] != 1:
+        bad.append("int8 artifact: mode %r, tokens equal %r"
+                   % (st["artifact_mode"], got == live))
+    return dict(export_s=export_seconds(path),
+                artifact_bytes=artifact_bytes(path),
+                requests=len(reqs), equal=got == live,
+                program_calls=st["program_calls"]), bad
+
+
+def export_lane(tmp):
+    """(e) serve_recurrent's LSTM LM (512 x 6) and its lane artifact
+    (``rscan`` and ``rstep``, exported by the CLI): 8 requests, greedy and
+    sampled, equal the live lane's."""
+    from veles_tpu_torch.serving.recurrent import RecurrentEngine
+    model = recurrent_lm("lstm")
+    path = os.path.join(tmp, "lane_cuda")
+    vocab = model.layers["embedding0"].vocab_size
+    reqs = quant_requests(recurrent_load(vocab)[:EXPORT_LANE_REQUESTS])
+    out = {}
+    for name, artifact in (("live", None), ("artifact", path)):
+        engine = RecurrentEngine(model, name="export_lane_" + name,
+                                 artifact=artifact,
+                                 **RECURRENT_ENGINE).start()
+        try:
+            t0 = time.perf_counter()
+            out[name] = engine.serve(reqs, timeout=600)
+            out[name + "_s"] = time.perf_counter() - t0
+            out[name + "_st"] = engine.stats()
+        finally:
+            engine.stop()
+    bad = []
+    st = out["artifact_st"]
+    if out["artifact"] != out["live"] or st["artifact_mode"] != 1 or \
+            st["program_calls"] != out["live_st"]["program_calls"]:
+        bad.append("lane artifact: mode %r, calls %r vs %r, tokens equal %r"
+                   % (st["artifact_mode"], st["program_calls"],
+                      out["live_st"]["program_calls"],
+                      out["artifact"] == out["live"]))
+    tokens = sum(len(t) for t in out["live"])
+    return dict(export_s=export_seconds(path),
+                artifact_bytes=artifact_bytes(path),
+                requests=len(reqs), program_calls=st["program_calls"],
+                tokens_per_s={k: tokens / out[k + "_s"]
+                              for k in ("live", "artifact")}), bad
+
+
+def phase_export(card):
+    """Phase 37: the export plane. (a) MNIST packages, (b) the drill LM's
+    package with the native runtime's generation, (c) the bench LM's
+    serve artifact from the CLI behind GenerationAPI, (d) the int8
+    artifact at the drill's size, (e) the lane's artifact. The CLI's four
+    exports (EXPORT_RUNS: the bench LM on the card and on the host, the
+    drill's int8 artifact, the lane's) and the native build start first
+    and run beside (a) and (b); the parts that use them and the timed
+    ones ((d), (e), (c), the native runtime's batch time) run after every
+    export ended. Every part fails the run on a miss. Returns the phase's
+    flash-forward and fused-FC launches."""
+    import shutil
+    import tempfile
+    import torch
+    from veles_tpu_torch.export import native
+    from veles_tpu_torch.ops import flash_attention as fa
+    from veles_tpu_torch.telemetry import counters
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(dir=os.environ.get("TMPDIR"))
+    built = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            built["path"] = native.build_library()
+        except BaseException as exc:        # re-raised below
+            built["error"] = exc
+        built["s"] = time.perf_counter() - t0
+
+    build_thread = threading.Thread(target=build, daemon=True)
+    build_thread.start()
+
+    def native_lib():
+        build_thread.join()
+        if "error" in built:
+            raise built["error"]
+        return built["s"]
+
+    procs, parts, bad, seconds = {}, {}, [], {}
+    try:
+        for name, backend, extra in EXPORT_RUNS:
+            procs["%s_%s" % (name, backend)] = export_cli_start(
+                tmp, name, backend, extra)
+        flash0 = counters.get(fa.FWD_LAUNCHES)
+        t0 = time.perf_counter()
+        parts["mnist"], part_bad, ffc = export_mnist(tmp, native_lib)
+        bad += part_bad
+        seconds["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts["drill"], part_bad, drill_model = export_drill(tmp)
+        bad += part_bad
+        seconds["b"] = time.perf_counter() - t0
+        # the timed parts below run with no export beside them
+        t0 = time.perf_counter()
+        for name, backend, _ in EXPORT_RUNS:
+            key = "%s_%s" % (name, backend)
+            procs[key + "_out"] = export_cli_wait(procs[key], key)
+        bad += mnist_pt2_check(parts["mnist"])
+        seconds["exports_wait"] = time.perf_counter() - t0
+        parts["mnist"]["native_ms_per_batch_p50"] = native_batch_ms(
+            parts["mnist"].pop("native_timing"))
+        t0 = time.perf_counter()
+        parts["int8"], part_bad = export_int8(drill_model, tmp)
+        bad += part_bad
+        seconds["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts["lane"], part_bad = export_lane(tmp)
+        bad += part_bad
+        seconds["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts["bench"], part_bad, bench_flash = export_bench(tmp, procs)
+        bad += part_bad
+        seconds["c"] = time.perf_counter() - t0
+        flash = counters.get(fa.FWD_LAUNCHES) - flash0
+    finally:
+        pending = list(procs.values()) + [
+            parts.get("mnist", {}).get("pt2_process", (None,))[0]]
+        for proc in pending:
+            if isinstance(proc, subprocess.Popen) and proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("export", card=card, parts=parts, part_s=seconds,
+         bench_flash_launches=bench_flash,
+         phase_s=time.perf_counter() - t_phase)
+    if bad:
+        raise AssertionError("export: " + "; ".join(bad))
+    return flash, ffc
+
+
 def phase_breakdown(card, model, prompts):
     """Where one batched greedy decode spends its time: prefill (the
     n_new=1 call) vs the per-step decode, and the device's busy share
@@ -7723,6 +8465,7 @@ def main():
     launches_family = phase_lm_family(card)
     launches_rest = phase_rest_serving(card)
     launches_quant, launches_quant_ffc = phase_quant_serving(card)
+    launches_export, launches_export_ffc = phase_export(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -7787,7 +8530,8 @@ def main():
                              "cli": launches_cli["fwd"],
                              "train_text": launches_text["fwd"],
                              "lm_family": launches_family["fwd"],
-                             "quant_serving": launches_quant},
+                             "quant_serving": launches_quant,
+                             "export": launches_export},
         "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",
         "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",
@@ -7806,7 +8550,8 @@ def main():
                              "cli": launches_cli["fused_fc"],
                              "train_library": launches_library,
                              "rest_serving": launches_rest,
-                             "quant_serving": launches_quant_ffc},
+                             "quant_serving": launches_quant_ffc,
+                             "export": launches_export_ffc},
         "ok": True},
         bwd_entry("dkv", 248), bwd_entry("dq", 309)] + [
         amp_entry(inst, kern) for inst in AMP_INSTANCES

@@ -406,7 +406,6 @@ REFUSED_FLAGS = [
     (["--status-url", "http://h"], "11"), (["--overlap"], "11"),
     (["--prefetch-depth", "2"], "11"), (["--router-qos", "on"], "11"),
     (["--router-slo-ttft-ms", "5"], "11"),
-    (["--serve-artifact", "d"], "4.5"),
     (["--serve-prefix-cache", "on"], "4.1"),
     (["--serve-prefill-chunk", "8"], "4.1"), (["--serve-tp", "2"], "4.6"),
 ]
@@ -443,7 +442,8 @@ def test_ported_off_values_are_accepted(tiny_model):
 
 
 #: the serving flags of speculative and beam decoding, streaming, the QoS
-#: plane, drain by handoff and the O(1)-state lane's cache, each with the ``root.common.serving`` key
+#: plane, drain by handoff, the O(1)-state lane's cache and the serve
+#: artifact, each with the ``root.common.serving`` key
 #: and value it sets (None: the draft flags, which load a model under
 #: --serve-generate)
 SERVING_FLAGS = [
@@ -457,6 +457,7 @@ SERVING_FLAGS = [
     (["--serve-drain-handoff", "off"], "drain_handoff", False),
     (["--serve-state-cache", "on"], "state_cache", True),
     (["--serve-state-cache", "off"], "state_cache", False),
+    (["--serve-artifact", "d"], "artifact", "d"),
     (["--serve-generate", "0", "--serve-draft", "d.py",
       "--serve-draft-snapshot", "d.pickle.gz"], None, None),
 ]

@@ -221,3 +221,24 @@ def test_span_time_of_an_inner_event_is_its_dur_at_a_large_clock():
     assert got["s"]["device_time_s"] >= port._by_kernel(
         events)["k"]["device_time_s"]
     assert got["s"]["device_time_s"] == pytest.approx(52.286e-6, abs=1e-15)
+
+
+def test_anchor_with_the_tightest_bracket_puts_the_clocks_together():
+    """Of several anchors, the one whose host bracket has the least slack
+    over its trace event sets the offset: a host stall between an
+    anchor and its clock read (the first anchor here, 2 ms) moves only
+    that anchor's bracket midpoint."""
+    offset = 1.0e9               # trace µs − host µs
+    anchors, brackets = [], []
+    for i, (h0, stall) in enumerate(((10.0, 2e-3), (10.01, 0.0),
+                                     (10.02, 1e-4))):
+        ts = h0 * 1e6 + offset + 20.0
+        anchors.append({"ph": "X", "name": port.ANCHOR, "ts": ts,
+                        "dur": 40.0})
+        brackets.append((h0, h0 + 80e-6 + stall))
+    got = port._anchor_offset_us(list(reversed(anchors)), brackets)
+    assert got == pytest.approx(offset, abs=1e-3)
+    # the stalled anchor alone is off by half its stall
+    assert port._anchor_offset_us(anchors[:1], *brackets[0]) == \
+        pytest.approx(offset - 1000.0, abs=1e-3)
+    assert port._anchor_offset_us([], brackets) is None

@@ -32,7 +32,10 @@ semantics; the fused-FC gate refusing it), and int8 serving (the int8
 quantizer's values and scales on the card equal the CPU's bit for bit;
 the int8-weights engine equals the float engine serving the dequantized
 twin; the int8 KV pool's rows equal the CPU's quantizer of the same
-float rows).
+float rows), and the export plane (the registered flash forward op equal
+to the launch bit for bit, counted alike, one node of an exported
+program; an exported serve artifact's engine equal to the live engine on
+the card; the native runtime built and run on the card's machine).
 Each skips without a card (decided inside the fixture, never at
 import).
 
@@ -1984,3 +1987,107 @@ def test_int8_engines_on_the_card(model, cuda):
     qk, sk = quant.quantize_rows_int8(k)
     qk_cpu, sk_cpu = quant.quantize_rows_int8(k.cpu())
     assert torch.equal(qk.cpu(), qk_cpu) and torch.equal(sk.cpu(), sk_cpu)
+
+
+def test_registered_op_equals_the_launch(cuda):
+    """``torch.ops.veles_tpu_torch.flash_attention_fwd`` gives the launch's
+    o and lse bit for bit and counts one launch a call, called directly,
+    through ``attention_core`` without a gradient, and as the one node of
+    an exported program."""
+    from veles_tpu_torch.nn.attention import attention_core
+    q, k, v = qkv(cuda, 2, 200, 8, 2, 64, seed=5)
+    scale = 1.0 / 8.0
+    want_o, want_lse = fa._launch(q, k, v, True, 0, scale)
+    before = counters.get(LAUNCHES)
+    o, lse = torch.ops.veles_tpu_torch.flash_attention_fwd(q, k, v, True, 0,
+                                                          scale)
+    torch.cuda.synchronize()
+    assert counters.get(LAUNCHES) == before + 1
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    with torch.no_grad():
+        assert torch.equal(attention_core(q, k, v, causal=True), want_o)
+
+    class Attend(torch.nn.Module):
+        def forward(self, q, k, v):
+            return attention_core(q, k, v, causal=True)
+
+    with torch.no_grad():
+        program = torch.export.export(Attend(), (q, k, v))
+    nodes = [n for n in program.graph.nodes if n.op == "call_function"
+             and "flash_attention_fwd" in str(n.target)]
+    assert len(nodes) == 1
+    before = counters.get(LAUNCHES)
+    got = program.module()(q, k, v)
+    torch.cuda.synchronize()
+    assert counters.get(LAUNCHES) == before + 1
+    assert torch.equal(got, want_o)
+
+
+def test_exported_serve_programs_equal_the_live_engine(model, cuda,
+                                                       tmp_path):
+    """A serve artifact exported on the card (2 blocks, GQA 2/1, a window
+    of 50): its engine's greedy and sampled tokens equal the live
+    engine's, every prefill through its program with one flash launch a
+    block, and a CPU artifact falls back counted."""
+    from veles_tpu_torch.export.serve_artifact import export_serve_artifact
+    from veles_tpu_torch.serving import ContinuousEngine
+    geometry = dict(max_slots=4, buckets=(32, 128), max_context=160,
+                    page_size=16)
+    path = export_serve_artifact(model, str(tmp_path / "art"), **geometry)
+    reqs = _engine_requests(31, 8)
+    out = {}
+    for name, art in (("live", None), ("artifact", path)):
+        engine = ContinuousEngine(model, name="gpu_art_" + name,
+                                  artifact=art, **geometry).start()
+        try:
+            before = counters.counters.snapshot()
+            out[name] = engine.serve(reqs)
+            delta = counters.counters.delta(before)
+            st = engine.stats()
+            assert st["artifact_mode"] == (art is not None)
+            assert delta[LAUNCHES] == 2 * len(reqs)
+            assert st["pages_in_use"] == 0
+        finally:
+            engine.stop()
+    assert out["artifact"] == out["live"]
+    cpu_model = build_forwards(LAYERS, device="cpu")
+    params_from_jax(cpu_model, random_params(cpu_model, seed=4))
+    cpu_path = export_serve_artifact(cpu_model, str(tmp_path / "cpu"),
+                                     device="cpu", **geometry)
+    before = counters.get("veles_artifact_load_failures_total")
+    engine = ContinuousEngine(model, name="gpu_art_cpu", artifact=cpu_path,
+                              **geometry).start()
+    try:
+        assert engine.serve(reqs[:2]) == out["live"][:2]
+        assert not engine.artifact_mode
+    finally:
+        engine.stop()
+    assert counters.get("veles_artifact_load_failures_total") == before + 1
+
+
+def test_native_runtime_on_the_card_machine(cuda, tmp_path):
+    """The runtime builds from the checkout on the card's machine and runs
+    a package exported from the card: within rtol 2e-3, atol 2e-4 of
+    ``run_package`` on the card."""
+    from veles_tpu_torch.export import native, package_export, run_package
+    from veles_tpu_torch.export.native import NativeModel
+    from veles_tpu_torch.memory import Array
+    from veles_tpu_torch.nn.all2all import All2AllSoftmax, All2AllTanh
+    from veles_tpu_torch.workflow import Workflow
+    assert native.build_library().startswith(native.NATIVE_BUILD_DIR)
+    wf = Workflow(name="native_gpu")
+    x = numpy.random.RandomState(3).rand(16, 64).astype(numpy.float32)
+    fc = All2AllTanh(wf, output_sample_shape=32, name="fc")
+    head = All2AllSoftmax(wf, output_sample_shape=10, name="head")
+    fc.input = Array(x)
+    fc.initialize(device=cuda)
+    head.input = Array(numpy.zeros((16, 32), numpy.float32))
+    head.initialize(device=cuda)
+    wf.forwards = [fc, head]
+    path = package_export(wf, str(tmp_path / "pkg"), input_shape=[16, 64])
+    want = run_package(path, x)
+    model = NativeModel(path)
+    try:
+        numpy.testing.assert_allclose(model(x), want, rtol=2e-3, atol=2e-4)
+    finally:
+        model.close()

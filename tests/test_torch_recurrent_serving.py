@@ -21,8 +21,10 @@ of 8 and max_context 64, as the reference's tests run them.
   through the lane (``/stats``: ``slot_kind`` "state", ``pages_total``
   0; ``/metrics``: state gauges, no page gauges); a pinned "recurrent"
   on a transformer degrades to the window plane; speculative and beam
-  modes answer 400; the serve artifact, not ported yet, raises naming
-  its ROADMAP item; the ``veles_o1_state_*`` counters stay 0 with the
+  modes answer 400; the serve-artifact knob constructs and an unusable
+  artifact falls back to live serving, counted (the artifact itself:
+  ``tests/test_torch_serve_artifact.py``); the ``veles_o1_state_*``
+  counters stay 0 with the
   state cache off and move with it on (the cache itself:
   ``tests/test_torch_state_cache.py``)."""
 import json
@@ -216,12 +218,22 @@ def test_eos_retires_the_row(stacks):
 
 
 @pytest.mark.parametrize("knob", ["artifact"])
-def test_unported_parts_raise(stacks, knob):
-    """The lane's part not ported yet names its item of ROADMAP Queue 1
-    item 7; QoS and the state cache are ported and construct."""
-    with pytest.raises(VelesError, match=r"ROADMAP Queue 1 item 7\.3, the "
-                       r"O\(1\)-state lane"):
-        RecurrentEngine(stacks["lstm"][1], name="o1t_knob", **{knob: "d"})
+def test_ported_knobs_construct(stacks, knob, tmp_path):
+    """The serve-artifact knob (item 7.3, refused before it was ported)
+    constructs; a directory that holds no artifact falls back to live
+    serving at start, counted once, and answers as the live lane does.
+    QoS and the state cache construct too."""
+    port = stacks["lstm"][1]
+    want, _ = _serve(port, [make_request(PROMPTS[0], 6)])
+    before = counters.get("veles_artifact_load_failures_total")
+    eng = RecurrentEngine(port, name="o1t_knob",
+                          **dict(ENGINE, **{knob: str(tmp_path)})).start()
+    try:
+        assert eng.serve([make_request(PROMPTS[0], 6)]) == want
+        assert not eng.artifact_mode and eng.stats()["artifact_mode"] == 0
+    finally:
+        eng.stop()
+    assert counters.get("veles_artifact_load_failures_total") == before + 1
     root.common.serving.qos = True
     try:
         assert RecurrentEngine(stacks["lstm"][1], name="o1t_qos").qos

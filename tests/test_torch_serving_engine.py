@@ -408,8 +408,7 @@ def test_unported_knobs_raise(stacks):
     VelesError naming its ROADMAP item; it is never silently ignored."""
     _, _, port = stacks
     for knob, item in ((dict(prefix_cache=True), "4.1"),
-                       (dict(prefill_chunk=8), "4.1"),
-                       (dict(artifact="x"), "4.5"), (dict(tp=2), "4.6")):
+                       (dict(prefill_chunk=8), "4.1"), (dict(tp=2), "4.6")):
         with pytest.raises(VelesError, match=r"not ported yet \(ROADMAP "
                            r"Queue 1 item %s\)" % item.replace(".", r"\.")):
             ContinuousEngine(port, **dict(ENGINE, **knob))

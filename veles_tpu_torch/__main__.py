@@ -12,8 +12,9 @@ happens on the CUDA card unless ``--backend cpu`` is given; without a
 card ``--backend auto`` fails.
 
 Subcommands: ``trace export|self-time``, ``blackbox dump|inspect``,
-``faults list`` and ``quantize SNAPSHOT [--out PATH] [--granularity
-G]``; the reference's others name the ROADMAP item that brings them.
+``faults list``, ``quantize SNAPSHOT [--out PATH] [--granularity G]``
+and ``export serve-artifact MODEL.py --out DIR``; the reference's others
+name the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from .logger import setup_logging
 #: the reference's subcommands that are not ported, with their items
 REFUSED_SUBCOMMANDS = {
     "metrics": "11", "watch": "11", "alerts": "11", "route": "11",
-    "loadgen": "11", "export": "4.5", "linalg": "10",
+    "loadgen": "11", "linalg": "10",
 }
 
 
@@ -51,6 +52,8 @@ def main(argv=None) -> int:
         return _blackbox_cli(argv[1:])
     if argv and argv[0] == "quantize":
         return _quantize_cli(argv[1:])
+    if argv and argv[0] == "export":
+        return _export_cli(argv[1:])
     parser = make_parser()
     args = parse_args(parser, argv)
     if args.serve_draft_snapshot and not args.serve_draft:
@@ -82,6 +85,8 @@ def main(argv=None) -> int:
         root.common.quant.weights = True
     if args.quant_kv:
         root.common.quant.kv = True
+    if args.serve_artifact:
+        serving.artifact = args.serve_artifact
     level = (logging.WARNING, logging.INFO,
              logging.DEBUG)[min(args.verbose, 2)]
     setup_logging(level=level, tracefile=args.trace_file)
@@ -421,6 +426,73 @@ def _quantize_cli(argv) -> int:
               % (report["params"], granularity, args.snapshot,
                  in_size / 1024, out, out_size / 1024,
                  in_size / max(1, out_size)))
+    return 0
+
+
+def _export_cli(argv) -> int:
+    """``export serve-artifact MODEL.py --out DIR [--snapshot S] [-b
+    cuda|cpu] [--serve-* knobs] [--quant-weights] [--quant-kv]``: build
+    the model (resumed from a snapshot when given) on the backend's
+    device and export the serving engine's programs there as
+    ``torch.export`` programs (``export/serve_artifact.py``): the paged
+    engine's prefill a bucket and decode step, or a recurrent stack's
+    chunk scan and decode tile. Serve it with ``--serve-artifact DIR``
+    and the same knobs."""
+    import argparse
+    import json
+    import os
+    parser = argparse.ArgumentParser(
+        prog="veles_tpu_torch export",
+        description="ahead-of-time export of the serving programs")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    exp = sub.add_parser("serve-artifact",
+                         help="export the serving engine's programs")
+    exp.add_argument("model", help="workflow .py (build_workflow())")
+    exp.add_argument("--out", required=True,
+                     help="artifact package directory to write")
+    exp.add_argument("--snapshot", default=None,
+                     help="resume this snapshot before exporting")
+    exp.add_argument("-b", "--backend", default=None,
+                     help="auto | gpu | cuda[:N] (the card) or cpu: the "
+                          "device the programs are traced for")
+    exp.add_argument("--serve-slots", type=int, default=None)
+    exp.add_argument("--serve-buckets", default=None, metavar="L1,L2,...")
+    exp.add_argument("--serve-max-context", type=int, default=None)
+    exp.add_argument("--serve-decode-block", type=int, default=None)
+    exp.add_argument("--serve-page-size", type=int, default=None)
+    exp.add_argument("--serve-pages", type=int, default=None)
+    exp.add_argument("--quant-weights", action="store_true")
+    exp.add_argument("--quant-kv", action="store_true")
+    args = parser.parse_args(argv)
+    if args.quant_weights:
+        root.common.quant.weights = True
+    if args.quant_kv:
+        root.common.quant.kv = True
+    from .backends import device_for
+    from .export.serve_artifact import export_serve_artifact
+    module = import_file_as_module(args.model)
+    if not hasattr(module, "build_workflow"):
+        raise VelesError("%s defines no build_workflow()" % args.model)
+    workflow = module.build_workflow()
+    device = device_for(args.backend)
+    workflow.initialize(device=device)
+    if args.snapshot:
+        from .snapshotter import resume
+        resume(workflow, args.snapshot)
+    path = export_serve_artifact(
+        workflow, args.out, max_slots=args.serve_slots,
+        buckets=args.serve_buckets, max_context=args.serve_max_context,
+        decode_block=args.serve_decode_block,
+        page_size=args.serve_page_size, pages=args.serve_pages,
+        device=device)
+    with open(os.path.join(path, "contents.json")) as fin:
+        serving = json.load(fin)["serving"]
+    print("serve-artifact -> %s (%d programs: %s; serve with "
+          "--serve-artifact %s)"
+          % (path, len(serving["programs"]),
+             ", ".join(sorted(serving["programs"])), path))
+    print("export seconds: %s" % json.dumps(serving["export_seconds"],
+                                             sort_keys=True), flush=True)
     return 0
 
 

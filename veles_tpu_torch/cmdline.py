@@ -17,7 +17,6 @@ from .error import VelesError
 #: the planes not ported yet and the ROADMAP Queue 1 item of each
 ITEMS = {
     "4.1": "prefix sharing and chunked prefill",
-    "4.5": "the serve artifact",
     "4.6": "tensor-parallel serving",
     "10": "distribution",
     "11": "the framework-agnostic planes",
@@ -173,7 +172,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--router-slo-ttft-ms", type=float, default=None,
                    metavar="MS", help="router TTFT SLO (not ported: 11)")
     p.add_argument("--serve-artifact", default=None, metavar="DIR",
-                   help="AOT serve artifact (not ported: 4.5)")
+                   help="serve from this serve artifact's exported "
+                        "programs (python -m veles_tpu_torch export "
+                        "serve-artifact; root.common.serving.artifact); "
+                        "a bad one falls back to live serving, counted")
     p.add_argument("--quant-weights", action="store_true",
                    help="serve with per-channel symmetric int8 decode "
                         "matmul weights, dequantized on read just before "
@@ -257,7 +259,6 @@ def _refused(args):
         ("--router-qos", args.router_qos is not None, "11"),
         ("--router-slo-ttft-ms", args.router_slo_ttft_ms is not None,
          "11"),
-        ("--serve-artifact", args.serve_artifact, "4.5"),
         ("--serve-prefix-cache on", args.serve_prefix_cache in on, "4.1"),
         ("--serve-prefill-chunk", bool(args.serve_prefill_chunk), "4.1"),
         ("--serve-tp", (args.serve_tp or 1) > 1, "4.6"),

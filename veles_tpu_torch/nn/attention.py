@@ -84,12 +84,19 @@ def attention_core(q, k, v, *, causal: bool = False,
     (GQA) → (B, T, H, Dh). On the card, every head dim the flash kernels
     take goes through the differentiable ``flash_attention``
     (``ops/flash_attention.choose_flash``; its backward is the dK/dV and
-    dQ kernels), with grouped k/v read natively; otherwise, and with
+    dQ kernels) where an input needs a gradient, and through the
+    registered forward op (``flash_attention_fwd``, one node in an
+    exported program) where none does, with grouped k/v read natively
+    either way; otherwise, and with
     ``root.common.engine.flash_attention = False``, the plain reference
     runs on expanded k/v under autograd."""
     t, hd, h = q.shape[1], q.shape[-1], q.shape[2]
     if fa.choose_flash(t, hd, q.device):
-        return fa.flash_attention(q, k, v, causal=causal, window=window)
+        if torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in (q, k, v)):
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+        return fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      window=window)[0]
     return attention_reference(q, expand_kv(k, h), expand_kv(v, h),
                                causal=causal, window=window)
 

@@ -33,7 +33,8 @@ from .transformer import (Embedding, EmbeddingUnit, LMHead, LMHeadUnit,
                           PositionalEmbedding, PositionalEmbeddingUnit,
                           TransformerBlock, TransformerBlockUnit, _rotate,
                           add_positions, block_apply, block_ffn, block_norm,
-                          block_qkv, embed, lm_logits, rope_angles)
+                          block_qkv, embed, lm_logits, rope_angles,
+                          rope_angles_rows)
 
 
 def _rope_at(x, pos: int, base=10000.0):
@@ -42,11 +43,19 @@ def _rope_at(x, pos: int, base=10000.0):
     return _rotate(x, rope_angles([pos], x.shape[-1], base))
 
 
-def _rope_rows(x, positions, base=10000.0):
-    """RoPE of x (S, 1, H, Dh), row ``s`` at its own position
-    ``positions[s]``: the angles of :func:`_rope_at` at that position,
-    bit for bit."""
-    ang = rope_angles(positions, x.shape[-1], base)
+def _positions(positions, device):
+    """Per-row positions as an int64 tensor on ``device``: host ints or
+    numpy as they come, a tensor as it is (a traced program's input)."""
+    if isinstance(positions, torch.Tensor):
+        return positions
+    return torch.as_tensor(numpy.asarray(positions, numpy.int64),
+                           device=device)
+
+
+def _rope_rows(x, ang):
+    """RoPE of x (S, 1, H, Dh), row ``s`` by ``ang[s]``, the angles of its
+    own position (``transformer.rope_angles_rows``): those of
+    :func:`_rope_at` at that position, bit for bit."""
     return _rotate(x.transpose(0, 1), ang).transpose(0, 1)
 
 
@@ -125,79 +134,158 @@ def _block_step(block, x_t, cache_k, cache_v, pos: int):
                    _visible(rows, pos, block.window))
 
 
-def _step_qkv_rows(block, p, x_t, positions):
-    """q, k, v of S single-position rows at their own ``positions``,
-    rotated."""
+class _RowIndex:
+    """The index tensors of one decode step over S rows at their own
+    ``positions`` (an (S,) tensor), each made once and shared by every
+    block that asks for it: the RoPE angles by head dim and base, and by
+    view length the rows' write positions (clamped into the view) and
+    their causal (and window) masks."""
+
+    def __init__(self, positions) -> None:
+        self.positions = positions
+        self._memo: Dict = {}
+
+    def _get(self, key, make):
+        val = self._memo.get(key)
+        if val is None:
+            val = self._memo[key] = make()
+        return val
+
+    def angles(self, hd: int, base: float):
+        return self._get(("rope", hd, base), lambda: rope_angles_rows(
+            self.positions, hd, base))
+
+    def write_at(self, n_rows: int):
+        """(row ids, positions clamped to the view): a masked row may sit
+        past its view, and its write then lands on the last row, as the
+        reference's dynamic_update_slice clamps it (its output is never
+        read)."""
+        pos = self.positions
+        return self._get(("at", n_rows), lambda: (
+            torch.arange(pos.shape[0], device=pos.device),
+            pos.clamp(max=n_rows - 1)))
+
+    def visible(self, n_rows: int, window):
+        """Each row's mask over its ``n_rows``-position view,
+        broadcastable to :func:`_attend`'s scores."""
+        pos = self.positions
+        return self._get(("visible", n_rows, window), lambda: _visible(
+            torch.arange(n_rows, device=pos.device)[None, :], pos[:, None],
+            window)[:, None, None, None, :])
+
+
+def _step_qkv_rows(block, p, x_t, index):
+    """q, k, v of S single-position rows at their own positions
+    (a :class:`_RowIndex`), rotated."""
     q, k, v = block_qkv(block, p, block_norm(block, p, x_t, "ln1"))
     if block.rope:
-        q = _rope_rows(q, positions, block.rope_base)
-        k = _rope_rows(k, positions, block.rope_base)
+        ang = index.angles(q.shape[-1], block.rope_base)
+        q, k = _rope_rows(q, ang), _rope_rows(k, ang)
     return q, k, v
 
 
-def _row_visible(block, n_rows: int, positions, device):
-    """Each row's causal (and window) mask over its ``n_rows``-position
-    view, broadcastable to :func:`_attend`'s scores."""
-    rows = torch.arange(n_rows, device=device)
-    pos = torch.as_tensor(numpy.asarray(positions, numpy.int64),
-                          device=device)[:, None]
-    return _visible(rows[None, :], pos, block.window)[:, None, None, None, :]
+def _attend_own_rows(block, p, x_t, q, cache_k, cache_v, k, v, index):
+    """Write each row's new K and V rows into its own gathered views (S,
+    n_rows, KV, Dh) at its position, in place, then attend over them
+    under each row's own mask."""
+    n_rows = cache_k.shape[1]
+    rows, at = index.write_at(n_rows)
+    cache_k[rows, at] = k
+    cache_v[rows, at] = v
+    return _attend(block, p, x_t, q, cache_k, cache_v,
+                   index.visible(n_rows, block.window))
 
 
-def _block_step_rows(block, x_t, pool_k, pool_v, tables, positions,
-                     targets, p=None):
+def _block_step_rows(block, x_t, pool_k, pool_v, tables, index, p=None):
     """One-token pass of S rows that sit at different positions, over a
     paged cache: x_t (S, 1, D); pools (pages + 1, page_size, KV, Dh);
-    ``tables`` (S, P) page ids on the pools' device; ``positions`` the
-    S host-side positions; ``targets`` = (page ids, in-page offsets),
-    (S,) each, where each row's new K/V row is written (in place; a
-    masked row's target is the sink page 0). Each row then reads its
-    view through its page-table row, with its own causal and window
-    mask: :func:`_block_step`'s arithmetic row by row. ``p`` overrides
+    ``tables`` (S, P) page ids and the rows' positions (``index``, a
+    :class:`_RowIndex`), tensors on the pools' device. Each row reads its
+    view through its page-table row (a gathered copy), with its own new
+    K/V row written into that copy at its position, under its own causal
+    and window mask: :func:`_block_step`'s arithmetic row by row. The
+    pools are only read: returns ``(x, (k, v))`` with the new rows (S,
+    KV, Dh), which the caller writes into the pools (one ``index_put_``
+    each), so a traced step mutates none of its inputs. ``p`` overrides
     the block's parameters (the int8 engine's dequantizing view)."""
     p = block.params() if p is None else p
-    q, k, v = _step_qkv_rows(block, p, x_t, positions)
-    page, off = targets
-    pool_k[page, off] = k[:, 0]
-    pool_v[page, off] = v[:, 0]
+    q, k, v = _step_qkv_rows(block, p, x_t, index)
     cache_k = pool_k[tables].flatten(1, 2)        # (S, P*page_size, ...)
     cache_v = pool_v[tables].flatten(1, 2)
-    return _attend(block, p, x_t, q, cache_k, cache_v,
-                   _row_visible(block, cache_k.shape[1], positions,
-                                x_t.device))
+    return (_attend_own_rows(block, p, x_t, q, cache_k, cache_v, k[:, 0],
+                             v[:, 0], index),
+            (k[:, 0], v[:, 0]))
 
 
-def _block_step_rows_int8(block, x_t, pool, tables, positions, targets,
-                          p=None):
+def _block_step_rows_int8(block, x_t, pool, tables, index, p=None):
     """:func:`_block_step_rows` over an int8 pool ``(kq, vq, k_scale,
     v_scale)`` (``quant/kv.py``): each row's view is dequantized in the
     activations' dtype, its own new K/V row goes into that view
-    unquantized, and the attention reads it; then only the new row is
-    quantized, with its own scale, and written at ``targets``. Written
-    rows are never re-scaled (the reference's ``rowq``)."""
+    unquantized, and the attention reads it; only the new rows are
+    quantized, each with its own scale, and returned in the pool's order
+    ``(kq, vq, k_scale, v_scale)`` for the caller to write. Written rows
+    are never re-scaled (the reference's ``rowq``)."""
     from ..ops.precision import dequantize_rows_int8, quantize_rows_int8
     p = block.params() if p is None else p
     kq, vq, ks, vs = pool
-    q, k, v = _step_qkv_rows(block, p, x_t, positions)
+    q, k, v = _step_qkv_rows(block, p, x_t, index)
     cache_k = dequantize_rows_int8(kq[tables].flatten(1, 2),
                                    ks[tables].flatten(1, 2), x_t.dtype)
     cache_v = dequantize_rows_int8(vq[tables].flatten(1, 2),
                                    vs[tables].flatten(1, 2), x_t.dtype)
-    n_rows = cache_k.shape[1]
-    rows = torch.arange(x_t.shape[0], device=x_t.device)
-    # a masked row may sit past its view: its write lands on the last
-    # row, as the reference's dynamic_update_slice clamps it
-    at = torch.as_tensor(numpy.minimum(numpy.asarray(positions, numpy.int64),
-                                       n_rows - 1), device=x_t.device)
-    cache_k[rows, at] = k[:, 0]
-    cache_v[rows, at] = v[:, 0]
-    page, off = targets
-    for pool_q, pool_s, new in ((kq, ks, k), (vq, vs, v)):
-        qn, sn = quantize_rows_int8(new[:, 0])
-        pool_q[page, off] = qn
-        pool_s[page, off] = sn
-    return _attend(block, p, x_t, q, cache_k, cache_v,
-                   _row_visible(block, n_rows, positions, x_t.device))
+    x = _attend_own_rows(block, p, x_t, q, cache_k, cache_v, k[:, 0],
+                         v[:, 0], index)
+    qk, sk = quantize_rows_int8(k[:, 0])
+    qv, sv = quantize_rows_int8(v[:, 0])
+    return x, (qk, qv, sk, sv)
+
+
+def prefill_rows(stack, params, ids, last, quant_kv: bool = False):
+    """The continuous engine's bucketed prefill as a tensor function:
+    ``ids`` (1, bucket) through every block (the attention through
+    ``attention_core``, on the card the flash kernel) → ``(logits (1, V)
+    at position ``last`` (a (1,) tensor), [rows of each block])``. A
+    block's rows are its K and V (bucket, KV, Dh) or, for the int8 pool
+    (``quant_kv``), their int8 payloads and one float32 scale a position,
+    in the pool's order ``(kq, vq, k_scale, v_scale)``. ``params`` is
+    the ``{layer name: params}`` tree; nothing is written, so the same
+    function runs live and as an exported program."""
+    x = _embed_prompt(stack["stem"], stack["pos_emb"], ids, params=params)
+    x, caches = _prefill_blocks(stack["blocks"], x, ids.shape[-1], params)
+    rows = []
+    for ck, cv in caches:
+        if quant_kv:
+            from ..ops.precision import quantize_rows_int8
+            qk, sk = quantize_rows_int8(ck[0])
+            qv, sv = quantize_rows_int8(cv[0])
+            rows.append((qk, qv, sk, sv))
+        else:
+            rows.append((ck[0], cv[0]))
+    logits = _head_logits(stack["head"], x[0].index_select(0, last),
+                          params)
+    return logits, rows
+
+
+def step_rows(stack, params, tok, positions, tables, pools):
+    """One decode position of every row as a tensor function: ``tok``,
+    ``positions`` (S,) and the page ``tables`` (S, P) over the paged
+    ``pools`` (per block float ``(k, v)`` or int8 ``(kq, vq, k_scale,
+    v_scale)``) → ``(logits (S, V), [new rows of each block])``
+    (:func:`_block_step_rows`, :func:`_block_step_rows_int8`). The pools
+    are only read; the caller writes the new rows. ``params`` (``{layer
+    name: params}``) overrides the layers' own (None: their own)."""
+    x = _embed_rows(stack["stem"], stack["pos_emb"], tok, positions, params)
+    index = _RowIndex(positions)
+    new = []
+    for blk, pool in zip(stack["blocks"], pools):
+        p = None if params is None else params[blk.name]
+        if len(pool) == 4:
+            x, rows = _block_step_rows_int8(blk, x, pool, tables, index, p)
+        else:
+            x, rows = _block_step_rows(blk, x, pool[0], pool[1], tables,
+                                       index, p)
+        new.append(rows)
+    return _head_logits(stack["head"], x[:, 0], params), new
 
 
 def params_of(layers) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -212,28 +300,39 @@ def _embed_ids(stem, ids):
     return stem(ids)
 
 
-def _embed_prompt(stem, pos_emb, ids, pos0: int = 0):
+def _embed_prompt(stem, pos_emb, ids, pos0: int = 0, params=None):
     """(B, T) token ids → (B, T, D): the embedding gather plus the
     positional rows ``pos0..pos0+T`` — the stack entry every prompt
-    consumer shares."""
-    x = _embed_ids(stem, ids)
+    consumer shares. ``params`` (``{layer name: params}``) overrides the
+    layers' own tables."""
+    if params is None:
+        x = _embed_ids(stem, ids)
+    else:
+        x = embed(params[stem.name]["table"], ids)
     if pos_emb is not None:
+        table = (pos_emb.table if params is None
+                 else params[pos_emb.name]["table"])
         idx = (pos0 + torch.arange(ids.shape[-1], device=ids.device)
                ).clamp(0, pos_emb.max_len - 1)
-        x = x + pos_emb.table[idx][None]
+        x = x + table[idx][None]
     return x
 
 
-def _embed_rows(stem, pos_emb, tok, positions):
-    """(S,) token ids at per-row ``positions`` → (S, 1, D): the row-wise
-    counterpart of :func:`_embed_prompt` (positions clamp to the
-    table)."""
-    x = _embed_ids(stem, tok[:, None])
+def _embed_rows(stem, pos_emb, tok, positions, params=None):
+    """(S,) token ids at per-row ``positions`` (host ints or a tensor)
+    → (S, 1, D): the row-wise counterpart of :func:`_embed_prompt`
+    (positions clamp to the table). ``params`` (``{layer name:
+    params}``) overrides the layers' own tables."""
+    if params is None:
+        x = _embed_ids(stem, tok[:, None])
+    else:
+        x = embed(params[stem.name]["table"], tok[:, None])
     if pos_emb is not None:
-        idx = torch.as_tensor(numpy.asarray(positions, numpy.int64),
-                              device=tok.device).clamp(
-                                  0, pos_emb.max_len - 1)
-        x = x + pos_emb.table[idx][:, None]
+        table = (pos_emb.table if params is None
+                 else params[pos_emb.name]["table"])
+        idx = _positions(positions, tok.device).clamp(
+            0, pos_emb.max_len - 1)
+        x = x + table[idx][:, None]
     return x
 
 

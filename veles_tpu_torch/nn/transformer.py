@@ -112,11 +112,26 @@ def rope_angles(positions, hd: int, base: float = 10000.0):
             * inv[None, :]).astype("float32")
 
 
+def rope_angles_rows(positions, hd: int, base: float = 10000.0):
+    """:func:`rope_angles` of a tensor of positions, on its device: the
+    same float32 product of each position and the numpy float32
+    frequencies, so the angles are those of :func:`rope_angles` bit for
+    bit, and a traced program takes the positions as an input instead
+    of baking them in."""
+    half = hd // 2
+    inv = base ** (-numpy.arange(half, dtype="float32") / half)
+    inv = torch.from_numpy(numpy.asarray(inv, "float32")).to(
+        positions.device)
+    return positions.to(torch.float32)[:, None] * inv[None, :]
+
+
 def _rotate(x, ang):
-    """Half-split rotation of x (B, T, H, Dh) by ang (T, Dh//2)."""
+    """Half-split rotation of x (B, T, H, Dh) by ang (T, Dh//2), a numpy
+    array or a tensor on x's device."""
     hd = x.shape[-1]
     half = hd // 2
-    ang = torch.from_numpy(ang).to(x.device)
+    if not isinstance(ang, torch.Tensor):
+        ang = torch.from_numpy(ang).to(x.device)
     cos = torch.cos(ang)[None, :, None, :]
     sin = torch.sin(ang)[None, :, None, :]
     x1, x2 = x[..., :half], x[..., half:2 * half]

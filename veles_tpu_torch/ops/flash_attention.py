@@ -24,7 +24,10 @@ returned ``(B, H, T)`` (a view of the kernel's flat ``(B*H, T)``).
 :func:`flash_attention` is the differentiable entry (a
 ``torch.autograd.Function``: forward kernel, then the dK/dV and dQ
 kernels in the backward); :func:`flash_attention_fwd` returns
-``(o, lse)`` and is forward-only; :func:`flash_attention_bwd_lse` runs
+``(o, lse)`` and is forward-only, through the registered operator
+``torch.ops.veles_tpu_torch.flash_attention_fwd``
+(:func:`flash_attention_fwd_op`), so ``torch.export`` keeps the kernel
+as one node of a program; :func:`flash_attention_bwd_lse` runs
 the backward pair against a caller's lse/delta. On a CUDA tensor each
 launches its kernels or raises; on a CPU tensor each runs the plain
 version (:func:`flash_attention_fwd_reference`,
@@ -656,27 +659,61 @@ def _prologue(q, k, v, causal, window, scale):
     return window, float(scale)
 
 
+@torch.library.custom_op("veles_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool, window: int,
+                           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel as a registered operator,
+    ``torch.ops.veles_tpu_torch.flash_attention_fwd``: one opaque node in
+    a ``torch.export`` program (the serve artifact's prefills, a
+    package's ``forward.pt2``), whose CUDA implementation is the launch
+    (counted, its cost noted) and whose CPU implementation is the plain
+    version. ``window`` is already normalised (0: none) and ``scale``
+    resolved; o comes in q's dtype, lse (B, H, T) float32. A process
+    that loads such a program imports this module first."""
+    return _launch(q, k, v, causal, window, scale)
+
+
+@flash_attention_fwd_op.register_kernel("cpu")
+def _flash_attention_fwd_cpu(q, k, v, causal, window, scale):
+    o, lse = flash_attention_fwd_reference(
+        q, k, v, causal=causal, window=window, scale=scale,
+        block_k=kernel_block_k(q.shape[-1]))
+    # the layouts the kernel gives and the fake below promises
+    return o.contiguous(), lse.contiguous()
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, window, scale):
+    b, t, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, t), dtype=torch.float32))
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         window: Optional[int] = None,
                         scale: Optional[float] = None):
     """``(o (B, T, H, Dh), lse (B, H, T))`` of attention over q and the
-    (possibly grouped) k/v, forward only. A CUDA tensor goes through the
+    (possibly grouped) k/v, forward only, through the registered
+    :func:`flash_attention_fwd_op`. A CUDA tensor goes through the
     hand-written kernel — or raises; a CPU tensor through the plain
     version. Each kernel launch adds one to
     ``veles_flash_attention_launches_total`` and to its instance's
     counter (:func:`launch_counter`)."""
     window, scale = _prologue(q, k, v, causal, window, scale)
-    if q.device.type == "cpu":
-        return flash_attention_fwd_reference(
-            q, k, v, causal=causal, window=window, scale=scale,
-            block_k=kernel_block_k(q.shape[-1]))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if q.device.type == "cpu":
+            # the plain version, under autograd
+            return flash_attention_fwd_reference(
+                q, k, v, causal=causal, window=window, scale=scale,
+                block_k=kernel_block_k(q.shape[-1]))
         # the kernel writes o outside autograd: a backward through it
         # would give q/k/v a zero gradient without a word
         raise VelesError("flash_attention_fwd is forward-only: where q/k/v "
                          "need gradients call flash_attention, whose "
                          "backward runs the dK/dV and dQ kernels")
-    return _launch(q, k, v, causal, window, scale)
+    return flash_attention_fwd_op(q, k, v, bool(causal), window, scale)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,

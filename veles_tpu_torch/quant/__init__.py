@@ -12,8 +12,12 @@ Two planes, both off by default and leaving the float path untouched:
   bytes a position of a block's K+V at 8 heads of 64 where float32
   takes 4,096.
 
-The numeric primitives live in ``ops/precision.py``. The reference's
-third plane, the AOT serve artifact, is ROADMAP Queue 1 item 4.5.
+The numeric primitives live in ``ops/precision.py``. The third plane,
+the AOT serve artifact, lives in ``export/serve_artifact.py``: an int8
+engine's programs take the int8 tree as their input and rebuild each
+weight inside the program, and an int8 KV pool's programs write int8
+rows. ``export/package.py`` stores a package's eligible weights int8
+(``package_export(quant=True)``).
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ from .kv import (block_page_pool, dequantize_rows_int8,  # noqa: F401
 from .weights import (GRANULARITIES, DequantView,  # noqa: F401
                       dequantize_params, dequantize_state,
                       is_quantized_params, quantize_params,
-                      quantize_params_spec, quantize_state)
+                      quantize_params_spec, quantize_state,
+                      quantize_tensor)
 
 #: every counter the quantization and artifact planes increment (the
-#: reference's names, registered in telemetry/counters.py); all stay 0
-#: in a quant-off run, and the artifact ones until item 4.5
+#: reference's names, registered in telemetry/counters.py); the quant
+#: ones stay 0 in a quant-off run, the artifact ones without an artifact
 QUANT_COUNTERS = (
     "veles_quant_params_total",
     "veles_quant_bytes_saved_total",

@@ -145,6 +145,16 @@ def _calibrate(units: Dict[str, Any], granularity: str, make_record,
                  "bytes_after": after}
 
 
+def quantize_tensor(name: str, arr, granularity: str = None):
+    """One tensor, for other writers (``export/package.py``): ``(q,
+    scale)`` when ``(name, arr)`` is an eligible matmul weight, else
+    None; eligibility and the axis policy stay defined here."""
+    granularity = _resolve_granularity(granularity)
+    if not _eligible(name, arr):
+        return None
+    return quantize_int8(arr, axis=_axis_for(granularity))
+
+
 def quantize_params(params: Dict[str, Dict[str, Any]],
                     granularity: str = None
                     ) -> Tuple[Dict[str, Dict[str, Any]], Dict[str, int]]:

@@ -329,7 +329,10 @@ class GenerationAPI(Logger):
     planes; ``spec_gamma`` and ``beam_width`` fix the pool's round and
     group widths; ``state_cache`` turns the O(1)-state lane's prefix cache
     on; ``quant_weights`` and ``quant_kv`` (default ``root.common.quant``'s)
-    the paged engine's int8 weights and int8 KV pool. ``initialize``
+    the paged engine's int8 weights and int8 KV pool; ``artifact``
+    (default ``root.common.serving.artifact``) a serve artifact directory
+    whose programs either engine serves from (a bad one falls back to
+    live serving, counted). ``initialize``
     starts the engine, the window worker
     and the HTTP service, ``stop`` drains them; the bound port is
     ``self.port``."""
@@ -350,7 +353,8 @@ class GenerationAPI(Logger):
                  beam_width: Optional[int] = None,
                  state_cache: Optional[bool] = None,
                  quant_weights: Optional[bool] = None,
-                 quant_kv: Optional[bool] = None, device=None,
+                 quant_kv: Optional[bool] = None,
+                 artifact: Optional[str] = None, device=None,
                  name: str = "generation_api") -> None:
         self.device = device_for(device)
         self.model = model.to(self.device)
@@ -388,6 +392,9 @@ class GenerationAPI(Logger):
         #: root.common.quant inside the engine
         self.quant_weights = quant_weights
         self.quant_kv = quant_kv
+        #: the serve artifact; None defers to root.common.serving.artifact
+        #: inside the engine
+        self.artifact = artifact
         #: the ContinuousEngine or RecurrentEngine; None = the window plane
         self._engine = None
         self._service: Optional[HTTPService] = None
@@ -859,6 +866,8 @@ class GenerationAPI(Logger):
                 # is float or int8 (the O(1)-state lane reports 0)
                 "veles_quant_weights_mode": st["quant_weights"],
                 "veles_quant_kv_mode": st["quant_kv"],
+                # 1 = served from the serve artifact's programs
+                "veles_serving_artifact_mode": st["artifact_mode"],
                 "veles_serving_kv_pool_bytes": st["kv_pool_bytes"]})
             if st.get("slot_kind", "paged") == "state":
                 # the O(1)-state pool: no page rows, its per-slot state
@@ -895,8 +904,8 @@ class GenerationAPI(Logger):
                     spec_gamma=self.spec_gamma,
                     beam_width=self.beam_width, draft=self.draft,
                     quant_weights=self.quant_weights,
-                    quant_kv=self.quant_kv, device=self.device,
-                    name=self.name)
+                    quant_kv=self.quant_kv, artifact=self.artifact,
+                    device=self.device, name=self.name)
                 engine.on_death = self._on_replica_death
                 return engine.start()
             except VelesError as e:
@@ -906,8 +915,8 @@ class GenerationAPI(Logger):
                 self.model, max_slots=self.max_slots,
                 max_context=self.max_context,
                 decode_block=self.decode_block, page_size=self.page_size,
-                state_cache=self.state_cache, device=self.device,
-                name=self.name)
+                state_cache=self.state_cache, artifact=self.artifact,
+                device=self.device, name=self.name)
             engine.on_death = self._on_replica_death
             engine.start()
         except VelesError as e:

@@ -78,11 +78,25 @@ iteration-level scheduling:
   quantizes only that row. Speculative and beam requests on the int8
   pool ride the window plane. A resumed or preempted row's prefill
   re-quantizes the emitted tokens' rows from the prefill's K/V, as the
-  reference's does.
+  reference's does;
+- **the serve artifact** (``artifact``, ``export/serve_artifact.py``):
+  the bucketed prefill and the decode step are tensor functions of
+  (parameter tree, ids or tokens, positions, page tables, pool)
+  (:class:`PrefillProgram`, :class:`StepProgram`; the pool is only
+  read, the engine writes the new rows with one ``index_put_`` each).
+  Live, the engine calls them as they are; with an artifact it loads
+  their ``torch.export`` programs at :meth:`ContinuousEngine.start` and
+  every target prefill and decode step goes through one. The draws stay
+  in the engine (a ``torch.Generator`` is not a program input), and the
+  speculative round and the beam step stay live, as in the reference,
+  whose artifact holds only the base plane. An artifact that is
+  unreadable, corrupt, newer, exported for other knobs or another device
+  type, or refused by the ``artifact.load`` fault point is a counted
+  warning (``veles_artifact_load_failures_total``) and live serving.
 
 Not ported yet: prefix sharing and chunked prefill (ROADMAP Queue 1
-item 4.1), the serve artifact (4.5) and tensor-parallel serving (4.6);
-asking for them raises :class:`VelesError`. Requests the pool cannot
+item 4.1) and tensor-parallel serving (4.6); asking for them raises
+:class:`VelesError`. Requests the pool cannot
 hold ride the window plane (:meth:`ContinuousEngine.accepts`).
 """
 
@@ -101,15 +115,13 @@ from ..config import root
 from ..error import VelesError
 from ..logger import Logger
 from ..nn.beam import _beam_topk, _expand_first
-from ..nn.sampling import (_block_step_rows, _block_step_rows_int8, _draw,
-                           _embed_prompt, _embed_rows, _head_logits,
-                           _prefill_blocks, advanced_generator, params_of,
-                           split_stack)
+from ..nn.sampling import (_draw, _head_logits, advanced_generator,
+                           params_of, prefill_rows, split_stack, step_rows)
 from ..nn.speculative import (_accept_rows, _block_span_rows,
                               _draft_pick, _embed_span, _emission)
 from ..ops.flash_attention import choose_flash
 from ..quant import (DequantView, block_page_pool, pool_nbytes,
-                     quantize_params, quantize_rows_int8)
+                     quantize_params, quantize_params_spec)
 from ..resilience.faults import FaultInjected, fire as fire_fault
 from ..telemetry.counters import inc
 from ..telemetry.spans import span
@@ -128,8 +140,75 @@ _TEMP_EPS = 1e-3
 _STEP_MODES = RESUME_MODES
 
 #: the ROADMAP Queue 1 item of each engine knob not ported yet
-_NOT_PORTED = {"prefix_cache": "4.1", "prefill_chunk": "4.1",
-               "artifact": "4.5"}
+_NOT_PORTED = {"prefix_cache": "4.1", "prefill_chunk": "4.1"}
+
+
+def dtype_name(dtype) -> str:
+    """A torch dtype's short name, ``"float32"``, as signatures stamp it."""
+    return str(dtype).replace("torch.", "")
+
+
+def tree_spec(tree) -> Dict:
+    """``{unit: {param: [shape, dtype]}}`` of a parameter tree (tensors,
+    int8 records or ``quantize_params_spec``'s specs)."""
+    def leaf(val):
+        if isinstance(val, dict):
+            return {k: leaf(v) for k, v in val.items()}
+        return [list(val.shape), dtype_name(val.dtype)]
+    return {u: {k: leaf(v) for k, v in p.items()} for u, p in tree.items()}
+
+
+def _views(tree, quantized: bool, dtype):
+    """The parameters a program reads from its input ``tree``: the tree
+    itself, or under int8 weights a :class:`DequantView` a layer, each
+    weight rebuilt as ``q · s`` in ``dtype`` just before its product."""
+    if not quantized:
+        return tree
+    return {name: DequantView(unit, dtype) for name, unit in tree.items()}
+
+
+class PrefillProgram(torch.nn.Module):
+    """The bucketed prefill as a program: ``(tree, ids (1, bucket), last
+    (1,))`` → ``(logits (1, V), [rows of each block])``
+    (``nn/sampling.prefill_rows``). The stack's layers are read for their
+    geometry only: every parameter comes from ``tree``, so an exported
+    program holds no weight and stays valid across checkpoints."""
+
+    def __init__(self, stack, quant_weights: bool, quant_kv: bool,
+                 dtype) -> None:
+        super().__init__()
+        self._stack = stack
+        self._quant_weights = bool(quant_weights)
+        self._quant_kv = bool(quant_kv)
+        self._dtype = dtype
+
+    def forward(self, tree, ids, last):
+        return prefill_rows(self._stack,
+                            _views(tree, self._quant_weights, self._dtype),
+                            ids, last, quant_kv=self._quant_kv)
+
+
+class StepProgram(torch.nn.Module):
+    """The fixed-shape decode step as a program: ``(tree, tok (S,), pos
+    (S,), tables (S, P), pools)`` → ``(logits (S, V), [new rows of each
+    block])`` (``nn/sampling.step_rows``); the pools are only read."""
+
+    def __init__(self, stack, quant_weights: bool, dtype) -> None:
+        super().__init__()
+        self._stack = stack
+        self._quant = bool(quant_weights)
+        self._dtype = dtype
+
+    def forward(self, tree, tok, pos, tables, pools):
+        return step_rows(self._stack, _views(tree, self._quant, self._dtype),
+                         tok, pos, tables, pools)
+
+
+def program_label(key) -> str:
+    """The artifact's label of a program key: ``("prefill", 128)`` →
+    ``"prefill_128"``, ``("step", None)`` → ``"decode"``."""
+    kind, bucket = key
+    return "decode" if kind == "step" else "%s_%d" % (kind, bucket)
 
 
 def make_request(prompt, n_new, temperature=0.0, seed=0, eos_id=None,
@@ -367,7 +446,41 @@ class ResumePlane:
         return handed
 
 
-class ContinuousEngine(ResumePlane, Logger):
+class ArtifactPlane:
+    """The serve artifact's load, shared by :class:`ContinuousEngine` and
+    the O(1)-state lane (``serving/recurrent.py``): the engine provides
+    ``artifact`` (a directory), ``name``, ``stack_signature()`` and the
+    ``_programs`` the loaded ones replace by key, and calls
+    :meth:`_load_artifact` from ``start()``."""
+
+    artifact_mode = False
+
+    def _load_artifact(self) -> bool:
+        """Install the artifact's programs in place of the live ones. Any
+        failure (unreadable, corrupt, newer, another signature, the
+        ``artifact.load`` fault point) is a counted warning and leaves
+        the engine serving live: a bad artifact costs start-up time,
+        never availability."""
+        from ..export.serve_artifact import load_serve_programs
+        try:
+            fire_fault("artifact.load")
+            programs = load_serve_programs(self.artifact,
+                                           self.stack_signature())
+        except Exception as e:      # noqa: BLE001 — degrade, don't die
+            inc("veles_artifact_load_failures_total")
+            self.warning("%s: serve-artifact %s unusable (%s: %s); serving "
+                         "live", self.name, self.artifact,
+                         type(e).__name__, e)
+            return False
+        self._programs.update(programs)
+        self.artifact_mode = True
+        inc("veles_artifact_loads_total")
+        self.info("%s: serve-artifact loaded from %s (%d programs)",
+                  self.name, self.artifact, len(programs))
+        return True
+
+
+class ContinuousEngine(ResumePlane, ArtifactPlane, Logger):
     """In-flight batching over a persistent paged KV pool.
 
     ``wf`` is a generation stack (``Embedding`` → [``PositionalEmbedding``]
@@ -401,8 +514,7 @@ class ContinuousEngine(ResumePlane, Logger):
                  tp: Optional[int] = None, device=None,
                  name: str = "serving") -> None:
         super().__init__()
-        for knob, value in (("artifact", artifact),
-                            ("prefix_cache", prefix_cache),
+        for knob, value in (("prefix_cache", prefix_cache),
                             ("prefill_chunk", prefill_chunk)):
             if value:
                 raise VelesError(
@@ -489,9 +601,22 @@ class ContinuousEngine(ResumePlane, Logger):
         #: page ids
         self._caches: Optional[List] = None
         self._draft_caches: Optional[List] = None
-        #: the target's parameters for this burst: None (each layer's
-        #: own) or, under quant_weights, a DequantView a layer
+        #: the target's parameter tree for this burst, the programs'
+        #: input (the layers' own tensors, or the int8 twin's records),
+        #: and what the live paths read from it (the tree itself, or a
+        #: DequantView a layer)
+        self._tree: Optional[Dict] = None
         self._params: Optional[Dict] = None
+        #: the AOT serve artifact (export/serve_artifact.py), loaded at
+        #: start(); its programs replace the live ones by key
+        self.artifact = str(serving_cfg.get("artifact", "") or ""
+                            if artifact is None else artifact)
+        #: program key → callable: the live PrefillProgram/StepProgram,
+        #: or the artifact's loaded program
+        self._programs: Dict = {}
+        #: calls of each program by its artifact label (prefill_<bucket>,
+        #: decode), live or loaded
+        self.program_calls: Dict[str, int] = {}
         #: (leaf key of the float tree, its calibrated int8 twin)
         self._quant_cache: Optional[Tuple] = None
         self._page_table = numpy.zeros(
@@ -523,6 +648,8 @@ class ContinuousEngine(ResumePlane, Logger):
     def start(self) -> "ContinuousEngine":
         if self._thread is not None:
             return self
+        if self.artifact and not self.artifact_mode:
+            self._load_artifact()
         self._closing = False
         if self.qos:
             set_pressure_provider(self._pressure_fn)
@@ -534,12 +661,13 @@ class ContinuousEngine(ResumePlane, Logger):
         self.info("%s: continuous batching up (slots=%d buckets=%s "
                   "max_context=%d decode_block=%d pages=%dx%d "
                   "spec_gamma=%d beam_width=%d draft=%s qos=%s "
-                  "quant_weights=%s quant_kv=%s, %s)",
+                  "quant_weights=%s quant_kv=%s artifact=%s, %s)",
                   self.name, self.max_slots, list(self.buckets),
                   self.max_context, self.decode_block, self.pages,
                   self.page_size, self.spec_gamma, self.beam_width,
                   self.draft_stack is not None, self.qos,
-                  self.quant_weights, self.quant_kv, self.device)
+                  self.quant_weights, self.quant_kv, self.artifact_mode,
+                  self.device)
         return self
 
     def stop(self) -> None:
@@ -727,6 +855,10 @@ class ContinuousEngine(ResumePlane, Logger):
             + pool_nbytes(self._draft_caches),
             "quant_weights": int(self.quant_weights),
             "quant_kv": int(self.quant_kv),
+            # 1 = prefills and decode steps through the artifact's
+            # programs; their calls by label
+            "artifact_mode": int(self.artifact_mode),
+            "program_calls": dict(self.program_calls),
             "spec_gamma": self.spec_gamma,
             "beam_width": self.beam_width,
             # the QoS plane, all 0 with the knob off
@@ -740,6 +872,62 @@ class ContinuousEngine(ResumePlane, Logger):
         calibrates from the live weights again."""
         self._quant_cache = None
         self._params = None
+
+    # -- programs and the serve artifact -------------------------------------
+    def _layers(self) -> List:
+        stack = self.stack
+        return ([stack["stem"]]
+                + ([stack["pos_emb"]] if stack["pos_emb"] is not None
+                   else []) + stack["blocks"] + [stack["head"]])
+
+    def _program(self, key):
+        """The program of ``key`` (``("prefill", bucket)`` or ``("step",
+        None)``): the artifact's where one was loaded, else the live
+        one, built at first use. Each call is tallied by its label."""
+        prog = self._programs.get(key)
+        if prog is None:
+            dtype = self.stack["stem"].table.dtype
+            prog = self._programs[key] = (
+                StepProgram(self.stack, self.quant_weights, dtype)
+                if key[0] == "step" else
+                PrefillProgram(self.stack, self.quant_weights,
+                               self.quant_kv, dtype))
+        label = program_label(key)
+        self.program_calls[label] = self.program_calls.get(label, 0) + 1
+        return prog
+
+    def stack_signature(self) -> Dict:
+        """What the exported programs are committed to: the parameter
+        tree's shapes and dtypes (the int8 twin's under
+        ``quant_weights``, from ``quantize_params_spec``: no calibration
+        runs), each block's pool geometry and every knob the programs
+        bake in, with the reference's keys (``tp`` 1, ``mesh`` [], no
+        prefix sharing or chunked prefill), and the device type the
+        programs were traced on. A load refuses on any difference."""
+        params = params_of(self._layers())
+        if self.quant_weights:
+            params = quantize_params_spec(params)
+        dtype = self.stack["stem"].table.dtype
+        return {
+            "params": tree_spec(params),
+            "pools": [[blk.n_kv_heads, blk.head_dim]
+                      for blk in self.stack["blocks"]],
+            "pool_dtype": "int8" if self.quant_kv else dtype_name(dtype),
+            "max_slots": self.max_slots,
+            "buckets": list(self.buckets),
+            "max_context": self.max_context,
+            "decode_block": self.decode_block,
+            "page_size": self.page_size,
+            "pages": self.pages,
+            "pages_per_slot": self.pages_per_slot,
+            "quant_weights": bool(self.quant_weights),
+            "quant_kv": bool(self.quant_kv),
+            "prefix_cache": False,
+            "prefill_chunk": 0,
+            "tp": 1,
+            "mesh": [],
+            "device": self.device.type,
+        }
 
     # -- worker --------------------------------------------------------------
     def _loop(self) -> None:
@@ -823,28 +1011,28 @@ class ContinuousEngine(ResumePlane, Logger):
             # consistent
             self._abort_active(str(e), code=503, retry_after=1.0)
 
-    def _prepare_params(self) -> Optional[Dict]:
-        """The target's parameters for the next burst: None (the float
-        engine reads each layer's own), or the int8 twin read through a
-        :class:`~veles_tpu_torch.quant.DequantView` a layer, in the
-        model's float dtype. The twin is calibrated again only when a
-        weight was replaced or written in place since
-        (:func:`_leaf_key`); :meth:`invalidate_quant_cache` forces it."""
-        if not self.quant_weights:
-            return None
-        stack = self.stack
-        layers = ([stack["stem"]]
-                  + ([stack["pos_emb"]] if stack["pos_emb"] is not None
-                     else []) + stack["blocks"] + [stack["head"]])
-        params = params_of(layers)
-        key = _leaf_key(params)
-        cached = self._quant_cache
-        if cached is None or cached[0] != key:
-            qparams, _report = quantize_params(params)
-            cached = self._quant_cache = (key, qparams)
-        dtype = stack["stem"].table.dtype
-        return {name: DequantView(unit, dtype)
-                for name, unit in cached[1].items()}
+    def _prepare_params(self) -> Dict:
+        """The target's parameters for the next burst, read by the live
+        paths; sets ``_tree``, the programs' input. Float: the layers'
+        own tensors (one tree). Under ``quant_weights`` the tree is the
+        int8 twin, read through a
+        :class:`~veles_tpu_torch.quant.DequantView` a layer in the
+        model's float dtype; it is calibrated again only when a weight
+        was replaced or written in place since (:func:`_leaf_key`), and
+        :meth:`invalidate_quant_cache` forces it."""
+        own = params_of(self._layers())
+        params = {name: {k: t.detach() for k, t in tree.items()}
+                  for name, tree in own.items()}
+        if self.quant_weights:
+            key = _leaf_key(own)
+            cached = self._quant_cache
+            if cached is None or cached[0] != key:
+                qparams, _report = quantize_params(params)
+                cached = self._quant_cache = (key, qparams)
+            params = cached[1]
+        self._tree = params
+        return _views(params, self.quant_weights,
+                      self.stack["stem"].table.dtype)
 
     def _pools(self, stack, quantized: bool) -> List:
         return [block_page_pool(self.page_pool.device_rows, self.page_size,
@@ -881,28 +1069,17 @@ class ContinuousEngine(ResumePlane, Logger):
         pool[pages] = rows.reshape((n_pages, self.page_size)
                                    + tuple(rows.shape[1:]))
 
-    def _prefill_into(self, stack, pools, ids, bucket, pages, params=None):
-        """One stack's bucketed prefill of ``ids`` (1, bucket), its K/V
-        rows scattered into ``pools`` at ``pages`` → the hidden rows.
-        Pad rows land in the pages too: the causal mask hides them from
-        every real query, and each decode step writes position p before
-        any read can reach it. On the int8 pool the float rows are
-        quantized once, one scale a position, and the payloads and
-        scales go through the same page ids."""
-        x = _embed_prompt(stack["stem"], stack["pos_emb"], ids)
-        x, caches = _prefill_blocks(stack["blocks"], x, bucket, params)
-        for (ck, cv), pool in zip(caches, pools):
-            if len(pool) == 4:
-                for rows, pool_q, pool_s in ((ck, pool[0], pool[2]),
-                                             (cv, pool[1], pool[3])):
-                    q, scale = quantize_rows_int8(rows[0])
-                    self._scatter_prompt(pool_q, q, pages)
-                    self._scatter_prompt(pool_s, scale, pages)
-            else:
-                self._scatter_prompt(pool[0], ck[0], pages)
-                self._scatter_prompt(pool[1], cv[0], pages)
+    def _prefill_into(self, pools, rows, pages) -> None:
+        """Scatter a bucketed prefill's rows (``nn/sampling.prefill_rows``:
+        per block its K and V, or on the int8 pool their payloads and
+        scales, quantized once, one scale a position) into ``pools`` at
+        ``pages``. Pad rows land in the pages too: the causal mask hides
+        them from every real query, and each decode step writes position
+        p before any read can reach it."""
+        for pool, block_rows in zip(pools, rows):
+            for target, new in zip(pool, block_rows):
+                self._scatter_prompt(target, new, pages)
         inc("veles_serving_prefill_dispatches_total")
-        return x
 
     def _admit(self, slot) -> None:
         t_p, bucket = slot.t_p, slot.bucket
@@ -937,15 +1114,16 @@ class ContinuousEngine(ResumePlane, Logger):
                   t_p=t_p, mode=slot.mode,
                   request_id=ticket.request_id, trace_id=ticket.trace_id,
                   attempt=ticket.attempt):
-            x = self._prefill_into(self.stack, self._caches, ids, bucket,
-                                   pages, self._params)
+            last = torch.full((1,), t_p - 1, dtype=torch.int64,
+                              device=self.device)
+            logits, rows = self._program(("prefill", bucket))(
+                self._tree, ids, last)
+            self._prefill_into(self._caches, rows, pages)
             if slot.mode == "speculative":
-                self._prefill_into(self.draft_stack, self._draft_caches,
-                                   ids, bucket, pages)
+                _, rows = prefill_rows(self.draft_stack, None, ids, last)
+                self._prefill_into(self._draft_caches, rows, pages)
                 self.draft_prefills_by_bucket[bucket] = \
                     self.draft_prefills_by_bucket.get(bucket, 0) + 1
-            logits = _head_logits(self.stack["head"], x[:, t_p - 1],
-                                  self._params)
             if group is not None:
                 scores, cur, finished = _expand_first(
                     logits[0], self.beam_width,
@@ -1038,23 +1216,24 @@ class ContinuousEngine(ResumePlane, Logger):
                 torch.as_tensor(pos % self.page_size, device=self.device))
 
     def _step_logits(self, stack, pools, tok, pos, mask, tables,
-                     params=None):
+                     params=None, program=None):
         """One position of every row through ``stack`` over its paged
-        ``pools`` → (S, V) logits: each masked-in row writes its new K/V
-        at ``pos`` and reads its own pages (the decode step, a draft
-        step of the speculative round, the beam step). ``params``
-        overrides the layers' own (the int8 twin's views)."""
-        targets = self._row_targets(pos, mask)
-        x = _embed_rows(stack["stem"], stack["pos_emb"], tok, pos)
-        for blk, pool in zip(stack["blocks"], pools):
-            p = None if params is None else params[blk.name]
-            if len(pool) == 4:
-                x = _block_step_rows_int8(blk, x, pool, tables, pos,
-                                          targets, p)
-            else:
-                x = _block_step_rows(blk, x, pool[0], pool[1], tables, pos,
-                                     targets, p)
-        return _head_logits(stack["head"], x[:, 0], params)
+        ``pools`` → (S, V) logits: each row reads its own pages, and each
+        masked-in row's new K/V is then written at ``pos`` (masked rows
+        write the sink page) — the decode step (through ``program``, the
+        step program of ``_tree``), a draft step of the speculative
+        round, the beam step. ``params`` overrides the layers' own (the
+        int8 twin's views)."""
+        pos_t = torch.as_tensor(pos, device=self.device)
+        if program is not None:
+            logits, new = program(self._tree, tok, pos_t, tables, pools)
+        else:
+            logits, new = step_rows(stack, params, tok, pos_t, tables, pools)
+        page, off = self._row_targets(pos, mask)
+        for pool, rows in zip(pools, new):
+            for target, row in zip(pool, rows):
+                target[page, off] = row
+        return logits
 
     def _mask(self, slots) -> numpy.ndarray:
         mask = numpy.zeros(self.max_slots, bool)
@@ -1081,9 +1260,9 @@ class ContinuousEngine(ResumePlane, Logger):
         with span("serving.decode_step", active=len(active),
                   chunk=self.decode_block):
             for _ in range(self.decode_block):
-                logits = self._step_logits(self.stack, self._caches, tok,
-                                           pos, mask, tables,
-                                           self._params)        # (S, V)
+                logits = self._step_logits(
+                    self.stack, self._caches, tok, pos, mask, tables,
+                    program=self._program(("step", None)))      # (S, V)
                 nxt = torch.argmax(logits, dim=-1)
                 for slot in sampled:
                     nxt[slot.idx] = _draw(logits[slot.idx],

@@ -53,8 +53,16 @@ chunks aligned to the same boundaries and at the same
 :data:`LANE_ROWS` rows, so a restored row holds the cold scan's bits.
 A resumed row's rebuild adopts a matched snapshot the same way.
 
-Not ported yet: the serve artifact (ROADMAP Queue 1 item 7.3); asking
-for it raises :class:`VelesError`.
+The serve artifact (``artifact``, ``export/serve_artifact.py``): the
+chunk scan and the 8-row decode tile are tensor functions of (parameter
+tree, ids or tokens, lengths or the live mask, the tile's state rows)
+(:class:`ScanProgram`, :class:`TileStepProgram`), which return the new
+state rows for the engine to write back. Live, the lane calls them as
+they are; with an artifact it loads their ``torch.export`` programs
+(``rscan``, ``rstep``) at :meth:`RecurrentEngine.start`, at the same
+:data:`LANE_ROWS` rows, so a row's bits stay those of the live lane. A
+bad artifact is a counted warning and live serving, as on the paged
+engine.
 """
 
 from __future__ import annotations
@@ -71,14 +79,15 @@ from ..backends import device_for
 from ..config import root
 from ..error import VelesError
 from ..logger import Logger
-from ..nn.sampling import (_draw, _embed_ids, _head_logits,
-                           advanced_generator, params_of)
+from ..nn.sampling import (_draw, _head_logits, advanced_generator,
+                           params_of)
 from ..nn.ssm import RecurrentCell, mask_keep
-from ..nn.transformer import Embedding, LMHead
+from ..nn.transformer import Embedding, LMHead, embed
 from ..resilience.faults import FaultInjected, fire as fire_fault
 from ..telemetry.counters import inc
 from ..telemetry.spans import span
-from .engine import _STEP_MODES, _TEMP_EPS, ResumePlane, _layers_of
+from .engine import (_STEP_MODES, _TEMP_EPS, ArtifactPlane, ResumePlane,
+                     _layers_of, dtype_name, tree_spec)
 from .overload import clear_pressure_provider, set_pressure_provider
 from .pages import StateCache
 from .scheduler import SlotScheduler, Ticket, shed_expired
@@ -86,8 +95,59 @@ from .scheduler import SlotScheduler, Ticket, shed_expired
 #: rows of every product the lane runs (see the module's docstring)
 LANE_ROWS = 8
 
-#: the ROADMAP Queue 1 item of each lane knob not ported yet
-_NOT_PORTED = {"artifact": "7.3"}
+
+def scan_chunk(stack, params, ids, length, last, states):
+    """One chunk of the prefill scan as a tensor function: ids
+    (LANE_ROWS, C) through every layer's length-masked scan from the
+    tile's ``states`` (a dict of (LANE_ROWS, ...) leaves a layer) →
+    ``(logits (LANE_ROWS, V) at column ``last`` (a (1,) tensor), [new
+    state leaves a layer])``. Rows past their ``length`` keep their
+    state; nothing is written."""
+    x = embed(params[stack["stem"].name]["table"], ids)
+    new_states = []
+    for blk, st in zip(stack["blocks"], states):
+        x, new = blk.scan_state(params[blk.name], x, st, length=length)
+        new_states.append(new)
+    logits = _head_logits(stack["head"], x.index_select(1, last)[:, 0],
+                          params)
+    return logits, new_states
+
+
+def step_tile(stack, params, tok, live, states):
+    """One decode step of one tile as a tensor function: every layer's
+    step body over its LANE_ROWS rows → ``(logits (LANE_ROWS, V), [new
+    state leaves a layer])``, a row not in ``live`` keeping its state
+    bit for bit; nothing is written."""
+    x = embed(params[stack["stem"].name]["table"], tok)
+    new_states = []
+    for blk, old in zip(stack["blocks"], states):
+        x, new = blk.step_state(params[blk.name], x, old)
+        new_states.append({k: mask_keep(live, v, old[k])
+                           for k, v in new.items()})
+    return _head_logits(stack["head"], x, params), new_states
+
+
+class ScanProgram(torch.nn.Module):
+    """:func:`scan_chunk` as a program, ``(tree, ids, length, last,
+    states)``; every parameter comes from ``tree``."""
+
+    def __init__(self, stack) -> None:
+        super().__init__()
+        self._stack = stack
+
+    def forward(self, tree, ids, length, last, states):
+        return scan_chunk(self._stack, tree, ids, length, last, states)
+
+
+class TileStepProgram(torch.nn.Module):
+    """:func:`step_tile` as a program, ``(tree, tok, live, states)``."""
+
+    def __init__(self, stack) -> None:
+        super().__init__()
+        self._stack = stack
+
+    def forward(self, tree, tok, live, states):
+        return step_tile(self._stack, tree, tok, live, states)
 
 
 def split_recurrent_stack(forwards) -> Dict:
@@ -108,7 +168,7 @@ def split_recurrent_stack(forwards) -> Dict:
     return {"stem": units[0], "blocks": units[1:-1], "head": units[-1]}
 
 
-class RecurrentEngine(ResumePlane, Logger):
+class RecurrentEngine(ResumePlane, ArtifactPlane, Logger):
     """In-flight batching over a persistent fixed-size state pool.
 
     ``wf`` is a recurrent generation stack (``Embedding`` → LSTM / RNN /
@@ -128,11 +188,6 @@ class RecurrentEngine(ResumePlane, Logger):
                  name: str = "serving") -> None:
         super().__init__()
         cfg = root.common.serving
-        if artifact:
-            raise VelesError(
-                "serving knob artifact=%r is not ported yet (ROADMAP Queue "
-                "1 item %s, the O(1)-state lane)"
-                % (artifact, _NOT_PORTED["artifact"]))
         self.name = name
         self.stack = split_recurrent_stack(_layers_of(wf))
         stack_device = self.stack["stem"].table.device
@@ -167,6 +222,14 @@ class RecurrentEngine(ResumePlane, Logger):
         self._gens: List[Optional[torch.Generator]] = [None] * self.rows
         self._thread: Optional[threading.Thread] = None
         self._closing = False
+        #: the AOT serve artifact, loaded at start(): its rscan and rstep
+        #: programs replace the live ones by key
+        self.artifact = str(cfg.get("artifact", "") or ""
+                            if artifact is None else artifact)
+        self._programs: Dict = {("scan", None): ScanProgram(self.stack),
+                                ("step", None): TileStepProgram(self.stack)}
+        #: calls of each program by its artifact label (rscan, rstep)
+        self.program_calls: Dict[str, int] = {}
         self.admitted = 0
         self.retired = 0
         self.peak_slots = 0
@@ -189,6 +252,8 @@ class RecurrentEngine(ResumePlane, Logger):
     def start(self) -> "RecurrentEngine":
         if self._thread is not None:
             return self
+        if self.artifact and not self.artifact_mode:
+            self._load_artifact()
         self._closing = False
         if self.qos:
             set_pressure_provider(self._pressure_fn)
@@ -198,12 +263,52 @@ class RecurrentEngine(ResumePlane, Logger):
         from . import register_engine
         register_engine(self)
         self.info("%s: O(1)-state serving up (slots=%d max_context=%d "
-                  "decode_block=%d chunk=%d qos=%s%s, %s)", self.name,
+                  "decode_block=%d chunk=%d qos=%s%s%s, %s)", self.name,
                   self.max_slots, self.max_context, self.decode_block,
                   self.page_size, self.qos,
                   " +state_cache" if self.state_cache is not None else "",
-                  self.device)
+                  " +artifact" if self.artifact_mode else "", self.device)
         return self
+
+    # -- programs and the serve artifact -------------------------------------
+    def _program(self, key):
+        """The program of ``key`` (``("scan", None)`` or ``("step",
+        None)``), the artifact's where one was loaded; each call tallied
+        by its label (rscan, rstep)."""
+        label = "r" + key[0]
+        self.program_calls[label] = self.program_calls.get(label, 0) + 1
+        return self._programs[key]
+
+    def _tree(self) -> Dict:
+        """The programs' parameter tree: the stem's, every layer's and
+        the head's own tensors."""
+        layers = [self.stack["stem"]] + self.stack["blocks"] + [
+            self.stack["head"]]
+        return {name: {k: t.detach() for k, t in tree.items()}
+                for name, tree in params_of(layers).items()}
+
+    def stack_signature(self) -> Dict:
+        """What the lane's exported programs are committed to: the
+        parameter tree's shapes and dtypes, every layer's state leaves
+        at one tile, the knobs the programs bake in (the reference's
+        keys, and the tile's :data:`LANE_ROWS`) and the device type they
+        were traced on."""
+        params = self._tree()
+        return {
+            "kind": "recurrent",
+            "params": tree_spec(params),
+            "states": [{k: list(shape) for k, shape
+                        in sorted(blk.state_shapes(LANE_ROWS).items())}
+                       for blk in self.stack["blocks"]],
+            "pool_dtype": dtype_name(self.stack["stem"].table.dtype),
+            "max_slots": self.max_slots,
+            "max_context": self.max_context,
+            "decode_block": self.decode_block,
+            "page_size": self.page_size,
+            "state_cache": self.state_cache is not None,
+            "lane_rows": LANE_ROWS,
+            "device": self.device.type,
+        }
 
     def stop(self) -> None:
         with self.scheduler.cv:
@@ -323,6 +428,8 @@ class RecurrentEngine(ResumePlane, Logger):
             # lane reports them 0 too)
             "quant_weights": 0,
             "quant_kv": 0,
+            "artifact_mode": int(self.artifact_mode),
+            "program_calls": dict(self.program_calls),
             "qos": int(self.qos),
             "preemptions": self.preemptions,
             "preempted_tokens": self.preempted_tokens,
@@ -362,7 +469,7 @@ class RecurrentEngine(ResumePlane, Logger):
         if self._step_boundary():
             return
         self._ensure_pool()
-        params = params_of(self.stack["blocks"] + [self.stack["head"]])
+        params = self._tree()
         if self.qos:
             self._preempt_for_interactive()
         admissions, expired = self.scheduler.take_admissions()
@@ -402,19 +509,18 @@ class RecurrentEngine(ResumePlane, Logger):
         return slice(t0, t0 + LANE_ROWS)
 
     # -- admission: the chunk scan --------------------------------------------
-    def _scan_chunk(self, params, tile: slice, ids, length):
-        """The prefill program: a length-masked scan of every layer's step
-        body over one chunk of the tile's rows, ids (LANE_ROWS, C); the
-        tile's state rows are read and written back. Returns the last
-        layer's output (LANE_ROWS, C, D)."""
-        x = _embed_ids(self.stack["stem"], ids)
-        for blk, st in zip(self.stack["blocks"], self._states):
-            x, new = blk.scan_state(params[blk.name], x,
-                                    {k: v[tile] for k, v in st.items()},
-                                    length=length)
+    def _scan_chunk(self, params, tile: slice, ids, length, last):
+        """One chunk of the prefill through the scan program: a
+        length-masked scan of every layer's step body over the tile's
+        rows, ids (LANE_ROWS, C); the new state rows are written back
+        into the tile. Returns the tile's logits at column ``last``."""
+        logits, new_states = self._program(("scan", None))(
+            params, ids, length, last,
+            [{k: v[tile] for k, v in st.items()} for st in self._states])
+        for st, new in zip(self._states, new_states):
             for k, v in new.items():
                 st[k][tile] = v
-        return x
+        return logits
 
     def _restore(self, prompt, t_p: int):
         """The cache's deepest snapshot over ``prompt[:t_p - 1]`` (at
@@ -480,8 +586,10 @@ class RecurrentEngine(ResumePlane, Logger):
                 ids[r, :n_real] = torch.as_tensor(prompt[p0:p0 + n_real])
                 length = torch.zeros(LANE_ROWS, dtype=torch.int64)
                 length[r] = n_real
-                x = self._scan_chunk(params, tile, ids.to(self.device),
-                                     length.to(self.device))
+                last = torch.full((1,), n_real - 1, dtype=torch.int64)
+                logits = self._scan_chunk(params, tile, ids.to(self.device),
+                                          length.to(self.device),
+                                          last.to(self.device))
                 inc("veles_serving_prefill_dispatches_total")
                 inc("veles_decode_dispatches_total")
                 self.chunk_dispatches += 1
@@ -496,8 +604,7 @@ class RecurrentEngine(ResumePlane, Logger):
                     break
             # the tile's rows at their last real position, as a decode
             # step holds them: the head's product runs at LANE_ROWS rows
-            logits = _head_logits(self.stack["head"],
-                                  x[:, n_real - 1].contiguous())[r]
+            logits = logits[r]
             if slot.temperature > 0:
                 # a resumed row re-enters its stream after resume_k draws
                 gen = advanced_generator(
@@ -555,13 +662,12 @@ class RecurrentEngine(ResumePlane, Logger):
         LANE_ROWS rows, the state of rows not in ``live`` kept as it
         was; returns the tile's next tokens (a row not live keeps its
         token)."""
-        x = _embed_ids(self.stack["stem"], tok)
-        for blk, st in zip(self.stack["blocks"], self._states):
-            old = {k: v[tile] for k, v in st.items()}
-            x, new = blk.step_state(params[blk.name], x, old)
+        logits, new_states = self._program(("step", None))(
+            params, tok, live,
+            [{k: v[tile] for k, v in st.items()} for st in self._states])
+        for st, new in zip(self._states, new_states):
             for k, v in new.items():
-                st[k][tile] = mask_keep(live, v, old[k])
-        logits = _head_logits(self.stack["head"], x)
+                st[k][tile] = v
         nxt = torch.argmax(logits, dim=-1)
         for slot in sampled:
             r = slot.idx - tile.start

@@ -121,8 +121,10 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_trace_span_pulls_total":
         "Span-ring pulls served over GET /trace/spans (router + "
         "serving APIs; the fleet trace assembler's read path)",
-    # int8 serving (quant/, the reference's names and HELP strings);
-    # all 0 in a quant-off run, the artifact ones until item 4.5
+    # int8 serving (quant/) and the serve artifact
+    # (export/serve_artifact.py), the reference's names and HELP
+    # strings; the quant ones 0 in a quant-off run, the artifact ones
+    # without --serve-artifact
     "veles_quant_params_total":
         "Parameter tensors quantized to int8 (per-channel symmetric)",
     "veles_quant_bytes_saved_total":

@@ -52,6 +52,8 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 #: the host-side marker :func:`measure` records at a known host time:
 #: its CPU event in the capture puts the span clock on the trace clock
 ANCHOR = "veles_tpu_torch.devtime.anchor"
+#: anchors a capture records; the clocks meet at the tightest
+ANCHORS = 3
 
 #: max allowed growth of device_time_per_epoch between two bench
 #: documents — the device-time gate's noise tolerance, the reference's
@@ -285,17 +287,27 @@ def attribute_spans(events: Iterable[Dict[str, Any]],
 
 # -- capture ------------------------------------------------------------------
 
-def _anchor_offset_us(events: List[Dict[str, Any]], h0: float,
-                      h1: float) -> Optional[float]:
-    """``trace_us − host_epoch_s·1e6`` from the :data:`ANCHOR` event,
-    which the profiler recorded between host times ``h0`` and ``h1``:
-    the midpoints of the two intervals are one instant, to within half
-    their widths (tens of µs). None when the capture lacks the event."""
-    for ev in events:
-        if ev.get("ph") == "X" and ev.get("name") == ANCHOR:
-            mid = float(ev["ts"]) + float(ev.get("dur", 0.0)) / 2
-            return mid - (h0 + h1) / 2 * 1e6
-    return None
+def _anchor_offset_us(events: List[Dict[str, Any]], h0,
+                      h1: Optional[float] = None) -> Optional[float]:
+    """``trace_us − host_epoch_s·1e6`` from the :data:`ANCHOR` events,
+    each recorded between two host clock reads: ``h0`` and ``h1`` for one
+    anchor, or ``h0`` a sequence of ``(h0, h1)`` brackets, one an anchor
+    in recording order. An event's midpoint and its bracket's are one
+    instant, to within half the bracket's slack over the event's length;
+    the anchor with the least slack is used, since a host stall between
+    an anchor and its clock read (a collection, a thread switch) widens
+    that anchor's bracket only. None when the capture lacks the events."""
+    brackets = [(h0, h1)] if h1 is not None else list(h0)
+    anchors = sorted((ev for ev in events if ev.get("ph") == "X"
+                      and ev.get("name") == ANCHOR),
+                     key=lambda ev: float(ev["ts"]))
+    best = None
+    for ev, (a, b) in zip(anchors, brackets):
+        dur = float(ev.get("dur", 0.0))
+        slack = (b - a) * 1e6 - dur
+        if best is None or slack < best[0]:
+            best = (slack, float(ev["ts"]) + dur / 2 - (a + b) / 2 * 1e6)
+    return None if best is None else best[1]
 
 
 def _by_kernel(events: List[Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
@@ -329,9 +341,9 @@ def measure(fn: Callable[[], Any], sync: Optional[Callable[[], Any]] = None,
     (``by_kernel``: events and summed seconds), and attributed onto the
     telemetry spans that closed in the window (``span_records``;
     default: the global span recorder's records from the window) under
-    ``spans``. The two clocks meet at :data:`ANCHOR`, a marker recorded
-    between two host clock reads inside the capture (``clock:
-    "anchor"``); a capture without it falls back to the reference's
+    ``spans``. The two clocks meet at :data:`ANCHOR`, markers recorded
+    between two host clock reads each inside the capture, the tightest of
+    :data:`ANCHORS` (``clock: "anchor"``); a capture without it falls back to the reference's
     earliest-event estimate (``clock: "estimated"``). A capture that
     holds no device event raises :class:`~veles_tpu_torch.error.
     VelesError`: nothing on the card falls back to host time.
@@ -363,10 +375,12 @@ def measure(fn: Callable[[], Any], sync: Optional[Callable[[], Any]] = None,
     t_epoch0 = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        h0 = time.time()
-        with record_function(ANCHOR):
-            pass
-        h1 = time.time()
+        brackets = []
+        for _ in range(ANCHORS):
+            h0 = time.time()
+            with record_function(ANCHOR):
+                pass
+            brackets.append((h0, time.time()))
         t0 = time.time()
         for _ in range(calls):
             fn()
@@ -392,7 +406,7 @@ def measure(fn: Callable[[], Any], sync: Optional[Callable[[], Any]] = None,
            "idle_share": 1.0 - parsed["device_time_s"] / wall,
            "source": "profiler", "by_stream": parsed["by_stream"],
            "by_kernel": _by_kernel(events)}
-    offset = _anchor_offset_us(events, h0, h1)
+    offset = _anchor_offset_us(events, brackets)
     out["clock"] = "anchor" if offset is not None else "estimated"
     if span_records is None:
         from .spans import recorder as _span_recorder
