@@ -586,6 +586,37 @@ Phases, each printing one JSON line (``{"phase": ...}``):
              process and on each rank, the all-reduce ms, the staged and
              gathered bytes and the backend.
 
+39. elastic_linalg — elastic training, trials and the blocked linear
+             algebra (after phase 38): (a) the bench LM (seed 77, 6
+             RoPE blocks, d 512, mb 16, adam) on 256 / 128 rows for 3
+             epochs with an uncompressed Snapshotter at every epoch,
+             straight and under ``--elastic``'s controller with
+             ``distributed.host_loss:raise`` at epoch 2's train
+             dispatch: 2 generations, the counters, no host beat left,
+             the cursor at world 1, the final ``__units__`` and
+             ``__prng__`` trees equal bit for bit (a second straight
+             run names the largest difference if not), flash launches
+             the straight run's + 6 × epoch 2's 8 replayed validation
+             steps; (b) MNIST (BASELINE #1) through the fused-FC
+             kernel, 4 epochs at two a dispatch (the kernel trains
+             epoch blocks), the host lost at dispatch 2: the same bits,
+             4 launches; (c) the reference's
+             drill as ``--mesh data=2 --elastic`` CLI processes
+             sharing the card under gloo, spawned by the Supervisor,
+             rank 1 crashing at epoch 2's train dispatch: rank 0 exits
+             43, 1 lost and 1 restart, a world of 1 respawned with
+             ``VELES_ELASTIC_GENERATION=2`` resuming from the chain,
+             its weights within ``tests/test_dp_equivalence.py``'s
+             limits of a straight run; (d) ``linalg bench`` at 1×1
+             (8192³ and a 4096 Cholesky solve, alone), 1×2 (two ranks,
+             4096³, 2048) and float64 1×1 (2048³): each within
+             100·eps of its dtype of float64 numpy, exit 0; (e)
+             ``linalg solve`` plain at n 256 and 128 and preconditioned
+             at n 128: converged, the verified residual <= 1e-4, fewer
+             iterations with the multigrid; (f) trials placed by
+             ``mesh_slice_placement(1, total_devices=1)`` see the one
+             card, a second slot raises, ``cpu_placement`` sees none.
+
 ``profiled`` (the breakdown phases' profiler window) reads the capture
 through ``telemetry.devtime.measure``: ``device_busy_ms`` is the union
 of each stream's kernel, memcpy and memset intervals, summed over the
@@ -595,9 +626,10 @@ Then the card's line, the kernels line (``{"kernels": [...]}``; the
 flash kernels' AMP instances as entries of their own, each with its
 launches in the AMP epochs; the fused-FC kernel's launches in ``train``
 and, under ``launches_by_path``, in ``snapshot``, ``telemetry`` and
-``cli``, ``train_library``, ``rest_serving``, ``quant_serving`` and
-``export`` too; the flash kernels' f32 entries count ``cli``,
-``train_text`` and ``distributed`` (rank 0's) too, the forward's ``serve_spec_beam``,
+``cli``, ``train_library``, ``rest_serving``, ``quant_serving``,
+``export`` and ``elastic_linalg`` too; the flash kernels' f32 entries count ``cli``,
+``train_text``, ``distributed`` (rank 0's) and ``elastic_linalg`` too,
+the forward's ``serve_spec_beam``,
 ``serve_qos_handoff``, ``quant_serving`` and ``export`` too) and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and the run exits non-zero without the last line; without a card
@@ -9297,6 +9329,614 @@ def phase_distributed(card):
             for k in ("fwd", "dkv", "dq")}
 
 
+# -- phase 39: elastic training, trials, blocked linear algebra --------------
+
+#: (a): the bench LM's rows and epochs under the elastic plane
+EL_LM_ROWS = (256, 128)
+EL_LM_EPOCHS = 3
+#: (b): MNIST's epochs, two a dispatch (the fused-FC kernel trains an
+#: epoch block; at one epoch a dispatch the general path runs), and the
+#: dispatch the host is lost at
+EL_MNIST_EPOCHS = 4
+EL_MNIST_PER_DISPATCH = 2
+EL_MNIST_LOST_AT = 2
+#: (c): the drill's epochs, the dispatch rank 1 crashes at (epoch 2's
+#: train dispatch) and the Supervisor's reap grace
+EL_DRILL_EPOCHS = 4
+EL_DRILL_CRASH_AFTER = 3
+EL_REAP_TIMEOUT = 30.0
+#: (d): ``linalg bench`` runs: (label, processes, argv)
+LINALG_BENCH = (
+    ("1x1_f32", 1, ["--m", "8192", "--k", "8192", "--n", "8192",
+                    "--cholesky", "4096"]),
+    ("1x2_f32", 2, ["--m", "4096", "--k", "4096", "--n", "4096",
+                    "--cholesky", "2048", "--grid", "1x2"]),
+    ("1x1_f64", 1, ["--m", "2048", "--k", "2048", "--n", "2048",
+                    "--cholesky", "2048", "--dtype", "float64"]),
+)
+#: (e): ``linalg solve`` runs: (label, argv)
+LINALG_SOLVE = (
+    ("cg_n256", ["--n", "256", "--max-iters", "3000"]),
+    ("cg_n128", ["--n", "128", "--max-iters", "3000"]),
+    ("pcg_n128", ["--n", "128", "--precondition"]),
+)
+TOL_SOLVE_TRUE_RESIDUAL = 1e-4
+LINALG_TIMEOUT = 300
+
+#: the drill's model file (tests/test_elastic.py's: blobs 120 × 8,
+#: all2all_tanh 8 → softmax 3, mb 24), snapshots into SNAPDIR
+EL_DRILL_MODEL = """
+import numpy
+from veles_tpu_torch.loader import FullBatchLoader
+from veles_tpu_torch.nn.standard_workflow import StandardWorkflow
+from veles_tpu_torch.snapshotter import Snapshotter
+
+SNAPDIR = %r
+EPOCHS = %d
+
+
+class Blobs(FullBatchLoader):
+    hide_from_registry = True
+
+    def load_data(self):
+        rng = numpy.random.RandomState(3)
+        centers = rng.randn(3, 8) * 3
+        y = rng.randint(0, 3, 120).astype(numpy.int32)
+        x = (centers[y] + rng.randn(120, 8)).astype(numpy.float32)
+        self.create_originals(x, y)
+        self.class_lengths = [0, 24, 96]
+
+
+def build_workflow():
+    snap = Snapshotter(None, prefix="esup", directory=SNAPDIR, interval=1,
+                       compression="")
+    return StandardWorkflow(
+        name="esup",
+        layers=[{"type": "all2all_tanh", "output_sample_shape": 8},
+                {"type": "softmax", "output_sample_shape": 3}],
+        loader_unit=Blobs(None, minibatch_size=24, name="l"),
+        loss_function="softmax",
+        decision_config=dict(max_epochs=EPOCHS, fail_iterations=100),
+        snapshotter_unit=snap)
+"""
+
+
+def expect_launches(what, got, want):
+    """Raise unless the hand-written kernels' launch counts ``got`` equal
+    ``want``."""
+    if got != want:
+        raise AssertionError("%s: kernel launches %s, want %s"
+                             % (what, got, want))
+
+
+def tree_diff(a, b, path="root"):
+    """(largest absolute difference, its path) between two snapshot
+    trees; an entry that differs in kind or length counts as inf."""
+    import numpy
+    if isinstance(a, dict) and isinstance(b, dict):
+        if sorted(a) != sorted(b):
+            return float("inf"), path + " (keys)"
+        return max((tree_diff(a[k], b[k], "%s.%s" % (path, k)) for k in a),
+                   default=(0.0, path))
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return float("inf"), path + " (length)"
+        return max((tree_diff(x, y, "%s[%d]" % (path, i))
+                    for i, (x, y) in enumerate(zip(a, b))),
+                   default=(0.0, path))
+    if isinstance(a, numpy.ndarray) and isinstance(b, numpy.ndarray):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float("inf"), path + " (shape/dtype)"
+        if numpy.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            return 0.0, path
+        if a.dtype.kind not in "fc":
+            return float("inf"), path
+        return float(numpy.nanmax(numpy.abs(a.astype(numpy.float64)
+                                            - b.astype(numpy.float64)))), \
+            path
+    return (0.0 if a == b else float("inf")), path
+
+
+def elastic_pair(build, tmp, name, spec, launch_counts,
+                 modes=("straight", "elastic")):
+    """``build(snapdir)`` run straight and then under the elastic plane
+    with ``spec`` armed, both through a ``Launcher`` on the card from one
+    seed: each run's record (results, wall s, launches, dispatches, the
+    final snapshot's state and cursor, the elastic counters, the host
+    beats left and the gauges)."""
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.resilience import checkpoint_chain, elastic, faults
+    from veles_tpu_torch.resilience.health import heartbeats
+    from veles_tpu_torch.telemetry import counters
+    runs = {}
+    for mode in modes:
+        snapdir = os.path.join(tmp, "%s_%s" % (name, mode))
+        os.makedirs(snapdir)
+        root.common.resilience.elastic.enabled = mode == "elastic"
+        if mode == "elastic":
+            os.environ["VELES_FAULTS"] = spec
+        faults.plane.configure()
+        try:
+            launcher = Launcher(random_seed=SEED)
+            wf = build(snapdir)
+            launcher.initialize(wf)
+            torch.cuda.synchronize()
+            counters.counters.reset()
+            t0 = time.perf_counter()
+            results = (launcher.run_elastic() if mode == "elastic"
+                       else launcher.run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("VELES_FAULTS", None)
+            faults.plane.configure()
+            root.common.resilience.elastic.enabled = False
+        path, state = checkpoint_chain.load_latest(
+            snapdir, wf.snapshotter.prefix)
+        runs[mode] = dict(
+            results=results, wall_s=wall, launches=launch_counts(),
+            dispatches=int(wf.train_step.run_count), state=state,
+            fused_fc_active=bool(wf.train_step._fused_fc_active),
+            cursor=checkpoint_chain.cursor_of(path),
+            counters={k: counters.get(k) for k in elastic.ELASTIC_COUNTERS},
+            host_beats=sorted(n for n in heartbeats.status()
+                              if n.startswith(elastic.HOST_BEAT_PREFIX)),
+            gauges={k: v[0] for k, v in elastic.gauges().items()})
+        del wf, launcher
+        gc.collect()
+    elastic._set_state(enabled=False)
+    return runs
+
+
+def check_elastic_pair(what, runs, rerun=None):
+    """The elastic run's checks: two generations, the counters, no host
+    beat left, the cursor, and its final ``__units__`` and ``__prng__``
+    trees equal to the straight run's bit for bit. When they differ,
+    ``rerun()`` (a second straight run) tells whether the straight run
+    repeats at all, and the largest difference is printed first."""
+    el, st = runs["elastic"], runs["straight"]
+    c = el["counters"]
+    checks = {
+        "generations_2": el["results"].get("elastic_generations") == 2,
+        "generations_counter_2":
+            c["veles_elastic_generations_total"] == 2,
+        "preemptions_1": c["veles_elastic_preemptions_total"] == 1,
+        "reshard_s_positive": c["veles_elastic_reshard_seconds_total"] > 0,
+        "no_host_beat": not el["host_beats"],
+        "cursor_world_1": el["cursor"]["world_size"] == 1,
+        "cursor_step_positive": el["cursor"]["step"] > 0,
+    }
+    diff = max(tree_diff(el["state"]["__units__"],
+                         st["state"]["__units__"], "__units__"),
+               tree_diff(el["state"]["__prng__"], st["state"]["__prng__"],
+                         "__prng__"))
+    checks["bit_identical"] = diff[0] == 0.0
+    repeat = None
+    if not checks["bit_identical"] and rerun is not None:
+        again = rerun()
+        repeat = max(tree_diff(again["__units__"],
+                               st["state"]["__units__"], "__units__"),
+                     tree_diff(again["__prng__"], st["state"]["__prng__"],
+                               "__prng__"))
+        print(json.dumps({"phase": "elastic_linalg", "part": what,
+                          "straight_runs_differ_by": repeat[0],
+                          "at": repeat[1], "elastic_differs_by": diff[0],
+                          "elastic_at": diff[1]}), flush=True)
+    return checks, diff, repeat
+
+
+def el_bench_lm(snapdir):
+    """(a)'s workflow: the bench LM from LM_SEED at full width on
+    EL_LM_ROWS, an uncompressed Snapshotter at interval 1."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.models import char_lm
+    from veles_tpu_torch.snapshotter import Snapshotter
+    prng.seed_all(LM_SEED)
+    snap = Snapshotter(None, prefix="elm", directory=snapdir, interval=1,
+                       compression="")
+    wf = char_lm.build_bench_workflow(n_train=EL_LM_ROWS[0],
+                                      n_valid=EL_LM_ROWS[1],
+                                      snapshotter_unit=snap)
+    wf.decision.max_epochs = EL_LM_EPOCHS
+    return wf
+
+
+def el_mnist(snapdir):
+    """(b)'s workflow: MNIST-784 (BASELINE #1) through the fused-FC
+    kernel, EL_MNIST_PER_DISPATCH epochs a dispatch, a Snapshotter after
+    every dispatch that improved."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.models import mnist
+    root.common.engine.fused_fc_scan = True
+    prng.seed_all(SEED)
+    return mnist.build_workflow(epochs=EL_MNIST_EPOCHS, minibatch_size=100,
+                                snapshot_dir=snapdir,
+                                epochs_per_dispatch=EL_MNIST_PER_DISPATCH)
+
+
+def elastic_lm(tmp):
+    """(a): the bench LM, host lost at epoch 2's train dispatch."""
+    from veles_tpu_torch.resilience import checkpoint_chain
+    # dispatches an epoch: one validation and one training dispatch (the
+    # bench builder trains a whole epoch in one); read from a straight
+    # run's count below and checked against this plan
+    per_epoch = 2
+    lost_after = 2 * per_epoch - 1          # epoch 2's train dispatch
+    spec = "distributed.host_loss:raise:after=%d,times=1" % lost_after
+    runs = elastic_pair(el_bench_lm, tmp, "lm", spec, flash_counts)
+    st, el = runs["straight"], runs["elastic"]
+    if st["dispatches"] != per_epoch * EL_LM_EPOCHS:
+        raise AssertionError("elastic (a): %d dispatches in %d epochs, "
+                             "planned %d an epoch" % (
+                                 st["dispatches"], EL_LM_EPOCHS, per_epoch))
+
+    def rerun():
+        again = elastic_pair(el_bench_lm, tmp, "lm_again", "", flash_counts,
+                             modes=("straight",))
+        return again["straight"]["state"]
+    checks, diff, repeat = check_elastic_pair("a", runs, rerun)
+    mb = 16
+    valid_steps = EL_LM_ROWS[1] // mb
+    # replayed: epoch 2's validation ran in generation 1 before the loss
+    # and again in generation 2; no training step ran twice
+    want = {"fwd": st["launches"]["fwd"] + 6 * valid_steps,
+            "dkv": st["launches"]["dkv"], "dq": st["launches"]["dq"]}
+    rec = dict(straight_wall_s=st["wall_s"], elastic_wall_s=el["wall_s"],
+               dispatches_straight=st["dispatches"],
+               dispatches_elastic=el["dispatches"], lost_at=lost_after + 1,
+               launches_straight=st["launches"],
+               launches_elastic=el["launches"], launches_want=want,
+               replayed_steps={"fwd": valid_steps, "train": 0},
+               counters=el["counters"], gauges=el["gauges"],
+               cursor=el["cursor"], max_abs_diff=diff[0], diff_at=diff[1],
+               straight_repeat_diff=None if repeat is None else repeat[0],
+               checks=checks)
+    del runs
+    gc.collect()
+    expect_launches("elastic (a)", el["launches"], want)
+    return rec, el["launches"]
+
+
+def elastic_mnist(tmp):
+    """(b): MNIST through the fused-FC kernel, host lost at dispatch
+    EL_MNIST_LOST_AT."""
+    spec = "distributed.host_loss:raise:after=%d,times=1" % (
+        EL_MNIST_LOST_AT - 1)
+
+    def launches():
+        from veles_tpu_torch.telemetry import counters
+        return int(counters.get("veles_fused_fc_launches_total"))
+    runs = elastic_pair(el_mnist, tmp, "mnist", spec, launches)
+    st, el = runs["straight"], runs["elastic"]
+    if st["dispatches"] != EL_MNIST_EPOCHS // EL_MNIST_PER_DISPATCH:
+        raise AssertionError("elastic (b): %d dispatches for %d epochs"
+                             % (st["dispatches"], EL_MNIST_EPOCHS))
+    checks, diff, _ = check_elastic_pair("b", runs)
+    checks["fused_fc_active"] = st["fused_fc_active"] \
+        and el["fused_fc_active"]
+    # the loss lands before dispatch EL_MNIST_LOST_AT runs and the newest
+    # snapshot ends the block before it: no epoch is replayed
+    replayed = 0
+    rec = dict(straight_wall_s=st["wall_s"], elastic_wall_s=el["wall_s"],
+               dispatches_straight=st["dispatches"],
+               dispatches_elastic=el["dispatches"],
+               lost_at=EL_MNIST_LOST_AT, launches_straight=st["launches"],
+               launches_elastic=el["launches"], replayed_epochs=replayed,
+               counters=el["counters"], cursor=el["cursor"],
+               max_abs_diff=diff[0], diff_at=diff[1], checks=checks)
+    expect_launches("elastic (b) straight", st["launches"], EL_MNIST_EPOCHS)
+    expect_launches("elastic (b)", el["launches"], EL_MNIST_EPOCHS + replayed)
+    return rec, el["launches"]
+
+
+def elastic_drill(tmp):
+    """(c): the reference's drill as ``python -m veles_tpu_torch
+    --mesh data=2 --elastic`` processes sharing the card under gloo,
+    spawned by the Supervisor; rank 1 crashes at epoch 2's train
+    dispatch. A straight one-process run of the same file runs beside
+    it."""
+    from veles_tpu_torch.resilience import checkpoint_chain, elastic
+    from veles_tpu_torch.resilience.elastic import Supervisor
+    chaos_dir = os.path.join(tmp, "drill")
+    straight_dir = os.path.join(tmp, "drill_straight")
+    files = {}
+    for tag, d in (("chaos", chaos_dir), ("straight", straight_dir)):
+        os.makedirs(d)
+        files[tag] = os.path.join(tmp, "drill_%s.py" % tag)
+        with open(files[tag], "w") as f:
+            f.write(EL_DRILL_MODEL % (d, EL_DRILL_EPOCHS))
+    straight_res = os.path.join(tmp, "drill_straight.json")
+    straight = subprocess.Popen(
+        cli_command(files["straight"], "--random-seed", "11",
+                    "--result-file", straight_res),
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dist_env())
+    chaos_res = os.path.join(tmp, "drill_chaos.json")
+    spawned, gen_s, watch = {}, {}, {}
+
+    def spawn(generation, world):
+        port = free_port()
+        procs = []
+        for rank in range(world):
+            env = dist_env()
+            env.pop("VELES_FAULTS", None)
+            if generation == 1 and rank == 1:
+                env["VELES_FAULTS"] = (
+                    "distributed.host_loss:crash:after=%d,times=1"
+                    % EL_DRILL_CRASH_AFTER)
+            dist = (["--coordinator", "127.0.0.1:%d" % port,
+                     "--num-processes", str(world), "--process-id",
+                     str(rank)] if world > 1 else [])
+            procs.append(subprocess.Popen(
+                cli_command(files["chaos"], "-v", "--random-seed", "11",
+                            "--mesh", "data=%d" % world, "--elastic",
+                            "--result-file", chaos_res, *dist),
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=env))
+        spawned[generation] = dict(world=world, procs=procs,
+                                   env=os.environ.get(elastic.GENERATION_ENV),
+                                   t0=time.perf_counter())
+        return procs
+
+    sup = Supervisor(spawn, world_size=2, min_hosts=1, max_generations=3,
+                     poll_interval=0.1, reap_timeout=EL_REAP_TIMEOUT)
+    inner_watch, inner_reap = sup._watch, sup._reap
+
+    def timed_watch(procs):
+        out = inner_watch(procs)
+        gen = sup.generation
+        gen_s[gen] = time.perf_counter() - spawned[gen]["t0"]
+        watch[gen] = out
+        return out
+
+    def timed_reap(procs):
+        t0 = time.perf_counter()
+        out = inner_reap(procs)
+        watch["reap_wait_s"] = time.perf_counter() - t0
+        watch["reaped"] = sorted(out)
+        return out
+    sup._watch, sup._reap = timed_watch, timed_reap
+    final = sup.run()
+    logs = {g: [p.communicate(timeout=60)[0] for p in s["procs"]]
+            for g, s in spawned.items()}
+    codes = {g: [p.returncode for p in s["procs"]]
+             for g, s in spawned.items()}
+    wait_all([straight], DIST_WORLD_TIMEOUT, "elastic (c) straight run")
+    import numpy
+    chaos_state = checkpoint_chain.load_latest(chaos_dir, "esup")[1]
+    straight_state = checkpoint_chain.load_latest(straight_dir, "esup")[1]
+    w_ok, w_max = True, 0.0
+    for unit, sd in straight_state["__units__"].items():
+        for key, want in sd.items():
+            if isinstance(want, numpy.ndarray) and want.dtype.kind == "f" \
+                    and unit in chaos_state["__units__"] \
+                    and unit.startswith(("all2all", "softmax")):
+                got = chaos_state["__units__"][unit][key]
+                w_max = max(w_max, float(numpy.abs(got - want).max()))
+                w_ok &= bool(numpy.allclose(got, want, rtol=TOL_DIST_RTOL,
+                                            atol=TOL_DIST_ATOL))
+    with open(chaos_res) as f:
+        chaos_doc = json.load(f)
+    with open(straight_res) as f:
+        straight_doc = json.load(f)
+    errs = {cls: (cifar_history(chaos_doc)[cls][-1],
+                  cifar_history(straight_doc)[cls][-1])
+            for cls in ("train", "validation")}
+    _, cur = checkpoint_chain.latest_cursor(chaos_dir, "esup")
+    resumed = ("auto-resumed from latest snapshot" in logs.get(2, [""])[0]
+               and "generation 2 resumes from" in logs.get(2, [""])[0])
+    checks = {
+        "final_generation_2": final == 2,
+        "gen1_codes": codes.get(1) == [43, 42],
+        "lost_1_restart_1": watch.get(1) == (1, 1),
+        "respawned_world_1": spawned.get(2, {}).get("world") == 1,
+        "respawned_env_2": spawned.get(2, {}).get("env") == "2",
+        "gen2_exit_0": codes.get(2) == [0],
+        "resumed_from_chain": resumed,
+        "cursor_world_1": cur["world_size"] == 1,
+        "weights_within_dp_limits": w_ok,
+        "train_err_within": abs(errs["train"][0] - errs["train"][1])
+        <= TOL_DIST_TRAIN_ERR,
+        "valid_err_within": abs(errs["validation"][0]
+                                - errs["validation"][1])
+        <= TOL_DIST_VALID_ERR,
+    }
+    rec = dict(generation_s={str(g): s for g, s in gen_s.items()},
+               reap_wait_s=watch.get("reap_wait_s"),
+               reaped=watch.get("reaped"), codes=codes,
+               watch={str(g): watch[g] for g in gen_s},
+               final_generation=final, weights_max_abs_diff=w_max,
+               errors=errs, cursor=cur, checks=checks)
+    if not all(checks.values()):
+        for g, outs in logs.items():
+            for r, out in enumerate(outs):
+                print("elastic (c) generation %d rank %d:\n%s"
+                      % (g, r, out[-3000:]), file=sys.stderr)
+    return rec
+
+
+def linalg_json(out):
+    """The last JSON line of a ``linalg`` run's stdout."""
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def linalg_runs():
+    """(d) and (e): ``python -m veles_tpu_torch linalg bench|solve``
+    subprocesses. The one-process float32 bench runs alone (its time is
+    the card's); the others then run together."""
+    tmp_json = {}
+
+    def bench(label, world, argv):
+        port = free_port()
+        dist = lambda r: (["--coordinator", "127.0.0.1:%d" % port,
+                           "--num-processes", str(world), "--process-id",
+                           str(r)] if world > 1 else [])
+        return [subprocess.Popen(
+            cli_command("linalg", "bench", *argv, *dist(r)), cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=cli_env()) for r in range(world)]
+
+    def solve(label, argv):
+        tmp_json[label] = os.path.join(REPO, "build",
+                                       "linalg_%s.json" % label)
+        return [subprocess.Popen(
+            cli_command("linalg", "solve", *argv, "--json",
+                        tmp_json[label]), cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=cli_env())]
+
+    def finish(label, procs):
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=LINALG_TIMEOUT))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate())
+        return dict(rc=[p.returncode for p in procs], outs=outs)
+
+    first, rest = LINALG_BENCH[0], LINALG_BENCH[1:]
+    t0 = time.perf_counter()
+    done = {first[0]: finish(first[0], bench(*first))}
+    done[first[0]]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    running = {label: bench(label, world, argv)
+               for label, world, argv in rest}
+    running.update({label: solve(label, argv)
+                    for label, argv in LINALG_SOLVE})
+    for label, procs in running.items():
+        done[label] = finish(label, procs)
+    together_s = time.perf_counter() - t0
+    return done, tmp_json, together_s
+
+
+def phase_elastic_linalg(card):
+    """Phase 39: the elastic plane on the bench LM and on MNIST through
+    the kernels, the Supervisor's respawn of a two-process world, the
+    blocked linear-algebra family through ``linalg bench|solve``, and
+    trials placed on the card."""
+    import shutil
+    import tempfile
+    import numpy
+    from veles_tpu_torch.linalg import default_tolerance
+    from veles_tpu_torch.parallel.trials import (Trial, TrialScheduler,
+                                                 cpu_placement,
+                                                 mesh_slice_placement)
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="elastic_", dir=os.path.join(REPO,
+                                                              "build"))
+    try:
+        t0 = time.perf_counter()
+        rec_a, launches_a = elastic_lm(tmp)
+        rec_a["part_s"] = time.perf_counter() - t0
+        shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        t0 = time.perf_counter()
+        rec_b, launches_b = elastic_mnist(tmp)
+        rec_b["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec_c = elastic_drill(tmp)
+        rec_c["part_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    done, solve_json, together_s = linalg_runs()
+    linalg_s = time.perf_counter() - t0
+    f32_tol = default_tolerance(numpy.float32)
+    f64_tol = default_tolerance(numpy.float64)
+    benches, solves, lin_checks = {}, {}, {}
+    for label, world, argv in LINALG_BENCH:
+        run = done[label]
+        ok_rc = run["rc"] == [0] * world
+        doc = linalg_json(run["outs"][0][0]) if ok_rc else None
+        tol = f64_tol if "float64" in argv else f32_tol
+        benches[label] = dict(rc=run["rc"], report=doc,
+                              stderr_tail=[e[-1500:] for _, e in run["outs"]]
+                              if not ok_rc else None)
+        lin_checks[label] = bool(
+            ok_rc and doc["matmul"]["rel_err"] < tol
+            and doc["cholesky"]["rel_err"] < tol
+            and all(o.strip() == "" for o, _ in run["outs"][1:]))
+    for label, argv in LINALG_SOLVE:
+        run = done[label]
+        doc = None
+        if run["rc"] == [0]:
+            with open(solve_json[label]) as f:
+                doc = json.load(f)
+            os.unlink(solve_json[label])
+            doc.pop("residual_history", None)
+        solves[label] = dict(rc=run["rc"], report=doc,
+                             stdout_tail=run["outs"][0][0][-800:])
+        lin_checks[label] = bool(
+            doc is not None and doc["converged"]
+            and doc["true_residual"] is not None
+            and doc["true_residual"] <= TOL_SOLVE_TRUE_RESIDUAL)
+    lin_checks["pcg_fewer_iterations"] = bool(
+        solves["pcg_n128"]["report"] and solves["cg_n128"]["report"]
+        and solves["pcg_n128"]["report"]["iterations"]
+        < solves["cg_n128"]["report"]["iterations"])
+
+    # (f) trials on the card
+    t0 = time.perf_counter()
+    child = ("import json, sys, torch\n"
+             "sys.path.insert(0, %r)\n"
+             "from veles_tpu_torch.backends import device_for_backend\n"
+             "d = device_for_backend(None)\n"
+             "json.dump({'n': torch.cuda.device_count(), 'device': str(d),"
+             " 'name': torch.cuda.get_device_name(0) if d.type == 'cuda'"
+             " else None}, open(sys.argv[1], 'w'))\n" % REPO)
+    out = os.path.join(REPO, "build", "trial_child.json")
+    docs = {}
+    for tag, place in (("slice", mesh_slice_placement(1, total_devices=1)),
+                       ("cpu", cpu_placement)):
+        res = TrialScheduler(n_workers=1, placement=place).run(
+            [Trial([sys.executable, "-c", child, out], tag=tag)])
+        docs[tag] = dict(ok=res[0].ok, slot=res[0].slot,
+                         env=place(0).get("CUDA_VISIBLE_DEVICES"),
+                         seen=json.load(open(out)) if res[0].ok else None,
+                         stderr_tail=res[0].stderr_tail[-800:])
+    os.unlink(out)
+    try:
+        TrialScheduler(n_workers=2, placement=mesh_slice_placement(
+            1, total_devices=1)).run([Trial([sys.executable, "-c", "pass"])
+                                      for _ in range(2)])
+        second_slot_raised = False
+    except ValueError:
+        second_slot_raised = True
+    trial_checks = {
+        "slice_sees_one_card": docs["slice"]["ok"]
+        and docs["slice"]["seen"]["n"] == 1
+        and docs["slice"]["seen"]["device"] == "cuda:0",
+        "second_slot_raises": second_slot_raised,
+        "cpu_sees_none": docs["cpu"]["ok"] and docs["cpu"]["seen"] == {
+            "n": 0, "device": "cpu", "name": None},
+    }
+    trials_s = time.perf_counter() - t0
+
+    emit("elastic_linalg", card=card,
+         elastic_lm=rec_a, elastic_mnist=rec_b, elastic_drill=rec_c,
+         linalg_bench=benches, linalg_solve=solves,
+         linalg_checks=lin_checks, linalg_s=linalg_s,
+         linalg_concurrent_s=together_s, trials=docs,
+         trial_checks=trial_checks, trials_s=trials_s,
+         phase_s=time.perf_counter() - t_phase)
+    failed = {k: v for part, rec in (("a", rec_a["checks"]),
+                                     ("b", rec_b["checks"]),
+                                     ("c", rec_c["checks"]),
+                                     ("d/e", lin_checks),
+                                     ("f", trial_checks))
+              for k, v in (("%s:%s" % (part, n), ok)
+                           for n, ok in rec.items()) if not v}
+    if failed:
+        raise AssertionError("elastic_linalg: failed checks %s"
+                             % sorted(failed))
+    return launches_a, launches_b
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9386,6 +10026,7 @@ def main():
     launches_quant, launches_quant_ffc = phase_quant_serving(card)
     launches_export, launches_export_ffc = phase_export(card)
     launches_dist = phase_distributed(card)
+    launches_el, launches_el_ffc = phase_elastic_linalg(card)
 
     def bwd_entry(name, what):
         rec = timing_bwd[name]
@@ -9404,7 +10045,8 @@ def main():
                                      "cli": launches_cli[name],
                                      "train_text": launches_text[name],
                                      "lm_family": launches_family[name],
-                                     "distributed": launches_dist[name]},
+                                     "distributed": launches_dist[name],
+                                     "elastic_linalg": launches_el[name]},
                 "ok": True}
 
     def amp_entry(inst, kern):
@@ -9453,7 +10095,8 @@ def main():
                              "lm_family": launches_family["fwd"],
                              "quant_serving": launches_quant,
                              "export": launches_export,
-                             "distributed": launches_dist["fwd"]},
+                             "distributed": launches_dist["fwd"],
+                             "elastic_linalg": launches_el["fwd"]},
         "ok": True}, {
         "name": "fused_fc_sgd_epoch", "route": "cuda",
         "source": "veles_tpu_torch/csrc/fused_fc_sgd.cu",
@@ -9473,7 +10116,8 @@ def main():
                              "train_library": launches_library,
                              "rest_serving": launches_rest,
                              "quant_serving": launches_quant_ffc,
-                             "export": launches_export_ffc},
+                             "export": launches_export_ffc,
+                             "elastic_linalg": launches_el_ffc},
         "ok": True},
         bwd_entry("dkv", 248), bwd_entry("dq", 309)] + [
         amp_entry(inst, kern) for inst in AMP_INSTANCES

@@ -393,7 +393,7 @@ def test_cli_backend_auto_without_a_card(tiny_model):
 
 # -- refusals ----------------------------------------------------------------
 REFUSED_FLAGS = [
-    (["--elastic"], "10"), (["--optimize", "3:1"], "11"), (["--optimize-subprocess"], "11"),
+    (["--optimize", "3:1"], "11"), (["--optimize-subprocess"], "11"),
     (["--optimize-workers", "2"], "11"), (["--trial-devices", "2"], "11"),
     (["--optimize-crossover", "pointed"], "11"),
     (["--optimize-selection", "random"], "11"),
@@ -475,6 +475,47 @@ def test_unported_subcommand_names_its_item(argv):
     with pytest.raises(VelesError, match=r"not ported yet \(ROADMAP Queue 1 "
                        r"item %s\)" % item.replace(".", r"\.")):
         main(argv)
+
+
+def test_elastic_flag_is_accepted(tiny_model):
+    """``--elastic`` (item 10.3, refused before it was ported) parses,
+    arms ``root.common.resilience.elastic.enabled`` and dry-runs."""
+    try:
+        assert _cpu(tiny_model, "--elastic", "--dry-run") == 0
+        assert root.common.resilience.elastic.get("enabled") is True
+    finally:
+        root.common.resilience.elastic.enabled = False
+
+
+def test_elastic_run_goes_through_the_controller(tiny_model, tmp_path):
+    """A full ``--elastic`` run trains in one generation and reports it
+    in its results."""
+    from veles_tpu_torch.parallel import distributed
+    from veles_tpu_torch.resilience import elastic
+    saved = elastic.state()
+    out = tmp_path / "r.json"
+    try:
+        assert _cpu(tiny_model, "--elastic", "--result-file",
+                    str(out)) == 0
+        assert elastic.gauges()["veles_elastic_generation"][0] == 1
+    finally:
+        root.common.resilience.elastic.enabled = False
+        elastic._set_state(**saved)
+        distributed.set_generation(0)
+    doc = json.load(open(out))
+    assert doc["elastic_generations"] == 1 and doc["epochs"] == 2
+
+
+def test_linalg_subcommand_runs(tmp_path):
+    """``linalg`` (item 10.5, refused before it was ported) solves the
+    Poisson problem in a subprocess on the CPU."""
+    env = _env()
+    env["VELES_BACKEND"] = "cpu"
+    r = subprocess.run([sys.executable, "-m", "veles_tpu_torch", "linalg",
+                        "solve", "--n", "8"], cwd=REPO, capture_output=True,
+                       text=True, timeout=120, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "poisson 8x8 (64 unknowns): converged" in r.stdout
 
 
 def test_ported_off_values_are_accepted(tiny_model):

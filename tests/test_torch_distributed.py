@@ -23,10 +23,11 @@ reference and the one-process port runs happen here:
 - ``verify_checksums`` refusing a rank whose workflow differs;
 - only the coordinator writing snapshots, and every rank resuming from
   its file to the uninterrupted run's weights;
-- the CLI's two-process run; ``--elastic`` and a recurrent unit under a
-  sequence axis refused naming item 10 (the tensor/fsdp/expert axes run:
+- the CLI's two-process run; a recurrent unit under a sequence axis
+  refused naming item 10 (the tensor/fsdp/expert axes run:
   tests/test_torch_sharding.py; the pipeline axis:
-  tests/test_torch_pipeline.py).
+  tests/test_torch_pipeline.py; ``--elastic`` and its respawned worlds:
+  tests/test_torch_elastic.py).
 """
 import glob
 import json

@@ -2231,3 +2231,75 @@ def test_data_parallel_step_matches_one_process(cuda, tmp_path):
     for k in want:
         if k.startswith("p_"):
             numpy.testing.assert_array_equal(ranks[1][k], ranks[0][k])
+
+
+def test_blocked_linalg_on_the_card_without_tf32(cuda):
+    """The blocked family on the card at 2048, TF32 off (``device_for``'s
+    policy): the 1×1 SUMMA product, the one-card panel loop and the
+    Cholesky solve within 100·eps(float32) ≈ 1.19e-5 of float64 numpy, a
+    matrix that is not positive definite refused through
+    ``cholesky_ex``'s info, and float64 kept as float64."""
+    from veles_tpu_torch.linalg import (LinalgError, blocked_cholesky,
+                                        blocked_matmul, cholesky_solve,
+                                        default_tolerance, linalg_mesh)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tol = default_tolerance(numpy.float32)
+    rng = numpy.random.RandomState(0)
+    a = rng.standard_normal((2048, 2048)).astype(numpy.float32)
+    b = rng.standard_normal((2048, 2048)).astype(numpy.float32)
+    ref = a.astype(numpy.float64) @ b.astype(numpy.float64)
+    for mesh in (linalg_mesh(), None):
+        c = blocked_matmul(a, b, mesh=mesh, device=cuda)
+        assert c.device.type == "cuda"
+        c = c.cpu().numpy()
+        assert numpy.linalg.norm(c - ref) / numpy.linalg.norm(ref) < tol
+    g = rng.standard_normal((2048, 2048)).astype(numpy.float32)
+    spd = g @ g.T + 2048 * numpy.eye(2048, dtype=numpy.float32)
+    rhs = rng.standard_normal((2048, 1)).astype(numpy.float32)
+    x = cholesky_solve(spd, rhs, mesh=linalg_mesh(), device=cuda)
+    x = x.cpu().numpy()
+    want = numpy.linalg.solve(spd.astype(numpy.float64),
+                              rhs.astype(numpy.float64))
+    assert numpy.linalg.norm(x - want) / numpy.linalg.norm(want) < tol
+    bad = numpy.eye(256, dtype=numpy.float32)
+    bad[130, 130] = -1.0
+    with pytest.raises(LinalgError, match="not positive definite"):
+        blocked_cholesky(bad, device=cuda)
+    a64 = rng.standard_normal((256, 256))
+    c64 = blocked_matmul(a64, a64, mesh=linalg_mesh(), device=cuda)
+    assert c64.dtype == torch.float64
+    ref64 = a64 @ a64
+    assert numpy.linalg.norm(c64.cpu().numpy() - ref64) \
+        / numpy.linalg.norm(ref64) < default_tolerance(numpy.float64)
+
+
+def test_trial_placement_on_the_card(cuda, tmp_path):
+    """``mesh_slice_placement(1, total_devices=1)``: a trial sees exactly
+    the one card and resolves it; a second slot raises before any trial
+    runs; ``cpu_placement`` hides the card."""
+    import json
+    import sys
+    from veles_tpu_torch.parallel.trials import (Trial, TrialScheduler,
+                                                 cpu_placement,
+                                                 mesh_slice_placement)
+    child = ("import json, sys, torch\n"
+             "sys.path.insert(0, %r)\n"
+             "from veles_tpu_torch.backends import device_for_backend\n"
+             "d = device_for_backend(None)\n"
+             "json.dump({'n': torch.cuda.device_count(), 'device': str(d)},"
+             " open(sys.argv[1], 'w'))\n"
+             % os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    out = tmp_path / "t.json"
+    res = TrialScheduler(n_workers=1, placement=mesh_slice_placement(
+        1, total_devices=1)).run([Trial([sys.executable, "-c", child,
+                                         str(out)])])
+    assert res[0].ok, res[0].stderr_tail
+    assert json.load(open(out)) == {"n": 1, "device": "cuda:0"}
+    with pytest.raises(ValueError):
+        TrialScheduler(n_workers=2, placement=mesh_slice_placement(
+            1, total_devices=1)).run([Trial([sys.executable, "-c", "pass"])
+                                      for _ in range(2)])
+    res = TrialScheduler(n_workers=1, placement=cpu_placement).run(
+        [Trial([sys.executable, "-c", child, str(out)])])
+    assert res[0].ok, res[0].stderr_tail
+    assert json.load(open(out)) == {"n": 0, "device": "cpu"}

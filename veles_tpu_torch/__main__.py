@@ -12,9 +12,11 @@ happens on the CUDA card unless ``--backend cpu`` is given; without a
 card ``--backend auto`` fails.
 
 Subcommands: ``trace export|self-time``, ``blackbox dump|inspect``,
-``faults list``, ``quantize SNAPSHOT [--out PATH] [--granularity G]``
-and ``export serve-artifact MODEL.py --out DIR``; the reference's others
-name the ROADMAP item that brings them.
+``faults list``, ``quantize SNAPSHOT [--out PATH] [--granularity G]``,
+``export serve-artifact MODEL.py --out DIR`` and ``linalg bench|solve``;
+the reference's others name the ROADMAP item that brings them.
+``--elastic`` runs the training in generations
+(``resilience/elastic.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from .logger import setup_logging
 #: the reference's subcommands that are not ported, with their items
 REFUSED_SUBCOMMANDS = {
     "metrics": "11", "watch": "11", "alerts": "11", "route": "11",
-    "loadgen": "11", "linalg": "10",
+    "loadgen": "11",
 }
 
 
@@ -54,6 +56,8 @@ def main(argv=None) -> int:
         return _quantize_cli(argv[1:])
     if argv and argv[0] == "export":
         return _export_cli(argv[1:])
+    if argv and argv[0] == "linalg":
+        return _linalg_cli(argv[1:])
     parser = make_parser()
     args = parse_args(parser, argv)
     if args.serve_draft_snapshot and not args.serve_draft:
@@ -129,6 +133,10 @@ def main(argv=None) -> int:
 
     if args.slave_death_probability:
         root.common.slave_death_probability = args.slave_death_probability
+    if args.elastic:
+        # the elastic generation controller (resilience/elastic.py): a
+        # host loss ends a generation, not the run
+        root.common.resilience.elastic.enabled = True
     launcher = Launcher(
         backend=args.backend,
         mesh=parse_mesh(args.mesh) if args.mesh else None,
@@ -190,7 +198,9 @@ def _drive(launcher: Launcher, workflow, args):
         return None
     if args.serve_generate is not None:
         return _serve(launcher, workflow, args)
-    results = launcher.run()
+    from .resilience import elastic
+    results = (launcher.run_elastic() if elastic.enabled()
+               else launcher.run())
     if args.timings:
         launcher.print_stats()
     if args.result_file:
@@ -433,6 +443,218 @@ def _quantize_cli(argv) -> int:
                  in_size / 1024, out, out_size / 1024,
                  in_size / max(1, out_size)))
     return 0
+
+
+def _linalg_cli(argv) -> int:
+    """``linalg bench|solve`` — the blocked linear-algebra family
+    (``linalg/``) from the command line, on the card unless
+    ``VELES_BACKEND=cpu``.
+
+    ``bench`` runs the blocked kernels (block-cyclic SUMMA matmul, the
+    right-looking Cholesky solve) over the mesh, checks each against the
+    dense float64 ``numpy.linalg`` reference within the stated dtype
+    tolerance, and prints one JSON line with the relative errors, the
+    MFU graded against the dtype's peak and the stated SUMMA step-time
+    prediction. ``solve`` runs conjugate gradient on the 5-point Poisson
+    model problem as a Workflow graph (``--precondition`` arms the
+    2-level multigrid V-cycle) and prints the residual story.
+
+    The mesh's points are processes: a grid larger than 1×1 is a job of
+    ``--num-processes`` ranks joined at ``--coordinator``, each started
+    with its ``--process-id``; only rank 0 prints the report."""
+    import argparse
+    import json as _json
+    import time as _time
+    parser = argparse.ArgumentParser(
+        prog="veles_tpu_torch linalg",
+        description="distributed linear-algebra workloads")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    bench = sub.add_parser(
+        "bench", help="blocked kernels vs the dense reference + MFU")
+    bench.add_argument("--m", type=int, default=512)
+    bench.add_argument("--k", type=int, default=512)
+    bench.add_argument("--n", type=int, default=512)
+    bench.add_argument("--cholesky", type=int, default=256,
+                       metavar="N",
+                       help="SPD factor/solve size (0 skips it)")
+    bench.add_argument("--block", type=int, default=None,
+                       help="block size (default linalg.DEFAULT_BLOCK)")
+    bench.add_argument("--grid", default=None, metavar="PRxPC",
+                       help="process grid, e.g. 1x2 (default: squarest "
+                            "factorization of the processes)")
+    bench.add_argument("--dtype", default="float32",
+                       choices=("float32", "float64"),
+                       help="computation dtype (grades MFU against "
+                            "the matching peak table)")
+    bench.add_argument("--seed", type=int, default=0)
+    solve = sub.add_parser(
+        "solve", help="CG on the Poisson problem as a Workflow graph")
+    solve.add_argument("--n", type=int, default=64, metavar="N",
+                       help="interior grid side (N^2 unknowns)")
+    solve.add_argument("--tol", type=float, default=1e-6)
+    solve.add_argument("--max-iters", type=int, default=500)
+    solve.add_argument("--precondition", action="store_true",
+                       help="2-level multigrid V-cycle preconditioner "
+                            "(needs even --n)")
+    solve.add_argument("--grid", default=None, metavar="PRxPC")
+    solve.add_argument("--block", type=int, default=None)
+    solve.add_argument("--seed", type=int, default=0)
+    solve.add_argument("--json", default=None, metavar="PATH",
+                       help="write {iterations, residual, history} "
+                            "as JSON")
+    for p in (bench, solve):
+        p.add_argument("--coordinator", default=None,
+                       metavar="HOST:PORT",
+                       help="multi-process job: rank 0 serves the TCP "
+                            "store here")
+        p.add_argument("--num-processes", type=int, default=None)
+        p.add_argument("--process-id", type=int, default=None)
+    args = parser.parse_args(argv)
+    import numpy
+    import torch
+    from .backends import device_for_backend
+    from .linalg import (DEFAULT_BLOCK, LinalgError, TwoLevelPoisson,
+                         blocked_matmul, build_cg_workflow,
+                         cholesky_solve, default_tolerance,
+                         linalg_mesh, poisson2d_matvec,
+                         predict_summa_time)
+    from .parallel import distributed
+    grid = None
+    if args.grid:
+        try:
+            pr, _, pc = args.grid.lower().partition("x")
+            grid = (int(pr), int(pc))
+        except ValueError:
+            parser.error("--grid wants PRxPC, e.g. 1x2")
+    block = args.block or DEFAULT_BLOCK
+    # the device resolves through device_for, which turns TF32 off
+    device = device_for_backend(None)
+    distributed.initialize_multihost(args.coordinator, args.num_processes,
+                                     args.process_id, device=device)
+    if distributed.backend() == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        mesh = linalg_mesh(grid)
+        if not mesh.member:
+            return 0            # a rank past a smaller grid idles
+        report = distributed.is_coordinator()
+
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        rng = numpy.random.RandomState(args.seed)
+        if args.cmd == "solve":
+            rhs = rng.standard_normal(args.n * args.n).astype(
+                numpy.float32)
+            precond = None
+            if args.precondition:
+                precond = TwoLevelPoisson(args.n, block=block, mesh=mesh,
+                                          device=device)
+            wf = build_cg_workflow(poisson2d_matvec(args.n), rhs,
+                                   tol=args.tol, max_iters=args.max_iters,
+                                   preconditioner=precond, device=device)
+            wf.initialize()
+            t0 = _time.perf_counter()
+            try:
+                wf.run()
+            except LinalgError as e:
+                print("linalg solve FAILED verification: %s" % e,
+                      file=sys.stderr)
+                return 1
+            sync()
+            solve_s = _time.perf_counter() - t0
+            res = wf.cg_decision.get_metric_values()
+            res["solve_s"] = solve_s
+            res["setup_s"] = precond.setup_s if precond else 0.0
+            if not report:
+                return 0 if res["converged"] else 1
+            print("poisson %dx%d (%d unknowns)%s: %s in %d iteration(s), "
+                  "recurrence residual %.3e, verified true residual %s"
+                  % (args.n, args.n, args.n * args.n,
+                     " + multigrid V-cycle" if precond else "",
+                     "converged" if res["converged"] else
+                     "DID NOT CONVERGE", res["iterations"],
+                     res["residual"],
+                     "%.3e" % res["true_residual"]
+                     if res["true_residual"] is not None else "(skipped)"))
+            print("  solve %.6f s, multigrid set-up %.6f s on %s"
+                  % (solve_s, res["setup_s"], device))
+            history = res["residual_history"]
+            for i in range(0, len(history),
+                           max(1, len(history) // 10) or 1):
+                print("  iter %-4d residual %.3e" % (i, history[i]))
+            if args.json:
+                with open(args.json, "w") as fh:
+                    _json.dump(res, fh, indent=2, sort_keys=True)
+                print("report written: %s" % args.json)
+            return 0 if res["converged"] else 1
+        # bench
+        from .telemetry.cost import peak_flops_entry
+        dtype = numpy.dtype(args.dtype)
+        tol = default_tolerance(dtype)
+        a = rng.standard_normal((args.m, args.k)).astype(dtype)
+        b = rng.standard_normal((args.k, args.n)).astype(dtype)
+        a_t = torch.as_tensor(a, device=device)
+        b_t = torch.as_tensor(b, device=device)
+        c = blocked_matmul(a_t, b_t, block=block, mesh=mesh).cpu().numpy()
+        ref = a.astype(numpy.float64) @ b.astype(numpy.float64)
+        mm_err = float(numpy.linalg.norm(c - ref) / numpy.linalg.norm(ref))
+        del c, ref
+        sync()
+        t0 = _time.perf_counter()
+        blocked_matmul(a_t, b_t, block=block, mesh=mesh)
+        sync()
+        step_s = max(_time.perf_counter() - t0, 1e-9)
+        del a_t, b_t
+        peak_source, peak = peak_flops_entry(dtype)
+        pgrid = (mesh.axis_size("rows"), mesh.axis_size("cols"))
+        out = {
+            "grid": "%dx%d" % pgrid,
+            "dtype": args.dtype,
+            "block": block,
+            "matmul": {"m": args.m, "k": args.k, "n": args.n,
+                       "rel_err": mm_err, "tolerance": tol,
+                       "step_s": step_s,
+                       "mfu": (2.0 * args.m * args.n * args.k)
+                       / (step_s * peak * mesh.size)},
+            "peak_flops_used": peak,
+            "peak_source": peak_source,
+            "predicted": predict_summa_time(args.m, args.k, args.n, pgrid,
+                                            t1_step_s=step_s, dtype=dtype),
+        }
+        failed = not mm_err < tol
+        if args.cholesky:
+            g = rng.standard_normal((args.cholesky,
+                                     args.cholesky)).astype(dtype)
+            spd = g @ g.T + args.cholesky * numpy.eye(args.cholesky,
+                                                      dtype=dtype)
+            rhs = rng.standard_normal((args.cholesky, 1)).astype(dtype)
+            try:
+                sync()
+                t0 = _time.perf_counter()
+                x = cholesky_solve(spd, rhs, block=block, mesh=mesh,
+                                   check=True, device=device)
+                sync()
+                solve_s = _time.perf_counter() - t0
+                x = x.cpu().numpy()
+                xref = numpy.linalg.solve(spd.astype(numpy.float64),
+                                          rhs.astype(numpy.float64))
+                ch_err = float(numpy.linalg.norm(x - xref)
+                               / numpy.linalg.norm(xref))
+                out["cholesky"] = {"n": args.cholesky, "rel_err": ch_err,
+                                   "tolerance": tol, "solve_s": solve_s}
+                failed = failed or not ch_err < tol
+            except LinalgError as e:
+                out["cholesky"] = {"n": args.cholesky, "error": str(e)}
+                failed = True
+        if report:
+            print(_json.dumps(out))
+            if failed:
+                print("linalg bench FAILED the dense-reference tolerance",
+                      file=sys.stderr)
+        return 1 if failed else 0
+    finally:
+        distributed.shutdown()
 
 
 def _export_cli(argv) -> int:

@@ -200,7 +200,16 @@ def make_parser() -> argparse.ArgumentParser:
                    help="fault injection: each train dispatch kills this "
                         "process with this probability")
     p.add_argument("--elastic", action="store_true",
-                   help="elastic training (not ported: 10)")
+                   help="preemption-tolerant training: on detected "
+                        "host loss (heartbeat lapse, join failure, or "
+                        "an injected distributed.host_loss fault) the "
+                        "run declares a new generation and resumes "
+                        "from the newest valid checkpoint instead of "
+                        "dying; multi-process survivors exit 43 for "
+                        "the respawn plane "
+                        "(root.common.resilience.elastic.{enabled,"
+                        "min_hosts,generation_timeout,"
+                        "max_generations})")
     p.add_argument("--overlap", action="store_true",
                    help="async side-plane (not ported: 11)")
     p.add_argument("--prefetch-depth", type=int, default=None,
@@ -237,7 +246,6 @@ def _refused(args):
     not ported yet, in parser order."""
     on = ("on",)
     checks = [
-        ("--elastic", args.elastic, "10"),
         ("--optimize", args.optimize, "11"),
         ("--optimize-subprocess", args.optimize_subprocess, "11"),
         ("--optimize-workers", args.optimize_workers != 1, "11"),

@@ -10,11 +10,14 @@ multi-process job (``coordinator``, ``num_processes``, ``process_id``:
 given), initialises the workflow, checks that every rank runs the same
 workflow from the same weights (``verify_checksums``) and arms the
 failure hooks on its train step: the ``dispatch`` fault point, the
-per-dispatch hang watchdog, the ``train_step`` heartbeat and
-``--slave-death-probability``. :meth:`resume` and
+per-dispatch hang watchdog, the ``train_step`` heartbeat,
+``--slave-death-probability`` and, under the elastic plane, the host
+beat and one host-loss probe a dispatch. :meth:`resume` and
 :meth:`try_restore_latest` restore snapshots through the checkpoint chain
 (every rank reads the coordinator's file); :meth:`run` runs the workflow
-and returns its gathered results, which only the coordinator writes.
+and returns its gathered results, which only the coordinator writes;
+:meth:`run_elastic` runs it in generations
+(``resilience/elastic.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +66,12 @@ class Launcher(Logger):
         self.interrupted = False
         #: per-dispatch wall times of the armed train step (watchdog)
         self.step_history = distributed.StepTimes()
+        #: the elastic plane's heartbeat name of this host (armed hooks)
+        self._host_beat = None
+        #: where the last restore found its chain: the elastic
+        #: controller logs that chain's manifest cursor at a handoff
+        self._last_restore_dir = None
+        self._last_restore_prefix = "wf"
 
     # -- lifecycle -----------------------------------------------------------
     def make_device(self):
@@ -109,19 +118,33 @@ class Launcher(Logger):
     def _arm_failure_hooks(self, workflow) -> None:
         """Every train-step dispatch passes the ``dispatch`` fault point,
         runs under the hang watchdog (``root.common.job_timeout`` is its
-        floor) and beats the ``train_step`` heartbeat."""
+        floor) and beats the ``train_step`` heartbeat. Under the elastic
+        plane it first beats this host's ``host:<rank>`` heartbeat and
+        probes for host loss (``elastic.check_hosts``) BEFORE the step
+        runs, so a loss never leaves half a step behind."""
         step = getattr(workflow, "train_step", None)
         if step is None or getattr(step, "_failure_hooks_armed", False):
             return
+        from .resilience import elastic
         from .resilience.faults import fire as fire_fault
         from .resilience.health import heartbeats
         timeout = float(root.common.get("job_timeout", 0.0) or 0.0)
         death_p = float(
             root.common.get("slave_death_probability", 0.0) or 0.0)
+        elastic_on = elastic.enabled()
+        host_beat = (elastic.HOST_BEAT_PREFIX
+                     + str(distributed.process_index())
+                     if elastic_on else None)
+        #: run()'s finally unregisters it: a finished run's host beat
+        #: must not age into a false /healthz failure
+        self._host_beat = host_beat
         inner_run = step.run
 
         def armed_run():
             fire_fault("dispatch")
+            if elastic_on:
+                heartbeats.beat(host_beat)
+                elastic.check_hosts()
             with distributed.step_watchdog(
                     step.name, timeout=timeout, history=self.step_history):
                 inner_run()
@@ -167,6 +190,8 @@ class Launcher(Logger):
         decision = getattr(wf, "decision", None)
         if decision is not None:
             decision.complete <<= False
+        self._last_restore_dir = directory
+        self._last_restore_prefix = prefix
         self.info("auto-resumed from latest snapshot in %s", directory)
         return True
 
@@ -193,6 +218,8 @@ class Launcher(Logger):
             restored = restore_latest(self.workflow, directory, prefix)
             if restored is None:
                 raise
+            self._last_restore_dir = directory
+            self._last_restore_prefix = prefix
             snapshot_path = restored     # log the file really resumed
         decision = getattr(self.workflow, "decision", None)
         if decision is not None:
@@ -200,9 +227,20 @@ class Launcher(Logger):
         self.info("resumed from %s (%.3f s)", snapshot_path,
                   time.time() - t0)
 
-    def run(self) -> Dict[str, Any]:
+    def run_elastic(self) -> Dict[str, Any]:
+        """Run under the elastic generation controller
+        (``resilience/elastic.py``): on a detected host loss the run
+        resumes from the newest valid checkpoint in a new generation
+        instead of dying — ``--elastic`` /
+        ``root.common.resilience.elastic.enabled``."""
+        from .resilience.elastic import ElasticController
+        return ElasticController(self).run()
+
+    def run(self, keep_services: bool = False) -> Dict[str, Any]:
         """Run the workflow; its ``gather_results()`` plus
-        ``elapsed_sec`` and, after Ctrl-C, ``interrupted``."""
+        ``elapsed_sec`` and, after Ctrl-C, ``interrupted``.
+        ``keep_services=True`` (elastic generations) leaves the once-a-job
+        teardown to :meth:`finalize_services`."""
         from .resilience.health import heartbeats
         from .telemetry.recorder import flight
         if self.mesh is not None and not self.mesh.member:
@@ -224,10 +262,14 @@ class Launcher(Logger):
                 self._stop_profiler(prof)
             self.event("launcher.work", "end")
             self.stopped = True
+            if not keep_services:
+                self.finalize_services()
             # a finished run's beats are not hangs: left registered they
             # would age into a false /healthz failure
             heartbeats.unregister("launcher")
             heartbeats.unregister("train_step")
+            if self._host_beat:
+                heartbeats.unregister(self._host_beat)
         elapsed = time.time() - self._start_time
         self.info("elapsed: %.1fs", elapsed)
         results = self.workflow.gather_results()
@@ -255,6 +297,13 @@ class Launcher(Logger):
                             "trace_%d.json" % os.getpid())
         prof.export_chrome_trace(path)
         self.info("profiler trace → %s", path)
+
+    def finalize_services(self) -> None:
+        """The once-a-JOB half of :meth:`run`'s teardown, which the
+        elastic controller calls after the last generation. The port has
+        no plotter, graphics server or status beacon yet (ROADMAP Queue 1
+        item 11), so there is nothing to tear down: a no-op, and so
+        idempotent."""
 
     def stop(self) -> None:
         if self.workflow is not None:

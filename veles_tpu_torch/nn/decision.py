@@ -77,6 +77,12 @@ class DecisionBase(Unit):
 
     def run(self) -> None:
         if not bool(self.loader.epoch_ended):
+            # `improved` gates the snapshot: it speaks for the epoch that
+            # just ended, so a dispatch inside an epoch (the validation
+            # pass before the training one) must not reopen the gate — a
+            # snapshot there would resume past this epoch's validation
+            # sums, which no snapshot holds
+            self.improved <<= False
             return
         if self.step_unit is None:
             self._finish_epoch()

@@ -5,14 +5,18 @@
 and Megatron's operators (:mod:`.sharding`), the GPipe schedule of the
 ``pipeline`` axis with its planners (:mod:`.pipeline`), and the
 long-context attention schemes over the ``sequence`` axis, ring
-(:mod:`.ring_attention`) and Ulysses (:mod:`.ulysses`). The trials are
-ROADMAP Queue 1 item 10.4."""
+(:mod:`.ring_attention`) and Ulysses (:mod:`.ulysses`), and the trial
+scheduler that farms trials out to subprocesses placed on disjoint cards
+(:mod:`.trials`)."""
 
 from .distributed import (initialize_multihost, is_coordinator,
                           process_count)                  # noqa: F401
 from .pipeline import (gpipe, gpipe_hetero, microbatch, plan_pipeline,
                        plan_pipeline_hetero, unmicrobatch)  # noqa: F401
 from .sharding import batch_sharding, replicated          # noqa: F401
+from . import trials                                      # noqa: F401
+from .trials import (Trial, TrialResult, TrialScheduler,  # noqa: F401
+                     cpu_placement, mesh_slice_placement)
 
 
 def __getattr__(name):

@@ -253,6 +253,15 @@ def cursor_of(path: str) -> Dict[str, int]:
     return out
 
 
+def latest_cursor(directory: str, prefix: str = "wf"):
+    """(path, cursor) of the newest chain entry, or None on an empty
+    chain. Reads only the sidecar — no unpickle, so it is cheap enough
+    for the elastic controller to log at every generation handoff."""
+    for path in chain(directory, prefix):
+        return path, cursor_of(path)
+    return None
+
+
 def prune(directory: str, prefix: str = "wf",
           keep_last: int = 0) -> List[str]:
     """Bounded retention: delete all but the newest ``keep_last``

@@ -885,6 +885,10 @@ class GenerationAPI(Logger):
                     "veles_serving_page_size": st["page_size"],
                     "veles_serving_page_fragmentation":
                         st["page_fragmentation"]})
+        # the elastic training plane's generation and world-size gauges
+        # ride this surface too; no rows while the plane is off
+        from .resilience import elastic
+        gauges.update(elastic.gauges())
         return gauges
 
     def _build_engine(self):

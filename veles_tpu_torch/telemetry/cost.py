@@ -40,8 +40,9 @@ DEFAULT_PEAK_F32 = 67e12
 #: HBM bytes/s
 HBM_BW_BYTES = [("h100", 3.35e12)]
 DEFAULT_HBM_BW = 3.35e12
-#: NVLink 4 bytes/s per direction, per card (the reference's ICI row;
-#: read by nothing until distribution is ported)
+#: NVLink 4 bytes/s per direction, per card (the reference's ICI row):
+#: the STATED link input of the scaling models
+#: (resilience/elastic.predict_step_time, linalg.predict_summa_time)
 LINK_BW_BYTES = [("h100", 450e9)]
 DEFAULT_LINK_BW = 450e9
 
@@ -81,6 +82,21 @@ def _lookup(table: str, kind: Optional[str]) -> Tuple[str, float]:
 def hbm_bandwidth(kind: Optional[str] = None) -> float:
     """HBM bytes/s of ``kind`` (default: the first card)."""
     return _lookup("HBM_BW_BYTES", kind)[1]
+
+
+def ici_bandwidth_entry(device_kind: Optional[str] = None
+                        ) -> Tuple[str, float]:
+    """(source label, assumed per-card link bytes/s) for
+    ``device_kind`` (default: the first card): NVLink 4's rate a
+    direction, the reference's ICI row. The label names the table row
+    used, so a scaling prediction states its own input."""
+    return _lookup("LINK_BW_BYTES", device_kind)
+
+
+def ici_bandwidth(device_kind: Optional[str] = None) -> float:
+    """Assumed per-card link bytes/s of ``device_kind`` — the scaling
+    models' communication denominator."""
+    return ici_bandwidth_entry(device_kind)[1]
 
 
 def peak_bf16_flops(kind: Optional[str] = None) -> float:
@@ -309,3 +325,9 @@ class CostModel:
             self._ledger.clear()
             self._execs.clear()
 
+
+
+#: process-global ledger instrumented code records into (mirrors
+#: counters.counters / spans.recorder): the linalg family's analytic
+#: entries land here
+model = CostModel()

@@ -87,6 +87,39 @@ DESCRIPTIONS: Dict[str, str] = {
     "veles_manifest_cursor_defaults_total":
         "Snapshot manifests read without an {epoch, step, world_size} "
         "cursor (pre-elastic manifests; defaulted, never a crash)",
+    # the elastic training plane (resilience/elastic.py)
+    "veles_elastic_generations_total":
+        "Elastic training generations started (first generation "
+        "included)",
+    "veles_elastic_preemptions_total":
+        "Host-loss events that ended a generation (heartbeat lapse, "
+        "join failure, or an injected distributed.host_loss fault)",
+    "veles_elastic_reshard_seconds_total":
+        "Seconds spent restoring + resharding state at elastic "
+        "generation handoffs",
+    "veles_elastic_barrier_timeouts_total":
+        "Elastic survivor barriers that failed or timed out",
+    # the blocked linear-algebra family (linalg/)
+    "veles_linalg_block_ops_total":
+        "Host-side blocked linear-algebra dispatches (k-panel dots, "
+        "potrf/trsm panels, SUMMA launches) — the linalg.block_op "
+        "fault chokepoint",
+    "veles_linalg_matmuls_total":
+        "Blocked matmuls completed (single-device panel loop or "
+        "SUMMA over the 2D mesh)",
+    "veles_linalg_factorizations_total":
+        "Blocked Cholesky factorizations completed",
+    "veles_linalg_solves_total":
+        "Linear solves completed (cholesky_solve calls and CG "
+        "workflow finishes)",
+    "veles_linalg_iterations_total":
+        "Conjugate-gradient iterations run (CGStep executions)",
+    "veles_linalg_residual_checks_total":
+        "verify_residual trusted-path checks performed (|b-Ax|/|b| "
+        "against the stated bound)",
+    "veles_linalg_residual_failures_total":
+        "Residual checks FAILED — the solve raised instead of "
+        "returning a silently-wrong answer (chaos corrupt lands here)",
     # the device-time measurement plane (telemetry/devtime.py)
     "veles_devtime_captures_total":
         "Profiler trace captures that yielded device-stream "
